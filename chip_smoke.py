@@ -5,22 +5,26 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card (`torch.equal`,
-tolerance 0 — integer DP), then drives the port's main path through its
+tolerance 0 — integer DP), then drives the port's paths through their
 entry points at a real stream size: one ragged `AlignmentEngine.align`
 request (65,536 short pairs, 2,048 at 2 kbp, 256 in the 8192 bucket) and
-an `AlignmentService` that answers 33,280 requests. Every phase prints one
-JSON line; any failed check raises, so the exit code is non-zero. Without
-a CUDA device the script exits 1 and prints no result. The last line of
-standard output is the device record.
+an `AlignmentService` that answers 33,280 requests, each once pipelined
+and once with `dispatch="persistent"`; then read mapping on a 4 Mbp
+genome (`MinimizerIndex` -> chaining kernel -> `ReadMapper` ->
+`AlignmentService`) for 16,384 Illumina and 1,024 PacBio reads. Every
+phase prints one JSON line; any failed check raises, so the exit code is
+non-zero. Without a CUDA device the script exits 1 and prints no result.
+The last line of standard output is the device record.
 
 `--quick` builds the kernels (printing registers and shared memory per
-kernel), runs a reduced kernel matrix and stops: a first check of a
-changed kernel.
+kernel) and runs every phase at a reduced size and kernel matrix: a first
+check of a changed kernel or path.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import os
@@ -42,12 +46,17 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from repro_torch.core import banded  # noqa: E402
 from repro_torch.core import traceback_device as tbd  # noqa: E402
 from repro_torch.core.batch import pad_group, plan_buckets  # noqa: E402
-from repro_torch.core.engine import AlignmentEngine  # noqa: E402
+from repro_torch.core.engine import PERSISTENT_PAD, AlignmentEngine  # noqa: E402
 from repro_torch.core.full_dp import cigar_score, full_dp_score  # noqa: E402
 from repro_torch.core.scoring import MINIMAP2  # noqa: E402
-from repro_torch.data.genome import ERROR_PROFILES, random_genome  # noqa: E402
+from repro_torch.data.genome import (ERROR_PROFILES, ReadSimulator,  # noqa: E402
+                                     random_genome, reverse_complement)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.banded_dp.banded_dp import banded_align_cuda  # noqa: E402
+from repro_torch.kernels.banded_dp.persistent import (  # noqa: E402
+    pack_groups, persistent_align_cuda, persistent_align_plain)
+from repro_torch.map import STATUS_MAPPED, MinimizerIndex, ReadMapper  # noqa: E402
+from repro_torch.map import chain as chain_mod  # noqa: E402
 from repro_torch.serve import AlignmentService  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -64,6 +73,11 @@ INT32_OPS_PER_S = 67e12 / 4
 # packing, reductions), and per traceback step of the walker.
 WAVEFRONT_OPS_PER_CELL = 80
 WALKER_OPS_PER_STEP = 60
+# int32 operations per (anchor i, earlier anchor j) pair of the chaining
+# DP: differences, the six admissibility tests, min, the gap cost
+# (multiply, divide, count of leading zeros, shift), add, select, and the
+# share of the two warp reductions.
+CHAIN_OPS_PER_PAIR = 30
 
 
 def emit(tag: str, obj: dict) -> None:
@@ -239,10 +253,9 @@ def shape_timing(name, spec, q, r, n, m, reps):
              bound_by=wk_by, max_abs_err=wk_err, path_steps=path_steps))
 
 
-def kernel_matrix(reads, refs, quick):
-    """modes x adaptive x cell_dtype x xdrop x odd/even band x collect_tb
-    at read length ~150 (64 pairs, a few of them unrelated sequences so
-    that the xdrop rule retires some)."""
+def matrix_inputs(reads, refs):
+    """64 pairs at read length ~150, a few of them unrelated sequences so
+    that the xdrop rule retires some, one short pair and one dummy pair."""
     spec, q, r, n, m = padded_group(reads[:64], refs[:64], 64)
     rng = np.random.default_rng(5)
     q = q.copy()
@@ -252,6 +265,13 @@ def kernel_matrix(reads, refs, quick):
     m = m.copy()
     n[5], m[5] = 37, 52          # ragged: a short pair and a dummy pair
     n[6], m[6] = 1, 1
+    return spec, q, r, n, m
+
+
+def kernel_matrix(reads, refs, quick):
+    """modes x adaptive x cell_dtype x xdrop x odd/even band x collect_tb
+    on `matrix_inputs`."""
+    spec, q, r, n, m = matrix_inputs(reads, refs)
     qd, rd, nd, md = (torch.from_numpy(a).to(DEV) for a in (q, r, n, m))
     grid = list(itertools.product(
         ("global", "semiglobal"), (True, False), ("int32", "narrow"),
@@ -285,6 +305,183 @@ def kernel_matrix(reads, refs, quick):
 
 
 # ---------------------------------------------------------------------------
+# Persistent kernel and table walker vs their plain versions.
+# ---------------------------------------------------------------------------
+
+def on_card(groups):
+    """A persistent request's work table and flat (q, r, n, m) on the
+    card."""
+    table, arrays = pack_groups(groups)
+    return table.to(DEV), [torch.from_numpy(a).to(DEV) for a in arrays]
+
+
+def walk_table(out, table, n, m, mode, walker):
+    dec = tbd.device_decode_table(out, table, n, m, mode=mode,
+                                  walker=walker)
+    torch.cuda.synchronize()
+    return {k: dec[k] for k in ("cig_ops", "cig_runs", "cig_len")}
+
+
+def check_persistent(groups, **kw):
+    """The persistent kernel vs plain on one request; with traceback also
+    the table walker vs its plain version on the kernel's planes. Returns
+    (max_abs_err persistent, max_abs_err walker or None, retired)."""
+    table, (q, r, n, m) = on_card(groups)
+    ker = persistent_align_cuda(table, q, r, n, m, sc=MINIMAP2, **kw)
+    torch.cuda.synchronize()
+    ref = persistent_align_plain(table, q, r, n, m, sc=MINIMAP2, **kw)
+    torch.cuda.synchronize()
+    err = assert_equal(ref, ker, f"persistent {kw}")
+    retired = int((ker["status"] != 0).sum())
+    if not kw["collect_tb"]:
+        return err, None, retired
+    dk = walk_table(ker, table, n, m, kw["mode"],
+                    tbd.decode_packed_tb_table_cuda)
+    dp = walk_table(ker, table, n, m, kw["mode"],
+                    tbd.decode_packed_tb_table_plain)
+    return err, assert_equal(dp, dk, f"table walker {kw}"), retired
+
+
+def persistent_matrix(reads, refs, quick):
+    """modes x adaptive x xdrop x collect_tb over 3-group requests cut
+    from `matrix_inputs`: bands 20, 21 and 60 (odd and even), sweeps
+    t_max, t_max and the full padded length; plus one narrow case."""
+    spec, q, r, n, m = matrix_inputs(reads, refs)
+    cuts = ((0, 24, 20, spec.t_max), (24, 48, 21, spec.t_max),
+            (48, 64, 60, None))
+    groups = [(q[a:b], r[a:b], n[a:b], m[a:b], band, t_max)
+              for a, b, band, t_max in cuts]
+    grid = [dict(mode=mode, adaptive=adaptive, cell_dtype="int32",
+                 xdrop=xdrop, collect_tb=collect_tb)
+            for mode, adaptive, xdrop, collect_tb in itertools.product(
+                ("global", "semiglobal"), (True, False), (None, 25),
+                (True, False))]
+    grid.append(dict(mode="semiglobal", adaptive=True, cell_dtype="narrow",
+                     xdrop=25, collect_tb=True))
+    if quick:
+        grid = grid[::3]
+    worst = worst_wk = retired = 0
+    for kw in grid:
+        err, werr, ret = check_persistent(groups, **kw)
+        worst = max(worst, err)
+        worst_wk = max(worst_wk, werr or 0)
+        retired += ret if kw["xdrop"] is not None else 0
+    assert retired > 0, "the xdrop cases retired no pair"
+    return len(grid), worst, worst_wk
+
+
+def persistent_groups(reads, refs):
+    """The groups `AlignmentEngine(dispatch="persistent")` builds for one
+    request: planned length classes padded to PERSISTENT_PAD rows."""
+    groups = []
+    for g in plan_buckets([len(x) for x in reads], [len(x) for x in refs]):
+        q, r, n, m = pad_group([reads[i] for i in g.indices],
+                               [refs[i] for i in g.indices], g.spec,
+                               pad_multiple=PERSISTENT_PAD)
+        groups.append((q, r, n, m, g.spec.band, g.spec.t_max))
+    return groups
+
+
+def persistent_bound(table, n, m):
+    """Least time for the persistent kernel on these inputs: every row's
+    live steps over its own band; inputs and the table read once, stats
+    and the flat planes written once."""
+    band = np.concatenate([np.full(s.rows, s.band) for s in table.spans])
+    steps = np.concatenate([np.full(s.rows, s.steps) for s in table.spans])
+    live = np.minimum(n.astype(np.int64) + m, steps)
+    ops = int((live * band).sum()) * WAVEFRONT_OPS_PER_CELL
+    R = table.num_rows
+    nbytes = (sum(s.rows * (s.q_len + s.r_len) for s in table.spans)
+              + R * (8 + 24 + 8 * table.rows.shape[1])
+              + table.tb_bytes + 4 * table.los_words)
+    t_ops, t_bytes = ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def persistent_timing(name, reads, refs, reps):
+    """The persistent kernel and the table walker on one request of the
+    main path's mix: held against their plain versions and timed."""
+    groups = persistent_groups(reads, refs)
+    table, (q, r, n, m) = on_card(groups)
+    kw = dict(sc=MINIMAP2, adaptive=True, collect_tb=True, mode="global")
+    out = persistent_align_cuda(table, q, r, n, m, **kw)
+    torch.cuda.synchronize()
+    plain_ms, ref = time_host(
+        lambda: persistent_align_plain(table, q, r, n, m, **kw))
+    err = assert_equal(ref, out, f"persistent at {name}")
+    ms = time_cuda(lambda: persistent_align_cuda(table, q, r, n, m, **kw),
+                   reps)
+
+    keys = ("cig_ops", "cig_runs", "cig_len")
+    tb, los = out["tb"], out["los"]
+    rle = tbd.decode_packed_tb_table_cuda(table, tb, los, n, m)
+    torch.cuda.synchronize()
+    wk_plain_ms, rle_ref = time_host(
+        lambda: tbd.decode_packed_tb_table_plain(table, tb, los, n, m))
+    wk_err = assert_equal(dict(zip(keys, rle_ref)), dict(zip(keys, rle)),
+                          f"table walker at {name}")
+    wk_ms = time_cuda(lambda: tbd.decode_packed_tb_table_cuda(
+        table, tb, los, n, m), reps)
+
+    n_h, m_h = n.cpu().numpy(), m.cpu().numpy()
+    bound, by = persistent_bound(table, n_h, m_h)
+    path_steps = int(rle[1].sum())
+    wk_bound, wk_by = walker_bound(path_steps, table.num_rows,
+                                   table.steps_max)
+    base = {"shape": name, "rows": table.num_rows,
+            "groups": [[s.rows, s.band, s.steps] for s in table.spans]}
+    return (dict(base, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                 bound_by=by, max_abs_err=err),
+            dict(base, ms=wk_ms, plain_ms=wk_plain_ms, bound_ms=wk_bound,
+                 bound_by=wk_by, max_abs_err=wk_err,
+                 path_steps=path_steps))
+
+
+# ---------------------------------------------------------------------------
+# Chaining kernel vs its plain version.
+# ---------------------------------------------------------------------------
+
+def chain_bound(valid):
+    """Least time for the chaining kernel on these sets: every (anchor,
+    earlier anchor) pair of the valid slots; positions and masks read
+    once, f / pred / mask / endpoint written once."""
+    a = valid.sum(axis=1).astype(np.int64)
+    ops = int((a * (a - 1) // 2).sum()) * CHAIN_OPS_PER_PAIR
+    R, A = valid.shape
+    nbytes = R * A * (4 + 4 + 1) + R * A * (4 + 4 + 1) + 4 * R
+    t_ops, t_bytes = ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def chain_check(anchor_sets, params, reps=0):
+    """The chaining kernel vs its plain version on padded anchor sets;
+    timed when `reps` > 0."""
+    padded = chain_mod._pad_anchors(anchor_sets, params.anchors_cap)
+    qp, rp, valid = (torch.from_numpy(a).to(DEV) for a in padded)
+    kw = dict(k=params.k, max_gap=params.max_gap,
+              max_dd=params.max_diag_diff)
+    keys = ("f", "pred", "mask", "best")
+    ker = chain_mod.chain_padded_cuda(qp, rp, valid, **kw)
+    torch.cuda.synchronize()
+    plain_ms, ref = time_host(
+        lambda: chain_mod.chain_padded_plain(qp, rp, valid, **kw))
+    err = assert_equal(dict(zip(keys, ref)), dict(zip(keys, ker)),
+                       "chain")
+    rec = {"sets": len(anchor_sets), "padded_sets": int(qp.shape[0]),
+           "slots": int(qp.shape[1]),
+           "valid_anchors": int(padded[2].sum()), "max_abs_err": err,
+           "chained_sets": int((ker[3] >= 0).sum())}
+    if reps:
+        bound, by = chain_bound(padded[2])
+        rec.update(ms=time_cuda(
+            lambda: chain_mod.chain_padded_cuda(qp, rp, valid, **kw), reps),
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # Main-path checks.
 # ---------------------------------------------------------------------------
 
@@ -303,18 +500,55 @@ def check_consumed(out, reads, refs, mode, label):
             assert rn == len(refs[p]), (label, p, rn, len(refs[p]))
 
 
+#: Launch counters of the kernels' wrappers and call counters of the
+#: plain versions (the persistent plain version and the table walker's
+#: plain version run through the two counted plain functions).
+COUNTERS = {
+    "banded_dp": banded_align_cuda,
+    "traceback": tbd.decode_packed_tb_cuda,
+    "traceback_table": tbd.decode_packed_tb_table_cuda,
+    "persistent": persistent_align_cuda,
+    "chain": chain_mod.chain_padded_cuda,
+}
+PLAIN = {
+    "plain_banded": banded.banded_align_batch,
+    "plain_traceback": tbd.decode_packed_tb_plain,
+    "plain_chain": chain_mod.chain_padded_plain,
+}
+
+
 def counts():
-    return {"banded_dp": banded_align_cuda.launches,
-            "traceback": tbd.decode_packed_tb_cuda.launches,
-            "plain_banded": banded.banded_align_batch.calls,
-            "plain_traceback": tbd.decode_packed_tb_plain.calls}
+    out = {k: fn.launches for k, fn in COUNTERS.items()}
+    out.update({k: fn.calls for k, fn in PLAIN.items()})
+    return out
 
 
 def zero_counts():
-    banded_align_cuda.launches = 0
-    tbd.decode_packed_tb_cuda.launches = 0
-    banded.banded_align_batch.calls = 0
-    tbd.decode_packed_tb_plain.calls = 0
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    for fn in PLAIN.values():
+        fn.calls = 0
+
+
+class PathCounts:
+    """Launch counts of the main paths: each path is driven inside
+    `path(name)`, with every count set to 0 just before it and read just
+    after; launches made to compare a kernel with its plain version fall
+    outside. A path that calls a plain version fails."""
+
+    def __init__(self):
+        self.paths = {}
+
+    @contextlib.contextmanager
+    def path(self, name):
+        zero_counts()
+        yield
+        got = counts()
+        assert all(got[k] == 0 for k in PLAIN), (name, got)
+        self.paths[name] = got
+
+    def total(self, *keys):
+        return sum(c[k] for c in self.paths.values() for k in keys)
 
 
 def timed_align(engine, reads, refs, mode, label):
@@ -378,6 +612,44 @@ def fetched_bytes_per_pair(engine, reads, refs):
     return total / len(reads)
 
 
+def serve_run(engine, reads, refs):
+    """A closed loop of single-pair requests through an AlignmentService
+    over `engine`. Returns (results, service stats, seconds)."""
+    t0 = time.perf_counter()
+    with AlignmentService(engine, collect_tb=True,
+                          max_inflight_groups="auto") as svc:
+        futures = [svc.submit(rd, rf) for rd, rf in zip(reads, refs)]
+        results = [f.result(timeout=600) for f in futures]
+        stats = svc.stats()
+    stats.pop("priority", None)
+    stats.pop("depth_signatures", None)
+    return results, stats, time.perf_counter() - t0
+
+
+def check_served(results, one_shot):
+    for p, res in enumerate(results):
+        assert int(res["score"]) == int(one_shot["score"][p]), p
+        assert res["cigar"] == one_shot["cigars"][p], p
+
+
+def anchor_sets(index, reads):
+    """Both strands' anchor lists of every read, in the order the mapper
+    chains them."""
+    out = []
+    for read in reads:
+        for probe in (read, reverse_complement(read)):
+            hit = index.lookup(probe)
+            out.append((hit.q_pos, hit.r_pos))
+    return out
+
+
+def recall(sims, results):
+    hits = sum(1 for sr, r in zip(sims, results)
+               if r.status == STATUS_MAPPED and r.strand == sr.strand
+               and abs(r.ref_start - sr.locus) <= max(r.band, 1))
+    return hits / len(sims)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--seed", type=int, default=0)
@@ -409,6 +681,17 @@ def main():
     # 4.5 % longer than its window) stays inside the 2048 / 8192 bucket.
     mid = bulk_pairs(genome, n_mid, 1900, "pacbio", rng)
     long_ = bulk_pairs(genome, n_long, 7680, "pacbio", rng)
+    t0 = time.perf_counter()
+    index = MinimizerIndex(genome, k=13, w=8)
+    index_seconds = time.perf_counter() - t0
+    params = chain_mod.ChainParams(k=index.k)
+    sim_ill = ReadSimulator(genome, "illumina", seed=args.seed + 3,
+                            rc_prob=0.5)
+    sim_pb = ReadSimulator(genome, "pacbio", seed=args.seed + 4,
+                           rc_prob=0.5)
+    n_ill, n_pb = (512, 64) if args.quick else (16384, 1024)
+    ill = [sim_ill.sample(150) for _ in range(n_ill)]
+    pb = [sim_pb.sample(1000) for _ in range(n_pb)]
 
     # ---- 2. kernels vs plain versions ----
     t0 = time.perf_counter()
@@ -424,125 +707,220 @@ def main():
         worst_wf = max(worst_wf, wf["max_abs_err"])
         worst_wk = max(worst_wk, wk["max_abs_err"])
     cases += len(shapes)
-    check_counts = counts()
+    p_cases, worst_p, worst_pt = persistent_matrix(*short, args.quick)
+    mix = [a[:64] + b[:64] + c[:8] for a, b, c in zip(short, mid, long_)]
+    p_rec, pt_rec = persistent_timing("mix_64_64_8", *mix, 3)
+    worst_p = max(worst_p, p_rec["max_abs_err"])
+    worst_pt = max(worst_pt, pt_rec["max_abs_err"])
+    p_cases += 1
     emit("kernel_checks", {
         "seconds": time.perf_counter() - t0,
         "xdrop_retired_pairs": retired,
         "kernels": [
             {"name": "banded_dp", "cases": cases, "equal": True,
              "kernel_ms": wf_shapes[-1]["ms"],
-             "plain_ms": wf_shapes[-1]["plain_ms"],
-             "launches": check_counts["banded_dp"], "shapes": wf_shapes},
+             "plain_ms": wf_shapes[-1]["plain_ms"], "shapes": wf_shapes},
             {"name": "traceback", "cases": cases, "equal": True,
              "kernel_ms": wk_shapes[-1]["ms"],
-             "plain_ms": wk_shapes[-1]["plain_ms"],
-             "launches": check_counts["traceback"], "shapes": wk_shapes},
+             "plain_ms": wk_shapes[-1]["plain_ms"], "shapes": wk_shapes},
+            {"name": "persistent", "cases": p_cases, "equal": True,
+             "shapes": [p_rec]},
+            {"name": "traceback_table", "cases": p_cases, "equal": True,
+             "shapes": [pt_rec]},
         ]})
-    if args.quick:
-        print(json.dumps({"ok": True, "quick": True}))
-        return
+    paths = PathCounts()
 
     # ---- 3. engine: one ragged request, then the short class again ----
-    zero_counts()
-    eng64 = AlignmentEngine(backend="auto")           # capacity 64
-    eng4k = AlignmentEngine(backend="auto", capacity=4096)
-    assert eng64.backend_name == "cuda" and eng64.device.type == "cuda"
-    eng64.warmup([(150, 150)], collect_tb=True)
     reads = short[0] + mid[0] + long_[0]
     refs = short[1] + mid[1] + long_[1]
-    runs = []
-    out_all, rec = timed_align(eng64, reads, refs, "global",
-                                  "ragged request, all three classes")
-    runs.append(rec)
-    check_consumed(out_all, reads, refs, "global", "ragged")
-    assert np.isfinite(out_all["score"]).all()
-    assert (out_all["status"] == 0).all()
-    bands = sorted(set(out_all["band"].tolist()))
+    with paths.path("engine"):
+        eng64 = AlignmentEngine(backend="auto")           # capacity 64
+        eng4k = AlignmentEngine(backend="auto", capacity=4096)
+        assert eng64.backend_name == "cuda" and eng64.device.type == "cuda"
+        eng64.warmup([(150, 150)], collect_tb=True)
+        runs = []
+        out_all, rec = timed_align(eng64, reads, refs, "global",
+                                   "ragged request, all three classes")
+        runs.append(rec)
+        check_consumed(out_all, reads, refs, "global", "ragged")
+        assert np.isfinite(out_all["score"]).all()
+        assert (out_all["status"] == 0).all()
+        bands = sorted(set(out_all["band"].tolist()))
 
-    out_s, rec = timed_align(eng4k, *short, "global",
-                                "short class, card-sized capacity")
-    runs.append(rec)
-    assert np.array_equal(out_s["score"], out_all["score"][:n_short])
-    assert out_s["cigars"] == out_all["cigars"][:n_short]
+        out_s, rec = timed_align(eng4k, *short, "global",
+                                 "short class, card-sized capacity")
+        runs.append(rec)
+        assert np.array_equal(out_s["score"], out_all["score"][:n_short])
+        assert out_s["cigars"] == out_all["cigars"][:n_short]
 
-    out_sg, rec = timed_align(eng4k, *short, "semiglobal",
-                                 "short class, semiglobal")
-    runs.append(rec)
-    check_consumed(out_sg, *short, "semiglobal", "semiglobal")
+        out_sg, rec = timed_align(eng4k, *short, "semiglobal",
+                                  "short class, semiglobal")
+        runs.append(rec)
+        check_consumed(out_sg, *short, "semiglobal", "semiglobal")
 
-    # CIGARs re-score to the reported score (512 short pairs) ...
-    for p in range(0, n_short, n_short // 512):
-        s = cigar_score(out_s["cigars"][p], short[0][p], short[1][p],
-                        MINIMAP2)
-        assert s == int(out_s["score"][p]), (p, s, int(out_s["score"][p]))
-    # ... and the banded score equals the full DP's on >= 95 % of 64.
-    hits = sum(int(out_s["score"][p]) == full_dp_score(
-        short[0][p], short[1][p], MINIMAP2)
-        for p in range(0, n_short, n_short // 64))
-    assert hits >= 0.95 * 64, hits
-    fetched = {
-        "short_cap4096": fetched_bytes_per_pair(eng4k, short[0][:4096],
-                                                short[1][:4096]),
-        "long_cap64": fetched_bytes_per_pair(eng64, *long_)}
-    traces = {
-        "short_cap4096": device_trace(lambda: eng4k.align(
-            short[0][:16384], short[1][:16384], collect_tb=True)),
-        "long_cap64": device_trace(lambda: eng64.align(
-            *long_, collect_tb=True))}
+        # CIGARs re-score to the reported score (512 short pairs) ...
+        for p in range(0, n_short, n_short // 512):
+            sc = cigar_score(out_s["cigars"][p], short[0][p], short[1][p],
+                             MINIMAP2)
+            assert sc == int(out_s["score"][p]), \
+                (p, sc, int(out_s["score"][p]))
+        # ... and the banded score equals the full DP's on >= 95 % of 64.
+        hits = sum(int(out_s["score"][p]) == full_dp_score(
+            short[0][p], short[1][p], MINIMAP2)
+            for p in range(0, n_short, n_short // 64))
+        assert hits >= 0.95 * 64, hits
+        fetched = {
+            "short_cap4096": fetched_bytes_per_pair(eng4k, short[0][:4096],
+                                                    short[1][:4096]),
+            "long_cap64": fetched_bytes_per_pair(eng64, *long_)}
+        traces = {
+            "short_cap4096": device_trace(lambda: eng4k.align(
+                short[0][:16384], short[1][:16384], collect_tb=True)),
+            "long_cap64": device_trace(lambda: eng64.align(
+                *long_, collect_tb=True))}
     emit("engine", {"runs": runs, "bands": bands, "traces": traces,
                     "rescored_pairs": 512, "full_dp_agree": hits / 64,
                     "fetched_bytes_per_pair": fetched,
-                    "counts": counts()})
+                    "counts": paths.paths["engine"]})
 
-    # ---- 4. serve: closed loop over the same engine ----
-    n_req, n_req_mid = 32768, 512
+    # ---- 4. the same request through persistent dispatch ----
+    with paths.path("engine_persistent"):
+        engp = AlignmentEngine(backend="auto", dispatch="persistent")
+        engp.warmup([(150, 150)], collect_tb=True)
+        out_p, rec_p = timed_align(engp, reads, refs, "global",
+                                   "ragged request, persistent")
+        launches = rec_p["launches"]
+        assert launches["persistent"] == 1, launches
+        assert launches["traceback_table"] == 1, launches
+        assert launches["banded_dp"] == 0 and launches["traceback"] == 0, \
+            launches
+        for key in ("score", "final_lo", "best_score", "best_i", "best_j",
+                    "status", "band"):
+            assert np.array_equal(out_p[key], out_all[key]), key
+        assert out_p["cigars"] == out_all["cigars"]
+        st: dict = {}
+        engp.finalize_persistent(
+            engp.enqueue_persistent(reads, refs, collect_tb=True), stats=st)
+        p_traces = {
+            "ragged": device_trace(lambda: engp.align(
+                reads, refs, collect_tb=True)),
+            "short_16384": device_trace(lambda: engp.align(
+                short[0][:16384], short[1][:16384], collect_tb=True)),
+            "long_256": device_trace(lambda: engp.align(
+                *long_, collect_tb=True))}
+    # The pipelined request once more, after the persistent one, for the
+    # spread of the host clock within this run.
+    with paths.path("engine_again"):
+        _, rec_again = timed_align(eng64, reads, refs, "global",
+                                   "ragged request, pipelined again")
+    emit("engine_persistent", {
+        "run": rec_p, "pipelined_again": rec_again,
+        "equal_to_pipelined": True,
+        "fetched_bytes_per_pair": st["fetched_bytes"] / len(reads),
+        "traces": p_traces, "counts": paths.paths["engine_persistent"]})
+
+    # ---- 5. serve: closed loop, pipelined then persistent ----
+    n_req, n_req_mid = (2048, 32) if args.quick else (32768, 512)
     mix150 = bulk_pairs(genome, n_req // 2, 150, "illumina", rng)
     mix300 = bulk_pairs(genome, n_req // 2, 300, "illumina", rng)
     s_reads = [x for pair in zip(mix150[0], mix300[0]) for x in pair] \
         + mid[0][:n_req_mid]
     s_refs = [x for pair in zip(mix150[1], mix300[1]) for x in pair] \
         + mid[1][:n_req_mid]
-    before = counts()
-    t0 = time.perf_counter()
-    with AlignmentService(eng64, collect_tb=True,
-                          max_inflight_groups="auto") as svc:
-        futures = [svc.submit(rd, rf) for rd, rf in zip(s_reads, s_refs)]
-        results = [f.result(timeout=600) for f in futures]
-        svc_stats = svc.stats()
-    serve_s = time.perf_counter() - t0
-    after = counts()
     one_shot = eng4k.align(s_reads, s_refs, collect_tb=True)
-    for p, res in enumerate(results):
-        assert int(res["score"]) == int(one_shot["score"][p]), p
-        assert res["cigar"] == one_shot["cigars"][p], p
-    svc_stats.pop("priority", None)
-    svc_stats.pop("depth_signatures", None)
-    emit("serve", {"requests": len(results), "seconds": serve_s,
-                   "requests_per_s": len(results) / serve_s,
-                   "launches": {k: after[k] - before[k] for k in after},
-                   "stats": svc_stats})
+    for name, engine in (("serve", eng64), ("serve_persistent", engp)):
+        with paths.path(name):
+            results, svc_stats, serve_s = serve_run(engine, s_reads, s_refs)
+        check_served(results, one_shot)
+        emit(name, {"requests": len(results), "seconds": serve_s,
+                    "requests_per_s": len(results) / serve_s,
+                    "launches": paths.paths[name], "stats": svc_stats})
 
-    # ---- 5. the main path went through the kernels ----
-    final = counts()
-    assert final["banded_dp"] > 0 and final["traceback"] > 0, final
-    assert final["plain_banded"] == 0 and final["plain_traceback"] == 0, \
-        final
+    # ---- 6. read mapping: seed -> chain -> align ----
+    classes = (("illumina", ill, None, 0.99), ("pacbio", pb, 64, 0.95))
+    mapped, records = {}, []
+    for dispatch in ("persistent", "pipelined"):
+        for label, sims, bw, floor in classes:
+            name = f"map_{dispatch}_{label}"
+            engine = AlignmentEngine(backend="auto", dispatch=dispatch,
+                                     base_bandwidth=bw)
+            st = {}
+            with paths.path(name):
+                # Streams, pinned buffers and libraries before the clock.
+                engine.warmup([(len(sims[0].read), len(sims[0].read) + 40)],
+                              mode="semiglobal", collect_tb=True)
+                t0 = time.perf_counter()
+                with AlignmentService(engine, mode="semiglobal",
+                                      collect_tb=True,
+                                      max_wait_ms=2.0) as svc:
+                    res = ReadMapper(index, svc).map_batch(
+                        [sr.read for sr in sims], stats=st)
+                    svc_stats = svc.stats()
+                wall = time.perf_counter() - t0
+            rc = recall(sims, res)
+            assert rc >= floor, (name, rc, floor)
+            mapped[(dispatch, label)] = res
+            records.append({
+                "path": name, "reads": len(sims), "seconds": wall,
+                "reads_per_s": len(sims) / wall, "recall": rc,
+                "stage_seconds": st, "aligned": svc_stats["completed"],
+                "p50_ms": svc_stats["p50_ms"], "p99_ms": svc_stats["p99_ms"],
+                "launches": paths.paths[name]})
+    for label, *_ in classes:
+        assert mapped[("persistent", label)] \
+            == mapped[("pipelined", label)], label
+    chain_ill = chain_check(anchor_sets(index, [sr.read for sr in ill]),
+                            params, reps=5)
+    chain_pb = chain_check(anchor_sets(index, [sr.read for sr in pb]),
+                           params)
+    emit("map", {"genome": len(genome), "k": index.k, "w": index.w,
+                 "minimizers": index.num_minimizers,
+                 "index_seconds": index_seconds, "runs": records,
+                 "persistent_equals_pipelined": True,
+                 "chain_checks": [chain_ill, chain_pb]})
+
+    # ---- 7. the main paths went through the kernels ----
+    tot = paths.total
     common = {"route": "cuda", "library_ms": None}
     wf, wk = wf_shapes[-1], wk_shapes[-1]
-    print(json.dumps({"kernels": [
+    kernels = [
         dict(common, name="banded_dp",
              source="src/repro_torch/kernels/banded_dp/csrc/banded_dp.cu",
              replaces="src/repro/kernels/banded_dp/banded_dp.py:432",
-             launches=final["banded_dp"], max_abs_err=worst_wf,
+             launches=tot("banded_dp"), max_abs_err=worst_wf,
              ms=wf["ms"], plain_ms=wf["plain_ms"], bound_ms=wf["bound_ms"],
              bound_by=wf["bound_by"], shape=wf["shape"]),
         dict(common, name="traceback",
              source="src/repro_torch/core/csrc/traceback.cu",
              replaces="src/repro/core/traceback_device.py:43",
-             launches=final["traceback"], max_abs_err=worst_wk,
+             launches=tot("traceback", "traceback_table"),
+             max_abs_err=max(worst_wk, worst_pt),
              ms=wk["ms"], plain_ms=wk["plain_ms"], bound_ms=wk["bound_ms"],
-             bound_by=wk["bound_by"], shape=wk["shape"]),
-    ]}), flush=True)
+             bound_by=wk["bound_by"], shape=wk["shape"],
+             table_launches=tot("traceback_table"), table_ms=pt_rec["ms"],
+             table_plain_ms=pt_rec["plain_ms"],
+             table_bound_ms=pt_rec["bound_ms"],
+             table_shape=pt_rec["shape"]),
+        dict(common, name="persistent",
+             source="src/repro_torch/kernels/banded_dp/csrc/persistent.cu",
+             replaces="src/repro/kernels/banded_dp/persistent.py:402",
+             launches=tot("persistent"), max_abs_err=worst_p,
+             ms=p_rec["ms"], plain_ms=p_rec["plain_ms"],
+             bound_ms=p_rec["bound_ms"], bound_by=p_rec["bound_by"],
+             shape=p_rec["shape"]),
+        dict(common, name="chain",
+             source="src/repro_torch/map/csrc/chain.cu",
+             replaces="src/repro/map/chain.py:101",
+             launches=tot("chain"),
+             max_abs_err=max(chain_ill["max_abs_err"],
+                             chain_pb["max_abs_err"]),
+             ms=chain_ill["ms"], plain_ms=chain_ill["plain_ms"],
+             bound_ms=chain_ill["bound_ms"],
+             bound_by=chain_ill["bound_by"], shape="illumina_sets"),
+    ]
+    for k in kernels:
+        assert k["launches"] > 0 and k["max_abs_err"] == 0, k
+    print(json.dumps({"kernels": kernels}), flush=True)
     emit("total", {"seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

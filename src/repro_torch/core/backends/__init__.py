@@ -49,8 +49,26 @@ Two backends are registered:
 entry point never carries on on the CPU unasked. Results are
 bit-identical across backends — integer DP.
 
-`run_persistent` (all dispatch groups of a request in one launch) is not
-ported yet (ROADMAP A5): both backends raise NotImplementedError.
+Backends additionally provide the persistent-dispatch entry point
+(`AlignmentEngine(dispatch="persistent")`):
+
+    run_persistent(groups, *, sc, adaptive, collect_tb, mode, decode,
+                   cell_dtype, xdrop, device)
+      groups: sequence of (q_pad, r_pad, n, m, band, t_max) host arrays —
+        one entry per dispatch group, each with its own padded geometry,
+        band and trimmed sweep. ALL groups run in ONE launch of the
+        persistent wavefront (`kernels.banded_dp.persistent`, driven by a
+        per-row work table) followed, with collect_tb, by ONE launch of
+        the table walker (`traceback_device.decode_packed_tb_table`):
+        no per-group launch and no synchronisation. The inputs are copied
+        to `device` through pinned memory on the current stream.
+        decode="host" is rejected — the raw-plane contract exists only on
+        the pipelined path.
+      Returns ONE merged dict over sum(N_pad_g) rows in group-major
+      order: the scalar keys concatenated, plus (collect_tb) 'cig_ops' /
+      'cig_runs' zero-padded on the right to the longest group sweep and
+      'cig_len' (`merge_persistent_outputs`' layout). Bit-exact with
+      running each group through `run`.
 
 Backends register lazily by module path so importing the registry builds
 and loads nothing.
@@ -88,10 +106,54 @@ def resolve_backend(name: str) -> str:
     return "cuda"
 
 
-def persistent_not_ported():
-    raise NotImplementedError(
-        "run_persistent (persistent dispatch) is not ported yet: "
-        "ROADMAP A5")
+def merge_persistent_outputs(outs):
+    """Concatenate per-group result dicts into the group-major merged
+    layout of the `run_persistent` contract (on the tensors' device).
+
+    Scalar keys concatenate directly. The RLE planes have per-group
+    column counts (each group's sweep length bounds its path length), so
+    they are zero-padded on the right to the widest group before the
+    concat — zero is the 'unused segment' op code, and `cig_len` already
+    bounds every consumer's read.
+    """
+    merged = {}
+    for key in outs[0]:
+        arrs = [o[key] for o in outs]
+        if key in ("cig_ops", "cig_runs"):
+            k_max = max(a.shape[1] for a in arrs)
+            arrs = [torch.nn.functional.pad(a, (0, k_max - a.shape[1]))
+                    for a in arrs]
+        merged[key] = torch.cat(arrs)
+    return merged
+
+
+def run_persistent_program(groups, *, align, walker, device, sc,
+                           adaptive=True, collect_tb=True, mode="global",
+                           decode="device", cell_dtype="int32", xdrop=None):
+    """The body both backends' `run_persistent` share: pack the groups
+    into one work table, copy it and the flat inputs to `device`, run
+    `align` (a `persistent_align_*` function) and, with collect_tb, the
+    table `walker` behind it. Returns the merged result as device
+    tensors."""
+    from repro_torch.core.batch import upload
+    from repro_torch.core.traceback_device import device_decode_table
+    from repro_torch.kernels.banded_dp.persistent import pack_groups
+
+    if collect_tb and decode != "device":
+        raise ValueError(
+            "persistent dispatch fuses the traceback decode on-device;"
+            " decode='host' exists only on the pipelined path")
+    device = torch.device(device)
+    table, arrays = pack_groups(groups)
+    table = table.to(device)
+    q, r, n, m = (upload(a, device) for a in arrays)
+    out = align(table, q, r, n, m, sc=sc, adaptive=adaptive,
+                collect_tb=collect_tb, mode=mode, cell_dtype=cell_dtype,
+                xdrop=xdrop)
+    if collect_tb:
+        out = device_decode_table(out, table, n, m, mode=mode,
+                                  walker=walker)
+    return out
 
 
 def get_backend(name="auto", **opts):

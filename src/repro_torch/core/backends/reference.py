@@ -2,7 +2,9 @@
 plain lockstep walker, on whatever device the tensors live on.
 
 The oracle the CUDA backend must match bit-exactly (integer DP), and the
-only backend that runs on the CPU.
+only backend that runs on the CPU. Its `run_persistent` runs the plain
+versions of the persistent kernel and of the table walker, so a
+persistent request has the merged layout of the CUDA backend.
 """
 
 from __future__ import annotations
@@ -10,7 +12,9 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.core import banded
-from repro_torch.core.backends import persistent_not_ported
+from repro_torch.core.backends import run_persistent_program
+from repro_torch.core.traceback_device import decode_packed_tb_table_plain
+from repro_torch.kernels.banded_dp.persistent import persistent_align_plain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,8 +37,16 @@ class ReferenceBackend:
                 walker=tbd.decode_packed_tb_plain)
         return out
 
-    def run_persistent(self, groups, **kwargs):
-        persistent_not_ported()
+    def run_persistent(self, groups, *, sc, adaptive=True, collect_tb=True,
+                       mode="global", decode="device", cell_dtype="int32",
+                       xdrop=None, device="cpu"):
+        """All dispatch groups through the plain versions, merged
+        (contract in `core.backends`)."""
+        return run_persistent_program(
+            groups, align=persistent_align_plain,
+            walker=decode_packed_tb_table_plain, device=device, sc=sc,
+            adaptive=adaptive, collect_tb=collect_tb, mode=mode,
+            decode=decode, cell_dtype=cell_dtype, xdrop=xdrop)
 
 
 BACKEND = ReferenceBackend

@@ -215,7 +215,7 @@ class AlignmentBatch:
                    num_real=len(reads))
 
 
-def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host array -> tensor on `device`. To a CUDA device the copy goes
     through pinned memory and is queued on the current stream without
     waiting for it (a copy from pageable memory would first wait for the
@@ -239,7 +239,7 @@ def enqueue_dispatch(run, q_pad, r_pad, n, m, *, capacity: int,
     further groups or decodes earlier ones (`finalize_dispatch`).
     """
     device = torch.device(device)
-    q_d, r_d, n_d, m_d = (_upload(np.asarray(a), device)
+    q_d, r_d, n_d, m_d = (upload(np.asarray(a), device)
                           for a in (q_pad, r_pad, n, m))
     outs = []
     for lo in range(0, q_d.shape[0], capacity):
@@ -257,6 +257,35 @@ def _none_rejected_cigars(merged: dict) -> None:
         return
     for i in np.flatnonzero(np.asarray(status)):
         merged["cigars"][int(i)] = None
+
+
+class HostFetch:
+    """The only device->host copy site of the engine. Counts the bytes it
+    materialises (`nbytes`).
+
+    By default each copy is queued on the current stream and so waits for
+    everything queued before it, later groups' launches included. With
+    `ready` (a CUDA event recorded right after one group's or request's
+    launches) and `copy_stream`, the copies run on that second stream once
+    the event has fired, so fetching this work does not wait for work
+    enqueued after it."""
+
+    def __init__(self, ready=None, copy_stream=None):
+        self.copy_stream = copy_stream if ready is not None else None
+        self.nbytes = 0
+        if self.copy_stream is not None:
+            self.copy_stream.wait_event(ready)
+
+    def __call__(self, x: torch.Tensor) -> np.ndarray:
+        if self.copy_stream is not None and x.is_cuda:
+            with torch.cuda.stream(self.copy_stream):
+                host = x.to("cpu", non_blocking=True)
+            self.copy_stream.synchronize()
+        else:
+            host = x.cpu()
+        arr = host.numpy()
+        self.nbytes += arr.nbytes
+        return arr
 
 
 def finalize_dispatch(outs, n, m, *, band: int, num_real: int,
@@ -284,29 +313,10 @@ def finalize_dispatch(outs, n, m, *, band: int, num_real: int,
     layer accumulating it per flush sees the true fetch traffic rather
     than the stripped result size.
 
-    `fetch` below is the only device->host site. By default each copy is
-    queued on the current stream and so waits for everything queued
-    before it, later groups' launches included. With `ready` (a CUDA
-    event recorded right after this group's launches) and `copy_stream`,
-    the copies run on that second stream once the event has fired, so
-    fetching this group does not wait for groups enqueued after it."""
-    fetched = 0
-    side = bool(ready is not None and copy_stream is not None
-                and outs and outs[0]["score"].is_cuda)
-    if side:
-        copy_stream.wait_event(ready)
-
-    def fetch(x) -> np.ndarray:
-        nonlocal fetched
-        if side:
-            with torch.cuda.stream(copy_stream):
-                host = x.to("cpu", non_blocking=True)
-            copy_stream.synchronize()
-        else:
-            host = x.cpu()
-        arr = host.numpy()
-        fetched += arr.nbytes
-        return arr
+    Every copy goes through one `HostFetch`; with `ready` and
+    `copy_stream` it copies on the second stream behind this group's
+    event."""
+    fetch = HostFetch(ready, copy_stream)
 
     if collect_tb and decode == "device":
         from repro_torch.core.traceback_device import rle_to_cigars
@@ -331,7 +341,7 @@ def finalize_dispatch(outs, n, m, *, band: int, num_real: int,
                                          merged["cig_len"])
         _none_rejected_cigars(merged)
         if stats is not None:
-            stats["fetched_bytes"] = fetched
+            stats["fetched_bytes"] = fetch.nbytes
         return merged
     merged = {}
     for key in outs[0]:
@@ -355,7 +365,7 @@ def finalize_dispatch(outs, n, m, *, band: int, num_real: int,
             band, starts=starts)
         _none_rejected_cigars(merged)
     if stats is not None:
-        stats["fetched_bytes"] = fetched
+        stats["fetched_bytes"] = fetch.nbytes
     return merged
 
 

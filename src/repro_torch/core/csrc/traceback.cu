@@ -6,6 +6,11 @@
 // not the method: cig_ops (N, K) uint8, cig_runs (N, K) int32, cig_len
 // (N,) int32, runs in path order, columns >= cig_len zero.
 //
+// A second entry point, `traceback_table_launch`, walks every row of a
+// persistent request (kernels/banded_dp/csrc/persistent.cu) in one launch:
+// each row has its own band, sweep length and plane offsets from the work
+// table, and writes one row of (R, K) RLE planes, zero past its segments.
+//
 // Design: one warp per pair. Lane 0 chases the path from the start cell
 // to (0, 0) through that pair's packed flag plane — each step reads the
 // three nibbles at (i, j), (i-1, j), (i, j-1) through `los` and applies
@@ -24,7 +29,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../kernels/banded_dp/csrc/work_table.cuh"
+
 namespace {
+
+using namespace work_table;
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int OP_M = 1, OP_I = 2, OP_D = 3;
@@ -49,25 +58,17 @@ struct Plane {
   }
 };
 
-__global__ void traceback_kernel(
-    const uint8_t* __restrict__ tb, const int* __restrict__ los,
-    const int* __restrict__ start_i, const int* __restrict__ start_j,
-    uint8_t* __restrict__ cig_ops, int* __restrict__ cig_runs,
-    int* __restrict__ cig_len, int N, int T, int Bp, int band) {
+// Walks one pair from (i, j) to (0, 0) with the warp; writes cig_len and
+// K columns of ops / runs (segments in path order, zero past them).
+__device__ __forceinline__ void walk_pair(const Plane& pl, int i, int j,
+                                          uint8_t* ops, int* runs,
+                                          int* len, int K) {
   const int lane = threadIdx.x & 31;
-  const int pair = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (pair >= N) return;            // whole warps leave together
-
-  uint8_t* ops = cig_ops + (long long)pair * T;
-  int* runs = cig_runs + (long long)pair * T;
   int nseg = 0;
-
   if (lane == 0) {
-    Plane pl{tb + (long long)pair * T * Bp, los + (long long)pair * (T + 1),
-             T, Bp, band};
-    int i = start_i[pair], j = start_j[pair], st = 0;
+    int st = 0;
     int cur_op = 0, cur_run = 0;
-    for (int step = 0; step < T && (i > 0 || j > 0); ++step) {
+    for (int step = 0; step < pl.T && (i > 0 || j > 0); ++step) {
       bool in_band, up_ok, left_ok;
       const int c = pl.lookup(i, j, in_band);
       const int cu = pl.lookup(i - 1, j, up_ok);
@@ -103,7 +104,7 @@ __global__ void traceback_kernel(
       }
     }
     if (cur_op) { ops[nseg] = (uint8_t)cur_op; runs[nseg] = cur_run; ++nseg; }
-    cig_len[pair] = nseg;
+    *len = nseg;
   }
   nseg = __shfl_sync(FULL, nseg, 0);   // also orders lane 0's stores
   __syncwarp();
@@ -114,7 +115,37 @@ __global__ void traceback_kernel(
     const uint8_t o = ops[s]; ops[s] = ops[e]; ops[e] = o;
     const int r = runs[s]; runs[s] = runs[e]; runs[e] = r;
   }
-  for (int s = nseg + lane; s < T; s += 32) { ops[s] = 0; runs[s] = 0; }
+  for (int s = nseg + lane; s < K; s += 32) { ops[s] = 0; runs[s] = 0; }
+}
+
+__global__ void traceback_kernel(
+    const uint8_t* __restrict__ tb, const int* __restrict__ los,
+    const int* __restrict__ start_i, const int* __restrict__ start_j,
+    uint8_t* __restrict__ cig_ops, int* __restrict__ cig_runs,
+    int* __restrict__ cig_len, int N, int T, int Bp, int band) {
+  const int pair = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (pair >= N) return;            // whole warps leave together
+  const Plane pl{tb + (long long)pair * T * Bp,
+                 los + (long long)pair * (T + 1), T, Bp, band};
+  walk_pair(pl, start_i[pair], start_j[pair], cig_ops + (long long)pair * T,
+            cig_runs + (long long)pair * T, cig_len + pair, T);
+}
+
+// One warp per table row: each row has its own band, sweep length and
+// plane offsets; its RLE row is K = max sweep wide.
+__global__ void traceback_table_kernel(
+    const long long* __restrict__ table, const uint8_t* __restrict__ tb,
+    const int* __restrict__ los, const int* __restrict__ start_i,
+    const int* __restrict__ start_j, uint8_t* __restrict__ cig_ops,
+    int* __restrict__ cig_runs, int* __restrict__ cig_len, int R, int K) {
+  const int w = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (w >= R) return;
+  const long long* e = table + (long long)w * NCOL;
+  const int row = (int)e[ROW], band = (int)e[BAND];
+  const Plane pl{tb + e[TB_OFF], los + e[LOS_OFF], (int)e[STEPS],
+                 (band + 1) >> 1, band};
+  walk_pair(pl, start_i[row], start_j[row], cig_ops + (long long)row * K,
+            cig_runs + (long long)row * K, cig_len + row, K);
 }
 
 }  // namespace
@@ -132,5 +163,23 @@ extern "C" int traceback_launch(
       (const uint8_t*)tb, (const int*)los, (const int*)start_i,
       (const int*)start_j, (uint8_t*)cig_ops, (int*)cig_runs, (int*)cig_len,
       N, T, Bp, band);
+  return (int)cudaGetLastError();
+}
+
+// Launches the table walker on `stream` over the R rows of `table`; the
+// RLE planes are (R, K) with K >= every row's sweep length. Returns the
+// CUDA error code of the launch (0 = success).
+extern "C" int traceback_table_launch(
+    const void* table, const void* tb, const void* los, const void* start_i,
+    const void* start_j, void* cig_ops, void* cig_runs, void* cig_len,
+    int R, int K, void* stream) {
+  if (R <= 0 || K <= 0) return 0;
+  const int warps_per_block = 4;
+  const int blocks = (R + warps_per_block - 1) / warps_per_block;
+  traceback_table_kernel<<<blocks, warps_per_block * 32, 0,
+                           (cudaStream_t)stream>>>(
+      (const long long*)table, (const uint8_t*)tb, (const int*)los,
+      (const int*)start_i, (const int*)start_j, (uint8_t*)cig_ops,
+      (int*)cig_runs, (int*)cig_len, R, K);
   return (int)cudaGetLastError();
 }

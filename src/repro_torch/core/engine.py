@@ -38,9 +38,11 @@ streaming front-end that keeps this pipeline continuously fed from a live
 request stream is `repro_torch.serve.AlignmentService`, which drives the
 same `plan` / `enqueue_group` / `finalize_group` primitives.
 
-Not ported yet, and refused at construction: persistent dispatch
-(`dispatch="persistent"`, ROADMAP A5) and sharding over a mesh of devices
-(`mesh=`, ROADMAP A9).
+With `dispatch="persistent"` the whole request is one launch of the
+persistent wavefront over every group plus one launch of the table
+walker (`enqueue_persistent` / `finalize_persistent`), and the host
+waits only when it fetches the results. Not ported yet, and refused at construction: sharding over a
+mesh of devices (`mesh=`, ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ from repro_torch.core.backends import available_backends, get_backend, \
     resolve_backend
 from repro_torch.core.banded import validate_narrow_cells
 from repro_torch.core.batch import (DEFAULT_BAND_CAP, DEFAULT_BUCKET_EDGES,
-                                    BucketSpec, check_device,
+                                    BucketSpec, HostFetch, check_device,
                                     default_base_bandwidth, enqueue_dispatch,
                                     finalize_dispatch, pad_group,
                                     plan_buckets, run_dispatch)
@@ -66,6 +68,14 @@ from repro_torch.core.scoring import ScoringConfig, MINIMAP2, adaptive_bandwidth
 #: retired at wavefront step k (always 0 when xdrop is off).
 SCALAR_KEYS = ("score", "final_lo", "best_score", "best_i", "best_j",
                "status")
+
+#: Dummy-row pad multiple for persistent dispatch groups. The pipelined
+#: path pads every group to its capacity slice because each slice is a
+#: separate launch; the persistent kernel has no per-group launch to
+#: amortise, so groups pad only to this multiple — a ragged tail group of
+#: 22 pairs costs 24 rows, not 64.
+PERSISTENT_PAD = 8
+
 
 @dataclasses.dataclass
 class PendingDispatch:
@@ -104,15 +114,35 @@ class PendingDispatch:
 
 @dataclasses.dataclass
 class PendingPersistent:
-    """Handle of one enqueued persistent-dispatch request. Persistent
-    dispatch is not ported yet (ROADMAP A5): no code path creates one; the
-    class exists so the serving layer's type test imports unchanged."""
-    groups: list
-    batch: list
-    outs: dict
-    num_real: int
+    """One enqueued persistent-dispatch request (ALL of its groups in one
+    launch of each kernel; see `AlignmentEngine.enqueue_persistent`).
+
+    The same two-phase contract as `PendingDispatch`, at request
+    granularity: between enqueue and finalize the merged result buffers
+    live on the device, and `finalize_persistent` is where the host waits
+    for them and fetches the scalars and the trimmed RLE arrays."""
+    groups: list         # planned DispatchGroups (caller-order indices)
+    batch: list          # per-group (q_pad, r_pad, n, m, band, t_max)
+    outs: dict           # run_persistent's merged device result
+    num_real: int        # request pairs before dummy padding
     collect_tb: bool
     mode: str
+    ready: object = None  # CUDA event recorded behind the two launches
+
+    @property
+    def num_slots(self) -> int:
+        """Padded rows across all groups — the fill-ratio denominator."""
+        return sum(int(grp[0].shape[0]) for grp in self.batch)
+
+    @property
+    def signature(self) -> tuple:
+        """The request's group geometry (the key a depth autotuner works
+        in). The kernels take all of it as run-time data, so a new
+        signature builds nothing."""
+        return ("persistent",) + tuple(
+            (int(grp[0].shape[0]), int(grp[0].shape[1]),
+             int(grp[1].shape[1]), int(grp[4]), grp[5])
+            for grp in self.batch)
 
 
 def _check_t_max(t_max, n, m) -> None:
@@ -159,10 +189,15 @@ class AlignmentEngine:
         of its members) instead of the full padded q_len + r_len.
         Results are bit-identical either way; False exists for the
         trimming-parity tests and benchmarks.
-      dispatch: "pipelined" — the depth-1 lookahead loop: one backend
-        launch per dispatch group slice, host mediating group
-        boundaries. "persistent" (all groups of a request in one launch)
-        is not ported yet and raises NotImplementedError (ROADMAP A5).
+      dispatch: "pipelined" (default) or "persistent". Pipelined is the
+        depth-1 lookahead loop: one backend launch per dispatch group
+        slice, host mediating group boundaries. Persistent hands ALL of
+        a request's groups to the backend's `run_persistent`: one launch
+        of the persistent wavefront (per-group band and sweep length in
+        a work table) and one of the table walker, groups padded only to
+        `PERSISTENT_PAD` rows, and the results fetched at the end.
+        Results are bit-identical. Persistent with collect_tb requires
+        decode="device".
       cell_dtype: "int32" (default) or "narrow" — backend band-state
         storage precision (paper §IV bit-width reduction). Narrow keeps
         int8 difference planes + int16 band-relative H in the plain
@@ -188,9 +223,10 @@ class AlignmentEngine:
         is not ported yet and raises NotImplementedError (ROADMAP A9).
       batch_axes: kept for signature parity with `mesh`; unused.
       compilation_cache_dir: kept for signature parity and unused. The
-        kernels take band, sweep length and sequence lengths as run-time
-        arguments, so there is no per-signature program to cache; the
-        two shared libraries are built once into ``build/``.
+        kernels take band, sweep length, sequence lengths and the
+        persistent work table as run-time arguments, so there is no
+        per-signature program to cache; the shared libraries are built
+        once into ``build/``.
     """
 
     backend: object = "auto"
@@ -215,9 +251,6 @@ class AlignmentEngine:
         if self.dispatch not in ("pipelined", "persistent"):
             raise ValueError(f"dispatch must be 'pipelined' or "
                              f"'persistent', got {self.dispatch!r}")
-        if self.dispatch == "persistent":
-            raise NotImplementedError(
-                "dispatch='persistent' is not ported yet: ROADMAP A5")
         if self.mesh is not None:
             raise NotImplementedError(
                 "mesh= (sharded dispatch) is not ported yet: ROADMAP A9")
@@ -313,21 +346,31 @@ class AlignmentEngine:
             adaptive=self.adaptive, collect_tb=collect_tb,
             mode=mode, t_max=t_max, decode=self.decode,
             cell_dtype=self.cell_dtype, xdrop=self.xdrop)
-        ready = None
-        if self.device.type == "cuda":
-            with torch.cuda.device(self.device):
-                outs = enqueue_dispatch(run, q_pad, r_pad, n, m,
-                                        capacity=spec.capacity,
-                                        device=self.device)
-                ready = torch.cuda.Event()
-                ready.record()
-        else:
-            outs = enqueue_dispatch(run, q_pad, r_pad, n, m,
-                                    capacity=spec.capacity,
-                                    device=self.device)
+        outs, ready = self._queue(lambda: enqueue_dispatch(
+            run, q_pad, r_pad, n, m, capacity=spec.capacity,
+            device=self.device))
         return PendingDispatch(spec=spec, n=n, m=m, outs=outs,
                                num_real=len(reads), collect_tb=collect_tb,
                                mode=mode, ready=ready)
+
+    def _queue(self, launch):
+        """Run `launch` (which queues device work) on this engine's
+        device; on a CUDA device also record an event behind its work.
+        Returns (its result, the event or None)."""
+        if self.device.type != "cuda":
+            return launch(), None
+        with torch.cuda.device(self.device):
+            out = launch()
+            ready = torch.cuda.Event()
+            ready.record()
+        return out, ready
+
+    def _fetch_stream(self, ready):
+        """The engine's second stream for fetches behind `ready`, created
+        at the first CUDA fetch (None when there is no event)."""
+        if ready is not None and self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(device=self.device)
+        return self._copy_stream
 
     def finalize_group(self, pending: PendingDispatch, *,
                        stats: dict | None = None) -> dict:
@@ -337,15 +380,103 @@ class AlignmentEngine:
         joins its CIGARs per the engine's decode stage. With `stats`,
         reports the bytes this fetch really materialised
         (`stats["fetched_bytes"]`, padded rows included)."""
-        if pending.ready is not None and self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(device=self.device)
         return finalize_dispatch(pending.outs, pending.n, pending.m,
                                  band=pending.spec.band,
                                  num_real=pending.num_real,
                                  collect_tb=pending.collect_tb,
                                  mode=pending.mode, decode=self.decode,
                                  stats=stats, ready=pending.ready,
-                                 copy_stream=self._copy_stream)
+                                 copy_stream=self._fetch_stream(
+                                     pending.ready))
+
+    # ------------------------------------------------------------------
+    # Persistent-dispatch pipeline primitives (request granularity).
+    # ------------------------------------------------------------------
+    def enqueue_persistent(self, reads, refs, *, mode: str = "global",
+                           collect_tb: bool = False) -> PendingPersistent:
+        """Plan a whole ragged request and enqueue ALL of its groups as one
+        launch of each kernel (`run_persistent`) — no synchronisation. The
+        `PendingPersistent` handle goes to `finalize_persistent`; a caller
+        interleaving several handles pipelines whole requests the way
+        `enqueue_group` pipelines groups (the streaming service does
+        exactly this when its engine runs `dispatch="persistent"`)."""
+        if self.dispatch != "persistent":
+            raise ValueError("enqueue_persistent requires AlignmentEngine("
+                             "dispatch='persistent')")
+        if collect_tb and self.decode != "device":
+            raise ValueError(
+                "dispatch='persistent' fuses the traceback decode "
+                "on-device; decode='host' exists only on the pipelined "
+                "path")
+        if not len(reads):
+            raise ValueError("enqueue_persistent needs at least one pair")
+        groups = self.plan([len(x) for x in reads],
+                           [len(x) for x in refs])
+        batch = []
+        for g in groups:
+            idx = g.indices
+            t_max = g.spec.t_max if self.trim else None
+            q_pad, r_pad, n, m = pad_group(
+                [reads[i] for i in idx], [refs[i] for i in idx], g.spec,
+                pad_multiple=PERSISTENT_PAD)
+            _check_t_max(t_max, n, m)
+            batch.append((q_pad, r_pad, n, m, g.spec.band, t_max))
+        outs, ready = self._queue(lambda: self.backend.run_persistent(
+            batch, sc=self.sc, adaptive=self.adaptive,
+            collect_tb=collect_tb, mode=mode, decode=self.decode,
+            cell_dtype=self.cell_dtype, xdrop=self.xdrop,
+            device=self.device))
+        return PendingPersistent(groups=groups, batch=batch, outs=outs,
+                                 num_real=len(reads),
+                                 collect_tb=collect_tb, mode=mode,
+                                 ready=ready)
+
+    def finalize_persistent(self, pending: PendingPersistent, *,
+                            stats: dict | None = None) -> dict:
+        """Materialise a persistent request on the second stream behind
+        the request's event: the scalars and, with collect_tb, `cig_len`
+        and then each group's RLE rows trimmed to that group's longest
+        CIGAR (one short request's rows never pay a long group's width);
+        strip the per-group dummy padding and scatter back to the
+        caller's original pair order. Returns (N,) arrays for the
+        SCALAR_KEYS plus 'band', and 'cigars' when tracebacks were
+        collected. With `stats`, reports `stats["fetched_bytes"]` (padded
+        rows included)."""
+        from repro_torch.core.traceback_device import rle_to_cigars
+
+        fetch = HostFetch(pending.ready, self._fetch_stream(pending.ready))
+        N = pending.num_real
+        out = {k: np.zeros(N, np.int32) for k in SCALAR_KEYS}
+        out["band"] = np.zeros(N, np.int32)
+        merged = pending.outs
+        if pending.collect_tb:
+            lens = fetch(merged["cig_len"])
+        scalars = {k: fetch(merged[k]) for k in SCALAR_KEYS}
+        cigars: list = [None] * N
+        off = 0
+        for g, grp in zip(pending.groups, pending.batch):
+            idx = g.indices
+            n_real = len(idx)
+            n_pad = grp[0].shape[0]
+            for key in SCALAR_KEYS:
+                out[key][idx] = scalars[key][off:off + n_real]
+            out["band"][idx] = g.spec.band
+            if pending.collect_tb:
+                rows = slice(off, off + n_pad)
+                k_g = max(int(lens[rows].max(initial=0)), 1)
+                ops = fetch(merged["cig_ops"][rows, :k_g])
+                runs = fetch(merged["cig_runs"][rows, :k_g])
+                cigs = rle_to_cigars(ops[:n_real], runs[:n_real],
+                                     lens[off:off + n_real])
+                st = scalars["status"][off:off + n_real]
+                for pos, cig, rej in zip(idx, cigs, st != 0):
+                    cigars[pos] = None if rej else cig
+            off += n_pad
+        if pending.collect_tb:
+            out["cigars"] = cigars
+        if stats is not None:
+            stats["fetched_bytes"] = fetch.nbytes
+        return out
 
     # ------------------------------------------------------------------
     # Warm start.
@@ -397,6 +528,9 @@ class AlignmentEngine:
         """
         if len(reads) != len(refs):
             raise ValueError("reads and refs must pair up")
+        if self.dispatch == "persistent":
+            return self._align_persistent(reads, refs, mode=mode,
+                                          collect_tb=collect_tb)
         N = len(reads)
         out = {k: np.zeros(N, np.int32) for k in SCALAR_KEYS}
         out["band"] = np.zeros(N, np.int32)
@@ -432,7 +566,22 @@ class AlignmentEngine:
             out["cigars"] = cigars
         return out
 
+    def _align_persistent(self, reads, refs, *, mode: str,
+                          collect_tb: bool):
+        """The persistent-dispatch realisation of `align`: every planned
+        group in one launch of each kernel, fetched at the end.
+        Output contract identical to the pipelined `align` (bit-exact)."""
+        if not len(reads):
+            out = {k: np.zeros(0, np.int32) for k in SCALAR_KEYS}
+            out["band"] = np.zeros(0, np.int32)
+            if collect_tb:
+                out["cigars"] = []
+            return out
+        pending = self.enqueue_persistent(reads, refs, mode=mode,
+                                          collect_tb=collect_tb)
+        return self.finalize_persistent(pending)
+
 
 __all__ = ["AlignmentEngine", "PendingDispatch", "PendingPersistent",
-           "SCALAR_KEYS", "available_backends", "get_backend",
-           "resolve_backend", "run_dispatch"]
+           "PERSISTENT_PAD", "SCALAR_KEYS", "available_backends",
+           "get_backend", "resolve_backend", "run_dispatch"]

@@ -27,6 +27,13 @@ the host oracle `banded.traceback_banded_batch` (entering a gap run and
 emitting its first op are fused into one step, so every iteration emits
 exactly one op per still-active pair and the walk needs at most ``T``
 iterations). Both give the same three arrays bit for bit.
+
+`decode_packed_tb_table` is the second, table-driven entry point, for a
+persistent request (`kernels.banded_dp.persistent`): one launch walks the
+rows of every group, each with its own band, sweep length and plane
+offset, into one ``(R, K)`` RLE plane with K the longest group sweep —
+exactly the merged layout of `core.backends.merge_persistent_outputs`.
+Its plain version walks group by group and merges.
 """
 
 from __future__ import annotations
@@ -217,6 +224,24 @@ def decode_packed_tb(tb, los, start_i, start_j, *, band: int, device=None):
     return decode_packed_tb_cuda(tb, los, start_i, start_j, band=band)
 
 
+def _start_cells(out: dict, n, m, mode: str):
+    """Traceback start cells, chosen on the device: (n, m) for global
+    mode, the tracked best cell for semiglobal, and (0, 0) — an empty
+    walk — for pairs the xdrop rule retired."""
+    dev = out["score"].device
+    if mode == "semiglobal":
+        start_i, start_j = out["best_i"], out["best_j"]
+    else:
+        start_i = torch.as_tensor(n, device=dev).to(torch.int32)
+        start_j = torch.as_tensor(m, device=dev).to(torch.int32)
+    status = out.get("status")
+    if status is not None:
+        keep = (status == 0).to(torch.int32)
+        start_i = start_i * keep
+        start_j = start_j * keep
+    return start_i, start_j
+
+
 def device_decode_result(out: dict, n, m, *, band: int,
                          mode: str = "global", walker=None) -> dict:
     """Fuse the decode stage onto a backend result: consume ``tb``/``los``
@@ -238,22 +263,122 @@ def device_decode_result(out: dict, n, m, *, band: int,
     out = dict(out)
     tb = out.pop("tb")
     los = out.pop("los")
-    dev = tb.device
-    if mode == "semiglobal":
-        start_i, start_j = out["best_i"], out["best_j"]
-    else:
-        start_i = torch.as_tensor(n, device=dev).to(torch.int32)
-        start_j = torch.as_tensor(m, device=dev).to(torch.int32)
-    status = out.get("status")
-    if status is not None:
-        keep = (status == 0).to(torch.int32)
-        start_i = start_i * keep
-        start_j = start_j * keep
+    start_i, start_j = _start_cells(out, n, m, mode)
     walker = decode_packed_tb if walker is None else walker
     ops, runs, lens = walker(tb, los, start_i, start_j, band=band)
     out["cig_ops"] = ops
     out["cig_runs"] = runs
     out["cig_len"] = lens
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Table-driven entry point: every row of a persistent request in one walk.
+# ---------------------------------------------------------------------------
+
+def decode_packed_tb_table_plain(table, tb, los, start_i, start_j):
+    """Plain version of the table walker: `decode_packed_tb_plain` over
+    each group's rows with its own band, merged group-major with the RLE
+    planes zero-padded on the right to the longest group sweep.
+
+    `table` is a `kernels.banded_dp.persistent.WorkTable`; `tb` / `los`
+    are the flat planes of `persistent_align_*`; start_i, start_j are
+    (R,) in merged row order. Returns (cig_ops (R, K) uint8, cig_runs
+    (R, K) int32, cig_len (R,) int32) with K = the longest group sweep.
+    """
+    from repro_torch.core.backends import merge_persistent_outputs
+    from repro_torch.kernels.banded_dp.persistent import group_rows
+
+    outs = []
+    for s in table.spans:
+        rows = slice(s.row0, s.row0 + s.rows)
+        ops, runs, lens = decode_packed_tb_plain(
+            group_rows(tb, s, s.tb0, s.steps * s.tb_width, s.steps,
+                       s.tb_width),
+            group_rows(los, s, s.los0, s.steps + 1, s.steps + 1),
+            start_i[rows], start_j[rows], band=s.band)
+        outs.append({"cig_ops": ops, "cig_runs": runs, "cig_len": lens})
+    merged = merge_persistent_outputs(outs)
+    return merged["cig_ops"], merged["cig_runs"], merged["cig_len"]
+
+
+def _table_lib():
+    lib = build.load("traceback")
+    fn = lib.traceback_table_launch
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 8 + [_I] * 2 + [_P]
+        fn.restype = _I
+    return lib
+
+
+def decode_packed_tb_table_cuda(table, tb, los, start_i, start_j):
+    """Launch the table walker kernel once for every row of `table` (CUDA
+    tensors, current stream, no synchronisation). Same arguments and
+    results as `decode_packed_tb_table_plain`; raises on anything the
+    kernel does not take."""
+    if not tb.is_cuda:
+        raise ValueError("decode_packed_tb_table_cuda takes CUDA tensors")
+    dev = tb.device
+    R, K = table.num_rows, table.steps_max
+    if table.rows.device != dev or table.rows.dtype != torch.int64:
+        raise ValueError(f"the work table must be an int64 tensor on {dev}")
+    if tb.dtype != torch.uint8 or tb.shape != (table.tb_bytes,):
+        raise ValueError(f"tb must be a flat ({table.tb_bytes},) uint8 "
+                         "tensor")
+    if los.dtype != torch.int32 or los.shape != (table.los_words,):
+        raise ValueError(f"los must be a flat ({table.los_words},) int32 "
+                         "tensor")
+    tb, los = tb.contiguous(), los.contiguous()
+    si = start_i.to(device=dev, dtype=torch.int32).contiguous()
+    sj = start_j.to(device=dev, dtype=torch.int32).contiguous()
+    if si.shape != (R,) or sj.shape != (R,):
+        raise ValueError("start_i, start_j must be (R,) tensors")
+    cig_ops = torch.empty((R, K), dtype=torch.uint8, device=dev)
+    cig_runs = torch.empty((R, K), dtype=torch.int32, device=dev)
+    if R == 0 or K == 0:
+        return cig_ops, cig_runs, torch.zeros(R, dtype=torch.int32,
+                                              device=dev)
+    cig_len = torch.empty(R, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _table_lib().traceback_table_launch(
+            table.rows.data_ptr(), tb.data_ptr(), los.data_ptr(),
+            si.data_ptr(), sj.data_ptr(), cig_ops.data_ptr(),
+            cig_runs.data_ptr(), cig_len.data_ptr(), R, K,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"traceback table kernel launch failed: CUDA "
+                           f"error {err}")
+    decode_packed_tb_table_cuda.launches += 1
+    return cig_ops, cig_runs, cig_len
+
+
+#: Kernel launches since the count was last set to 0.
+decode_packed_tb_table_cuda.launches = 0
+
+
+def decode_packed_tb_table(table, tb, los, start_i, start_j):
+    """Walk every row of a persistent request where its planes live: CPU
+    tensors take `decode_packed_tb_table_plain`, CUDA tensors launch the
+    table walker kernel or raise."""
+    if tb.device.type == "cpu":
+        return decode_packed_tb_table_plain(table, tb, los, start_i,
+                                            start_j)
+    return decode_packed_tb_table_cuda(table, tb, los, start_i, start_j)
+
+
+def device_decode_table(out: dict, table, n, m, *, mode: str = "global",
+                        walker=None) -> dict:
+    """`device_decode_result` for a persistent request: consume the flat
+    ``tb``/``los`` of `persistent_align_*` and put the merged RLE arrays
+    in their place, all rows in one walk. `walker` overrides the decode
+    function (default `decode_packed_tb_table`)."""
+    out = dict(out)
+    tb = out.pop("tb")
+    los = out.pop("los")
+    start_i, start_j = _start_cells(out, n, m, mode)
+    walker = decode_packed_tb_table if walker is None else walker
+    out["cig_ops"], out["cig_runs"], out["cig_len"] = walker(
+        table, tb, los, start_i, start_j)
     return out
 
 

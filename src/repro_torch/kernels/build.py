@@ -19,10 +19,13 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 
-#: name -> source file. One shared library per source.
+#: name -> source file. One shared library per source; every header
+#: (``.cuh``) of the package counts as part of each.
 SOURCES = {
     "banded_dp": _PKG / "kernels" / "banded_dp" / "csrc" / "banded_dp.cu",
     "traceback": _PKG / "core" / "csrc" / "traceback.cu",
+    "persistent": _PKG / "kernels" / "banded_dp" / "csrc" / "persistent.cu",
+    "chain": _PKG / "map" / "csrc" / "chain.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -54,8 +57,9 @@ def _lib_path(name: str) -> Path:
 
 def _stale(name: str) -> bool:
     lib = _lib_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < SOURCES[name].stat().st_mtime)
+    newest = max(p.stat().st_mtime
+                 for p in (SOURCES[name], *_PKG.rglob("*.cuh")))
+    return not lib.exists() or lib.stat().st_mtime < newest
 
 
 def _start(name: str, extra=()) -> tuple[subprocess.Popen, Path]:

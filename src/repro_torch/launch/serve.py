@@ -11,11 +11,15 @@ bytes fetched, flush causes.
     PYTHONPATH=src python -m repro_torch.launch.serve --reads 512 \
         --rate 2000 --policy adaptive --warmup --no-mesh
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --reads 512 \
+        --dispatch persistent --no-mesh
+
 Runs on the card and exits with an error without one (`--device cpu
---backend reference` asks for the CPU explicitly). Single device only:
-without `--no-mesh`, with `--replicas N` (N > 1) or with `--dispatch
-persistent` it exits with an error naming the ROADMAP item that ports
-that mode (A9, A6, A5).
+--backend reference` asks for the CPU explicitly). `--dispatch
+persistent` runs each flush as one launch of the persistent wavefront
+and one of the table walker. Single device only: without `--no-mesh` or
+with `--replicas N` (N > 1) it exits with an error naming the ROADMAP
+item that ports that mode (A9, A6).
 """
 
 from __future__ import annotations
@@ -55,8 +59,9 @@ def main():
                          "enqueue/finalize latency")
     ap.add_argument("--dispatch", choices=("pipelined", "persistent"),
                     default="pipelined",
-                    help="engine dispatch mode; 'persistent' is not "
-                         "ported yet (ROADMAP A5)")
+                    help="engine dispatch mode: 'pipelined' launches "
+                         "per dispatch group slice, 'persistent' runs each "
+                         "flush as one launch of each kernel")
     ap.add_argument("--warmup", action="store_true",
                     help="build/load the kernels and run one dummy "
                          "alignment before accepting traffic")
@@ -88,8 +93,6 @@ def main():
     if args.replicas > 1:
         ap.error("--replicas > 1 needs the replicated tier "
                  "(serve/router.py), not ported yet: ROADMAP A6")
-    if args.dispatch == "persistent":
-        ap.error("--dispatch persistent is not ported yet: ROADMAP A5")
     if not args.no_mesh:
         ap.error("the mesh path is not ported yet (ROADMAP A9): pass "
                  "--no-mesh")

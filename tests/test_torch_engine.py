@@ -121,13 +121,14 @@ def test_warmup_and_unported_modes():
     assert te.warmup([(40, 40), (150, 160)], collect_tb=True) == 2
     assert te.warmup([]) == 0
     assert te.num_shards == 1 and te.backend_name == "reference"
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        AlignmentEngine(backend="reference", device="cpu",
-                        dispatch="persistent")
+    # Persistent dispatch is ported: it builds, warms up and aligns.
+    pe = AlignmentEngine(backend="reference", device="cpu",
+                         dispatch="persistent")
+    assert pe.warmup([(40, 40)], collect_tb=True) == 1
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         AlignmentEngine(backend="reference", device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        te.backend.run_persistent([])
+    with pytest.raises(ValueError, match="at least one group"):
+        te.backend.run_persistent([], sc=TORCH_SC)
     with pytest.raises(ValueError):
         AlignmentEngine(backend="reference", device="cpu", dispatch="x")
     with pytest.raises(ValueError):

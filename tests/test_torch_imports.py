@@ -5,6 +5,7 @@ entry points never carry on on the CPU unasked."""
 import ast
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -12,6 +13,8 @@ from repro_torch.core.backends import (available_backends, get_backend,
                                        resolve_backend)
 from repro_torch.core.batch import AlignmentBatch, align_batch
 from repro_torch.core.engine import AlignmentEngine
+from repro_torch.launch import map as map_launcher
+from repro_torch.map import chain_batch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -32,8 +35,10 @@ def test_port_has_its_modules():
     assert "chip_smoke.py" in names
     for mod in ("core/banded.py", "core/engine.py", "core/interop.py",
                 "core/traceback_device.py", "core/backends/cuda.py",
-                "kernels/banded_dp/ops.py", "serve/service.py",
-                "launch/serve.py"):
+                "kernels/banded_dp/ops.py", "kernels/banded_dp/persistent.py",
+                "map/__init__.py", "map/index.py", "map/chain.py",
+                "map/mapper.py", "serve/service.py", "launch/serve.py",
+                "launch/map.py"):
         assert f"src/repro_torch/{mod}" in names
 
 
@@ -74,3 +79,11 @@ def test_no_card_means_an_error_not_the_cpu():
         align_batch(batch)
     with pytest.raises(ValueError):
         get_backend("pallas")
+    with pytest.raises(RuntimeError):
+        AlignmentEngine(dispatch="persistent")
+    with pytest.raises(RuntimeError):
+        AlignmentEngine(backend="reference", dispatch="persistent")
+    with pytest.raises(RuntimeError):
+        chain_batch([(np.arange(3), np.arange(3))])   # default: the card
+    with pytest.raises(RuntimeError, match="is_available"):
+        map_launcher.main(["--reads", "2", "--genome", "5000"])
