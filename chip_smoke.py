@@ -5,8 +5,15 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card (`torch.equal`,
-tolerance 0 — integer DP), then drives the port's paths through their
-entry points at a real stream size: one ragged `AlignmentEngine.align`
+tolerance 0, for the integer DP kernels; the banded flash attention B5
+within f32 / one-bf16-ulp tolerances over a matrix and at the main path's
+two shapes), then drives the language-model serving path — gemma3-27b at
+full width, 14 of its 62 layers, random bf16 weights from `--seed`: one
+32,768-token prefill, 4 x 1,152 tokens decoded through the KV caches and
+held against prefill logits, and an f32 check of the kernel path against
+naive attention and of decode against prefill — and then the port's
+alignment paths through their entry points at a real stream size: one
+ragged `AlignmentEngine.align`
 request (65,536 short pairs, 2,048 at 2 kbp, 256 in the 8192 bucket) and
 an `AlignmentService` that answers 33,280 requests, each once pipelined
 and once with `dispatch="persistent"`; then read mapping on a 4 Mbp
@@ -25,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import itertools
 import json
 import os
@@ -43,6 +51,7 @@ if not torch.cuda.is_available():
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import banded  # noqa: E402
 from repro_torch.core import traceback_device as tbd  # noqa: E402
 from repro_torch.core.batch import pad_group, plan_buckets  # noqa: E402
@@ -55,9 +64,14 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.banded_dp.banded_dp import banded_align_cuda  # noqa: E402
 from repro_torch.kernels.banded_dp.persistent import (  # noqa: E402
     pack_groups, persistent_align_cuda, persistent_align_plain)
+from repro_torch.kernels.local_attention.local_attention import (  # noqa: E402
+    flash_attention_cuda, flash_attention_plain)
 from repro_torch.map import STATUS_MAPPED, MinimizerIndex, ReadMapper  # noqa: E402
 from repro_torch.map import chain as chain_mod  # noqa: E402
 from repro_torch.serve import AlignmentService  # noqa: E402
+from repro_torch.data.tokens import TokenPipeline  # noqa: E402
+from repro_torch.models import init_cache, init_params  # noqa: E402
+from repro_torch.train import make_prefill_step, make_serve_step  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 
@@ -482,6 +496,343 @@ def chain_check(anchor_sets, params, reps=0):
 
 
 # ---------------------------------------------------------------------------
+# B5 (banded flash attention) vs its plain version, and its yardsticks.
+# ---------------------------------------------------------------------------
+
+# Published dense bf16 tensor-core peak of one H100 SXM (NVIDIA data sheet).
+BF16_FLOP_PER_S = 989e12
+# Kernel vs plain: f32 within the reference's own kernel test bound
+# (tests/test_kernels.py: atol = rtol = 2e-5), the same f32 function summed
+# in another order; bf16 outputs within one bf16 ulp of the value (both
+# round an f32 result; values that straddle a rounding boundary land one
+# ulp apart), or 2e-5 where that is larger (values near 0 whose ulp is
+# below the f32 error of the sum).
+FLASH_F32_TOL = 2e-5
+
+
+def flash_err(out, ref):
+    """(max |out - ref|, whether every element is within the tolerance)."""
+    d = (out.float() - ref.float()).abs()
+    r = ref.float().abs()
+    if ref.dtype == torch.float32:
+        tol = FLASH_F32_TOL + FLASH_F32_TOL * r
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(r.clamp_min(1e-30))) - 7)
+        tol = torch.clamp(ulp, min=FLASH_F32_TOL)
+    return float(d.max()), bool((d <= tol).all())
+
+
+def flash_live_pairs(B, Hq, T, W):
+    """Live (query, key) pairs of a causal pass with window W."""
+    W = T if W is None else min(W, T)
+    return B * Hq * (W * (W + 1) // 2 + (T - W) * W)
+
+
+def flash_bound(q, k, W):
+    """Least time for B5 on these inputs: 4*D FLOP per live pair over the
+    bf16 tensor-core peak, against q, k, v read once and o written once."""
+    B, Hq, T, D = q.shape
+    ops = 4 * D * flash_live_pairs(B, Hq, T, W)
+    nbytes = 2 * q.numel() * q.element_size() \
+        + 2 * k.numel() * k.element_size()
+    t_ops, t_bytes = ops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def flash_matrix(quick):
+    """dtypes x window {None, 1024, 17, >= T} x group {1, 2, 8} x D, with T
+    from 128 to 2,048, kernel vs plain."""
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    grid = list(itertools.product(
+        (torch.float32, torch.bfloat16), (None, 1024, 17, "wide"),
+        (1, 2, 8), (16, 64, 80, 128, 256)))
+    if quick:
+        grid = grid[::4]
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for i, (dt, W, group, D) in enumerate(grid):
+        T = (128, 640, 1152, 2048)[i % 4]
+        B, Hkv = (2, 8 // group) if group > 1 else (1, 4)
+        Hq = Hkv * group
+        W = 2 * T if W == "wide" else W
+        q, k, v = (torch.randn(B, h, T, D, device=DEV, generator=gen).to(dt)
+                   for h in (Hq, Hkv, Hkv))
+        out = flash_attention_cuda(q, k, v, window=W)
+        ref = flash_attention_plain(q, k, v, window=W)
+        torch.cuda.synchronize()
+        err, ok = flash_err(out, ref)
+        if not ok:
+            raise AssertionError(f"B5 != plain beyond tolerance: {dt} W={W} "
+                                 f"group={group} D={D} T={T} err={err}")
+        key = str(dt).split(".")[-1]
+        worst[key] = max(worst[key], err)
+    return len(grid), worst
+
+
+def sdpa_time(q, k, v, W, reps):
+    """One PyTorch call computing the same attention, timed as a yardstick
+    (never used by the port): `is_causal` for the causal pass, a boolean
+    band mask for a window. Returns (ms, backend) or ("not measured",
+    reason)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    T = q.shape[2]
+    kw = dict(is_causal=True)
+    if W is not None and W < T:
+        pos = torch.arange(T, device=DEV)
+        kw = dict(attn_mask=(pos[None, :] <= pos[:, None])
+                  & (pos[None, :] > pos[:, None] - W))
+    reasons = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        for gqa in (True, False):
+            kk, vv = k, v
+            if not gqa:  # the kv heads expanded beforehand, outside the clock
+                g = q.shape[1] // k.shape[1]
+                kk, vv = (x.repeat_interleave(g, dim=1) for x in (k, v))
+            try:
+                with sdpa_kernel([backend]):
+                    def call():
+                        return F.scaled_dot_product_attention(
+                            q, kk, vv, enable_gqa=gqa, **kw)
+                    ms = time_cuda(call, reps)
+                return ms, f"{backend.name}{'' if gqa else ', kv expanded'}"
+            except RuntimeError as e:
+                reasons.append(f"{backend.name}/gqa={gqa}: {str(e)[:80]}")
+    return "not measured", "; ".join(reasons)
+
+
+def flash_main_shapes(reps):
+    """B5 at the two shapes of the main path (gemma3-27b prefill of 32,768
+    tokens: 32 q heads over 16 kv heads, D 128, bf16) with W = 1024 (local
+    layers) and None (global layers): held against the plain version and
+    timed beside it, beside SDPA and against the bound."""
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    q = torch.randn(1, 32, 32768, 128, device=DEV, generator=gen).bfloat16()
+    k, v = (torch.randn(1, 16, 32768, 128, device=DEV,
+                        generator=gen).bfloat16() for _ in range(2))
+    recs = []
+    for W, name in ((1024, "local_w1024"), (None, "global_causal")):
+        out = flash_attention_cuda(q, k, v, window=W)
+        plain_ms, ref = time_host(lambda: flash_attention_plain(
+            q, k, v, window=W))
+        err, ok = flash_err(out, ref)
+        if not ok:
+            raise AssertionError(f"B5 != plain beyond tolerance at {name}: "
+                                 f"{err}")
+        del ref
+        ms = time_cuda(lambda: flash_attention_cuda(q, k, v, window=W),
+                       reps if W else max(reps // 4, 1))
+        lib_ms, lib = sdpa_time(q, k, v, W, reps if W else max(reps // 4, 1))
+        bound, by = flash_bound(q, k, W)
+        pairs = flash_live_pairs(1, 32, 32768, W)
+        recs.append({"shape": name, "q": list(q.shape), "kv": list(k.shape),
+                     "dtype": "bfloat16", "window": W, "live_pairs": pairs,
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "library": lib, "bound_ms": bound, "bound_by": by,
+                     "tflop_per_s": 4 * 128 * pairs / ms / 1e9,
+                     "max_abs_err": err, "within_tolerance": ok})
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# The language-model serving path: gemma3-27b at full width.
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "gemma3-27b"
+
+
+def rel_l2(a, b):
+    """Relative L2 difference per position (over the vocab axis)."""
+    return (a - b).norm(dim=-1) / b.norm(dim=-1)
+
+
+def lm_config(quick):
+    """gemma3-27b at full width; depth cut to 14 of 62 layers (two whole
+    5 local + 1 global periods and the two local remainder layers, since
+    62 % 6 = 14 % 6 = 2), or 8 layers with --quick."""
+    cfg = dataclasses.replace(get_config(LM_ARCH),
+                              n_layers=8 if quick else 14)
+    assert cfg.remainder == ("local", "local"), cfg.remainder
+    return cfg
+
+
+def lm_tokens(cfg, B, T, seed):
+    """(B, T) prompt tokens of the repo's synthetic stream, on the card."""
+    toks = TokenPipeline(cfg.vocab_size, B, T, seed=seed).batch(0)["tokens"]
+    return torch.from_numpy(toks[:, :T]).to(DEV)
+
+
+def teacher_forcing(params, cfg, toks, dtype, paths, tag):
+    """Feed `toks` one token at a time from empty caches through
+    `make_serve_step` and hold every position's logits against
+    `make_prefill_step(last_only=False)` on the same tokens (the JAX
+    package's tests/test_archs_smoke.py check). Also measures how far
+    replacing the first half of the context moves the prefill logits of
+    the second half: the scale the agreement is small against."""
+    B, T = toks.shape
+    prefill_all = make_prefill_step(cfg, compute_dtype=dtype,
+                                    last_only=False)
+    with paths.path(f"lm_prefill_all{tag}"):
+        ref = prefill_all(params, {"tokens": toks})
+        torch.cuda.synchronize()
+    half = T // 2
+    other = toks.clone()
+    other[:, :half] = (other[:, :half] + 1
+                       + torch.arange(half, device=DEV) % 97) % cfg.vocab_size
+    ctx = rel_l2(prefill_all(params, {"tokens": other})[:, half:],
+                 ref[:, half:])
+    serve = make_serve_step(cfg, compute_dtype=dtype)
+    cache = init_cache(cfg, B, T, dtype, device=DEV)
+    dec = torch.empty_like(ref)
+    with paths.path(f"lm_decode{tag}"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(T):
+            lg, cache = serve(params, {"tokens": toks[:, t:t + 1]}, cache)
+            dec[:, t] = lg[:, 0]
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+    assert bool(torch.isfinite(dec).all())
+    err = rel_l2(dec, ref)
+    d = (dec - ref).abs()
+    return {
+        "batch": B, "steps": T, "dtype": str(dtype).split(".")[-1],
+        "ms_per_step": dec_s * 1e3 / T, "tokens_per_s": B * T / dec_s,
+        "launches": paths.paths[f"lm_decode{tag}"],
+        "prefill_launches":
+            paths.paths[f"lm_prefill_all{tag}"]["local_attention"],
+        "rel_l2_max": float(err.max()), "rel_l2_mean": float(err.mean()),
+        "max_abs_err": float(d.max()),
+        "allclose_2e-3": bool((d <= 2e-3 + 2e-3 * ref.abs()).all()),
+        "logit_abs_max": float(ref.abs().max()),
+        "argmax_agree": float((dec.argmax(-1) == ref.argmax(-1))
+                              .float().mean()),
+        "context_rel_l2_median": float(ctx.median()),
+        "ring_wraps": T > cfg.window}
+
+
+def lm_phase(args, paths):
+    quick = args.quick
+    cfg = lm_config(quick)
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "n_layers_published": get_config(LM_ARCH).n_layers,
+           "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+           "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "window": cfg.window}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, args.seed, torch.bfloat16, device=DEV)
+    torch.cuda.synchronize()
+    rec["init_seconds"] = time.perf_counter() - t0
+    rec["params"] = sum(t.numel() for t in tree_leaves(params))
+    rec["param_gb"] = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(params)) / 1e9
+    per_prefill = cfg.n_layers   # one B5 launch per attention layer
+
+    # (a) prefill of one 32,768-token sequence (prefill_32k's length).
+    T = 4096 if quick else 32768
+    toks = lm_tokens(cfg, 1, T, args.seed)
+    prefill = make_prefill_step(cfg)            # bf16, last-position logits
+    with paths.path("lm_prefill"):
+        logits = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+    got = paths.paths["lm_prefill"]
+    assert got["local_attention"] == per_prefill, got
+    assert logits.shape == (1, 1, cfg.vocab_size), logits.shape
+    assert bool(torch.isfinite(logits).all())
+    trace = device_trace(lambda: prefill(params, {"tokens": toks}))
+    wall_ms = trace.get("wall_ms") \
+        or time_host(lambda: prefill(params, {"tokens": toks}))[0]
+    rec["prefill"] = {"tokens": T, "seconds": wall_ms / 1e3,
+                      "tokens_per_s": T / (wall_ms / 1e3),
+                      "trace": trace, "launches": got,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit("lm_progress", {"prefill": rec["prefill"]})
+
+    # (b) decode through the caches vs prefill logits (teacher forcing).
+    Bd, Td = (2, 1152) if quick else (4, 1152)
+    dtoks = lm_tokens(cfg, Bd, Td, args.seed + 1)
+    tf = teacher_forcing(params, cfg, dtoks, torch.bfloat16, paths, "")
+    assert tf.pop("prefill_launches") == per_prefill
+    # bf16 bound: the logits are bf16-rounded in both paths (unit roundoff
+    # u = 2^-9), and the paths round at different places inside attention
+    # (f32 softmax in B5, bf16 probabilities in decode), each layer
+    # carrying the last layer's difference: 16 u.
+    tf["tolerance"] = "rel L2 per position <= 2^-5 (16 bf16 unit roundoffs)"
+    rec["decode"] = tf
+    if not tf["rel_l2_max"] <= 2 ** -5:
+        raise AssertionError(f"bf16 decode != prefill: {tf}")
+    serve = make_serve_step(cfg)
+
+    def decode_steps(n=32):
+        c = init_cache(cfg, Bd, Td, torch.bfloat16, device=DEV)
+        for t in range(n):
+            serve(params, {"tokens": dtoks[:, t:t + 1]}, c)
+    rec["decode"]["trace_32_steps"] = device_trace(decode_steps)
+    emit("lm_progress", {"decode": rec["decode"]})
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) f32: the kernel path vs impl="naive", full f32 products; then
+    # decode vs prefill in f32, where the agreement is sharp enough to set
+    # against how far the context moves the logits.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    p32 = init_params(cfg, args.seed, torch.float32, device=DEV)
+    Bf, Tf = (1, 512) if quick else (2, 2048)
+    ftoks = lm_tokens(cfg, Bf, Tf, args.seed + 2)
+    kern = make_prefill_step(cfg, compute_dtype=torch.float32,
+                             last_only=False)
+    naive = make_prefill_step(dataclasses.replace(cfg, attn_impl="naive"),
+                              compute_dtype=torch.float32, last_only=False)
+    with paths.path("lm_prefill_f32"):
+        a = kern(p32, {"tokens": ftoks})
+        torch.cuda.synchronize()
+    assert paths.paths["lm_prefill_f32"]["local_attention"] == per_prefill
+    with paths.path("lm_prefill_f32_naive"):
+        b = naive(p32, {"tokens": ftoks})
+        torch.cuda.synchronize()
+    assert paths.paths["lm_prefill_f32_naive"]["local_attention"] == 0
+    d = (a - b).abs()
+    ok = bool((d <= 2e-3 + 2e-3 * b.abs()).all())
+    rec["f32_check"] = {
+        "batch": Bf, "tokens": Tf, "allow_tf32": {
+            "matmul": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn": torch.backends.cudnn.allow_tf32},
+        "max_abs_err": float(d.max()), "rel_l2_max": float(rel_l2(a, b).max()),
+        "logit_abs_max": float(b.abs().max()),
+        "tolerance": "atol = rtol = 2e-3 (the JAX package's own f32 "
+                     "decode-vs-forward bound, tests/test_archs_smoke.py)",
+        "within_tolerance": ok}
+    del a, b, d
+    if not ok:
+        raise AssertionError(f"f32 kernel path != naive: {rec['f32_check']}")
+    tf = teacher_forcing(p32, cfg, dtoks[:2], torch.float32, paths, "_f32")
+    assert tf.pop("prefill_launches") == per_prefill
+    tf["tolerance"] = ("atol = rtol = 2e-3 (as above), and rel L2 per "
+                       "position <= 1/4 of the median change that replacing "
+                       "the first half of the context makes")
+    tf["within_tolerance"] = tf.pop("allclose_2e-3") \
+        and tf["rel_l2_max"] <= tf["context_rel_l2_median"] / 4
+    rec["f32_check"]["decode"] = tf
+    del p32
+    torch.cuda.empty_cache()
+    if not tf["within_tolerance"]:
+        raise AssertionError(f"f32 decode != prefill: {tf}")
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return rec
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
+# ---------------------------------------------------------------------------
 # Main-path checks.
 # ---------------------------------------------------------------------------
 
@@ -509,11 +860,13 @@ COUNTERS = {
     "traceback_table": tbd.decode_packed_tb_table_cuda,
     "persistent": persistent_align_cuda,
     "chain": chain_mod.chain_padded_cuda,
+    "local_attention": flash_attention_cuda,
 }
 PLAIN = {
     "plain_banded": banded.banded_align_batch,
     "plain_traceback": tbd.decode_packed_tb_plain,
     "plain_chain": chain_mod.chain_padded_plain,
+    "plain_flash": flash_attention_plain,
 }
 
 
@@ -592,6 +945,7 @@ def device_trace(fn):
     busy_us = sum(us for _, us in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
     return {"wall_ms": wall_ms, "traced_wall_ms": traced_ms,
+            "device_events": sum(c for c, _ in by_name.values()),
             "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / 1e3 / wall_ms,
             "top": [{"name": k, "count": c, "ms": us / 1e3}
@@ -671,6 +1025,22 @@ def main():
                     "python": sys.version.split()[0],
                     "build_seconds": built["seconds"],
                     "built": built["built"]})
+    paths = PathCounts()
+
+    # ---- 2. B5 vs its plain version; the language-model serving path ----
+    t0 = time.perf_counter()
+    f_cases, f_worst = flash_matrix(args.quick)
+    f_shapes = flash_main_shapes(3 if args.quick else 8)
+    emit("flash_checks", {
+        "seconds": time.perf_counter() - t0, "cases": f_cases,
+        "max_abs_err": f_worst, "shapes": f_shapes,
+        "tolerance": "f32: |err| <= 2e-5 + 2e-5*|plain| (the reference's "
+                     "kernel test bound); bf16: one bf16 ulp of the value "
+                     "(or 2e-5 if larger) — both round an f32 result"})
+    t0 = time.perf_counter()
+    lm = lm_phase(args, paths)
+    lm["seconds"] = time.perf_counter() - t0
+    emit("lm", lm)
 
     rng = np.random.default_rng(args.seed)
     genome = random_genome(4_000_000, seed=args.seed + 1)
@@ -693,7 +1063,7 @@ def main():
     ill = [sim_ill.sample(150) for _ in range(n_ill)]
     pb = [sim_pb.sample(1000) for _ in range(n_pb)]
 
-    # ---- 2. kernels vs plain versions ----
+    # ---- 3. alignment kernels vs plain versions ----
     t0 = time.perf_counter()
     cases, retired, worst_wf, worst_wk = kernel_matrix(*short, args.quick)
     shapes = [("short_4096", short, 4096, 20), ("mid_64", mid, 64, 5),
@@ -728,9 +1098,8 @@ def main():
             {"name": "traceback_table", "cases": p_cases, "equal": True,
              "shapes": [pt_rec]},
         ]})
-    paths = PathCounts()
 
-    # ---- 3. engine: one ragged request, then the short class again ----
+    # ---- 4. engine: one ragged request, then the short class again ----
     reads = short[0] + mid[0] + long_[0]
     refs = short[1] + mid[1] + long_[1]
     with paths.path("engine"):
@@ -783,7 +1152,7 @@ def main():
                     "fetched_bytes_per_pair": fetched,
                     "counts": paths.paths["engine"]})
 
-    # ---- 4. the same request through persistent dispatch ----
+    # ---- 5. the same request through persistent dispatch ----
     with paths.path("engine_persistent"):
         engp = AlignmentEngine(backend="auto", dispatch="persistent")
         engp.warmup([(150, 150)], collect_tb=True)
@@ -819,7 +1188,7 @@ def main():
         "fetched_bytes_per_pair": st["fetched_bytes"] / len(reads),
         "traces": p_traces, "counts": paths.paths["engine_persistent"]})
 
-    # ---- 5. serve: closed loop, pipelined then persistent ----
+    # ---- 6. serve: closed loop, pipelined then persistent ----
     n_req, n_req_mid = (2048, 32) if args.quick else (32768, 512)
     mix150 = bulk_pairs(genome, n_req // 2, 150, "illumina", rng)
     mix300 = bulk_pairs(genome, n_req // 2, 300, "illumina", rng)
@@ -836,7 +1205,7 @@ def main():
                     "requests_per_s": len(results) / serve_s,
                     "launches": paths.paths[name], "stats": svc_stats})
 
-    # ---- 6. read mapping: seed -> chain -> align ----
+    # ---- 7. read mapping: seed -> chain -> align ----
     classes = (("illumina", ill, None, 0.99), ("pacbio", pb, 64, 0.95))
     mapped, records = {}, []
     for dispatch in ("persistent", "pipelined"):
@@ -879,7 +1248,7 @@ def main():
                  "persistent_equals_pipelined": True,
                  "chain_checks": [chain_ill, chain_pb]})
 
-    # ---- 7. the main paths went through the kernels ----
+    # ---- 8. the main paths went through the kernels ----
     tot = paths.total
     common = {"route": "cuda", "library_ms": None}
     wf, wk = wf_shapes[-1], wk_shapes[-1]
@@ -920,6 +1289,26 @@ def main():
     ]
     for k in kernels:
         assert k["launches"] > 0 and k["max_abs_err"] == 0, k
+    loc, glob = f_shapes
+    kernels.append(dict(
+        common, name="local_attention",
+        source="src/repro_torch/kernels/local_attention/csrc/"
+               "local_attention.cu",
+        replaces="src/repro/kernels/local_attention/local_attention.py:136",
+        launches=tot("local_attention"),
+        max_abs_err=max(loc["max_abs_err"], glob["max_abs_err"]),
+        within_tolerance=loc["within_tolerance"]
+        and glob["within_tolerance"],
+        tolerance="one bf16 ulp of the value (bf16); 2e-5 + 2e-5*|x| (f32)",
+        ms=glob["ms"], plain_ms=glob["plain_ms"], bound_ms=glob["bound_ms"],
+        bound_by=glob["bound_by"],
+        library_ms=glob["library_ms"] if isinstance(glob["library_ms"], float)
+        else None,
+        library=glob["library"], shape=glob["shape"],
+        local_ms=loc["ms"], local_plain_ms=loc["plain_ms"],
+        local_bound_ms=loc["bound_ms"], local_library_ms=loc["library_ms"],
+        local_library=loc["library"]))
+    assert kernels[-1]["launches"] > 0 and kernels[-1]["within_tolerance"]
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("total", {"seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -26,6 +26,8 @@ SOURCES = {
     "traceback": _PKG / "core" / "csrc" / "traceback.cu",
     "persistent": _PKG / "kernels" / "banded_dp" / "csrc" / "persistent.cu",
     "chain": _PKG / "map" / "csrc" / "chain.cu",
+    "local_attention": _PKG / "kernels" / "local_attention" / "csrc"
+    / "local_attention.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -14,7 +14,11 @@ from repro_torch.core.backends import (available_backends, get_backend,
 from repro_torch.core.batch import AlignmentBatch, align_batch
 from repro_torch.core.engine import AlignmentEngine
 from repro_torch.launch import map as map_launcher
+from repro_torch.configs import get_config
+from repro_torch.kernels.local_attention.local_attention import (
+    flash_attention_cuda)
 from repro_torch.map import chain_batch
+from repro_torch.models import LanguageModel, init_cache, init_params
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -38,7 +42,12 @@ def test_port_has_its_modules():
                 "kernels/banded_dp/ops.py", "kernels/banded_dp/persistent.py",
                 "map/__init__.py", "map/index.py", "map/chain.py",
                 "map/mapper.py", "serve/service.py", "launch/serve.py",
-                "launch/map.py"):
+                "launch/map.py", "configs/base.py", "configs/archs.py",
+                "data/tokens.py", "models/layers.py", "models/attention.py",
+                "models/blocks.py", "models/model.py", "models/interop.py",
+                "kernels/local_attention/ops.py",
+                "kernels/local_attention/local_attention.py",
+                "kernels/local_attention/ref.py", "train/train_step.py"):
         assert f"src/repro_torch/{mod}" in names
 
 
@@ -87,3 +96,20 @@ def test_no_card_means_an_error_not_the_cpu():
         chain_batch([(np.arange(3), np.arange(3))])   # default: the card
     with pytest.raises(RuntimeError, match="is_available"):
         map_launcher.main(["--reads", "2", "--genome", "5000"])
+
+
+def test_no_card_means_an_error_for_the_lm_path():
+    if torch.cuda.is_available():
+        pytest.skip("this check is for a machine without a CUDA device")
+    cfg = get_config("gemma3-27b").reduced()
+    with pytest.raises(RuntimeError, match="is_available"):
+        init_params(cfg, 0)                         # default: the card
+    with pytest.raises(RuntimeError, match="is_available"):
+        init_params(cfg, 0, device="cuda")
+    with pytest.raises(RuntimeError, match="is_available"):
+        init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="is_available"):
+        LanguageModel.create(cfg, 0)
+    q = torch.zeros(1, 2, 64, 64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_cuda(q, q, q)               # the kernel: no CPU run
