@@ -5,9 +5,12 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card (`torch.equal`,
-tolerance 0, for the integer DP kernels; the banded flash attention B5
-within f32 / one-bf16-ulp tolerances over a matrix and at the main path's
-two shapes), then drives the language-model serving path — gemma3-27b at
+tolerance 0, for the integer DP kernels; the banded flash attention B5 —
+a tensor-core kernel for bf16 at D 64/128/256 and an FMA kernel for the
+rest — within f32 / one-bf16-ulp tolerances over a matrix and at the main
+path's shapes, timed beside SDPA and the bound, with the tensor-core
+kernel's spills and HGMMA instructions), then drives the language-model
+serving path — gemma3-27b at
 full width, 14 of its 62 layers, random bf16 weights from `--seed`: one
 32,768-token prefill, 4 x 1,152 tokens decoded through the KV caches and
 held against prefill logits, and an f32 check of the kernel path against
@@ -31,11 +34,14 @@ check of a changed kernel or path.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import itertools
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -54,7 +60,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import banded  # noqa: E402
 from repro_torch.core import traceback_device as tbd  # noqa: E402
-from repro_torch.core.batch import pad_group, plan_buckets  # noqa: E402
+from repro_torch.core.batch import (DEFAULT_BUCKET_EDGES, pad_group,  # noqa: E402
+                                    plan_buckets)
 from repro_torch.core.engine import PERSISTENT_PAD, AlignmentEngine  # noqa: E402
 from repro_torch.core.full_dp import cigar_score, full_dp_score  # noqa: E402
 from repro_torch.core.scoring import MINIMAP2  # noqa: E402
@@ -65,7 +72,8 @@ from repro_torch.kernels.banded_dp.banded_dp import banded_align_cuda  # noqa: E
 from repro_torch.kernels.banded_dp.persistent import (  # noqa: E402
     pack_groups, persistent_align_cuda, persistent_align_plain)
 from repro_torch.kernels.local_attention.local_attention import (  # noqa: E402
-    flash_attention_cuda, flash_attention_plain)
+    flash_attention_cuda, flash_attention_fma_cuda, flash_attention_plain,
+    flash_attention_tc_cuda, kernel_route)
 from repro_torch.map import STATUS_MAPPED, MinimizerIndex, ReadMapper  # noqa: E402
 from repro_torch.map import chain as chain_mod  # noqa: E402
 from repro_torch.serve import AlignmentService  # noqa: E402
@@ -499,8 +507,10 @@ def chain_check(anchor_sets, params, reps=0):
 # B5 (banded flash attention) vs its plain version, and its yardsticks.
 # ---------------------------------------------------------------------------
 
-# Published dense bf16 tensor-core peak of one H100 SXM (NVIDIA data sheet).
+# Published peaks of one H100 SXM (NVIDIA data sheet): dense bf16 on the
+# tensor cores, and float32 outside them.
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12
 # Kernel vs plain: f32 within the reference's own kernel test bound
 # (tests/test_kernels.py: atol = rtol = 2e-5), the same f32 function summed
 # in another order; bf16 outputs within one bf16 ulp of the value (both
@@ -530,26 +540,32 @@ def flash_live_pairs(B, Hq, T, W):
 
 def flash_bound(q, k, W):
     """Least time for B5 on these inputs: 4*D FLOP per live pair over the
-    bf16 tensor-core peak, against q, k, v read once and o written once."""
+    peak for their type (bf16 tensor cores; float32 FMA units), against
+    q, k, v read once and o written once."""
     B, Hq, T, D = q.shape
     ops = 4 * D * flash_live_pairs(B, Hq, T, W)
     nbytes = 2 * q.numel() * q.element_size() \
         + 2 * k.numel() * k.element_size()
-    t_ops, t_bytes = ops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    t_ops, t_bytes = ops / peak, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
 def flash_matrix(quick):
     """dtypes x window {None, 1024, 17, >= T} x group {1, 2, 8} x D, with T
-    from 128 to 2,048, kernel vs plain."""
+    from 128 to 2,048: each case through `flash_attention_cuda`, which
+    launches the kernel `kernel_route` names (the tensor-core kernel for
+    bf16 at D in 64/128/256, the FMA kernel elsewhere), vs plain. Returns
+    (cases per kernel, worst error per kernel and dtype)."""
     gen = torch.Generator(device=DEV).manual_seed(7)
     grid = list(itertools.product(
         (torch.float32, torch.bfloat16), (None, 1024, 17, "wide"),
         (1, 2, 8), (16, 64, 80, 128, 256)))
     if quick:
         grid = grid[::4]
-    worst = {"float32": 0.0, "bfloat16": 0.0}
+    kernels = {"tc": flash_attention_tc_cuda, "fma": flash_attention_fma_cuda}
+    cases, worst = {"tc": 0, "fma": 0}, {}
     for i, (dt, W, group, D) in enumerate(grid):
         T = (128, 640, 1152, 2048)[i % 4]
         B, Hkv = (2, 8 // group) if group > 1 else (1, 4)
@@ -557,16 +573,57 @@ def flash_matrix(quick):
         W = 2 * T if W == "wide" else W
         q, k, v = (torch.randn(B, h, T, D, device=DEV, generator=gen).to(dt)
                    for h in (Hq, Hkv, Hkv))
+        route = kernel_route(dt, D)
+        before = kernels[route].launches
         out = flash_attention_cuda(q, k, v, window=W)
+        assert kernels[route].launches == before + 1, (route, dt, D)
         ref = flash_attention_plain(q, k, v, window=W)
         torch.cuda.synchronize()
         err, ok = flash_err(out, ref)
         if not ok:
-            raise AssertionError(f"B5 != plain beyond tolerance: {dt} W={W} "
-                                 f"group={group} D={D} T={T} err={err}")
-        key = str(dt).split(".")[-1]
-        worst[key] = max(worst[key], err)
-    return len(grid), worst
+            raise AssertionError(f"B5 ({route}) != plain beyond tolerance: "
+                                 f"{dt} W={W} group={group} D={D} T={T} "
+                                 f"err={err}")
+        key = f"{route}/{str(dt).split('.')[-1]}"
+        worst[key] = max(worst.get(key, 0.0), err)
+        cases[route] += 1
+    return cases, worst
+
+
+def sass_count(lib_name, opcode):
+    """Instructions of `opcode` in the SASS of a built kernel library, by
+    `cuobjdump -sass`; ("not measured", reason) without cuobjdump."""
+    exe = shutil.which("cuobjdump")
+    if exe is None:
+        cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                            "bin", "cuobjdump")
+        exe = cand if os.path.exists(cand) else None
+    if exe is None:
+        return "not measured", "cuobjdump not found"
+    run = subprocess.run([exe, "-sass", str(build.lib_path(lib_name))],
+                         capture_output=True, text=True)
+    if run.returncode != 0:
+        return "not measured", run.stderr.strip()[:200]
+    return sum(opcode in line for line in run.stdout.splitlines()), exe
+
+
+def ptxas_facts(log, kernel):
+    """{head size: {registers, spill_stores, spill_loads}} of the
+    instantiations `kernel<D>` in `-Xptxas -v` output."""
+    facts, cur = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            hit = re.search(kernel + r"ILi(\d+)E", line)
+            cur = int(hit.group(1)) if hit else None
+            if cur:
+                facts[cur] = {}
+        elif cur and (hit := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            facts[cur]["spill_stores"] = int(hit.group(1))
+            facts[cur]["spill_loads"] = int(hit.group(2))
+        elif cur and (hit := re.search(r"Used (\d+) registers", line)):
+            facts[cur]["registers"] = int(hit.group(1))
+    return facts
 
 
 def sdpa_time(q, k, v, W, reps):
@@ -605,33 +662,79 @@ def sdpa_time(q, k, v, W, reps):
 def flash_main_shapes(reps):
     """B5 at the two shapes of the main path (gemma3-27b prefill of 32,768
     tokens: 32 q heads over 16 kv heads, D 128, bf16) with W = 1024 (local
-    layers) and None (global layers): held against the plain version and
-    timed beside it, beside SDPA and against the bound."""
+    layers) and None (global layers): the tensor-core kernel (the main
+    path's) and the FMA kernel held against the plain version, and timed
+    in this one call beside the plain version, SDPA and the bound."""
     gen = torch.Generator(device=DEV).manual_seed(11)
     q = torch.randn(1, 32, 32768, 128, device=DEV, generator=gen).bfloat16()
     k, v = (torch.randn(1, 16, 32768, 128, device=DEV,
                         generator=gen).bfloat16() for _ in range(2))
     recs = []
     for W, name in ((1024, "local_w1024"), (None, "global_causal")):
-        out = flash_attention_cuda(q, k, v, window=W)
+        def tc():
+            return flash_attention_tc_cuda(q, k, v, window=W)
+
+        def fma():
+            return flash_attention_fma_cuda(q, k, v, window=W)
+        out, out_fma = tc(), fma()
         plain_ms, ref = time_host(lambda: flash_attention_plain(
             q, k, v, window=W))
         err, ok = flash_err(out, ref)
-        if not ok:
+        fma_err, fma_ok = flash_err(out_fma, ref)
+        if not (ok and fma_ok):
             raise AssertionError(f"B5 != plain beyond tolerance at {name}: "
-                                 f"{err}")
-        del ref
-        ms = time_cuda(lambda: flash_attention_cuda(q, k, v, window=W),
-                       reps if W else max(reps // 4, 1))
-        lib_ms, lib = sdpa_time(q, k, v, W, reps if W else max(reps // 4, 1))
+                                 f"tc {err}, fma {fma_err}")
+        del ref, out, out_fma
+        slow_reps = reps if W else max(reps // 4, 1)
+        ms = time_cuda(tc, reps)
+        fma_ms = time_cuda(fma, slow_reps)
+        lib_ms, lib = sdpa_time(q, k, v, W, slow_reps)
         bound, by = flash_bound(q, k, W)
         pairs = flash_live_pairs(1, 32, 32768, W)
         recs.append({"shape": name, "q": list(q.shape), "kv": list(k.shape),
                      "dtype": "bfloat16", "window": W, "live_pairs": pairs,
+                     "ms": ms, "fma_ms": fma_ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "library": lib,
+                     "bound_ms": bound, "bound_by": by,
+                     "tflop_per_s": 4 * 128 * pairs / ms / 1e9,
+                     "bound_share": bound / ms,
+                     "fma_tflop_per_s": 4 * 128 * pairs / fma_ms / 1e9,
+                     "tc_speedup_over_fma": fma_ms / ms,
+                     "max_abs_err": err, "fma_max_abs_err": fma_err,
+                     "within_tolerance": ok and fma_ok})
+    return recs
+
+
+def flash_f32_shapes(reps):
+    """The FMA kernel at the shapes the main path gives it: the f32
+    prefill of the `lm` phase (2 x 2,048 tokens, 32 q / 16 kv heads, D
+    128), W = 1024 and None, vs plain, timed beside plain and SDPA."""
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    q = torch.randn(2, 32, 2048, 128, device=DEV, generator=gen)
+    k, v = (torch.randn(2, 16, 2048, 128, device=DEV, generator=gen)
+            for _ in range(2))
+    recs = []
+    for W, name in ((1024, "f32_local_w1024"), (None, "f32_global_causal")):
+        def fma():
+            return flash_attention_fma_cuda(q, k, v, window=W)
+        out = fma()
+        plain_ms, ref = time_host(lambda: flash_attention_plain(
+            q, k, v, window=W))
+        err, ok = flash_err(out, ref)
+        if not ok:
+            raise AssertionError(f"B5 (fma) != plain beyond tolerance at "
+                                 f"{name}: {err}")
+        ms = time_cuda(fma, reps)
+        lib_ms, lib = sdpa_time(q, k, v, W, reps)
+        bound, by = flash_bound(q, k, W)
+        pairs = flash_live_pairs(2, 32, 2048, W)
+        recs.append({"shape": name, "q": list(q.shape), "kv": list(k.shape),
+                     "dtype": "float32", "window": W, "live_pairs": pairs,
                      "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                      "library": lib, "bound_ms": bound, "bound_by": by,
                      "tflop_per_s": 4 * 128 * pairs / ms / 1e9,
-                     "max_abs_err": err, "within_tolerance": ok})
+                     "bound_share": bound / ms, "max_abs_err": err,
+                     "within_tolerance": ok})
     return recs
 
 
@@ -640,6 +743,8 @@ def flash_main_shapes(reps):
 # ---------------------------------------------------------------------------
 
 LM_ARCH = "gemma3-27b"
+#: The counter of the B5 kernel each compute dtype's prefill launches.
+B5_KERNEL = {torch.bfloat16: "flash_tc", torch.float32: "flash_fma"}
 
 
 def rel_l2(a, b):
@@ -701,7 +806,7 @@ def teacher_forcing(params, cfg, toks, dtype, paths, tag):
         "ms_per_step": dec_s * 1e3 / T, "tokens_per_s": B * T / dec_s,
         "launches": paths.paths[f"lm_decode{tag}"],
         "prefill_launches":
-            paths.paths[f"lm_prefill_all{tag}"]["local_attention"],
+            paths.paths[f"lm_prefill_all{tag}"][B5_KERNEL[dtype]],
         "rel_l2_max": float(err.max()), "rel_l2_mean": float(err.mean()),
         "max_abs_err": float(d.max()),
         "allclose_2e-3": bool((d <= 2e-3 + 2e-3 * ref.abs()).all()),
@@ -738,7 +843,7 @@ def lm_phase(args, paths):
         logits = prefill(params, {"tokens": toks})
         torch.cuda.synchronize()
     got = paths.paths["lm_prefill"]
-    assert got["local_attention"] == per_prefill, got
+    assert got["flash_tc"] == per_prefill and got["flash_fma"] == 0, got
     assert logits.shape == (1, 1, cfg.vocab_size), logits.shape
     assert bool(torch.isfinite(logits).all())
     trace = device_trace(lambda: prefill(params, {"tokens": toks}))
@@ -789,11 +894,11 @@ def lm_phase(args, paths):
     with paths.path("lm_prefill_f32"):
         a = kern(p32, {"tokens": ftoks})
         torch.cuda.synchronize()
-    assert paths.paths["lm_prefill_f32"]["local_attention"] == per_prefill
+    assert paths.paths["lm_prefill_f32"]["flash_fma"] == per_prefill
     with paths.path("lm_prefill_f32_naive"):
         b = naive(p32, {"tokens": ftoks})
         torch.cuda.synchronize()
-    assert paths.paths["lm_prefill_f32_naive"]["local_attention"] == 0
+    assert paths.paths["lm_prefill_f32_naive"]["flash_fma"] == 0
     d = (a - b).abs()
     ok = bool((d <= 2e-3 + 2e-3 * b.abs()).all())
     rec["f32_check"] = {
@@ -860,7 +965,8 @@ COUNTERS = {
     "traceback_table": tbd.decode_packed_tb_table_cuda,
     "persistent": persistent_align_cuda,
     "chain": chain_mod.chain_padded_cuda,
-    "local_attention": flash_attention_cuda,
+    "flash_tc": flash_attention_tc_cuda,
+    "flash_fma": flash_attention_fma_cuda,
 }
 PLAIN = {
     "plain_banded": banded.banded_align_batch,
@@ -868,6 +974,20 @@ PLAIN = {
     "plain_chain": chain_mod.chain_padded_plain,
     "plain_flash": flash_attention_plain,
 }
+
+
+#: Wrappers that also count their launches by (sweep length T, pairs N).
+SHAPED = {"banded_dp": banded_align_cuda,
+          "traceback": tbd.decode_packed_tb_cuda,
+          "persistent": persistent_align_cuda,
+          "traceback_table": tbd.decode_packed_tb_table_cuda}
+
+
+def sweep_class(T):
+    """The bucket edge of a launch of sweep length T (a pair of bucket c
+    sweeps at most 2c steps)."""
+    return next((e for e in DEFAULT_BUCKET_EDGES if 2 * e >= T),
+                DEFAULT_BUCKET_EDGES[-1])
 
 
 def counts():
@@ -881,6 +1001,8 @@ def zero_counts():
         fn.launches = 0
     for fn in PLAIN.values():
         fn.calls = 0
+    for fn in SHAPED.values():
+        fn.shapes.clear()
 
 
 class PathCounts:
@@ -891,6 +1013,7 @@ class PathCounts:
 
     def __init__(self):
         self.paths = {}
+        self.shapes = {k: collections.Counter() for k in SHAPED}
 
     @contextlib.contextmanager
     def path(self, name):
@@ -899,9 +1022,20 @@ class PathCounts:
         got = counts()
         assert all(got[k] == 0 for k in PLAIN), (name, got)
         self.paths[name] = got
+        for k, fn in SHAPED.items():
+            self.shapes[k].update(fn.shapes)
 
     def total(self, *keys):
         return sum(c[k] for c in self.paths.values() for k in keys)
+
+    def by_class(self, key):
+        """{bucket edge: {pairs per launch: launches}} of a kernel of
+        `SHAPED` over all paths."""
+        out = {}
+        for (T, N), c in sorted(self.shapes[key].items()):
+            cls = out.setdefault(sweep_class(T), {})
+            cls[N] = cls.get(N, 0) + c
+        return out
 
 
 def timed_align(engine, reads, refs, mode, label):
@@ -1017,9 +1151,9 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    built = build.build_all(verbose=args.quick)
+    built = build.build_all()
     if args.quick:
-        print(built["log"], flush=True)
+        print("\n".join(built["logs"].values()), flush=True)
     emit("device", {"nvidia_smi": smi, "torch": torch.__version__,
                     "cuda": torch.version.cuda,
                     "python": sys.version.split()[0],
@@ -1031,9 +1165,20 @@ def main():
     t0 = time.perf_counter()
     f_cases, f_worst = flash_matrix(args.quick)
     f_shapes = flash_main_shapes(3 if args.quick else 8)
+    f32_shapes = flash_f32_shapes(3 if args.quick else 8)
+    tc_ptxas = ptxas_facts(built["logs"].get("flash_tc", ""),
+                           "flash_tc_kernel")
+    if "flash_tc" in built["built"]:
+        assert tc_ptxas[128]["spill_stores"] == 0 \
+            and tc_ptxas[128]["spill_loads"] == 0, tc_ptxas
+    hgmma, cuobjdump = sass_count("flash_tc", "HGMMA")
+    if isinstance(hgmma, int):
+        assert hgmma > 0, "no HGMMA instruction in flash_tc's SASS"
     emit("flash_checks", {
         "seconds": time.perf_counter() - t0, "cases": f_cases,
-        "max_abs_err": f_worst, "shapes": f_shapes,
+        "max_abs_err": f_worst, "shapes": f_shapes, "f32_shapes": f32_shapes,
+        "flash_tc_ptxas": tc_ptxas or "not measured (library not rebuilt)",
+        "flash_tc_hgmma": hgmma, "cuobjdump": cuobjdump,
         "tolerance": "f32: |err| <= 2e-5 + 2e-5*|plain| (the reference's "
                      "kernel test bound); bf16: one bf16 ulp of the value "
                      "(or 2e-5 if larger) — both round an f32 result"})
@@ -1066,7 +1211,14 @@ def main():
     # ---- 3. alignment kernels vs plain versions ----
     t0 = time.perf_counter()
     cases, retired, worst_wf, worst_wk = kernel_matrix(*short, args.quick)
-    shapes = [("short_4096", short, 4096, 20), ("mid_64", mid, 64, 5),
+    # One slice per bucket class the main paths launch (PERF.md ranks the
+    # redesigns by launches x (ms - bound) per class); the 300 bp pairs of
+    # the serve phase from a generator of their own, so that the streams
+    # below stay as they were.
+    bp300 = bulk_pairs(genome, 64, 300, "illumina",
+                       np.random.default_rng(args.seed + 7))
+    shapes = [("short_4096", short, 4096, 20), ("short_64", short, 64, 20),
+              ("bp300_64", bp300, 64, 20), ("mid_64", mid, 64, 5),
               ("long_64", long_, 64, 3)]
     wf_shapes, wk_shapes = [], []
     for name, (reads, refs), cap, reps in shapes:
@@ -1079,10 +1231,16 @@ def main():
     cases += len(shapes)
     p_cases, worst_p, worst_pt = persistent_matrix(*short, args.quick)
     mix = [a[:64] + b[:64] + c[:8] for a, b, c in zip(short, mid, long_)]
-    p_rec, pt_rec = persistent_timing("mix_64_64_8", *mix, 3)
-    worst_p = max(worst_p, p_rec["max_abs_err"])
-    worst_pt = max(worst_pt, pt_rec["max_abs_err"])
-    p_cases += 1
+    p_recs, pt_recs = [], []
+    for name, (reads, refs), reps in (
+            ("short_64", [x[:64] for x in short], 20),
+            ("mid_64", [x[:64] for x in mid], 5), ("mix_64_64_8", mix, 3)):
+        p_rec, pt_rec = persistent_timing(name, reads, refs, reps)
+        p_recs.append(p_rec)
+        pt_recs.append(pt_rec)
+        worst_p = max(worst_p, p_rec["max_abs_err"])
+        worst_pt = max(worst_pt, pt_rec["max_abs_err"])
+        p_cases += 1
     emit("kernel_checks", {
         "seconds": time.perf_counter() - t0,
         "xdrop_retired_pairs": retired,
@@ -1094,9 +1252,9 @@ def main():
              "kernel_ms": wk_shapes[-1]["ms"],
              "plain_ms": wk_shapes[-1]["plain_ms"], "shapes": wk_shapes},
             {"name": "persistent", "cases": p_cases, "equal": True,
-             "shapes": [p_rec]},
+             "shapes": p_recs},
             {"name": "traceback_table", "cases": p_cases, "equal": True,
-             "shapes": [pt_rec]},
+             "shapes": pt_recs},
         ]})
 
     # ---- 4. engine: one ragged request, then the short class again ----
@@ -1257,23 +1415,27 @@ def main():
              source="src/repro_torch/kernels/banded_dp/csrc/banded_dp.cu",
              replaces="src/repro/kernels/banded_dp/banded_dp.py:432",
              launches=tot("banded_dp"), max_abs_err=worst_wf,
+             launches_by_class=paths.by_class("banded_dp"),
              ms=wf["ms"], plain_ms=wf["plain_ms"], bound_ms=wf["bound_ms"],
              bound_by=wf["bound_by"], shape=wf["shape"]),
         dict(common, name="traceback",
              source="src/repro_torch/core/csrc/traceback.cu",
              replaces="src/repro/core/traceback_device.py:43",
              launches=tot("traceback", "traceback_table"),
+             launches_by_class=paths.by_class("traceback"),
              max_abs_err=max(worst_wk, worst_pt),
              ms=wk["ms"], plain_ms=wk["plain_ms"], bound_ms=wk["bound_ms"],
              bound_by=wk["bound_by"], shape=wk["shape"],
              table_launches=tot("traceback_table"), table_ms=pt_rec["ms"],
              table_plain_ms=pt_rec["plain_ms"],
              table_bound_ms=pt_rec["bound_ms"],
-             table_shape=pt_rec["shape"]),
+             table_shape=pt_rec["shape"],
+             table_launches_by_class=paths.by_class("traceback_table")),
         dict(common, name="persistent",
              source="src/repro_torch/kernels/banded_dp/csrc/persistent.cu",
              replaces="src/repro/kernels/banded_dp/persistent.py:402",
              launches=tot("persistent"), max_abs_err=worst_p,
+             launches_by_class=paths.by_class("persistent"),
              ms=p_rec["ms"], plain_ms=p_rec["plain_ms"],
              bound_ms=p_rec["bound_ms"], bound_by=p_rec["bound_by"],
              shape=p_rec["shape"]),
@@ -1290,25 +1452,51 @@ def main():
     for k in kernels:
         assert k["launches"] > 0 and k["max_abs_err"] == 0, k
     loc, glob = f_shapes
+    floc, fglob = f32_shapes
+    b5 = dict(common,
+              replaces="src/repro/kernels/local_attention/local_attention.py"
+                       ":136",
+              tolerance="one bf16 ulp of the value (bf16); 2e-5 + 2e-5*|x| "
+                        "(f32)")
     kernels.append(dict(
-        common, name="local_attention",
-        source="src/repro_torch/kernels/local_attention/csrc/"
-               "local_attention.cu",
-        replaces="src/repro/kernels/local_attention/local_attention.py:136",
-        launches=tot("local_attention"),
-        max_abs_err=max(loc["max_abs_err"], glob["max_abs_err"]),
+        b5, name="flash_tc",
+        source="src/repro_torch/kernels/local_attention/csrc/flash_tc.cu",
+        launches=tot("flash_tc"),
+        max_abs_err=max(f_worst["tc/bfloat16"], loc["max_abs_err"],
+                        glob["max_abs_err"]),
         within_tolerance=loc["within_tolerance"]
         and glob["within_tolerance"],
-        tolerance="one bf16 ulp of the value (bf16); 2e-5 + 2e-5*|x| (f32)",
         ms=glob["ms"], plain_ms=glob["plain_ms"], bound_ms=glob["bound_ms"],
         bound_by=glob["bound_by"],
         library_ms=glob["library_ms"] if isinstance(glob["library_ms"], float)
         else None,
         library=glob["library"], shape=glob["shape"],
-        local_ms=loc["ms"], local_plain_ms=loc["plain_ms"],
-        local_bound_ms=loc["bound_ms"], local_library_ms=loc["library_ms"],
-        local_library=loc["library"]))
-    assert kernels[-1]["launches"] > 0 and kernels[-1]["within_tolerance"]
+        tflop_per_s=glob["tflop_per_s"], fma_ms=glob["fma_ms"],
+        local_ms=loc["ms"], local_fma_ms=loc["fma_ms"],
+        local_plain_ms=loc["plain_ms"], local_bound_ms=loc["bound_ms"],
+        local_library_ms=loc["library_ms"], local_library=loc["library"],
+        hgmma=hgmma))
+    kernels.append(dict(
+        b5, name="local_attention",
+        source="src/repro_torch/kernels/local_attention/csrc/"
+               "local_attention.cu",
+        launches=tot("flash_fma"),
+        max_abs_err=max([v for key, v in f_worst.items()
+                         if key.startswith("fma/")]
+                        + [floc["max_abs_err"], fglob["max_abs_err"],
+                           loc["fma_max_abs_err"], glob["fma_max_abs_err"]]),
+        within_tolerance=floc["within_tolerance"]
+        and fglob["within_tolerance"],
+        ms=fglob["ms"], plain_ms=fglob["plain_ms"],
+        bound_ms=fglob["bound_ms"], bound_by=fglob["bound_by"],
+        library_ms=fglob["library_ms"]
+        if isinstance(fglob["library_ms"], float) else None,
+        library=fglob["library"], shape=fglob["shape"],
+        local_ms=floc["ms"], local_plain_ms=floc["plain_ms"],
+        local_bound_ms=floc["bound_ms"], bf16_32k_ms=glob["fma_ms"],
+        bf16_32k_local_ms=loc["fma_ms"]))
+    for k in kernels[-2:]:
+        assert k["launches"] > 0 and k["within_tolerance"], k
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("total", {"seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -38,6 +38,7 @@ Its plain version walks group by group and merges.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import numpy as np
@@ -188,11 +189,14 @@ def decode_packed_tb_cuda(tb, los, start_i, start_j, *, band: int):
         raise RuntimeError(f"traceback kernel launch failed: CUDA error "
                            f"{err}")
     decode_packed_tb_cuda.launches += 1
+    decode_packed_tb_cuda.shapes[(T, N)] += 1
     return cig_ops, cig_runs, cig_len
 
 
-#: Kernel launches since the count was last set to 0.
+#: Kernel launches since the count was last set to 0, and the same launches
+#: by (sweep length T, pairs N).
 decode_packed_tb_cuda.launches = 0
+decode_packed_tb_cuda.shapes = collections.Counter()
 
 
 def decode_packed_tb(tb, los, start_i, start_j, *, band: int, device=None):
@@ -349,11 +353,14 @@ def decode_packed_tb_table_cuda(table, tb, los, start_i, start_j):
         raise RuntimeError(f"traceback table kernel launch failed: CUDA "
                            f"error {err}")
     decode_packed_tb_table_cuda.launches += 1
+    decode_packed_tb_table_cuda.shapes[(K, R)] += 1
     return cig_ops, cig_runs, cig_len
 
 
-#: Kernel launches since the count was last set to 0.
+#: Kernel launches since the count was last set to 0, and the same launches
+#: by (longest sweep, table rows).
 decode_packed_tb_table_cuda.launches = 0
+decode_packed_tb_table_cuda.shapes = collections.Counter()
 
 
 def decode_packed_tb_table(table, tb, los, start_i, start_j):

@@ -11,6 +11,7 @@ take it raises. The plain PyTorch version of the same function is
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -108,6 +109,7 @@ def banded_align_cuda(q_pad, r_pad, n, m, *, sc: ScoringConfig, band: int,
             raise RuntimeError(f"banded_dp kernel launch failed: CUDA "
                                f"error {err}")
         banded_align_cuda.launches += 1
+        banded_align_cuda.shapes[(T, N)] += 1
     out = {key: stats[i] for i, key in enumerate(STAT_KEYS)}
     if collect_tb:
         out["tb"] = tb
@@ -115,5 +117,7 @@ def banded_align_cuda(q_pad, r_pad, n, m, *, sc: ScoringConfig, band: int,
     return out
 
 
-#: Kernel launches since the count was last set to 0.
+#: Kernel launches since the count was last set to 0, and the same launches
+#: by (sweep length T, pairs N).
 banded_align_cuda.launches = 0
+banded_align_cuda.shapes = collections.Counter()

@@ -24,6 +24,7 @@ device.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 
@@ -270,6 +271,7 @@ def persistent_align_cuda(table: WorkTable, q, r, n, m, *,
             raise RuntimeError(f"persistent kernel launch failed: CUDA "
                                f"error {err}")
         persistent_align_cuda.launches += 1
+        persistent_align_cuda.shapes[(table.steps_max, R)] += 1
     out = {key: stats[i] for i, key in enumerate(STAT_KEYS)}
     if collect_tb:
         out["tb"] = tb
@@ -277,8 +279,10 @@ def persistent_align_cuda(table: WorkTable, q, r, n, m, *,
     return out
 
 
-#: Kernel launches since the count was last set to 0.
+#: Kernel launches since the count was last set to 0, and the same launches
+#: by (longest sweep, table rows).
 persistent_align_cuda.launches = 0
+persistent_align_cuda.shapes = collections.Counter()
 
 
 def persistent_align(table: WorkTable, q, r, n, m, **kw):

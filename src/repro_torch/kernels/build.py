@@ -28,6 +28,8 @@ SOURCES = {
     "chain": _PKG / "map" / "csrc" / "chain.cu",
     "local_attention": _PKG / "kernels" / "local_attention" / "csrc"
     / "local_attention.cu",
+    "flash_tc": _PKG / "kernels" / "local_attention" / "csrc"
+    / "flash_tc.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -53,12 +55,12 @@ def _nvcc() -> str:
     return exe
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
     return build_dir() / f"librepro_torch_{name}.so"
 
 
 def _stale(name: str) -> bool:
-    lib = _lib_path(name)
+    lib = lib_path(name)
     newest = max(p.stat().st_mtime
                  for p in (SOURCES[name], *_PKG.rglob("*.cuh")))
     return not lib.exists() or lib.stat().st_mtime < newest
@@ -70,7 +72,7 @@ def _start(name: str, extra=()) -> tuple[subprocess.Popen, Path]:
     loaded."""
     nvcc = _nvcc()
     build_dir().mkdir(parents=True, exist_ok=True)
-    tmp = _lib_path(name).with_suffix(f".{os.getpid()}.tmp")
+    tmp = lib_path(name).with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", str(tmp), str(SOURCES[name])]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True), tmp
@@ -80,21 +82,21 @@ def _finish(name: str, proc: subprocess.Popen, tmp: Path) -> str:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{log}")
-    os.replace(tmp, _lib_path(name))
+    os.replace(tmp, lib_path(name))
     return log
 
 
-def build_all(verbose: bool = False) -> dict:
+def build_all() -> dict:
     """Compile every stale kernel source, all `nvcc` runs started
-    together. Returns {'seconds': wall time, 'built': [names], 'log': str}
-    (`verbose` adds ``-Xptxas -v``: registers and shared memory per
-    kernel in the log)."""
+    together, with ``-Xptxas -v``. Returns {'seconds': wall time, 'built':
+    [names], 'logs': {name: nvcc output — registers, shared memory and
+    spills per kernel}}."""
     t0 = time.perf_counter()
-    extra = ("-Xptxas", "-v") if verbose else ()
-    started = {name: _start(name, extra) for name in SOURCES if _stale(name)}
-    logs = [_finish(name, *run) for name, run in started.items()]
+    started = {name: _start(name, ("-Xptxas", "-v"))
+               for name in SOURCES if _stale(name)}
+    logs = {name: _finish(name, *run) for name, run in started.items()}
     return {"seconds": time.perf_counter() - t0, "built": list(started),
-            "log": "\n".join(logs)}
+            "logs": logs}
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -104,6 +106,6 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         if _stale(name):
             _finish(name, *_start(name))
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib = ctypes.CDLL(str(lib_path(name)))
         _LIBS[name] = lib
     return lib

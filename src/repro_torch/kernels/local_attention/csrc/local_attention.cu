@@ -33,9 +33,10 @@
 // live (query, key) pair, far above the bytes of q, k, v and o (PERF.md
 // gives the bound at the main path's shapes). This first design runs them
 // on the f32 FMA units (67 TFLOP/s peak), not on the tensor cores (989
-// TFLOP/s bf16), and shared-memory traffic limits it below that. A wgmma /
-// TMA design with warp-specialised producers and the P tile kept in
-// registers is later work.
+// TFLOP/s bf16), and shared-memory traffic limits it below that. bf16
+// inputs at D in {64, 128, 256} go to the tensor-core design of
+// csrc/flash_tc.cu instead; this kernel keeps f32 inputs and the other
+// head sizes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -7,14 +7,18 @@ accumulator) is the wavefront state that never leaves fast memory. One
 function serves both arms: W >= T (or None) is full causal attention,
 W < T the sliding window (gemma3's local layers, mixtral's SWA).
 
-`flash_attention_cuda` launches `csrc/local_attention.cu`, which replaces
-the TPU kernel `_flash_kernel` of the JAX package's
-`kernels/local_attention/local_attention.py`; its design note is at the
-top of the source. `flash_attention_plain` is the TPU kernel's pass
-written in PyTorch — its grid's sequential kv axis becomes a loop over
-the kv block offsets, vectorised over every (batch, head, query block) —
-and runs on any device; `ops.flash_attention` picks between the two by
-where the tensors live.
+`flash_attention_cuda` launches one of two kernels that replace the TPU
+kernel `_flash_kernel` of the JAX package's
+`kernels/local_attention/local_attention.py`, chosen by `kernel_route`
+from (dtype, head size): `csrc/flash_tc.cu` (bf16 on the tensor cores:
+wgmma, TMA, an exact bf16 hi/lo split of the probabilities) and
+`csrc/local_attention.cu` (f32 FMA, every dtype and head size of the
+registry). Each design note is at the top of its source.
+`flash_attention_plain` is the TPU kernel's pass written in PyTorch — its
+grid's sequential kv axis becomes a loop over the kv block offsets,
+vectorised over every (batch, head, query block) — and runs on any
+device; `ops.flash_attention` picks between it and the kernels by where
+the tensors live.
 """
 
 from __future__ import annotations
@@ -28,11 +32,15 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 
-#: Head sizes the kernel is built for (every head_dim of the registry).
+#: Head sizes the FMA kernel is built for (every head_dim of the registry).
 KERNEL_HEAD_DIMS = (16, 64, 80, 128, 256)
 
-#: Input dtypes the kernel takes; it computes in f32 and writes q's dtype.
+#: Input dtypes the FMA kernel takes; it computes in f32 and writes q's
+#: dtype.
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: Head sizes the tensor-core kernel takes, bf16 only.
+TC_HEAD_DIMS = (64, 128, 256)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -121,61 +129,121 @@ def flash_attention_plain(q, k, v, *, window=None, block_q=128,
 flash_attention_plain.calls = 0
 
 
-def _lib():
-    lib = build.load("local_attention")
-    fn = lib.flash_attention_launch
+def _lib(name, fn_name, n_int):
+    lib = build.load(name)
+    fn = getattr(lib, fn_name)
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 4 + [_I] * 7 + [_P]
+        fn.argtypes = [_P] * 4 + [_I] * n_int + [_P]
         fn.restype = _I
-    return lib
+    return fn
 
 
-def flash_attention_cuda(q, k, v, *, window=None):
-    """Launch the banded flash attention kernel on CUDA tensors.
+def kernel_route(dtype, D):
+    """Which kernel takes (dtype, D) on a CUDA tensor: "tc" (the
+    tensor-core kernel, `csrc/flash_tc.cu`) for bf16 at `TC_HEAD_DIMS`,
+    "fma" (`csrc/local_attention.cu`) for the other dtypes and head sizes
+    it is built for. Raises ValueError for what neither takes."""
+    if dtype not in KERNEL_DTYPES:
+        raise ValueError(f"kernel takes q, k, v all of one dtype in "
+                         f"{list(KERNEL_DTYPES)}; got {dtype}")
+    if dtype == torch.bfloat16 and D in TC_HEAD_DIMS:
+        return "tc"
+    if D in KERNEL_HEAD_DIMS:
+        return "fma"
+    raise ValueError(f"head size D={D} not built; the kernels take "
+                     f"{KERNEL_HEAD_DIMS}")
 
-    q (B, Hq, T, D), k/v (B, Hkv, T, D), one dtype of `KERNEL_DTYPES`,
-    D in `KERNEL_HEAD_DIMS`, any T >= 1 (the kernel masks its ragged
-    tile). Returns (B, Hq, T, D) in q's dtype on PyTorch's current stream,
-    without synchronising. Raises on anything the kernel does not take.
-    """
+
+def _prepare(q, k, v, window, dtypes, head_dims, name):
+    """Shared checks of both kernel wrappers. Returns (q, k, v) contiguous
+    on 16-byte boundaries, W clipped to [0, T], and the sizes."""
     _, _, _, W = check_inputs(q, k, v, window=window, block_q=q.shape[2],
                               block_k=q.shape[2])
     B, Hq, T, D = q.shape
-    Hkv = k.shape[1]
-    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise ValueError(f"kernel takes q, k, v all of one dtype in "
-                         f"{list(KERNEL_DTYPES)}; got {q.dtype}, {k.dtype}, "
+    if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name} takes q, k, v all of one dtype in "
+                         f"{list(dtypes)}; got {q.dtype}, {k.dtype}, "
                          f"{v.dtype}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head size D={D} not built; the kernel takes "
-                         f"{KERNEL_HEAD_DIMS}")
+    if D not in head_dims:
+        raise ValueError(f"head size D={D} not built; {name} takes "
+                         f"{head_dims}")
     if B * Hq > 65535 or T > 2 ** 30:
         raise ValueError(f"B*Hq={B * Hq} > 65535 or T={T} too long for one "
                          f"launch")
     if not q.is_cuda:
-        raise ValueError("flash_attention_cuda takes CUDA tensors; the plain "
-                         "version flash_attention_plain runs anywhere")
-    # Contiguous rows on 16-byte boundaries: the kernel loads 8 elements
-    # of a row at a time.
+        raise ValueError(f"{name} takes CUDA tensors; the plain version "
+                         f"flash_attention_plain runs anywhere")
+    # Contiguous rows on 16-byte boundaries: the kernels load 16 bytes of
+    # a row at a time (TMA requires it of its base address).
     q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
                else t.clone(memory_format=torch.contiguous_format)
                for t in (q, k, v))
+    return q, k, v, max(min(W, T), 0), (B, Hq, k.shape[1], T, D)
+
+
+def _launch(fn, q, k, v, sizes, W, extra, what):
     out = torch.empty_like(q)
     if q.numel():
-        lib = _lib()
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = lib.flash_attention_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, Hq, Hkv, T, D, max(min(W, T), 0), KERNEL_DTYPES[q.dtype],
-                stream)
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), *sizes, W, *extra, stream)
         if err != 0:
-            raise RuntimeError(f"local_attention kernel launch failed: CUDA "
-                               f"error {err}")
-        flash_attention_cuda.launches += 1
+            raise RuntimeError(f"{what} kernel launch failed: CUDA error "
+                               f"{err}")
+    return out
+
+
+def flash_attention_tc_cuda(q, k, v, *, window=None):
+    """Launch the tensor-core kernel (`csrc/flash_tc.cu`: wgmma, TMA,
+    exact-split P.V) on CUDA tensors: bf16 q (B, Hq, T, D), k/v (B, Hkv,
+    T, D), D in `TC_HEAD_DIMS`, any T up to 65,535 query tiles of 128.
+    Returns (B, Hq, T, D) bf16 on PyTorch's current stream, without
+    synchronising. Raises on anything the kernel does not take."""
+    q, k, v, W, sizes = _prepare(q, k, v, window, (torch.bfloat16,),
+                                 TC_HEAD_DIMS, "flash_attention_tc_cuda")
+    if sizes[3] > 65535 * 128:
+        raise ValueError(f"T={sizes[3]} > 65,535 query tiles of 128")
+    out = _launch(_lib("flash_tc", "flash_attention_tc_launch", 6), q, k, v,
+                  sizes, W, (), "flash_tc")
+    if q.numel():
+        flash_attention_tc_cuda.launches += 1
+    return out
+
+
+def flash_attention_fma_cuda(q, k, v, *, window=None):
+    """Launch the f32-FMA kernel (`csrc/local_attention.cu`) on CUDA
+    tensors: q (B, Hq, T, D), k/v (B, Hkv, T, D), one dtype of
+    `KERNEL_DTYPES`, D in `KERNEL_HEAD_DIMS`, any T >= 1. Returns
+    (B, Hq, T, D) in q's dtype on PyTorch's current stream, without
+    synchronising. Raises on anything the kernel does not take."""
+    q, k, v, W, sizes = _prepare(q, k, v, window, KERNEL_DTYPES,
+                                 KERNEL_HEAD_DIMS,
+                                 "flash_attention_fma_cuda")
+    out = _launch(_lib("local_attention", "flash_attention_launch", 7), q,
+                  k, v, sizes, W, (KERNEL_DTYPES[q.dtype],), "local_attention")
+    if q.numel():
+        flash_attention_fma_cuda.launches += 1
+    return out
+
+
+def flash_attention_cuda(q, k, v, *, window=None):
+    """The banded flash attention on CUDA tensors, by `kernel_route`:
+    bf16 at D in `TC_HEAD_DIMS` launches `flash_attention_tc_cuda`, the
+    rest of `KERNEL_DTYPES` x `KERNEL_HEAD_DIMS` `flash_attention_fma_cuda`.
+    Returns (B, Hq, T, D) in q's dtype; raises on anything neither kernel
+    takes (a CPU tensor included)."""
+    route = kernel_route(q.dtype, q.shape[-1])
+    kernel = flash_attention_tc_cuda if route == "tc" \
+        else flash_attention_fma_cuda
+    before = kernel.launches
+    out = kernel(q, k, v, window=window)
+    flash_attention_cuda.launches += kernel.launches - before
     return out
 
 
 #: Kernel launches since the count was last set to 0.
+flash_attention_tc_cuda.launches = 0
+flash_attention_fma_cuda.launches = 0
+#: Launches of either kernel made through the route.
 flash_attention_cuda.launches = 0

@@ -7,10 +7,11 @@ Paths, as in the JAX package's `models/attention.py`:
     outside the causal window skipped.
   * "pallas"  — the banded flash attention of `kernels/local_attention`.
 
-On CUDA tensors "chunked" and "pallas" both launch the hand-written
-kernel B5 (`kernels/local_attention/csrc/local_attention.cu`); on CPU
-tensors each impl keeps its reference meaning, and "pallas" takes the
-kernel's plain version.
+On CUDA tensors "chunked" and "pallas" both launch a hand-written kernel
+B5 (`kernels/local_attention/csrc/`: `flash_tc.cu` for bf16 at D in
+{64, 128, 256}, `local_attention.cu` otherwise); on CPU tensors each impl
+keeps its reference meaning, and "pallas" takes the kernels' plain
+version.
 
 Caches: a full cache (B, Hkv, S_max, D) for global layers, a ring buffer
 (B, Hkv, W, D) for windowed layers; keys are stored after RoPE, so ring

@@ -1,0 +1,190 @@
+"""The arithmetic of the tensor-core flash kernel (`csrc/flash_tc.cu`) on
+the CPU, and the route that picks a kernel for a CUDA tensor.
+
+The kernel cannot run here, so its rounding is emulated in the test:
+bf16 operands, f32 scores (bf16 products are exact in f32) scaled by
+log2(e)/sqrt(D) inside exp2 after the product, an online softmax over
+key tiles of 128 (64 at D > 128) taken from the diagonal down, p split
+into bf16 hi + lo and P.V taken as the two products, l summed from the
+f32 p, O / l rounded to bf16. It must agree with `flash_attention_plain`
+within the check the card holds the kernel to: one bf16 ulp of the plain
+value, floor 2e-5. The same pass with one bf16 P is held beside it: its
+error is larger and breaks that check — the reason for the split. Inputs
+are made with numpy from a seed."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.local_attention import flash_attention
+from repro_torch.kernels.local_attention.local_attention import (
+    KERNEL_HEAD_DIMS, TC_HEAD_DIMS, flash_attention_cuda,
+    flash_attention_fma_cuda, flash_attention_plain, flash_attention_tc_cuda,
+    kernel_route)
+
+# The shapes of tests/test_torch_flash.py's ATT_CASES (B, Hq, Hkv, T, D,
+# window), taken in bf16, and a GQA-2 case at the main path's D = 128.
+SHAPES = [
+    (2, 4, 2, 256, 64, None),
+    (1, 4, 4, 256, 64, 64),
+    (2, 8, 2, 512, 32, 100),
+    (1, 2, 1, 128, 128, 32),
+    (1, 2, 2, 256, 64, 17),
+    (1, 1, 1, 512, 64, 512),
+    (2, 4, 2, 256, 64, 64),
+    (1, 4, 2, 384, 128, None),
+    (1, 4, 2, 384, 128, 64),
+]
+LOG2E = 1.4426950408889634
+
+
+def _inputs(seed, B, Hq, Hkv, T, D):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .bfloat16() for s in ((B, Hq, T, D), (B, Hkv, T, D),
+                                  (B, Hkv, T, D))]
+
+
+def emulate_tc(q, k, v, window=None, split=True):
+    """The kernel's rounding, one query tile of 128 rows at a time."""
+    B, Hq, T, D = q.shape
+    group = Hq // k.shape[1]
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    BK = 64 if D > 128 else 128
+    W = T if window is None else window
+    sl2 = torch.tensor(LOG2E / math.sqrt(D), dtype=torch.float32).double()
+    out = torch.empty(B, Hq, T, D)
+    for q_lo in range(0, T, 128):
+        rows = torch.arange(q_lo, min(q_lo + 128, T))
+        q_hi = int(rows[-1])
+        m = torch.full((B, Hq, len(rows), 1), -math.inf)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(B, Hq, len(rows), D)
+        for kt in range(q_hi // BK, max(q_lo - W + 1, 0) // BK - 1, -1):
+            keys = torch.arange(kt * BK, min(kt * BK + BK, T))
+            s = qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2)
+            live = (keys <= rows[:, None]) & (keys > rows[:, None] - W)
+            s = torch.where(live, s, -math.inf)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True) * sl2.float())
+            shift = torch.where(m_new == -math.inf, 0.0, m_new)
+            alpha = torch.exp2(m - shift)
+            # fmaf(s, sl2, -shift): one rounding of the exact value.
+            p = torch.exp2((s.double() * sl2 - shift.double()).float())
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha
+            hi = p.bfloat16().float()
+            acc = acc + hi @ vf[:, :, keys]
+            if split:
+                acc = acc + (p - hi).bfloat16().float() @ vf[:, :, keys]
+            m = m_new
+        out[:, :, rows] = acc / torch.where(l == 0.0, 1.0, l)
+    return out.bfloat16()
+
+
+def card_check(out, ref):
+    """chip_smoke.py's bf16 check: (worst |out - ref| in units of its
+    tolerance — one bf16 ulp of ref, or 2e-5 where that is larger — and
+    the number of elements beyond it)."""
+    d = (out.float() - ref.float()).abs()
+    r = ref.float().abs()
+    ulp = torch.exp2(torch.floor(torch.log2(r.clamp_min(1e-30))) - 7)
+    ratio = d / ulp.clamp_min(2e-5)
+    return float(ratio.max()), int((ratio > 1).sum())
+
+
+def _plain(q, k, v, W):
+    T = q.shape[2]
+    blk = 128 if T % 128 == 0 else T
+    return flash_attention_plain(q, k, v, window=W, block_q=blk, block_k=blk)
+
+
+@pytest.mark.parametrize("shape", SHAPES,
+                         ids=[f"s{i}" for i in range(len(SHAPES))])
+def test_split_emulation_within_the_card_check(shape):
+    B, Hq, Hkv, T, D, W = shape
+    q, k, v = _inputs(17 + T + D + (W or 0), B, Hq, Hkv, T, D)
+    ref = _plain(q, k, v, W)
+    worst, bad = card_check(emulate_tc(q, k, v, W), ref)
+    assert bad == 0, (shape, worst)
+
+
+@pytest.mark.parametrize("shape", SHAPES[-2:], ids=["causal", "w64"])
+def test_single_bf16_p_breaks_the_card_check(shape):
+    """One bf16 P errs by up to 2^-9 sum(p|v|)/l: beyond one ulp where the
+    output is small. The split stays inside; record both."""
+    B, Hq, Hkv, T, D, W = shape
+    q, k, v = _inputs(17 + T + D + (W or 0), B, Hq, Hkv, T, D)
+    ref = _plain(q, k, v, W)
+    split_worst, split_bad = card_check(emulate_tc(q, k, v, W), ref)
+    one_worst, one_bad = card_check(emulate_tc(q, k, v, W, split=False),
+                                    ref)
+    print(f"worst error / tolerance: split {split_worst:.3g}, one bf16 P "
+          f"{one_worst:.3g} ({one_bad} of {ref.numel()} elements beyond)")
+    assert split_bad == 0 and split_worst <= 1
+    assert one_bad > 0 and one_worst > 2, one_worst
+
+
+def test_emulation_ragged_t_and_empty_window():
+    """T not a multiple of the tiles, and W = 0 (every key masked: the
+    normaliser stays 0 and the output is 0, as in the reference)."""
+    q, k, v = _inputs(5, 1, 2, 1, 200, 128)
+    ref = _plain(q, k, v, None)
+    assert card_check(emulate_tc(q, k, v), ref)[1] == 0
+    assert torch.equal(emulate_tc(q, k, v, 0), _plain(q, k, v, 0))
+    assert not emulate_tc(q, k, v, 0).float().abs().max()
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc"),
+    (torch.bfloat16, 256, "tc"), (torch.bfloat16, 16, "fma"),
+    (torch.bfloat16, 80, "fma"), (torch.float32, 128, "fma"),
+    (torch.float32, 64, "fma"), (torch.float32, 256, "fma"),
+    (torch.float32, 16, "fma"), (torch.float32, 80, "fma"),
+])
+def test_kernel_route(dtype, D, want):
+    assert kernel_route(dtype, D) == want
+    assert set(TC_HEAD_DIMS) <= set(KERNEL_HEAD_DIMS)
+
+
+@pytest.mark.parametrize("dtype,D,match", [
+    (torch.float16, 128, "dtype"), (torch.float64, 64, "dtype"),
+    (torch.float32, 32, "head size"), (torch.bfloat16, 96, "head size"),
+])
+def test_kernel_route_raises_for_what_no_kernel_takes(dtype, D, match):
+    with pytest.raises(ValueError, match=match):
+        kernel_route(dtype, D)
+    x = torch.zeros(1, 2, 64, D, dtype=dtype)
+    with pytest.raises(ValueError, match=match):
+        flash_attention_cuda(x, x, x)
+
+
+def test_tc_wrapper_refuses_what_it_does_not_take():
+    bf = torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16)
+    before = (flash_attention_tc_cuda.launches,
+              flash_attention_fma_cuda.launches, flash_attention_cuda.launches)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention_tc_cuda(bf.float(), bf.float(), bf.float())
+    with pytest.raises(ValueError, match="head size"):
+        x = torch.zeros(1, 2, 64, 80, dtype=torch.bfloat16)
+        flash_attention_tc_cuda(x, x, x)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention_tc_cuda(bf, bf, bf.float())
+    for fn in (flash_attention_tc_cuda, flash_attention_fma_cuda,
+               flash_attention_cuda):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fn(bf, bf, bf)                  # a CPU tensor: no fallback
+    assert (flash_attention_tc_cuda.launches,
+            flash_attention_fma_cuda.launches,
+            flash_attention_cuda.launches) == before
+
+
+def test_cpu_tensors_take_the_plain_version():
+    q, k, v = _inputs(3, 1, 4, 2, 256, 128)
+    calls = flash_attention_plain.calls
+    out = flash_attention(q, k, v, window=64)
+    assert flash_attention_plain.calls == calls + 1
+    assert torch.equal(out, flash_attention_plain(q, k, v, window=64))
