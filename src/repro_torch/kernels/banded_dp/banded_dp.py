@@ -2,11 +2,13 @@
 
 The kernel replaces the TPU kernel `_wavefront_kernel` of the JAX
 package's `kernels/banded_dp/banded_dp.py`; its design note is at the top
-of the ``.cu`` source. This module checks the arguments, allocates the
-outputs, launches on PyTorch's current stream and counts launches. It
-never synchronises and never falls back: on anything the kernel does not
-take it raises. The plain PyTorch version of the same function is
-`core.banded.banded_align_batch`.
+of the ``.cu`` source. It has two per-pair bodies, picked here by
+`kernel_body`: one warp per pair with the band in registers for bands up
+to `WARP_MAX_BAND`, one block per pair above. This module checks the
+arguments, allocates the outputs, launches on PyTorch's current stream
+and counts launches. It never synchronises and never falls back: on
+anything the kernel does not take it raises. The plain PyTorch version of
+the same function is `core.banded.banded_align_batch`.
 """
 
 from __future__ import annotations
@@ -26,6 +28,10 @@ STAT_KEYS = ("score", "final_lo", "best_score", "best_i", "best_j", "status")
 #: Widest band one launch takes (one band lane per thread of a block).
 MAX_BAND = 1024
 
+#: Widest band of the warp body (`csrc/wavefront_warp.cuh`: four band
+#: lanes per thread of one warp); wider bands run the block body.
+WARP_MAX_BAND = 128
+
 #: Longest sweep (Lq + Lr) the kernel's int32 step arithmetic is held to.
 MAX_SWEEP = 32768
 
@@ -36,9 +42,21 @@ def _lib():
     lib = build.load("banded_dp")
     fn = lib.banded_dp_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 7 + [_I] * 13 + [_P]
+        fn.argtypes = [_P] * 7 + [_I] * 14 + [_P]
         fn.restype = _I
     return lib
+
+
+def kernel_body(band: int) -> str:
+    """The per-pair body a launch of `band` runs: "warp" (one warp per
+    pair, band state in registers) for 1..`WARP_MAX_BAND`, "block" (one
+    block per pair, band state in shared memory) up to `MAX_BAND`. Raises
+    ValueError outside 1..`MAX_BAND`."""
+    B = int(band)
+    if not 1 <= B <= MAX_BAND:
+        raise ValueError(f"band={B} outside the kernel's range "
+                         f"1..{MAX_BAND}")
+    return "warp" if B <= WARP_MAX_BAND else "block"
 
 
 def banded_align_cuda(q_pad, r_pad, n, m, *, sc: ScoringConfig, band: int,
@@ -66,9 +84,7 @@ def banded_align_cuda(q_pad, r_pad, n, m, *, sc: ScoringConfig, band: int,
     if cell_dtype not in ("int32", "narrow"):
         raise ValueError(f"unknown cell_dtype {cell_dtype!r}")
     B = int(band)
-    if not 1 <= B <= MAX_BAND:
-        raise ValueError(f"band={B} outside the kernel's range "
-                         f"1..{MAX_BAND}")
+    body = kernel_body(B)
     dev = q_pad.device
     q = q_pad.to(torch.int8).contiguous()
     r = r_pad.to(device=dev, dtype=torch.int8).contiguous()
@@ -104,12 +120,13 @@ def banded_align_cuda(q_pad, r_pad, n, m, *, sc: ScoringConfig, band: int,
                 N, Lq, Lr, T, B, sc.match, sc.mismatch, sc.gap_open,
                 sc.gap_extend, -1 if xdrop is None else int(xdrop),
                 int(mode == "semiglobal"), int(bool(adaptive)),
-                int(bool(collect_tb)), stream)
+                int(bool(collect_tb)), int(body == "warp"), stream)
         if err != 0:
             raise RuntimeError(f"banded_dp kernel launch failed: CUDA "
                                f"error {err}")
         banded_align_cuda.launches += 1
         banded_align_cuda.shapes[(T, N)] += 1
+        banded_align_cuda.bodies[body] += 1
     out = {key: stats[i] for i, key in enumerate(STAT_KEYS)}
     if collect_tb:
         out["tb"] = tb
@@ -118,6 +135,7 @@ def banded_align_cuda(q_pad, r_pad, n, m, *, sc: ScoringConfig, band: int,
 
 
 #: Kernel launches since the count was last set to 0, and the same launches
-#: by (sweep length T, pairs N).
+#: by (sweep length T, pairs N) and by body ("warp" / "block").
 banded_align_cuda.launches = 0
 banded_align_cuda.shapes = collections.Counter()
+banded_align_cuda.bodies = collections.Counter()

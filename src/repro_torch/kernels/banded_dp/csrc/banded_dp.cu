@@ -2,43 +2,46 @@
 //
 // Replaces the TPU kernel `_wavefront_kernel` (wrapper
 // `banded_align_pallas`) of src/repro/kernels/banded_dp/banded_dp.py. It
-// computes the same function and is laid out anew for a GPU:
+// computes the same function and is laid out anew for a GPU: each pair
+// loops over t = 1 .. n + m itself, and the TPU kernel's step-chunk grid
+// axis, its scratch carry between chunks and its batch tile have no
+// counterpart: pairs run in parallel and each leaves its loop at its own
+// n + m, or at the step the xdrop rule retires it. Two per-pair bodies,
+// chosen by the caller from the band:
 //
-//   * one thread block owns one pair and loops over t = 1 .. n + m itself;
-//     one thread owns one band lane. The TPU kernel's step-chunk grid axis,
-//     its scratch carry between chunks and its batch tile have no
-//     counterpart: blocks of different pairs run in parallel and each
-//     leaves its loop at its own n + m, or at the step the xdrop rule
-//     retires it.
-//   * the band state (u, v, x, y, H) lives in shared memory, double
-//     buffered and padded by one dead lane on each side, so the +/-1 lane
-//     shift between diagonals is an index offset and one __syncthreads()
-//     per step orders writers and readers.
-//   * the band maximum (xdrop) and the first maximising lane (best cell)
-//     are `__reduce_max_sync` / `__reduce_min_sync` per warp, joined
-//     across warps in lane order through shared memory behind that same
-//     barrier; a strict `>` keeps the lowest lane on ties.
-//   * 4-bit flags are packed two per byte with one shuffle and stored
-//     straight to global memory; rows past the last live step are zeroed
-//     and `los` is filled with the frozen offset, so the output is defined
-//     everywhere.
+//   * B <= 128, the warp body (wavefront_warp.cuh): one warp per pair and
+//     one warp per block, C = 1, 2 or 4 (B <= 32, 64, 128) band lanes per
+//     thread in registers; the +/-1 lane shift is three shuffles, the best
+//     cell is joined over the warp once per pair, and a step has no
+//     barrier. Every bucket class of the main paths (bands 20, 60, 100)
+//     runs here.
+//   * 128 < B <= 1024, the block body (wavefront.cuh): one block per pair,
+//     one thread per band lane, the band state in shared memory, double
+//     buffered and padded by one dead lane on each side, one
+//     __syncthreads() per step; per-warp reductions joined across warps in
+//     lane order through shared memory behind that barrier. The persistent
+//     kernel (persistent.cu) runs this body for every band.
+//
+// Both bodies: a strict `>` keeps the lowest lane on best-cell ties; 4-bit
+// flags are packed two per byte and stored straight to global memory; rows
+// past the last live step are zeroed and `los` is filled with the frozen
+// offset, so the output is defined everywhere.
 //
 // What bounds it on an H100: a serial chain of n + m dependent steps per
-// pair, each a few dozen int32 operations per lane, a barrier and two
-// byte gathers; neither the memory rate nor the int32 rate is approached
-// (see PERF.md). Occupancy across pairs is the only parallelism this
-// design uses. 16-bit lanes with DPX intrinsics, several lanes per thread
-// and staging q/r in shared memory are left to later work.
+// pair, each a few dozen int32 operations per lane plus shuffles or a
+// barrier; neither the memory rate nor the int32 rate is approached (see
+// PERF.md). The chain's latency and the number of pairs in flight set the
+// time.
 //
 // `cell_dtype="narrow"` of the caller changes only how the TPU kernel
 // stored its carry between chunks; results are identical by construction,
 // so this kernel runs narrow requests on its int32 path.
 //
-// All of band, T, Lq, Lr, the scoring and xdrop are run-time arguments.
-// The per-pair body lives in wavefront.cuh, shared with the persistent
-// kernel (persistent.cu).
+// All of band, T, Lq, Lr, the scoring and xdrop are run-time arguments;
+// the warp body is compiled for C = 1, 2 and 4 lanes per thread.
 
 #include "wavefront.cuh"
+#include "wavefront_warp.cuh"
 
 namespace {
 
@@ -56,10 +59,8 @@ struct Params {
   Scoring S;
 };
 
-template <bool SEMI, bool ADAPTIVE, bool TB, bool XDROP>
-__global__ void wavefront_kernel(Params P) {
-  extern __shared__ int smem[];
-  const int pair = blockIdx.x;
+// Where pair `pair` of the launch reads its inputs and writes its results.
+__device__ __forceinline__ Row pair_row(const Params& P, int pair) {
   const int Bp = (P.B + 1) >> 1;
   Row R;
   R.q = P.q + (long long)pair * P.Lq;
@@ -72,9 +73,21 @@ __global__ void wavefront_kernel(Params P) {
   R.B = P.B;
   R.stats = P.stats + pair;
   R.stride = P.N;
-  R.tb = TB ? P.tb + (long long)pair * P.T * Bp : nullptr;
-  R.los = TB ? P.los + (long long)pair * (P.T + 1) : nullptr;
-  align_row<SEMI, ADAPTIVE, TB, XDROP>(R, P.S, smem);
+  R.tb = P.tb ? P.tb + (long long)pair * P.T * Bp : nullptr;
+  R.los = P.los ? P.los + (long long)pair * (P.T + 1) : nullptr;
+  return R;
+}
+
+template <bool SEMI, bool ADAPTIVE, bool TB, bool XDROP>
+__global__ void wavefront_kernel(Params P) {
+  extern __shared__ int smem[];
+  align_row<SEMI, ADAPTIVE, TB, XDROP>(pair_row(P, blockIdx.x), P.S, smem);
+}
+
+template <int C, bool SEMI, bool ADAPTIVE, bool TB, bool XDROP>
+__global__ void __launch_bounds__(32)
+wavefront_warp_kernel(Params P) {
+  align_row_warp<C, SEMI, ADAPTIVE, TB, XDROP>(pair_row(P, blockIdx.x), P.S);
 }
 
 template <bool SEMI, bool ADAPTIVE, bool TB, bool XDROP>
@@ -85,22 +98,43 @@ cudaError_t launch(const Params& P, int threads, size_t smem,
   return cudaGetLastError();
 }
 
+template <bool SEMI, bool ADAPTIVE, bool TB, bool XDROP>
+cudaError_t launch_warp(const Params& P, cudaStream_t stream) {
+  if (P.B > 128) return cudaErrorInvalidValue;
+  if (P.B <= 32)
+    wavefront_warp_kernel<1, SEMI, ADAPTIVE, TB, XDROP>
+        <<<P.N, 32, 0, stream>>>(P);
+  else if (P.B <= 64)
+    wavefront_warp_kernel<2, SEMI, ADAPTIVE, TB, XDROP>
+        <<<P.N, 32, 0, stream>>>(P);
+  else
+    wavefront_warp_kernel<4, SEMI, ADAPTIVE, TB, XDROP>
+        <<<P.N, 32, 0, stream>>>(P);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Largest band one launch takes: one lane per thread of a block.
 extern "C" int banded_dp_max_band() { return 1024; }
 
-// Launches the wavefront on `stream` for N pairs. Returns the CUDA error
-// code of the launch (0 = success). Allocates nothing and does not
-// synchronise. xdrop < 0 switches the retire rule off.
+// Largest band the warp body takes: four lanes per thread of a warp.
+extern "C" int banded_dp_max_warp_band() { return 128; }
+
+// Launches the wavefront on `stream` for N pairs, with the warp body when
+// `warp_body` is set (B <= 128) and the block body otherwise. Returns the
+// CUDA error code of the launch (0 = success). Allocates nothing and does
+// not synchronise. xdrop < 0 switches the retire rule off.
 extern "C" int banded_dp_launch(
     const void* q, const void* r, const void* n, const void* m,
     void* stats, void* tb, void* los,
     int N, int Lq, int Lr, int T, int B,
     int match, int mismatch, int gap_open, int gap_extend, int xdrop,
-    int semiglobal, int adaptive, int collect_tb, void* stream) {
+    int semiglobal, int adaptive, int collect_tb, int warp_body,
+    void* stream) {
   if (N <= 0) return 0;
-  if (B < 1 || B > 1024) return (int)cudaErrorInvalidValue;
+  if (B < 1 || B > 1024 || (warp_body && B > 128))
+    return (int)cudaErrorInvalidValue;
   Params P;
   P.q = (const int8_t*)q; P.r = (const int8_t*)r;
   P.n = (const int*)n; P.m = (const int*)m;
@@ -110,6 +144,11 @@ extern "C" int banded_dp_launch(
   const int threads = ((B + 31) / 32) * 32;
   const size_t smem = smem_ints(B) * sizeof(int);
   cudaStream_t s = (cudaStream_t)stream;
+  if (warp_body) {
+#define LAUNCH(A, B_, C, D) launch_warp<A, B_, C, D>(P, s)
+    WAVEFRONT_DISPATCH(semiglobal, adaptive, collect_tb, xdrop >= 0, LAUNCH)
+#undef LAUNCH
+  }
 #define LAUNCH(A, B_, C, D) launch<A, B_, C, D>(P, threads, smem, s)
   WAVEFRONT_DISPATCH(semiglobal, adaptive, collect_tb, xdrop >= 0, LAUNCH)
 #undef LAUNCH

@@ -47,10 +47,10 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// Zero bytes [from, to) of `p` with the whole block, 16 bytes a thread
-// where the address allows it.
-__device__ inline void zero_bytes(uint8_t* p, long long from, long long to) {
-  const int tid = threadIdx.x, nt = blockDim.x;
+// Zero bytes [from, to) of `p` with `nt` threads (this one is `tid`: the
+// whole block, or one warp), 16 bytes a thread where the address allows it.
+__device__ inline void zero_bytes(uint8_t* p, long long from, long long to,
+                                  int tid, int nt) {
   uint8_t* a = p + from;
   long long len = to - from;
   if (len <= 0) return;
@@ -266,7 +266,8 @@ __device__ __forceinline__ void align_row(const Row& R, const Scoring& S,
   }
   if (TB) {
     // Non-live steps: zero flags, frozen offset.
-    zero_bytes(tb, (long long)t_live * Bp, (long long)R.T * Bp);
+    zero_bytes(tb, (long long)t_live * Bp, (long long)R.T * Bp, k,
+               blockDim.x);
     for (int t = t_live + 1 + k; t <= R.T; t += blockDim.x) los[t] = lo;
   }
 }

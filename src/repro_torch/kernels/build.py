@@ -30,6 +30,8 @@ SOURCES = {
     / "local_attention.cu",
     "flash_tc": _PKG / "kernels" / "local_attention" / "csrc"
     / "flash_tc.cu",
+    "flash_tf32x3": _PKG / "kernels" / "local_attention" / "csrc"
+    / "flash_tf32x3.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

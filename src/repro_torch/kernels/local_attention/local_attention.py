@@ -10,10 +10,14 @@ W < T the sliding window (gemma3's local layers, mixtral's SWA).
 `flash_attention_cuda` launches one of two kernels that replace the TPU
 kernel `_flash_kernel` of the JAX package's
 `kernels/local_attention/local_attention.py`, chosen by `kernel_route`
-from (dtype, head size): `csrc/flash_tc.cu` (bf16 on the tensor cores:
-wgmma, TMA, an exact bf16 hi/lo split of the probabilities) and
-`csrc/local_attention.cu` (f32 FMA, every dtype and head size of the
-registry). Each design note is at the top of its source.
+from (dtype, head size): `csrc/flash_tc.cu` (bf16 at D 64/128/256 on the
+tensor cores: wgmma, TMA, an exact bf16 hi/lo split of the
+probabilities) and `csrc/flash_tf32x3.cu` (f32 at every head size of the
+registry and bf16 at D 16/80, on the tensor cores: mma.sync with every
+operand split into tf32 hi + lo). A third kernel, `csrc/local_attention.cu`
+(f32 FMA, every dtype and head size), is on no route; it stays callable
+as `flash_attention_fma_cuda` and is timed beside the others. Each design
+note is at the top of its source.
 `flash_attention_plain` is the TPU kernel's pass written in PyTorch — its
 grid's sequential kv axis becomes a loop over the kv block offsets,
 vectorised over every (batch, head, query block) — and runs on any
@@ -39,8 +43,12 @@ KERNEL_HEAD_DIMS = (16, 64, 80, 128, 256)
 #: dtype.
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: Head sizes the tensor-core kernel takes, bf16 only.
+#: Head sizes the wgmma kernel takes, bf16 only.
 TC_HEAD_DIMS = (64, 128, 256)
+
+#: Head sizes the split-TF32 kernel takes in bf16 (in f32: every size of
+#: `KERNEL_HEAD_DIMS`).
+TF32X3_BF16_HEAD_DIMS = (16, 80)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -139,19 +147,18 @@ def _lib(name, fn_name, n_int):
 
 
 def kernel_route(dtype, D):
-    """Which kernel takes (dtype, D) on a CUDA tensor: "tc" (the
-    tensor-core kernel, `csrc/flash_tc.cu`) for bf16 at `TC_HEAD_DIMS`,
-    "fma" (`csrc/local_attention.cu`) for the other dtypes and head sizes
-    it is built for. Raises ValueError for what neither takes."""
+    """Which kernel takes (dtype, D) on a CUDA tensor: "tc" (the wgmma
+    kernel, `csrc/flash_tc.cu`) for bf16 at `TC_HEAD_DIMS`, "tf32x3"
+    (`csrc/flash_tf32x3.cu`) for f32 and bf16 at the other head sizes of
+    `KERNEL_HEAD_DIMS`. Raises ValueError for what neither takes."""
     if dtype not in KERNEL_DTYPES:
         raise ValueError(f"kernel takes q, k, v all of one dtype in "
                          f"{list(KERNEL_DTYPES)}; got {dtype}")
-    if dtype == torch.bfloat16 and D in TC_HEAD_DIMS:
-        return "tc"
-    if D in KERNEL_HEAD_DIMS:
-        return "fma"
-    raise ValueError(f"head size D={D} not built; the kernels take "
-                     f"{KERNEL_HEAD_DIMS}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head size D={D} not built; the kernels take "
+                         f"{KERNEL_HEAD_DIMS}")
+    return "tc" if dtype == torch.bfloat16 and D in TC_HEAD_DIMS \
+        else "tf32x3"
 
 
 def _prepare(q, k, v, window, dtypes, head_dims, name):
@@ -211,12 +218,34 @@ def flash_attention_tc_cuda(q, k, v, *, window=None):
     return out
 
 
+def flash_attention_tf32x3_cuda(q, k, v, *, window=None):
+    """Launch the split-TF32 kernel (`csrc/flash_tf32x3.cu`: mma.sync,
+    each operand as tf32 hi + lo, three passes per product) on CUDA
+    tensors: q (B, Hq, T, D), k/v (B, Hkv, T, D), f32 at D in
+    `KERNEL_HEAD_DIMS` or bf16 at D in `TF32X3_BF16_HEAD_DIMS`, any
+    T >= 1. Returns (B, Hq, T, D) in q's dtype on PyTorch's current
+    stream, without synchronising. Raises on anything the kernel does not
+    take."""
+    head_dims = TF32X3_BF16_HEAD_DIMS if q.dtype == torch.bfloat16 \
+        else KERNEL_HEAD_DIMS
+    q, k, v, W, sizes = _prepare(q, k, v, window, KERNEL_DTYPES, head_dims,
+                                 "flash_attention_tf32x3_cuda")
+    out = _launch(_lib("flash_tf32x3", "flash_attention_tf32x3_launch", 7),
+                  q, k, v, sizes, W, (KERNEL_DTYPES[q.dtype],),
+                  "flash_tf32x3")
+    if q.numel():
+        flash_attention_tf32x3_cuda.launches += 1
+    return out
+
+
 def flash_attention_fma_cuda(q, k, v, *, window=None):
     """Launch the f32-FMA kernel (`csrc/local_attention.cu`) on CUDA
     tensors: q (B, Hq, T, D), k/v (B, Hkv, T, D), one dtype of
     `KERNEL_DTYPES`, D in `KERNEL_HEAD_DIMS`, any T >= 1. Returns
     (B, Hq, T, D) in q's dtype on PyTorch's current stream, without
-    synchronising. Raises on anything the kernel does not take."""
+    synchronising. Raises on anything the kernel does not take. No route
+    leads here any more: `flash_attention_tf32x3_cuda` computes the same
+    function on the tensor cores."""
     q, k, v, W, sizes = _prepare(q, k, v, window, KERNEL_DTYPES,
                                  KERNEL_HEAD_DIMS,
                                  "flash_attention_fma_cuda")
@@ -230,12 +259,12 @@ def flash_attention_fma_cuda(q, k, v, *, window=None):
 def flash_attention_cuda(q, k, v, *, window=None):
     """The banded flash attention on CUDA tensors, by `kernel_route`:
     bf16 at D in `TC_HEAD_DIMS` launches `flash_attention_tc_cuda`, the
-    rest of `KERNEL_DTYPES` x `KERNEL_HEAD_DIMS` `flash_attention_fma_cuda`.
-    Returns (B, Hq, T, D) in q's dtype; raises on anything neither kernel
-    takes (a CPU tensor included)."""
+    rest of `KERNEL_DTYPES` x `KERNEL_HEAD_DIMS`
+    `flash_attention_tf32x3_cuda`. Returns (B, Hq, T, D) in q's dtype;
+    raises on anything neither kernel takes (a CPU tensor included)."""
     route = kernel_route(q.dtype, q.shape[-1])
     kernel = flash_attention_tc_cuda if route == "tc" \
-        else flash_attention_fma_cuda
+        else flash_attention_tf32x3_cuda
     before = kernel.launches
     out = kernel(q, k, v, window=window)
     flash_attention_cuda.launches += kernel.launches - before
@@ -244,6 +273,7 @@ def flash_attention_cuda(q, k, v, *, window=None):
 
 #: Kernel launches since the count was last set to 0.
 flash_attention_tc_cuda.launches = 0
+flash_attention_tf32x3_cuda.launches = 0
 flash_attention_fma_cuda.launches = 0
 #: Launches of either kernel made through the route.
 flash_attention_cuda.launches = 0

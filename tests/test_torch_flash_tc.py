@@ -140,10 +140,10 @@ def test_emulation_ragged_t_and_empty_window():
 
 @pytest.mark.parametrize("dtype,D,want", [
     (torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc"),
-    (torch.bfloat16, 256, "tc"), (torch.bfloat16, 16, "fma"),
-    (torch.bfloat16, 80, "fma"), (torch.float32, 128, "fma"),
-    (torch.float32, 64, "fma"), (torch.float32, 256, "fma"),
-    (torch.float32, 16, "fma"), (torch.float32, 80, "fma"),
+    (torch.bfloat16, 256, "tc"), (torch.bfloat16, 16, "tf32x3"),
+    (torch.bfloat16, 80, "tf32x3"), (torch.float32, 128, "tf32x3"),
+    (torch.float32, 64, "tf32x3"), (torch.float32, 256, "tf32x3"),
+    (torch.float32, 16, "tf32x3"), (torch.float32, 80, "tf32x3"),
 ])
 def test_kernel_route(dtype, D, want):
     assert kernel_route(dtype, D) == want
