@@ -252,7 +252,10 @@ def assert_equal(ref: dict, ker: dict, what: str) -> int:
 def shape_timing(name, spec, q, r, n, m, reps):
     """Both kernels at one main-path slice: held against their plain
     versions, and timed (kernel: CUDA events over `reps` launches; plain:
-    host clock around one synchronised call)."""
+    host clock around one synchronised call). The wavefront's block body,
+    which the main paths run only above band 128, is held and timed here
+    too (`block_body=True`), by the same method, so that the two bodies
+    compare like for like."""
     qd, rd, nd, md = (torch.from_numpy(a).to(DEV) for a in (q, r, n, m))
     N = q.shape[0]
     kw = dict(sc=MINIMAP2, band=spec.band, adaptive=True, collect_tb=True,
@@ -262,7 +265,13 @@ def shape_timing(name, spec, q, r, n, m, reps):
     wf_plain_ms, ref = time_host(
         lambda: banded.banded_align_batch(qd, rd, nd, md, **kw))
     wf_err = assert_equal(ref, out, f"wavefront at {name}")
+    blk = banded_align_cuda(qd, rd, nd, md, block_body=True, **kw)
+    torch.cuda.synchronize()
+    wf_err = max(wf_err, assert_equal(ref, blk, f"block body at {name}"))
+    del blk
     wf_ms = time_cuda(lambda: banded_align_cuda(qd, rd, nd, md, **kw), reps)
+    block_ms = time_cuda(lambda: banded_align_cuda(
+        qd, rd, nd, md, block_body=True, **kw), reps)
 
     tb, los = out["tb"], out["los"]
     keys = ("cig_ops", "cig_runs", "cig_len")
@@ -283,7 +292,8 @@ def shape_timing(name, spec, q, r, n, m, reps):
             "r_len": spec.r_len, "band": spec.band, "t_max": spec.t_max}
     return (
         dict(base, ms=wf_ms, plain_ms=wf_plain_ms, bound_ms=wf_bound,
-             bound_by=wf_by, max_abs_err=wf_err),
+             bound_by=wf_by, max_abs_err=wf_err,
+             body=kernel_body(spec.band), block_ms=block_ms),
         dict(base, ms=wk_ms, plain_ms=wk_plain_ms, bound_ms=wk_bound,
              bound_by=wk_by, max_abs_err=wk_err, path_steps=path_steps))
 
@@ -561,9 +571,10 @@ def chain_check(anchor_sets, params, reps=0):
 BF16_FLOP_PER_S = 989e12
 TF32_FLOP_PER_S = 494.7e12
 F32_FLOP_PER_S = 67e12
-# Tensor-core passes per product of the split-TF32 kernel (lo*hi + hi*lo +
-# hi*hi), each 4*D FLOP per live pair.
-TF32_SPLIT_PASSES = 3
+# Tensor-core passes per product of the split-TF32 kernel, each 4*D FLOP
+# per live pair: lo*hi + hi*lo + hi*hi for f32; lo*hi + hi*hi for bf16,
+# whose k and v are exact in tf32.
+TF32_SPLIT_PASSES = {torch.float32: 3, torch.bfloat16: 2}
 # Kernel vs plain: f32 within the reference's own kernel test bound
 # (tests/test_kernels.py: atol = rtol = 2e-5), the same f32 function summed
 # in another order; bf16 outputs within one bf16 ulp of the value (both
@@ -593,19 +604,21 @@ def flash_live_pairs(B, Hq, T, W):
 
 def flash_bound(q, k, W, units=None):
     """Least time for B5 on these inputs, against q, k, v read once and o
-    written once: bf16, 4*D FLOP per live pair at the bf16 tensor-core
-    peak; f32 (`units` "tf32x3", the default), the split's 3 x 4*D FLOP
-    per live pair at the dense TF32 peak; f32 on the FMA units (`units`
-    "fma"), 4*D FLOP per live pair at 67 TFLOP/s."""
+    written once, at the 4*D FLOP per live pair the function needs: on the
+    tensor cores at the dense bf16 peak for bf16, at the dense TF32 peak
+    for f32 (the default `units`). Two named yardsticks beside it:
+    `units` "split", the split-TF32 kernel's own passes (3 x 4*D for f32,
+    2 x 4*D for bf16) at the TF32 peak; "fma", 4*D on the FMA units at
+    67 TFLOP/s."""
     B, Hq, T, D = q.shape
     ops = 4 * D * flash_live_pairs(B, Hq, T, W)
     nbytes = 2 * q.numel() * q.element_size() \
         + 2 * k.numel() * k.element_size()
-    units = units or ("tc" if q.dtype == torch.bfloat16 else "tf32x3")
-    if units == "tf32x3":
-        ops *= TF32_SPLIT_PASSES
-    peak = {"tc": BF16_FLOP_PER_S, "tf32x3": TF32_FLOP_PER_S,
-            "fma": F32_FLOP_PER_S}[units]
+    units = units or ("tc" if q.dtype == torch.bfloat16 else "tf32")
+    if units == "split":
+        ops *= TF32_SPLIT_PASSES[q.dtype]
+    peak = {"tc": BF16_FLOP_PER_S, "tf32": TF32_FLOP_PER_S,
+            "split": TF32_FLOP_PER_S, "fma": F32_FLOP_PER_S}[units]
     t_ops, t_bytes = ops / peak, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -783,8 +796,9 @@ def flash_main_shapes(reps):
 def split_tf32_shapes(name, q, k, v, windows, reps):
     """The split-TF32 kernel (the route of f32, and of bf16 at D 16/80)
     and the FMA kernel at one shape: each held against the plain version
-    and timed in this one call beside plain, SDPA and both bounds (the
-    split on the tensor cores; the FMA units for f32)."""
+    and timed in this one call beside plain, SDPA, the bound and two
+    yardsticks (the split's own passes at the TF32 peak; the FMA
+    units)."""
     B, Hq, T, D = q.shape
     recs = []
     for W in windows:
@@ -807,6 +821,7 @@ def split_tf32_shapes(name, q, k, v, windows, reps):
         ms_again = time_cuda(tf, reps)
         lib_ms, lib = sdpa_time(q, k, v, W, reps)
         bound, by = flash_bound(q, k, W)
+        split_bound, _ = flash_bound(q, k, W, units="split")
         fma_bound, _ = flash_bound(q, k, W, units="fma")
         pairs = flash_live_pairs(B, Hq, T, W)
         recs.append({"shape": f"{name}_{'causal' if W is None else W}",
@@ -816,9 +831,11 @@ def split_tf32_shapes(name, q, k, v, windows, reps):
                      "fma_ms": fma_ms, "plain_ms": plain_ms,
                      "library_ms": lib_ms, "library": lib,
                      "bound_ms": bound, "bound_by": by,
+                     "split_bound_ms": split_bound,
                      "fma_bound_ms": fma_bound,
                      "tflop_per_s": 4 * D * pairs / ms / 1e9,
                      "bound_share": bound / ms,
+                     "split_bound_share": split_bound / ms,
                      "fma_tflop_per_s": 4 * D * pairs / fma_ms / 1e9,
                      "speedup_over_fma": fma_ms / ms,
                      "max_abs_err": err, "fma_max_abs_err": fma_err,
@@ -1544,7 +1561,13 @@ def main():
              launches=tot("banded_dp"), max_abs_err=worst_wf,
              launches_by_class=paths.by_class("banded_dp"),
              ms=wf["ms"], plain_ms=wf["plain_ms"], bound_ms=wf["bound_ms"],
-             bound_by=wf["bound_by"], shape=wf["shape"]),
+             bound_by=wf["bound_by"], shape=wf["shape"],
+             block_ms=wf["block_ms"],
+             ms_by_shape={x["shape"]: x["ms"] for x in wf_shapes},
+             block_ms_by_shape={x["shape"]: x["block_ms"]
+                                for x in wf_shapes},
+             bound_ms_by_shape={x["shape"]: x["bound_ms"]
+                                for x in wf_shapes}),
         dict(common, name="traceback",
              source="src/repro_torch/core/csrc/traceback.cu",
              replaces="src/repro/core/traceback_device.py:43",
@@ -1621,13 +1644,16 @@ def main():
                              for r in (*f32_shapes, loc, glob)),
         ms=fglob["ms"], plain_ms=fglob["plain_ms"],
         bound_ms=fglob["bound_ms"], bound_by=fglob["bound_by"],
+        split_bound_ms=fglob["split_bound_ms"],
         fma_bound_ms=fglob["fma_bound_ms"], library_ms=lib_ms(fglob),
         library=fglob["library"], shape=fglob["shape"],
         tflop_per_s=fglob["tflop_per_s"], fma_ms=fglob["fma_ms"],
         local_ms=floc["ms"], local_fma_ms=floc["fma_ms"],
         local_plain_ms=floc["plain_ms"], local_bound_ms=floc["bound_ms"],
+        local_split_bound_ms=floc["split_bound_ms"],
         local_library_ms=floc["library_ms"], bf16_d80_ms=d80["ms"],
         bf16_d80_bound_ms=d80["bound_ms"],
+        bf16_d80_split_bound_ms=d80["split_bound_ms"],
         bf16_d80_library_ms=d80["library_ms"], hmma=hmma))
     # The FMA kernel (csrc/local_attention.cu) is on no route any more: not
     # a kernel of the main paths, so not in this line; it is held against

@@ -2,9 +2,9 @@
 
 The kernel replaces the TPU kernel `_wavefront_kernel` of the JAX
 package's `kernels/banded_dp/banded_dp.py`; its design note is at the top
-of the ``.cu`` source. It has two per-pair bodies, picked here by
-`kernel_body`: one warp per pair with the band in registers for bands up
-to `WARP_MAX_BAND`, one block per pair above. This module checks the
+of the ``.cu`` source. It has two per-pair bodies, picked by the band
+(`kernel_body`): one warp per pair with the band in registers for bands
+up to `WARP_MAX_BAND`, one block per pair above. This module checks the
 arguments, allocates the outputs, launches on PyTorch's current stream
 and counts launches. It never synchronises and never falls back: on
 anything the kernel does not take it raises. The plain PyTorch version of
@@ -29,7 +29,8 @@ STAT_KEYS = ("score", "final_lo", "best_score", "best_i", "best_j", "status")
 MAX_BAND = 1024
 
 #: Widest band of the warp body (`csrc/wavefront_warp.cuh`: four band
-#: lanes per thread of one warp); wider bands run the block body.
+#: lanes per thread of one warp; its `WARP_MAX_BAND`); wider bands run the
+#: block body.
 WARP_MAX_BAND = 128
 
 #: Longest sweep (Lq + Lr) the kernel's int32 step arithmetic is held to.
@@ -47,22 +48,24 @@ def _lib():
     return lib
 
 
-def kernel_body(band: int) -> str:
-    """The per-pair body a launch of `band` runs: "warp" (one warp per
-    pair, band state in registers) for 1..`WARP_MAX_BAND`, "block" (one
-    block per pair, band state in shared memory) up to `MAX_BAND`. Raises
+def kernel_body(band: int, block_body: bool = False) -> str:
+    """The per-pair body a launch of `band` runs, as `csrc/banded_dp.cu`
+    picks it: "warp" (one warp per pair, band state in registers) for
+    1..`WARP_MAX_BAND`, "block" (one block per pair, band state in shared
+    memory) up to `MAX_BAND`, and at any band with `block_body`. Raises
     ValueError outside 1..`MAX_BAND`."""
     B = int(band)
     if not 1 <= B <= MAX_BAND:
         raise ValueError(f"band={B} outside the kernel's range "
                          f"1..{MAX_BAND}")
-    return "warp" if B <= WARP_MAX_BAND else "block"
+    return "warp" if B <= WARP_MAX_BAND and not block_body else "block"
 
 
 def banded_align_cuda(q_pad, r_pad, n, m, *, sc: ScoringConfig, band: int,
                       adaptive: bool = True, collect_tb: bool = True,
                       mode: str = "global", t_max: int | None = None,
-                      cell_dtype: str = "int32", xdrop: int | None = None):
+                      cell_dtype: str = "int32", xdrop: int | None = None,
+                      block_body: bool = False):
     """Run the wavefront kernel on CUDA tensors.
 
     Args:
@@ -71,6 +74,9 @@ def banded_align_cuda(q_pad, r_pad, n, m, *, sc: ScoringConfig, band: int,
       band, t_max, sc, xdrop: run-time arguments of the kernel — no
         rebuild per dispatch signature. ``cell_dtype="narrow"`` runs on
         the kernel's int32 path (identical results by construction).
+      block_body: a measurement switch: run the block body at any band,
+        so that both bodies can be timed on the same inputs. The main
+        paths never set it.
 
     Returns the result dict of `core.banded.banded_align_batch` as CUDA
     tensors; the six scalars are rows of one (6, N) int32 plane.
@@ -84,7 +90,7 @@ def banded_align_cuda(q_pad, r_pad, n, m, *, sc: ScoringConfig, band: int,
     if cell_dtype not in ("int32", "narrow"):
         raise ValueError(f"unknown cell_dtype {cell_dtype!r}")
     B = int(band)
-    body = kernel_body(B)
+    body = kernel_body(B, block_body)
     dev = q_pad.device
     q = q_pad.to(torch.int8).contiguous()
     r = r_pad.to(device=dev, dtype=torch.int8).contiguous()
@@ -120,7 +126,7 @@ def banded_align_cuda(q_pad, r_pad, n, m, *, sc: ScoringConfig, band: int,
                 N, Lq, Lr, T, B, sc.match, sc.mismatch, sc.gap_open,
                 sc.gap_extend, -1 if xdrop is None else int(xdrop),
                 int(mode == "semiglobal"), int(bool(adaptive)),
-                int(bool(collect_tb)), int(body == "warp"), stream)
+                int(bool(collect_tb)), int(bool(block_body)), stream)
         if err != 0:
             raise RuntimeError(f"banded_dp kernel launch failed: CUDA "
                                f"error {err}")

@@ -7,7 +7,7 @@
 // axis, its scratch carry between chunks and its batch tile have no
 // counterpart: pairs run in parallel and each leaves its loop at its own
 // n + m, or at the step the xdrop rule retires it. Two per-pair bodies,
-// chosen by the caller from the band:
+// chosen here from the band:
 //
 //   * B <= 128, the warp body (wavefront_warp.cuh): one warp per pair and
 //     one warp per block, C = 1, 2 or 4 (B <= 32, 64, 128) band lanes per
@@ -100,7 +100,6 @@ cudaError_t launch(const Params& P, int threads, size_t smem,
 
 template <bool SEMI, bool ADAPTIVE, bool TB, bool XDROP>
 cudaError_t launch_warp(const Params& P, cudaStream_t stream) {
-  if (P.B > 128) return cudaErrorInvalidValue;
   if (P.B <= 32)
     wavefront_warp_kernel<1, SEMI, ADAPTIVE, TB, XDROP>
         <<<P.N, 32, 0, stream>>>(P);
@@ -118,23 +117,21 @@ cudaError_t launch_warp(const Params& P, cudaStream_t stream) {
 // Largest band one launch takes: one lane per thread of a block.
 extern "C" int banded_dp_max_band() { return 1024; }
 
-// Largest band the warp body takes: four lanes per thread of a warp.
-extern "C" int banded_dp_max_warp_band() { return 128; }
-
-// Launches the wavefront on `stream` for N pairs, with the warp body when
-// `warp_body` is set (B <= 128) and the block body otherwise. Returns the
-// CUDA error code of the launch (0 = success). Allocates nothing and does
-// not synchronise. xdrop < 0 switches the retire rule off.
+// Launches the wavefront on `stream` for N pairs: the warp body for
+// B <= WARP_MAX_BAND, the block body above. `block_body` is a measurement
+// switch that runs the block body at any band, so that both bodies can be
+// timed on the same inputs; the main paths never set it. Returns the CUDA
+// error code of the launch (0 = success). Allocates nothing and does not
+// synchronise. xdrop < 0 switches the retire rule off.
 extern "C" int banded_dp_launch(
     const void* q, const void* r, const void* n, const void* m,
     void* stats, void* tb, void* los,
     int N, int Lq, int Lr, int T, int B,
     int match, int mismatch, int gap_open, int gap_extend, int xdrop,
-    int semiglobal, int adaptive, int collect_tb, int warp_body,
+    int semiglobal, int adaptive, int collect_tb, int block_body,
     void* stream) {
   if (N <= 0) return 0;
-  if (B < 1 || B > 1024 || (warp_body && B > 128))
-    return (int)cudaErrorInvalidValue;
+  if (B < 1 || B > 1024) return (int)cudaErrorInvalidValue;
   Params P;
   P.q = (const int8_t*)q; P.r = (const int8_t*)r;
   P.n = (const int*)n; P.m = (const int*)m;
@@ -144,7 +141,7 @@ extern "C" int banded_dp_launch(
   const int threads = ((B + 31) / 32) * 32;
   const size_t smem = smem_ints(B) * sizeof(int);
   cudaStream_t s = (cudaStream_t)stream;
-  if (warp_body) {
+  if (B <= WARP_MAX_BAND && !block_body) {
 #define LAUNCH(A, B_, C, D) launch_warp<A, B_, C, D>(P, s)
     WAVEFRONT_DISPATCH(semiglobal, adaptive, collect_tb, xdrop >= 0, LAUNCH)
 #undef LAUNCH

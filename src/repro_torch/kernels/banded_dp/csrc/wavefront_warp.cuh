@@ -52,6 +52,9 @@
 
 namespace wavefront {
 
+// Widest band of this body: four band lanes per thread of one warp.
+constexpr int WARP_MAX_BAND = 128;
+
 // x[c] for a run-time c < C, without indexing registers dynamically.
 template <int C>
 __device__ __forceinline__ int pick(const int (&x)[C], int c) {

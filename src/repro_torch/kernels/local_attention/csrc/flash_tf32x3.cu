@@ -22,6 +22,9 @@
 //     lo*hi + hi*lo + hi*hi. The dropped lo*lo term and lo's own
 //     rounding are below 2^-21 of |x||y|, so the products keep f32 accuracy
 //     (one tf32 pass would keep 2^-11 and miss the f32 check by far).
+//     bf16 K and V are exact in tf32 (8 significant bits of 11): their lo
+//     is 0, so bf16 inputs take two passes, lo*hi + hi*hi, with the same
+//     sums; q / sqrt(D) and p are still split.
 //   * the key loop visits exactly the key tiles of 32 (16 at D = 256) that
 //     meet the block's band [q_lo - W + 1, q_hi]; a warp skips the tiles
 //     that are dead for all of its 16 rows, and masks only tiles that
@@ -41,9 +44,10 @@
 //     thread keeps its share of a row's normaliser and the four threads of
 //     a row join it once at the end.
 //
-// What bounds it on an H100: 3 x 4*D FLOP per live (query, key) pair on
-// the tensor cores (TF32 dense peak 494.7 TFLOP/s), far above the bytes of
-// q, k, v and o. That peak is wgmma's; the tf32 mma.sync used here runs at
+// What bounds it on an H100: 4*D FLOP per live (query, key) pair on the
+// tensor cores (TF32 dense peak 494.7 TFLOP/s), far above the bytes of q,
+// k, v and o; the split issues 3x (f32) or 2x (bf16) that. That peak is
+// wgmma's; the tf32 mma.sync used here runs at
 // a fraction of it, and the splits (five integer / float operations per
 // operand) and the softmax are issued beside the products (PERF.md). Split
 // planes of K and V in shared memory, made once per block for 8 warps,
@@ -101,14 +105,26 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d += a * b in three tensor-core passes, the small terms first.
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], uint32_t bh0,
-                                     uint32_t bh1, uint32_t bl0,
-                                     uint32_t bl1) {
-  mma(d, al, bh0, bh1);
-  mma(d, ah, bl0, bl1);
-  mma(d, ah, bh0, bh1);
+// d += a * b, a split, b's two f32 values (b0, b1) split here: three
+// tensor-core passes, the small terms first; two where b is exact in tf32
+// (B_EXACT: bf16 inputs), its lo part being 0.
+template <bool B_EXACT>
+__device__ __forceinline__ void mma_split(float (&d)[4],
+                                          const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4], float b0,
+                                          float b1) {
+  if constexpr (B_EXACT) {
+    const uint32_t bh0 = __float_as_uint(b0), bh1 = __float_as_uint(b1);
+    mma(d, al, bh0, bh1);
+    mma(d, ah, bh0, bh1);
+  } else {
+    uint32_t bh0, bl0, bh1, bl1;
+    split(b0, bh0, bl0);
+    split(b1, bh1, bl1);
+    mma(d, al, bh0, bh1);
+    mma(d, ah, bl0, bl1);
+    mma(d, ah, bh0, bh1);
+  }
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const void* src,
@@ -211,6 +227,7 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using C = Cfg<D>;
   constexpr int BK = C::BK, NT = C::NT, KD = C::KD;
   constexpr int QS = C::QS, VS = C::VS;
+  constexpr bool KV_EXACT = !std::is_same<T, float>::value;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;              // [BQ][QS]
   float* Ks = Qs + BQ * QS;      // [BK][QS]
@@ -257,7 +274,7 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k_lo = kt * BK;
     const bool dead = r0 >= Tlen || k_lo > r0 + 15 || k_lo + BK - 1 <= r0 - W;
     if (!dead) {
-      // ---- S = (q / sqrt(D)) K^T, three passes per k-step ----
+      // ---- S = (q / sqrt(D)) K^T, three (bf16: two) passes per k-step ----
       const float* Kb = Ks + g * QS + 2 * tq;
       float s[NT][4];
 #pragma unroll
@@ -273,12 +290,10 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
         split(xb.y, ah[3], al[3]);  // (row g + 8, k t + 4)
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
+          // (k t, key 8j + g) and (k t + 4, key 8j + g)
           const float2 y =
               *reinterpret_cast<const float2*>(Kb + 8 * j * QS + 8 * kk);
-          uint32_t bh0, bl0, bh1, bl1;
-          split(y.x, bh0, bl0);  // (k t,     key 8j + g)
-          split(y.y, bh1, bl1);  // (k t + 4, key 8j + g)
-          mma3(s[j], ah, al, bh0, bh1, bl0, bl1);
+          mma_split<KV_EXACT>(s[j], ah, al, y.x, y.y);
         }
       }
 
@@ -345,12 +360,8 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
         split(s[j][3], ph[3], pl[3]);  // (row g + 8, k t + 4)
         const float* vr = Vb + 8 * j * VS;
 #pragma unroll
-        for (int c = 0; c < KD; ++c) {
-          uint32_t bh0, bl0, bh1, bl1;
-          split(vr[8 * c], bh0, bl0);       // (k t,     d 8c + g)
-          split(vr[VS + 8 * c], bh1, bl1);  // (k t + 4, d 8c + g)
-          mma3(acc[c], ph, pl, bh0, bh1, bl0, bl1);
-        }
+        for (int c = 0; c < KD; ++c)  // (k t, d 8c + g), (k t + 4, d 8c + g)
+          mma_split<KV_EXACT>(acc[c], ph, pl, vr[8 * c], vr[VS + 8 * c]);
       }
     }
     __syncthreads();  // every warp is done with this stage

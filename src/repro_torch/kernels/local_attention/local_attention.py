@@ -220,10 +220,10 @@ def flash_attention_tc_cuda(q, k, v, *, window=None):
 
 def flash_attention_tf32x3_cuda(q, k, v, *, window=None):
     """Launch the split-TF32 kernel (`csrc/flash_tf32x3.cu`: mma.sync,
-    each operand as tf32 hi + lo, three passes per product) on CUDA
-    tensors: q (B, Hq, T, D), k/v (B, Hkv, T, D), f32 at D in
-    `KERNEL_HEAD_DIMS` or bf16 at D in `TF32X3_BF16_HEAD_DIMS`, any
-    T >= 1. Returns (B, Hq, T, D) in q's dtype on PyTorch's current
+    each operand as tf32 hi + lo, three passes per product; two for bf16,
+    whose k and v are exact in tf32) on CUDA tensors: q (B, Hq, T, D),
+    k/v (B, Hkv, T, D), f32 at D in `KERNEL_HEAD_DIMS` or bf16 at D in
+    `TF32X3_BF16_HEAD_DIMS`, any T >= 1. Returns (B, Hq, T, D) in q's dtype on PyTorch's current
     stream, without synchronising. Raises on anything the kernel does not
     take."""
     head_dims = TF32X3_BF16_HEAD_DIMS if q.dtype == torch.bfloat16 \

@@ -6,7 +6,8 @@ operands (q scaled by 1/sqrt(D) after the upcast) split into tf32 hi + lo
 — hi rounded to nearest with ties away on the int32 view, as the kernel
 does it, lo = x - hi rounded the same way — and every product taken as
 the three passes
-lo*hi + hi*lo + hi*hi in f32 (tf32 products are exact in f32); an online
+lo*hi + hi*lo + hi*hi in f32 (tf32 products are exact in f32; bf16 inputs
+take two, lo*hi + hi*hi, their k and v being exact in tf32); an online
 softmax over key tiles of 32 (16 at D > 128) taken in the kernel's order,
 from the band's first tile up; p split the same way for P.V; O / l. It
 must agree with `flash_attention_plain` within the check the card holds
@@ -62,16 +63,21 @@ def split(x):
 
 def product(a, b, passes):
     """a @ b as the kernel's tensor cores take it: three passes of the
-    split, or one tf32 pass."""
+    split, two with b taken whole (bf16 inputs), or one tf32 pass."""
     if passes == 1:
         return tf32_round(a) @ tf32_round(b)
     ah, al = split(a)
     bh, bl = split(b)
+    if passes == 2:
+        return al @ bh + ah @ bh
     return al @ bh + ah @ bl + ah @ bh
 
 
-def emulate(q, k, v, window=None, passes=3):
-    """The kernel's pass, one query tile of 64 rows at a time."""
+def emulate(q, k, v, window=None, passes=None):
+    """The kernel's pass, one query tile of 64 rows at a time, with the
+    kernel's passes per product for q's dtype unless `passes` is given."""
+    if passes is None:
+        passes = 3 if q.dtype == torch.float32 else 2
     B, Hq, T, D = q.shape
     BQ = 64
     group = Hq // k.shape[1]
@@ -177,6 +183,20 @@ def test_bf16_inputs_at_d80_within_one_ulp():
     ulp = torch.exp2(torch.floor(torch.log2(ref.float().abs()
                                             .clamp_min(1e-30))) - 7)
     assert (d <= ulp.clamp_min(TOL)).all()
+
+
+@pytest.mark.parametrize("W", [None, 40])
+def test_bf16_two_passes_equal_three(W):
+    """bf16 k and v are exact in tf32 (8 significant bits of 11): their lo
+    parts are 0, so the kernel's two passes for bf16 inputs give the sums
+    of the three passes bit for bit."""
+    q, k, v = (x.bfloat16().float()
+               for x in _inputs(11, 1, 4, 2, 192, 80))
+    for x in (k, v):
+        hi, lo = split(x)
+        assert torch.equal(hi, x) and not lo.abs().max()
+    assert torch.equal(emulate(q, k, v, W, passes=2),
+                       emulate(q, k, v, W, passes=3))
 
 
 @pytest.mark.parametrize("dtype,D", [

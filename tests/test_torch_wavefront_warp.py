@@ -33,6 +33,16 @@ def test_body_by_band():
     assert {kernel_body(b) for b in (20, 60, 100)} == {"warp"}
 
 
+def test_block_body_switch_runs_the_block_body_at_any_band():
+    """`block_body=True`, the switch that lets both bodies be timed on the
+    same inputs, picks the block body at every band; the range checks
+    stay."""
+    assert {kernel_body(b, block_body=True)
+            for b in range(1, MAX_BAND + 1)} == {"block"}
+    with pytest.raises(ValueError, match="outside the kernel's range"):
+        kernel_body(MAX_BAND + 1, block_body=True)
+
+
 @pytest.mark.parametrize("band", [0, -3, 1025, 4096])
 def test_body_refuses_bands_outside_the_kernel(band):
     with pytest.raises(ValueError, match="outside the kernel's range"):
@@ -47,6 +57,7 @@ def _cuda_args(n=3, L=40):
 @pytest.mark.parametrize("kw,match", [
     (dict(band=20), "CUDA tensors"),
     (dict(band=128, mode="local"), "CUDA tensors"),
+    (dict(band=60, block_body=True), "CUDA tensors"),
 ])
 def test_wrapper_refuses_cpu_tensors_before_anything(kw, match):
     """A CPU tensor raises first, whatever else is given: the plain version
