@@ -73,7 +73,9 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.banded_dp.banded_dp import (  # noqa: E402
     banded_align_cuda, kernel_body)
 from repro_torch.kernels.banded_dp.persistent import (  # noqa: E402
-    pack_groups, persistent_align_cuda, persistent_align_plain)
+    pack_groups, persistent_align_cuda, persistent_align_plain,
+    persistent_body)
+from repro_torch.core.backends import cuda as cuda_backend  # noqa: E402
 from repro_torch.kernels.local_attention.local_attention import (  # noqa: E402
     flash_attention_cuda, flash_attention_fma_cuda, flash_attention_plain,
     flash_attention_tc_cuda, flash_attention_tf32x3_cuda, kernel_route)
@@ -81,6 +83,7 @@ from repro_torch.map import STATUS_MAPPED, MinimizerIndex, ReadMapper  # noqa: E
 from repro_torch.map import chain as chain_mod  # noqa: E402
 from repro_torch.serve import AlignmentService  # noqa: E402
 from repro_torch.data.tokens import TokenPipeline  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import init_cache, init_params  # noqa: E402
 from repro_torch.train import make_prefill_step, make_serve_step  # noqa: E402
 
@@ -206,14 +209,20 @@ def check_case(q, r, n, m, **kw):
     if not kw["collect_tb"]:
         return err, None
     band, mode = kw["band"], kw["mode"]
-    dk = tbd.device_decode_result(ker, n, m, band=band, mode=mode)
-    torch.cuda.synchronize()
     dp = tbd.device_decode_result(ker, n, m, band=band, mode=mode,
                                   walker=tbd.decode_packed_tb_plain)
     torch.cuda.synchronize()
     keys = ("cig_ops", "cig_runs", "cig_len")
-    werr = assert_equal({k: dp[k] for k in keys}, {k: dk[k] for k in keys},
-                        f"walker {kw}")
+    werr = 0
+    for direct in (False, True):
+        dk = tbd.device_decode_result(
+            ker, n, m, band=band, mode=mode,
+            walker=lambda *a, **k: tbd.decode_packed_tb_cuda(
+                *a, direct_reads=direct, **k))
+        torch.cuda.synchronize()
+        werr = max(werr, assert_equal(
+            {k: dp[k] for k in keys}, {k: dk[k] for k in keys},
+            f"walker ({tbd.walker_design(direct)}) {kw}"))
     return err, werr
 
 
@@ -281,8 +290,22 @@ def shape_timing(name, spec, q, r, n, m, reps):
         tb, los, nd, md, band=spec.band))
     wk_err = assert_equal(dict(zip(keys, rle_ref)), dict(zip(keys, rle)),
                           f"walker at {name}")
-    wk_ms = time_cuda(lambda: tbd.decode_packed_tb_cuda(
-        tb, los, nd, md, band=spec.band), reps)
+    old = tbd.decode_packed_tb_cuda(tb, los, nd, md, band=spec.band,
+                                    direct_reads=True)
+    torch.cuda.synchronize()
+    wk_err = max(wk_err, assert_equal(dict(zip(keys, rle_ref)),
+                                      dict(zip(keys, old)),
+                                      f"direct walker at {name}"))
+    del old
+
+    def walk(direct):
+        return lambda: tbd.decode_packed_tb_cuda(
+            tb, los, nd, md, band=spec.band, direct_reads=direct)
+    # In turns: staged, direct, direct, staged.
+    wk_ms, direct_ms = time_cuda(walk(False), reps), time_cuda(walk(True),
+                                                                reps)
+    direct_ms2, wk_ms2 = time_cuda(walk(True), reps), time_cuda(walk(False),
+                                                                 reps)
 
     path_steps = int(rle[1].sum())
     wf_bound, wf_by = wavefront_bound(n, m, N, q.shape[1], r.shape[1],
@@ -294,8 +317,11 @@ def shape_timing(name, spec, q, r, n, m, reps):
         dict(base, ms=wf_ms, plain_ms=wf_plain_ms, bound_ms=wf_bound,
              bound_by=wf_by, max_abs_err=wf_err,
              body=kernel_body(spec.band), block_ms=block_ms),
-        dict(base, ms=wk_ms, plain_ms=wk_plain_ms, bound_ms=wk_bound,
-             bound_by=wk_by, max_abs_err=wk_err, path_steps=path_steps))
+        dict(base, ms=wk_ms, ms_again=wk_ms2, direct_ms=direct_ms,
+             direct_ms_again=direct_ms2, plain_ms=wk_plain_ms,
+             bound_ms=wk_bound, bound_by=wk_by, max_abs_err=wk_err,
+             path_steps=path_steps, segments=int(rle[2].sum()),
+             window_rows=tbd.window_rows(spec.band, spec.t_max)))
 
 
 def matrix_inputs(reads, refs):
@@ -404,34 +430,55 @@ def walk_table(out, table, n, m, mode, walker):
 
 
 def check_persistent(groups, **kw):
-    """The persistent kernel vs plain on one request; with traceback also
-    the table walker vs its plain version on the kernel's planes. Returns
-    (max_abs_err persistent, max_abs_err walker or None, retired)."""
+    """The persistent kernel vs plain on one request, through the body its
+    widest band picks and through the block body (`block_body=True`),
+    each vs plain and so vs the other; with traceback also the table
+    walker, staged and direct, vs its plain version on the kernel's
+    planes. Returns (max_abs_err persistent, max_abs_err walker or None,
+    retired, {body: launches})."""
     table, (q, r, n, m) = on_card(groups)
-    ker = persistent_align_cuda(table, q, r, n, m, sc=MINIMAP2, **kw)
-    torch.cuda.synchronize()
     ref = persistent_align_plain(table, q, r, n, m, sc=MINIMAP2, **kw)
     torch.cuda.synchronize()
-    err = assert_equal(ref, ker, f"persistent {kw}")
+    err, bodies = 0, collections.Counter()
+    for block in (False, True):
+        body = persistent_body(table.band_max, block)
+        before = persistent_align_cuda.bodies[body]
+        ker = persistent_align_cuda(table, q, r, n, m, sc=MINIMAP2,
+                                    block_body=block, **kw)
+        torch.cuda.synchronize()
+        assert persistent_align_cuda.bodies[body] == before + 1, body
+        bodies[body] += 1
+        err = max(err, assert_equal(ref, ker, f"persistent ({body}) {kw}"))
     retired = int((ker["status"] != 0).sum())
     if not kw["collect_tb"]:
-        return err, None, retired
-    dk = walk_table(ker, table, n, m, kw["mode"],
-                    tbd.decode_packed_tb_table_cuda)
+        return err, None, retired, bodies
     dp = walk_table(ker, table, n, m, kw["mode"],
                     tbd.decode_packed_tb_table_plain)
-    return err, assert_equal(dp, dk, f"table walker {kw}"), retired
+    werr = 0
+    for direct in (False, True):
+        dk = walk_table(ker, table, n, m, kw["mode"],
+                        lambda *a: tbd.decode_packed_tb_table_cuda(
+                            *a, direct_reads=direct))
+        werr = max(werr, assert_equal(
+            dp, dk, f"table walker ({tbd.walker_design(direct)}) {kw}"))
+    return err, werr, retired, bodies
 
 
 def persistent_matrix(reads, refs, quick):
     """modes x adaptive x xdrop x collect_tb over 3-group requests cut
-    from `matrix_inputs`: bands 20, 21 and 60 (odd and even), sweeps
-    t_max, t_max and the full padded length; plus one narrow case."""
+    from `matrix_inputs`: bands 20, 21 and 60 (odd and even; the warp
+    body), and 20, 100 and 129 (bands on both sides of the warp body's
+    edge; the block body; adaptive cases only), sweeps t_max, t_max and
+    the full padded length; plus one narrow case. Every case also through
+    the block body forced. Returns (cases, worst persistent, worst walker,
+    launches by body)."""
     spec, q, r, n, m = matrix_inputs(reads, refs)
-    cuts = ((0, 24, 20, spec.t_max), (24, 48, 21, spec.t_max),
-            (48, 64, 60, None))
-    groups = [(q[a:b], r[a:b], n[a:b], m[a:b], band, t_max)
-              for a, b, band, t_max in cuts]
+    requests = []
+    for bands in ((20, 21, 60), (20, 100, 129)):
+        cuts = ((0, 24, bands[0], spec.t_max), (24, 48, bands[1], spec.t_max),
+                (48, 64, bands[2], None))
+        requests.append([(q[a:b], r[a:b], n[a:b], m[a:b], band, t_max)
+                         for a, b, band, t_max in cuts])
     grid = [dict(mode=mode, adaptive=adaptive, cell_dtype="int32",
                  xdrop=xdrop, collect_tb=collect_tb)
             for mode, adaptive, xdrop, collect_tb in itertools.product(
@@ -441,14 +488,20 @@ def persistent_matrix(reads, refs, quick):
                      xdrop=25, collect_tb=True))
     if quick:
         grid = grid[::3]
-    worst = worst_wk = retired = 0
-    for kw in grid:
-        err, werr, ret = check_persistent(groups, **kw)
-        worst = max(worst, err)
-        worst_wk = max(worst_wk, werr or 0)
-        retired += ret if kw["xdrop"] is not None else 0
+    worst = worst_wk = retired = cases = 0
+    bodies = collections.Counter()
+    for groups, cases_of in zip(requests, (grid, [kw for kw in grid
+                                                  if kw["adaptive"]])):
+        for kw in cases_of:
+            err, werr, ret, b = check_persistent(groups, **kw)
+            worst = max(worst, err)
+            worst_wk = max(worst_wk, werr or 0)
+            retired += ret if kw["xdrop"] is not None else 0
+            bodies.update(b)
+            cases += 1
     assert retired > 0, "the xdrop cases retired no pair"
-    return len(grid), worst, worst_wk
+    assert bodies["warp"] and bodies["block"], bodies
+    return cases, worst, worst_wk, dict(bodies)
 
 
 def persistent_groups(reads, refs):
@@ -480,43 +533,99 @@ def persistent_bound(table, n, m):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def persistent_timing(name, reads, refs, reps):
-    """The persistent kernel and the table walker on one request of the
-    main path's mix: held against their plain versions and timed."""
-    groups = persistent_groups(reads, refs)
-    table, (q, r, n, m) = on_card(groups)
-    kw = dict(sc=MINIMAP2, adaptive=True, collect_tb=True, mode="global")
+def persistent_timing(name, table, q, r, n, m, reps, mode="global",
+                      xdrop=None, plain=True):
+    """The persistent kernel and the table walker on one request on the
+    card: held against their plain versions and timed, both bodies of
+    the kernel and both designs of the walker, each pair in turns (new,
+    old, old, new) by `time_cuda`. With `plain` False (a request too
+    large for the plain versions' time), each kernel is held against its
+    other body / design instead, which the other cases hold against
+    plain."""
+    kw = dict(sc=MINIMAP2, adaptive=True, collect_tb=True, mode=mode,
+              xdrop=xdrop)
+    body = persistent_body(table.band_max)
     out = persistent_align_cuda(table, q, r, n, m, **kw)
+    blk = persistent_align_cuda(table, q, r, n, m, block_body=True, **kw)
     torch.cuda.synchronize()
-    plain_ms, ref = time_host(
-        lambda: persistent_align_plain(table, q, r, n, m, **kw))
-    err = assert_equal(ref, out, f"persistent at {name}")
-    ms = time_cuda(lambda: persistent_align_cuda(table, q, r, n, m, **kw),
-                   reps)
+    if plain:
+        plain_ms, ref = time_host(
+            lambda: persistent_align_plain(table, q, r, n, m, **kw))
+        err = assert_equal(ref, out, f"persistent ({body}) at {name}")
+    else:
+        plain_ms, ref = "not measured (held against the block body)", out
+        err = 0
+    err = max(err, assert_equal(ref, blk, f"persistent (block) at {name}"))
+    del blk, ref
+
+    def align(block):
+        return lambda: persistent_align_cuda(table, q, r, n, m,
+                                             block_body=block, **kw)
+    ms, block_ms = time_cuda(align(False), reps), time_cuda(align(True), reps)
+    block_ms2, ms2 = time_cuda(align(True), reps), time_cuda(align(False),
+                                                              reps)
 
     keys = ("cig_ops", "cig_runs", "cig_len")
     tb, los = out["tb"], out["los"]
-    rle = tbd.decode_packed_tb_table_cuda(table, tb, los, n, m)
+    si, sj = tbd._start_cells(out, n, m, mode)
+    rle = tbd.decode_packed_tb_table_cuda(table, tb, los, si, sj)
     torch.cuda.synchronize()
-    wk_plain_ms, rle_ref = time_host(
-        lambda: tbd.decode_packed_tb_table_plain(table, tb, los, n, m))
-    wk_err = assert_equal(dict(zip(keys, rle_ref)), dict(zip(keys, rle)),
-                          f"table walker at {name}")
-    wk_ms = time_cuda(lambda: tbd.decode_packed_tb_table_cuda(
-        table, tb, los, n, m), reps)
+    if plain:
+        wk_plain_ms, rle_ref = time_host(
+            lambda: tbd.decode_packed_tb_table_plain(table, tb, los, si, sj))
+        wk_err = assert_equal(dict(zip(keys, rle_ref)),
+                              dict(zip(keys, rle)), f"table walker at {name}")
+    else:
+        wk_plain_ms = "not measured (held against the direct walker)"
+        rle_ref, wk_err = rle, 0
+    old = tbd.decode_packed_tb_table_cuda(table, tb, los, si, sj,
+                                          direct_reads=True)
+    torch.cuda.synchronize()
+    wk_err = max(wk_err, assert_equal(dict(zip(keys, rle_ref)),
+                                      dict(zip(keys, old)),
+                                      f"direct table walker at {name}"))
+    del old
+
+    def walk(direct):
+        return lambda: tbd.decode_packed_tb_table_cuda(
+            table, tb, los, si, sj, direct_reads=direct)
+    wk_ms, direct_ms = time_cuda(walk(False), reps), time_cuda(walk(True),
+                                                                reps)
+    direct_ms2, wk_ms2 = time_cuda(walk(True), reps), time_cuda(walk(False),
+                                                                 reps)
 
     n_h, m_h = n.cpu().numpy(), m.cpu().numpy()
     bound, by = persistent_bound(table, n_h, m_h)
     path_steps = int(rle[1].sum())
     wk_bound, wk_by = walker_bound(path_steps, table.num_rows,
                                    table.steps_max)
-    base = {"shape": name, "rows": table.num_rows,
+    base = {"shape": name, "rows": table.num_rows, "mode": mode,
+            "table_shape": [table.steps_max, table.num_rows],
             "groups": [[s.rows, s.band, s.steps] for s in table.spans]}
-    return (dict(base, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                 bound_by=by, max_abs_err=err),
-            dict(base, ms=wk_ms, plain_ms=wk_plain_ms, bound_ms=wk_bound,
-                 bound_by=wk_by, max_abs_err=wk_err,
+    return (dict(base, body=body, ms=ms, ms_again=ms2, block_ms=block_ms,
+                 block_ms_again=block_ms2, plain_ms=plain_ms,
+                 bound_ms=bound, bound_by=by, max_abs_err=err),
+            dict(base, ms=wk_ms, ms_again=wk_ms2, direct_ms=direct_ms,
+                 direct_ms_again=direct_ms2, plain_ms=wk_plain_ms,
+                 bound_ms=wk_bound, bound_by=wk_by, max_abs_err=wk_err,
                  path_steps=path_steps))
+
+
+class TableSampler:
+    """Stands in for `persistent_align_cuda` in the CUDA backend and keeps
+    a copy of the first request of every table shape (longest sweep,
+    rows) it passes on, so that the shapes the main paths launch most can
+    be timed afterwards on their own inputs."""
+
+    def __init__(self):
+        self.samples = {}
+
+    def __call__(self, table, q, r, n, m, **kw):
+        key = (table.steps_max, table.num_rows)
+        if key not in self.samples:
+            self.samples[key] = (table, q.clone(), r.clone(), n.clone(),
+                                 m.clone(), kw["mode"], kw.get("xdrop"))
+        return persistent_align_cuda(table, q, r, n, m, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -872,6 +981,56 @@ def rel_l2(a, b):
     return (a - b).norm(dim=-1) / b.norm(dim=-1)
 
 
+def chunked_route_checks():
+    """`attention_apply(impl="chunked")` at T = 200 (not a multiple of the
+    kernels' 128-row tiles) at gemma3-27b's width and head layout (32 q /
+    16 kv heads of 128), f32 and bf16, causal and W = 64: it launches the
+    kernel `kernel_route` names, runs no PyTorch attention, and agrees with
+    `impl="naive"` on the same weights and input within the checks of the
+    `lm` phase (f32: atol = rtol = 2e-3; bf16: relative L2 per position
+    <= 2^-5). `impl="pallas"` at the same T keeps the reference wrapper's
+    block rule and raises."""
+    cfg = get_config(LM_ARCH)
+    T = 200
+    recs = []
+    for dt in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=DEV).manual_seed(17)
+        p = attn_mod.attention_init(gen, cfg, dt)
+        x = torch.randn(1, T, cfg.d_model, device=DEV, generator=gen).to(dt)
+        pos = torch.arange(T, device=DEV)[None]
+        for window in (None, 64):
+            before = counts()
+            out = attn_mod.attention_apply(p, cfg, x, pos, window=window,
+                                           impl="chunked")
+            torch.cuda.synchronize()
+            got = {k: v - before[k] for k, v in counts().items()}
+            assert got[B5_KERNEL[dt]] == 1 and got["plain_attention"] == 0 \
+                and got["plain_flash"] == 0, got
+            ref = attn_mod.attention_apply(p, cfg, x, pos, window=window,
+                                           impl="naive")
+            assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+            d = (out.float() - ref.float()).abs()
+            err = rel_l2(out.float(), ref.float())
+            ok = bool((d <= 2e-3 + 2e-3 * ref.float().abs()).all()) \
+                if dt == torch.float32 else float(err.max()) <= 2 ** -5
+            recs.append({"dtype": str(dt).split(".")[-1], "tokens": T,
+                         "window": window, "kernel": B5_KERNEL[dt],
+                         "max_abs_err": float(d.max()),
+                         "rel_l2_max": float(err.max()),
+                         "within_tolerance": ok})
+            if not ok:
+                raise AssertionError(f"chunked != naive at T={T}: "
+                                     f"{recs[-1]}")
+        try:
+            attn_mod.attention_apply(p, cfg, x, pos, impl="pallas")
+        except ValueError as e:
+            assert "must divide block sizes" in str(e), e
+        else:
+            raise AssertionError("impl='pallas' at T=200 did not raise")
+        del p
+    return recs
+
+
 def lm_config(quick):
     """gemma3-27b at full width; depth cut to 14 of 62 layers (two whole
     5 local + 1 global periods and the two local remainder layers, since
@@ -1098,6 +1257,7 @@ PLAIN = {
     "plain_traceback": tbd.decode_packed_tb_plain,
     "plain_chain": chain_mod.chain_padded_plain,
     "plain_flash": flash_attention_plain,
+    "plain_attention": attn_mod._torch_attention,
 }
 
 
@@ -1128,7 +1288,16 @@ def zero_counts():
         fn.calls = 0
     for fn in SHAPED.values():
         fn.shapes.clear()
-    banded_align_cuda.bodies.clear()
+    for counter in BY_KIND.values():
+        counter.clear()
+
+
+#: Launches by kind of the wrappers that count them: B1 and B2 by body
+#: ("warp" / "block"), the two walkers by design ("staged" / "direct").
+BY_KIND = {"banded_dp": banded_align_cuda.bodies,
+           "persistent": persistent_align_cuda.bodies,
+           "traceback": tbd.decode_packed_tb_cuda.designs,
+           "traceback_table": tbd.decode_packed_tb_table_cuda.designs}
 
 
 class PathCounts:
@@ -1140,7 +1309,7 @@ class PathCounts:
     def __init__(self):
         self.paths = {}
         self.shapes = {k: collections.Counter() for k in SHAPED}
-        self.bodies = collections.Counter()   # B1 launches by body
+        self.kinds = {k: collections.Counter() for k in BY_KIND}
 
     @contextlib.contextmanager
     def path(self, name):
@@ -1151,7 +1320,8 @@ class PathCounts:
         self.paths[name] = got
         for k, fn in SHAPED.items():
             self.shapes[k].update(fn.shapes)
-        self.bodies.update(banded_align_cuda.bodies)
+        for k, counter in BY_KIND.items():
+            self.kinds[k].update(counter)
 
     def total(self, *keys):
         return sum(c[k] for c in self.paths.values() for k in keys)
@@ -1311,6 +1481,7 @@ def main():
     hmma, _ = sass_count("flash_tf32x3", "HMMA")
     if isinstance(hmma, int):
         assert hmma > 0, "no HMMA instruction in flash_tf32x3's SASS"
+    chunked_t200 = chunked_route_checks()
     emit("flash_checks", {
         "seconds": time.perf_counter() - t0, "cases": f_cases,
         "max_abs_err": f_worst, "shapes": f_shapes, "f32_shapes": f32_shapes,
@@ -1318,7 +1489,7 @@ def main():
         "flash_tf32x3_ptxas": tf_ptxas
         or "not measured (library not rebuilt)",
         "flash_tc_hgmma": hgmma, "flash_tf32x3_hmma": hmma,
-        "cuobjdump": cuobjdump,
+        "cuobjdump": cuobjdump, "chunked_t200": chunked_t200,
         "tolerance": "f32: |err| <= 2e-5 + 2e-5*|plain| (the reference's "
                      "kernel test bound); bf16: one bf16 ulp of the value "
                      "(or 2e-5 if larger) — both round an f32 result"})
@@ -1370,24 +1541,43 @@ def main():
         worst_wf = max(worst_wf, wf["max_abs_err"])
         worst_wk = max(worst_wk, wk["max_abs_err"])
     cases += len(shapes)
-    p_cases, worst_p, worst_pt = persistent_matrix(*short, args.quick)
+    p_cases, worst_p, worst_pt, p_bodies = persistent_matrix(*short,
+                                                             args.quick)
     mix = [a[:64] + b[:64] + c[:8] for a, b, c in zip(short, mid, long_)]
     p_recs, pt_recs = [], []
     for name, (reads, refs), reps in (
             ("short_64", [x[:64] for x in short], 20),
             ("mid_64", [x[:64] for x in mid], 5), ("mix_64_64_8", mix, 3)):
-        p_rec, pt_rec = persistent_timing(name, reads, refs, reps)
+        table, (q, r, n, m) = on_card(persistent_groups(reads, refs))
+        p_rec, pt_rec = persistent_timing(name, table, q, r, n, m, reps)
         p_recs.append(p_rec)
         pt_recs.append(pt_rec)
         worst_p = max(worst_p, p_rec["max_abs_err"])
         worst_pt = max(worst_pt, pt_rec["max_abs_err"])
         p_cases += 1
+    p_mix, pt_mix = p_recs[-1], pt_recs[-1]
+    logs = built["logs"]
+    ptxas = {
+        "banded_dp_warp": ptxas_facts(
+            logs.get("banded_dp", ""), "wavefront_warp_kernel",
+            r"ILi(\d+)E"),
+        "persistent_warp": ptxas_facts(
+            logs.get("persistent", ""), "persistent_warp_kernel",
+            r"I(Lb\dELb\dELb\dELb\d)E"),
+        "traceback_staged": ptxas_facts(
+            logs.get("traceback", ""), "", r"\d(traceback(?:_table)?_kernel)E"),
+        "traceback_direct": ptxas_facts(
+            logs.get("traceback", ""), "",
+            r"\d(traceback(?:_table)?_direct_kernel)E")}
+    for name in ("persistent_warp", "traceback_staged"):
+        assert all(f["spill_stores"] == 0 and f["spill_loads"] == 0
+                   for f in ptxas[name].values()), ptxas[name]
     emit("kernel_checks", {
         "seconds": time.perf_counter() - t0,
         "xdrop_retired_pairs": retired, "matrix_cases_by_body": bodies,
-        "banded_dp_warp_ptxas": ptxas_facts(
-            built["logs"].get("banded_dp", ""), "wavefront_warp_kernel",
-            r"ILi(\d+)E") or "not measured (library not rebuilt)",
+        "persistent_matrix_cases_by_body": p_bodies,
+        "ptxas": {k: v or "not measured (library not rebuilt)"
+                  for k, v in ptxas.items()},
         "kernels": [
             {"name": "banded_dp", "cases": cases, "equal": True,
              "kernel_ms": wf_shapes[-1]["ms"],
@@ -1455,6 +1645,10 @@ def main():
                     "counts": paths.paths["engine"]})
 
     # ---- 5. the same request through persistent dispatch ----
+    # Every persistent launch of the main paths passes a sampler that
+    # keeps the first request of each table shape for section 8.
+    sampler = TableSampler()
+    cuda_backend.persistent_align_cuda = sampler
     with paths.path("engine_persistent"):
         engp = AlignmentEngine(backend="auto", dispatch="persistent")
         engp.warmup([(150, 150)], collect_tb=True)
@@ -1549,8 +1743,37 @@ def main():
                  "index_seconds": index_seconds, "runs": records,
                  "persistent_equals_pipelined": True,
                  "chain_checks": [chain_ill, chain_pb]})
+    cuda_backend.persistent_align_cuda = persistent_align_cuda
 
-    # ---- 8. the main paths went through the kernels ----
+    # ---- 8. B2 and the table walker at the main paths' commonest tables --
+    t0 = time.perf_counter()
+    shape_counts = paths.shapes["persistent"]
+    # The two commonest tables, held against plain, and the largest (the
+    # whole ragged request), held kernel against kernel.
+    picks = [(key, True) for key, _ in shape_counts.most_common(2)]
+    largest = max(shape_counts, key=lambda key: key[0] * key[1])
+    if largest not in [key for key, _ in picks]:
+        picks.append((largest, False))
+    for (K, R), plain in picks:
+        count = shape_counts[(K, R)]
+        table, q, r, n, m, mode, xdrop = sampler.samples[(K, R)]
+        p_rec, pt_rec = persistent_timing(f"main_{K}x{R}", table, q, r, n,
+                                          m, 20 if plain else 3, mode=mode,
+                                          xdrop=xdrop, plain=plain)
+        for rec in (p_rec, pt_rec):
+            rec["main_path_launches"] = count
+        p_recs.append(p_rec)
+        pt_recs.append(pt_rec)
+        worst_p = max(worst_p, p_rec["max_abs_err"])
+        worst_pt = max(worst_pt, pt_rec["max_abs_err"])
+    del sampler
+    emit("persistent_shapes", {
+        "seconds": time.perf_counter() - t0,
+        "launches_by_table_shape": {f"{K}x{R}": c for (K, R), c
+                                    in shape_counts.most_common()},
+        "persistent": p_recs[3:], "traceback_table": pt_recs[3:]})
+
+    # ---- 9. the main paths went through the kernels ----
     tot = paths.total
     common = {"route": "cuda", "library_ms": None}
     wf, wk = wf_shapes[-1], wk_shapes[-1]
@@ -1573,22 +1796,38 @@ def main():
              replaces="src/repro/core/traceback_device.py:43",
              launches=tot("traceback", "traceback_table"),
              launches_by_class=paths.by_class("traceback"),
+             launches_by_design=dict(paths.kinds["traceback"]),
              max_abs_err=max(worst_wk, worst_pt),
              ms=wk["ms"], plain_ms=wk["plain_ms"], bound_ms=wk["bound_ms"],
              bound_by=wk["bound_by"], shape=wk["shape"],
-             table_launches=tot("traceback_table"), table_ms=pt_rec["ms"],
-             table_plain_ms=pt_rec["plain_ms"],
-             table_bound_ms=pt_rec["bound_ms"],
-             table_shape=pt_rec["shape"],
-             table_launches_by_class=paths.by_class("traceback_table")),
+             direct_ms=wk["direct_ms"],
+             ms_by_shape={x["shape"]: x["ms"] for x in wk_shapes},
+             direct_ms_by_shape={x["shape"]: x["direct_ms"]
+                                 for x in wk_shapes},
+             bound_ms_by_shape={x["shape"]: x["bound_ms"]
+                                for x in wk_shapes},
+             table_launches=tot("traceback_table"), table_ms=pt_mix["ms"],
+             table_direct_ms=pt_mix["direct_ms"],
+             table_plain_ms=pt_mix["plain_ms"],
+             table_bound_ms=pt_mix["bound_ms"],
+             table_shape=pt_mix["shape"],
+             table_ms_by_shape={x["shape"]: x["ms"] for x in pt_recs},
+             table_direct_ms_by_shape={x["shape"]: x["direct_ms"]
+                                       for x in pt_recs},
+             table_launches_by_class=paths.by_class("traceback_table"),
+             table_launches_by_design=dict(paths.kinds["traceback_table"])),
         dict(common, name="persistent",
              source="src/repro_torch/kernels/banded_dp/csrc/persistent.cu",
              replaces="src/repro/kernels/banded_dp/persistent.py:402",
              launches=tot("persistent"), max_abs_err=worst_p,
              launches_by_class=paths.by_class("persistent"),
-             ms=p_rec["ms"], plain_ms=p_rec["plain_ms"],
-             bound_ms=p_rec["bound_ms"], bound_by=p_rec["bound_by"],
-             shape=p_rec["shape"]),
+             launches_by_body=dict(paths.kinds["persistent"]),
+             ms=p_mix["ms"], plain_ms=p_mix["plain_ms"],
+             bound_ms=p_mix["bound_ms"], bound_by=p_mix["bound_by"],
+             shape=p_mix["shape"], block_ms=p_mix["block_ms"],
+             ms_by_shape={x["shape"]: x["ms"] for x in p_recs},
+             block_ms_by_shape={x["shape"]: x["block_ms"] for x in p_recs},
+             bound_ms_by_shape={x["shape"]: x["bound_ms"] for x in p_recs}),
         dict(common, name="chain",
              source="src/repro_torch/map/csrc/chain.cu",
              replaces="src/repro/map/chain.py:101",
@@ -1601,10 +1840,14 @@ def main():
     ]
     for k in kernels:
         assert k["launches"] > 0 and k["max_abs_err"] == 0, k
-    # Every B1 launch of the main paths ran the warp body (bands <= 100).
-    assert paths.bodies["block"] == 0 \
-        and paths.bodies["warp"] == tot("banded_dp"), paths.bodies
-    kernels[0]["launches_by_body"] = dict(paths.bodies)
+    # Every B1 and B2 launch of the main paths ran the warp body (bands
+    # <= 100), and every walker launch the staged design.
+    for key, kind in (("banded_dp", "warp"), ("persistent", "warp"),
+                      ("traceback", "staged"), ("traceback_table", "staged")):
+        got = paths.kinds[key]
+        assert got[kind] == tot(key) and sum(got.values()) == tot(key), \
+            (key, got)
+    kernels[0]["launches_by_body"] = dict(paths.kinds["banded_dp"])
     loc, glob = f_shapes
     floc, fglob, d80 = f32_shapes
 

@@ -19,8 +19,10 @@ longest CIGAR actually present, collapsing per-pair host traffic from
 ``ceil(B/2) * t_max`` plane bytes to ``O(path segments)``.
 
 `decode_packed_tb` is the wrapper. On CUDA tensors it launches the
-hand-written walker kernel (``csrc/traceback.cu``, one warp per pair, RLE
-while walking) or raises; on CPU tensors it takes the plain version
+hand-written walker kernel (``csrc/traceback.cu``: one warp per pair, the
+pair's flag plane and band offsets staged in shared memory a window of
+`window_rows` rows at a time, RLE while walking; design note at the top
+of the source) or raises; on CPU tensors it takes the plain version
 `decode_packed_tb_plain`, a lockstep loop of tensor ops with the same
 flag semantics, band-escape diagonal fallback and forced boundary gaps as
 the host oracle `banded.traceback_banded_batch` (entering a gap run and
@@ -34,6 +36,12 @@ rows of every group, each with its own band, sweep length and plane
 offset, into one ``(R, K)`` RLE plane with K the longest group sweep —
 exactly the merged layout of `core.backends.merge_persistent_outputs`.
 Its plain version walks group by group and merges.
+
+Both CUDA wrappers take ``direct_reads=True``, a measurement switch that
+launches the earlier walker (lane 0 reads the plane from global memory at
+every step), so that the two designs can be held and timed on the same
+planes; no main path sets it. Launches are counted by design in
+``.designs`` ("staged" / "direct").
 """
 
 from __future__ import annotations
@@ -51,6 +59,28 @@ from repro_torch.kernels import build
 #: Steps between two tests of the plain walker's early exit (one host
 #: sync each): the loop stops once every pair has reached (0, 0).
 WALK_CHUNK = 64
+
+#: The staged kernel's window rule (`csrc/traceback.cu`: WINDOW_BYTES,
+#: WINDOW_MIN_ROWS, WINDOW_MAX_ROWS), checked against the library when it
+#: is loaded.
+WINDOW_BYTES = 12800
+WINDOW_MIN_ROWS = 32
+WINDOW_MAX_ROWS = 1024
+
+
+def window_rows(band: int, T: int) -> int:
+    """Flag rows per shared-memory window of the staged walker for a plane
+    of `T` rows and `band` lanes: about `WINDOW_BYTES` of packed flags,
+    `WINDOW_MIN_ROWS`..`WINDOW_MAX_ROWS` rows, at most T."""
+    W = min(max(WINDOW_BYTES // ((int(band) + 1) // 2), WINDOW_MIN_ROWS),
+            WINDOW_MAX_ROWS)
+    return min(W, int(T))
+
+
+def walker_design(direct_reads: bool) -> str:
+    """The kernel a CUDA walker launch runs: "staged" (the plane read
+    through shared-memory windows), or "direct" with `direct_reads`."""
+    return "direct" if direct_reads else "staged"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -148,14 +178,28 @@ def _lib():
     lib = build.load("traceback")
     fn = lib.traceback_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 7 + [_I] * 4 + [_P]
+        fn.argtypes = [_P] * 7 + [_I] * 5 + [_P]
         fn.restype = _I
+        table = lib.traceback_table_launch
+        table.argtypes = [_P] * 8 + [_I] * 6 + [_P]
+        table.restype = _I
+        lib.traceback_window_rows.argtypes = [_I, _I]
+        lib.traceback_window_rows.restype = _I
+        for band, T in ((1, 50), (20, 4096), (100, 15808), (257, 900),
+                        (1024, 40)):
+            if lib.traceback_window_rows(band, T) != window_rows(band, T):
+                raise RuntimeError("traceback.cu and window_rows disagree "
+                                   "on the window rule")
     return lib
 
 
-def decode_packed_tb_cuda(tb, los, start_i, start_j, *, band: int):
+def decode_packed_tb_cuda(tb, los, start_i, start_j, *, band: int,
+                          direct_reads: bool = False):
     """Launch the walker kernel on CUDA tensors (current stream, no
-    synchronisation). Raises on anything the kernel does not take."""
+    synchronisation). `direct_reads` is a measurement switch that launches
+    the earlier design (global reads at every step) instead of the staged
+    one; the main paths never set it. Raises on anything the kernel does
+    not take."""
     if not tb.is_cuda:
         raise ValueError("decode_packed_tb_cuda takes CUDA tensors")
     dev = tb.device
@@ -184,19 +228,22 @@ def decode_packed_tb_cuda(tb, los, start_i, start_j, *, band: int):
         err = lib.traceback_launch(
             tb.data_ptr(), los.data_ptr(), si.data_ptr(), sj.data_ptr(),
             cig_ops.data_ptr(), cig_runs.data_ptr(), cig_len.data_ptr(),
-            N, T, Bp, int(band), torch.cuda.current_stream().cuda_stream)
+            N, T, Bp, int(band), int(bool(direct_reads)),
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"traceback kernel launch failed: CUDA error "
                            f"{err}")
     decode_packed_tb_cuda.launches += 1
     decode_packed_tb_cuda.shapes[(T, N)] += 1
+    decode_packed_tb_cuda.designs[walker_design(direct_reads)] += 1
     return cig_ops, cig_runs, cig_len
 
 
 #: Kernel launches since the count was last set to 0, and the same launches
-#: by (sweep length T, pairs N).
+#: by (sweep length T, pairs N) and by design ("staged" / "direct").
 decode_packed_tb_cuda.launches = 0
 decode_packed_tb_cuda.shapes = collections.Counter()
+decode_packed_tb_cuda.designs = collections.Counter()
 
 
 def decode_packed_tb(tb, los, start_i, start_j, *, band: int, device=None):
@@ -306,20 +353,23 @@ def decode_packed_tb_table_plain(table, tb, los, start_i, start_j):
     return merged["cig_ops"], merged["cig_runs"], merged["cig_len"]
 
 
-def _table_lib():
-    lib = build.load("traceback")
-    fn = lib.traceback_table_launch
-    if fn.argtypes is None:
-        fn.argtypes = [_P] * 8 + [_I] * 2 + [_P]
-        fn.restype = _I
-    return lib
+def table_windows(table) -> tuple[int, int, bool]:
+    """(most flag bytes, most rows, whether any row needs a second window)
+    of the staged walker's windows over the groups of `table`: what the
+    table launch sizes its shared memory by."""
+    wins = [(window_rows(s.band, s.steps), s) for s in table.spans]
+    return (max(W * s.tb_width for W, s in wins),
+            max(W for W, _ in wins),
+            any(W < s.steps for W, s in wins))
 
 
-def decode_packed_tb_table_cuda(table, tb, los, start_i, start_j):
+def decode_packed_tb_table_cuda(table, tb, los, start_i, start_j, *,
+                                direct_reads: bool = False):
     """Launch the table walker kernel once for every row of `table` (CUDA
     tensors, current stream, no synchronisation). Same arguments and
-    results as `decode_packed_tb_table_plain`; raises on anything the
-    kernel does not take."""
+    results as `decode_packed_tb_table_plain`; `direct_reads` as for
+    `decode_packed_tb_cuda`. Raises on anything the kernel does not
+    take."""
     if not tb.is_cuda:
         raise ValueError("decode_packed_tb_table_cuda takes CUDA tensors")
     dev = tb.device
@@ -343,24 +393,28 @@ def decode_packed_tb_table_cuda(table, tb, los, start_i, start_j):
         return cig_ops, cig_runs, torch.zeros(R, dtype=torch.int32,
                                               device=dev)
     cig_len = torch.empty(R, dtype=torch.int32, device=dev)
+    flag_cap, rows_cap, two = table_windows(table)
     with torch.cuda.device(dev):
-        err = _table_lib().traceback_table_launch(
+        err = _lib().traceback_table_launch(
             table.rows.data_ptr(), tb.data_ptr(), los.data_ptr(),
             si.data_ptr(), sj.data_ptr(), cig_ops.data_ptr(),
-            cig_runs.data_ptr(), cig_len.data_ptr(), R, K,
+            cig_runs.data_ptr(), cig_len.data_ptr(), R, K, flag_cap,
+            rows_cap, int(two), int(bool(direct_reads)),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"traceback table kernel launch failed: CUDA "
                            f"error {err}")
     decode_packed_tb_table_cuda.launches += 1
     decode_packed_tb_table_cuda.shapes[(K, R)] += 1
+    decode_packed_tb_table_cuda.designs[walker_design(direct_reads)] += 1
     return cig_ops, cig_runs, cig_len
 
 
 #: Kernel launches since the count was last set to 0, and the same launches
-#: by (longest sweep, table rows).
+#: by (longest sweep, table rows) and by design ("staged" / "direct").
 decode_packed_tb_table_cuda.launches = 0
 decode_packed_tb_table_cuda.shapes = collections.Counter()
+decode_packed_tb_table_cuda.designs = collections.Counter()
 
 
 def decode_packed_tb_table(table, tb, los, start_i, start_j):

@@ -20,7 +20,8 @@
 //     buffered and padded by one dead lane on each side, one
 //     __syncthreads() per step; per-warp reductions joined across warps in
 //     lane order through shared memory behind that barrier. The persistent
-//     kernel (persistent.cu) runs this body for every band.
+//     kernel (persistent.cu) picks between the two bodies the same way,
+//     from the widest band of its request.
 //
 // Both bodies: a strict `>` keeps the lowest lane on best-cell ties; 4-bit
 // flags are packed two per byte and stored straight to global memory; rows

@@ -1,10 +1,11 @@
 // One pair's adaptive banded affine-gap wavefront (paper Eq. (4)), run by
 // ONE WARP with the band state in registers: the per-pair body the
-// per-group kernel (banded_dp.cu) launches for bands B <= 128. Wider bands,
-// and the persistent kernel, keep the block body of wavefront.cuh; the two
-// give the same results bit for bit (same arithmetic, same sentinels, same
-// tie-breaks), which chip_smoke.py checks over bands across both bodies'
-// edges and through the persistent == pipelined comparison.
+// per-group kernel (banded_dp.cu) and the persistent kernel (persistent.cu)
+// launch for bands B <= 128. Wider bands keep the block body of
+// wavefront.cuh; the two give the same results bit for bit (same
+// arithmetic, same sentinels, same tie-breaks), which chip_smoke.py checks
+// over bands across both bodies' edges, on persistent tables through both
+// bodies and through the persistent == pipelined comparison.
 //
 // Layout: thread `lane` of the warp owns the C contiguous band lanes
 // k = lane * C + c, C = 1, 2 or 4 for B <= 32, 64, 128. Lanes k >= B

@@ -15,6 +15,13 @@ padded rows in order (the `run_persistent` layout of `core.backends`).
 The table itself is sorted longest live sweep first, which is the order
 the kernel starts its blocks in.
 
+The kernel has two bodies, picked for the whole request by
+`persistent_body`: one warp per table row (B1's warp body, band state in
+registers) when the widest band is at most `WARP_MAX_BAND`, one block per
+row above. ``block_body=True`` is a measurement switch that runs the block
+body at any band; no main path sets it. Launches are counted by body in
+``persistent_align_cuda.bodies``.
+
 `persistent_align_cuda` is the wrapper (CUDA tensors, launches the kernel
 or raises); `persistent_align_plain` is its plain version, which runs
 each group through `core.banded.banded_align_batch` with that group's
@@ -34,8 +41,8 @@ import torch
 from repro_torch.core.banded import banded_align_batch, packed_tb_width
 from repro_torch.core.scoring import ScoringConfig
 from repro_torch.kernels import build
-from repro_torch.kernels.banded_dp.banded_dp import (MAX_BAND, MAX_SWEEP,
-                                                     STAT_KEYS)
+from repro_torch.kernels.banded_dp.banded_dp import (MAX_SWEEP, STAT_KEYS,
+                                                     kernel_body)
 
 #: Columns of the int64 work table, in order (`enum Col` of the sources).
 TABLE_COLS = ("row", "q_off", "r_off", "q_len", "r_len", "band", "steps",
@@ -184,7 +191,7 @@ def _lib():
     lib = build.load("persistent")
     fn = lib.persistent_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 8 + [_I] * 10 + [_P]
+        fn.argtypes = [_P] * 8 + [_I] * 11 + [_P]
         fn.restype = _I
         if lib.persistent_table_cols() != len(TABLE_COLS):
             raise RuntimeError("persistent.cu and TABLE_COLS disagree on "
@@ -192,11 +199,22 @@ def _lib():
     return lib
 
 
+def persistent_body(band_max: int, block_body: bool = False) -> str:
+    """The body a persistent launch runs, for a request whose widest band
+    is `band_max`, as `csrc/persistent.cu` picks it: the per-group
+    kernel's rule (`kernel_body`) on the widest band — "warp" (one warp
+    per table row) for 1..`WARP_MAX_BAND`, "block" (one block per row) up
+    to `MAX_BAND`, and at any band with `block_body`. Raises ValueError
+    outside 1..`MAX_BAND`."""
+    return kernel_body(band_max, block_body)
+
+
 def persistent_align_cuda(table: WorkTable, q, r, n, m, *,
                           sc: ScoringConfig, adaptive: bool = True,
                           collect_tb: bool = True, mode: str = "global",
                           cell_dtype: str = "int32",
-                          xdrop: int | None = None):
+                          xdrop: int | None = None,
+                          block_body: bool = False):
     """Run the persistent kernel on CUDA tensors: one launch for every row
     of `table` (on the same device), queued on the current stream, not
     synchronised.
@@ -206,6 +224,9 @@ def persistent_align_cuda(table: WorkTable, q, r, n, m, *,
       n, m: (R,) int32 true lengths in merged row order.
       sc, adaptive, mode, xdrop: as `banded_align_batch`;
         ``cell_dtype="narrow"`` runs on the kernel's int32 path.
+      block_body: a measurement switch: run the block body at any band,
+        so that both bodies can be timed on the same table. The main
+        paths never set it.
 
     Returns a dict of (R,) int32 'score', 'final_lo', 'best_score',
     'best_i', 'best_j', 'status' in merged row order and, when
@@ -232,9 +253,7 @@ def persistent_align_cuda(table: WorkTable, q, r, n, m, *,
         raise ValueError("the work table must be a contiguous "
                          f"({R}, {len(TABLE_COLS)}) int64 tensor on {dev}")
     for s in table.spans:
-        if not 1 <= s.band <= MAX_BAND:
-            raise ValueError(f"band={s.band} outside the kernel's range "
-                             f"1..{MAX_BAND}")
+        persistent_body(s.band)
         if not 0 <= s.steps <= MAX_SWEEP or s.q_len < 1 or s.r_len < 1:
             raise ValueError(f"group geometry {s} outside the kernel's "
                              "range")
@@ -265,13 +284,15 @@ def persistent_align_cuda(table: WorkTable, q, r, n, m, *,
                 R, table.band_max, sc.match, sc.mismatch, sc.gap_open,
                 sc.gap_extend, -1 if xdrop is None else int(xdrop),
                 int(mode == "semiglobal"), int(bool(adaptive)),
-                int(bool(collect_tb)),
+                int(bool(collect_tb)), int(bool(block_body)),
                 torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"persistent kernel launch failed: CUDA "
                                f"error {err}")
         persistent_align_cuda.launches += 1
         persistent_align_cuda.shapes[(table.steps_max, R)] += 1
+        persistent_align_cuda.bodies[
+            persistent_body(table.band_max, block_body)] += 1
     out = {key: stats[i] for i, key in enumerate(STAT_KEYS)}
     if collect_tb:
         out["tb"] = tb
@@ -280,9 +301,10 @@ def persistent_align_cuda(table: WorkTable, q, r, n, m, *,
 
 
 #: Kernel launches since the count was last set to 0, and the same launches
-#: by (longest sweep, table rows).
+#: by (longest sweep, table rows) and by body ("warp" / "block").
 persistent_align_cuda.launches = 0
 persistent_align_cuda.shapes = collections.Counter()
+persistent_align_cuda.bodies = collections.Counter()
 
 
 def persistent_align(table: WorkTable, q, r, n, m, **kw):
