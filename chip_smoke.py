@@ -73,8 +73,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.banded_dp.banded_dp import (  # noqa: E402
     banded_align_cuda, kernel_body)
 from repro_torch.kernels.banded_dp.persistent import (  # noqa: E402
-    pack_groups, persistent_align_cuda, persistent_align_plain,
-    persistent_body)
+    pack_groups, persistent_align_cuda, persistent_align_plain)
 from repro_torch.core.backends import cuda as cuda_backend  # noqa: E402
 from repro_torch.kernels.local_attention.local_attention import (  # noqa: E402
     flash_attention_cuda, flash_attention_fma_cuda, flash_attention_plain,
@@ -197,15 +196,18 @@ def max_abs_diff(a: dict, b: dict) -> int:
     return worst
 
 
-def check_case(q, r, n, m, **kw):
+def check_case(q, r, n, m, ref=None, **kw):
     """Wavefront kernel vs plain on one case; with traceback also the
-    walker kernel vs its plain version on the kernel's planes. Returns
-    (max_abs_err wavefront, max_abs_err walker or None)."""
+    walker kernel vs its plain version on the kernel's planes. `ref`, a
+    plain run with traceback of the same case, serves a case without it
+    (the six stats do not depend on collect_tb). Returns (max_abs_err
+    wavefront, max_abs_err walker or None)."""
     ker = banded_align_cuda(q, r, n, m, sc=MINIMAP2, **kw)
     torch.cuda.synchronize()
-    ref = banded.banded_align_batch(q, r, n, m, sc=MINIMAP2, **kw)
-    torch.cuda.synchronize()
-    err = assert_equal(ref, ker, f"wavefront {kw}")
+    if ref is None:
+        ref = banded.banded_align_batch(q, r, n, m, sc=MINIMAP2, **kw)
+        torch.cuda.synchronize()
+    err = assert_equal({k: ref[k] for k in ker}, ker, f"wavefront {kw}")
     if not kw["collect_tb"]:
         return err, None
     band, mode = kw["band"], kw["mode"]
@@ -326,11 +328,12 @@ def shape_timing(name, spec, q, r, n, m, reps):
 
 def matrix_inputs(reads, refs):
     """64 pairs at read length ~150, a few of them unrelated sequences so
-    that the xdrop rule retires some, one short pair and one dummy pair."""
+    that the xdrop rule retires some (one in every quarter), one short
+    pair and one dummy pair."""
     spec, q, r, n, m = padded_group(reads[:64], refs[:64], 64)
     rng = np.random.default_rng(5)
     q = q.copy()
-    for p in (3, 17, 40):
+    for p in (3, 17, 40, 56):
         q[p, :n[p]] = rng.integers(0, 4, n[p])
     n = n.copy()
     m = m.copy()
@@ -348,35 +351,37 @@ EDGE_BANDS = (31, 32, 33, 60, 63, 64, 65, 100, 127, 128, 129)
 def kernel_matrix(reads, refs, quick):
     """modes x adaptive x cell_dtype x xdrop x odd/even band x collect_tb
     on `matrix_inputs`; then `EDGE_BANDS` x modes x adaptive x xdrop x
-    collect_tb, the wavefront alone (every output, `tb` and `los` whole;
-    one plain run with traceback serves both kernel runs, since the six
-    stats do not depend on collect_tb); each case asserts the body its
-    band runs."""
+    collect_tb, the wavefront alone (every output, `tb` and `los` whole).
+    In both, one plain run with traceback serves the two kernel runs,
+    since the six stats do not depend on collect_tb. Each case asserts
+    the body its band runs."""
     spec, q, r, n, m = matrix_inputs(reads, refs)
     qd, rd, nd, md = (torch.from_numpy(a).to(DEV) for a in (q, r, n, m))
     grid = list(itertools.product(
         ("global", "semiglobal"), (True, False), ("int32", "narrow"),
-        (None, 25), (spec.band, spec.band + 1), (True, False)))
+        (None, 25), (spec.band, spec.band + 1)))
     if quick:
         grid = grid[::5]
     cases = retired = 0
     worst_wf = worst_wk = 0
     bodies = collections.Counter()
-    for mode, adaptive, cell_dtype, xdrop, band, collect_tb in grid:
-        kw = dict(band=band, adaptive=adaptive, collect_tb=collect_tb,
-                  mode=mode, t_max=spec.t_max, cell_dtype=cell_dtype,
-                  xdrop=xdrop)
-        before = banded_align_cuda.bodies[kernel_body(band)]
-        err, werr = check_case(qd, rd, nd, md, **kw)
-        assert banded_align_cuda.bodies[kernel_body(band)] == before + 1
-        bodies[kernel_body(band)] += 1
-        worst_wf = max(worst_wf, err)
-        if werr is not None:
-            worst_wk = max(worst_wk, werr)
+    for mode, adaptive, cell_dtype, xdrop, band in grid:
+        kw = dict(band=band, adaptive=adaptive, mode=mode, t_max=spec.t_max,
+                  cell_dtype=cell_dtype, xdrop=xdrop)
+        ref = banded.banded_align_batch(qd, rd, nd, md, sc=MINIMAP2,
+                                        collect_tb=True, **kw)
+        for collect_tb in (True, False):
+            before = banded_align_cuda.bodies[kernel_body(band)]
+            err, werr = check_case(qd, rd, nd, md, ref=ref,
+                                   collect_tb=collect_tb, **kw)
+            assert banded_align_cuda.bodies[kernel_body(band)] == before + 1
+            bodies[kernel_body(band)] += 1
+            worst_wf = max(worst_wf, err)
+            if werr is not None:
+                worst_wk = max(worst_wk, werr)
+            cases += 1
         if xdrop is not None:
-            out = banded_align_cuda(qd, rd, nd, md, sc=MINIMAP2, **kw)
-            retired += int((out["status"] != 0).sum())
-        cases += 1
+            retired += int((ref["status"] != 0).sum())
     edge = list(itertools.product(EDGE_BANDS, ("global", "semiglobal"),
                                   (True, False), (None, 25)))
     for band, mode, adaptive, xdrop in edge[::7] if quick else edge:
@@ -441,7 +446,7 @@ def check_persistent(groups, **kw):
     torch.cuda.synchronize()
     err, bodies = 0, collections.Counter()
     for block in (False, True):
-        body = persistent_body(table.band_max, block)
+        body = kernel_body(table.band_max, block)
         before = persistent_align_cuda.bodies[body]
         ker = persistent_align_cuda(table, q, r, n, m, sc=MINIMAP2,
                                     block_body=block, **kw)
@@ -465,20 +470,22 @@ def check_persistent(groups, **kw):
 
 
 def persistent_matrix(reads, refs, quick):
-    """modes x adaptive x xdrop x collect_tb over 3-group requests cut
-    from `matrix_inputs`: bands 20, 21 and 60 (odd and even; the warp
-    body), and 20, 100 and 129 (bands on both sides of the warp body's
-    edge; the block body; adaptive cases only), sweeps t_max, t_max and
-    the full padded length; plus one narrow case. Every case also through
-    the block body forced. Returns (cases, worst persistent, worst walker,
-    launches by body)."""
+    """modes x adaptive x xdrop x collect_tb over requests cut from
+    `matrix_inputs`: bands 20, 21, 60 and 100 (the warp body at C = 1, 1,
+    2 and 4 lanes per thread; odd and even; every band of the main
+    paths' tables), and 20, 100 and 129 (bands on both sides of the warp
+    body's edge; the block body; adaptive cases only); every group sweeps
+    t_max but the last, which sweeps the full padded length; plus one
+    narrow case. Every case also through the block body forced. Returns
+    (cases, worst persistent, worst walker, launches by body)."""
     spec, q, r, n, m = matrix_inputs(reads, refs)
     requests = []
-    for bands in ((20, 21, 60), (20, 100, 129)):
-        cuts = ((0, 24, bands[0], spec.t_max), (24, 48, bands[1], spec.t_max),
-                (48, 64, bands[2], None))
-        requests.append([(q[a:b], r[a:b], n[a:b], m[a:b], band, t_max)
-                         for a, b, band, t_max in cuts])
+    for bands in ((20, 21, 60, 100), (20, 100, 129)):
+        edges = np.linspace(0, 64, len(bands) + 1).astype(int)
+        requests.append([
+            (q[a:b], r[a:b], n[a:b], m[a:b], band,
+             None if g == len(bands) - 1 else spec.t_max)
+            for g, (a, b, band) in enumerate(zip(edges, edges[1:], bands))])
     grid = [dict(mode=mode, adaptive=adaptive, cell_dtype="int32",
                  xdrop=xdrop, collect_tb=collect_tb)
             for mode, adaptive, xdrop, collect_tb in itertools.product(
@@ -544,7 +551,7 @@ def persistent_timing(name, table, q, r, n, m, reps, mode="global",
     plain."""
     kw = dict(sc=MINIMAP2, adaptive=True, collect_tb=True, mode=mode,
               xdrop=xdrop)
-    body = persistent_body(table.band_max)
+    body = kernel_body(table.band_max)
     out = persistent_align_cuda(table, q, r, n, m, **kw)
     blk = persistent_align_cuda(table, q, r, n, m, block_body=True, **kw)
     torch.cuda.synchronize()
@@ -612,20 +619,39 @@ def persistent_timing(name, table, q, r, n, m, reps, mode="global",
 
 
 class TableSampler:
-    """Stands in for `persistent_align_cuda` in the CUDA backend and keeps
-    a copy of the first request of every table shape (longest sweep,
-    rows) it passes on, so that the shapes the main paths launch most can
-    be timed afterwards on their own inputs."""
+    """Stands in for `persistent_align_cuda` in the CUDA backend during an
+    untimed replay of the main paths, after they ran, and keeps a copy of
+    the first request of each wanted table shape (longest sweep, rows), so
+    that the shapes the paths launched most can be timed on inputs of
+    their own. `sample_tables` installs it."""
 
-    def __init__(self):
-        self.samples = {}
+    def __init__(self, wanted):
+        self.wanted, self.samples = set(wanted), {}
 
     def __call__(self, table, q, r, n, m, **kw):
         key = (table.steps_max, table.num_rows)
-        if key not in self.samples:
+        if key in self.wanted and key not in self.samples:
             self.samples[key] = (table, q.clone(), r.clone(), n.clone(),
                                  m.clone(), kw["mode"], kw.get("xdrop"))
         return persistent_align_cuda(table, q, r, n, m, **kw)
+
+
+def sample_tables(wanted, replays):
+    """Run `replays` (callables that drive persistent paths again) in
+    order through a `TableSampler`, until every wanted table shape has a
+    sample. Returns (samples by shape, replays run)."""
+    sampler = TableSampler(wanted)
+    cuda_backend.persistent_align_cuda = sampler
+    try:
+        run = 0
+        for replay in replays:
+            if sampler.wanted <= set(sampler.samples):
+                break
+            replay()
+            run += 1
+    finally:
+        cuda_backend.persistent_align_cuda = persistent_align_cuda
+    return sampler.samples, run
 
 
 # ---------------------------------------------------------------------------
@@ -985,11 +1011,12 @@ def chunked_route_checks():
     """`attention_apply(impl="chunked")` at T = 200 (not a multiple of the
     kernels' 128-row tiles) at gemma3-27b's width and head layout (32 q /
     16 kv heads of 128), f32 and bf16, causal and W = 64: it launches the
-    kernel `kernel_route` names, runs no PyTorch attention, and agrees with
+    kernel `kernel_route` names, no plain version, and agrees with
     `impl="naive"` on the same weights and input within the checks of the
     `lm` phase (f32: atol = rtol = 2e-3; bf16: relative L2 per position
     <= 2^-5). `impl="pallas"` at the same T keeps the reference wrapper's
-    block rule and raises."""
+    block rule and raises; "chunked" in float16, which no kernel is built
+    for, raises and launches nothing."""
     cfg = get_config(LM_ARCH)
     T = 200
     recs = []
@@ -1004,8 +1031,7 @@ def chunked_route_checks():
                                            impl="chunked")
             torch.cuda.synchronize()
             got = {k: v - before[k] for k, v in counts().items()}
-            assert got[B5_KERNEL[dt]] == 1 and got["plain_attention"] == 0 \
-                and got["plain_flash"] == 0, got
+            assert got[B5_KERNEL[dt]] == 1 and got["plain_flash"] == 0, got
             ref = attn_mod.attention_apply(p, cfg, x, pos, window=window,
                                            impl="naive")
             assert out.shape == ref.shape and bool(torch.isfinite(out).all())
@@ -1028,6 +1054,17 @@ def chunked_route_checks():
         else:
             raise AssertionError("impl='pallas' at T=200 did not raise")
         del p
+    gen = torch.Generator(device=DEV).manual_seed(17)
+    p = attn_mod.attention_init(gen, cfg, torch.float16)
+    x = torch.randn(1, T, cfg.d_model, device=DEV, generator=gen).half()
+    before = counts()
+    try:
+        attn_mod.attention_apply(p, cfg, x, pos, impl="chunked")
+    except ValueError as e:
+        assert "one dtype in" in str(e), e
+    else:
+        raise AssertionError("impl='chunked' in float16 did not raise")
+    assert counts() == before, (before, counts())
     return recs
 
 
@@ -1257,7 +1294,6 @@ PLAIN = {
     "plain_traceback": tbd.decode_packed_tb_plain,
     "plain_chain": chain_mod.chain_padded_plain,
     "plain_flash": flash_attention_plain,
-    "plain_attention": attn_mod._torch_attention,
 }
 
 
@@ -1410,6 +1446,23 @@ def serve_run(engine, reads, refs):
     stats.pop("priority", None)
     stats.pop("depth_signatures", None)
     return results, stats, time.perf_counter() - t0
+
+
+def map_reads(index, sims, dispatch, bw, stats):
+    """The read mapper over an AlignmentService over a fresh engine.
+    Returns (results, service stats, seconds after the warm-up)."""
+    engine = AlignmentEngine(backend="auto", dispatch=dispatch,
+                             base_bandwidth=bw)
+    # Streams, pinned buffers and libraries before the clock.
+    engine.warmup([(len(sims[0].read), len(sims[0].read) + 40)],
+                  mode="semiglobal", collect_tb=True)
+    t0 = time.perf_counter()
+    with AlignmentService(engine, mode="semiglobal", collect_tb=True,
+                          max_wait_ms=2.0) as svc:
+        res = ReadMapper(index, svc).map_batch([sr.read for sr in sims],
+                                               stats=stats)
+        svc_stats = svc.stats()
+    return res, svc_stats, time.perf_counter() - t0
 
 
 def check_served(results, one_shot):
@@ -1645,10 +1698,6 @@ def main():
                     "counts": paths.paths["engine"]})
 
     # ---- 5. the same request through persistent dispatch ----
-    # Every persistent launch of the main paths passes a sampler that
-    # keeps the first request of each table shape for section 8.
-    sampler = TableSampler()
-    cuda_backend.persistent_align_cuda = sampler
     with paths.path("engine_persistent"):
         engp = AlignmentEngine(backend="auto", dispatch="persistent")
         engp.warmup([(150, 150)], collect_tb=True)
@@ -1707,21 +1756,10 @@ def main():
     for dispatch in ("persistent", "pipelined"):
         for label, sims, bw, floor in classes:
             name = f"map_{dispatch}_{label}"
-            engine = AlignmentEngine(backend="auto", dispatch=dispatch,
-                                     base_bandwidth=bw)
             st = {}
             with paths.path(name):
-                # Streams, pinned buffers and libraries before the clock.
-                engine.warmup([(len(sims[0].read), len(sims[0].read) + 40)],
-                              mode="semiglobal", collect_tb=True)
-                t0 = time.perf_counter()
-                with AlignmentService(engine, mode="semiglobal",
-                                      collect_tb=True,
-                                      max_wait_ms=2.0) as svc:
-                    res = ReadMapper(index, svc).map_batch(
-                        [sr.read for sr in sims], stats=st)
-                    svc_stats = svc.stats()
-                wall = time.perf_counter() - t0
+                res, svc_stats, wall = map_reads(index, sims, dispatch, bw,
+                                                 st)
             rc = recall(sims, res)
             assert rc >= floor, (name, rc, floor)
             mapped[(dispatch, label)] = res
@@ -1743,20 +1781,33 @@ def main():
                  "index_seconds": index_seconds, "runs": records,
                  "persistent_equals_pipelined": True,
                  "chain_checks": [chain_ill, chain_pb]})
-    cuda_backend.persistent_align_cuda = persistent_align_cuda
 
     # ---- 8. B2 and the table walker at the main paths' commonest tables --
     t0 = time.perf_counter()
     shape_counts = paths.shapes["persistent"]
     # The two commonest tables, held against plain, and the largest (the
-    # whole ragged request), held kernel against kernel.
+    # whole ragged request), held kernel against kernel; their inputs
+    # sampled in an untimed replay of the persistent paths (cheapest
+    # first, until each shape has a sample; the Illumina mapping on a
+    # quarter of its reads), so that the paths above ran unpatched.
     picks = [(key, True) for key, _ in shape_counts.most_common(2)]
     largest = max(shape_counts, key=lambda key: key[0] * key[1])
     if largest not in [key for key, _ in picks]:
         picks.append((largest, False))
+    samples, replays_run = sample_tables(
+        [key for key, _ in picks],
+        [lambda: engp.align(reads, refs, collect_tb=True),
+         lambda: map_reads(index, pb, "persistent", classes[1][2], {}),
+         lambda: serve_run(engp, s_reads, s_refs),
+         lambda: map_reads(index, ill[:len(ill) // 4], "persistent",
+                           classes[0][2], {})])
+    not_sampled = [f"{K}x{R}" for (K, R), _ in picks
+                   if (K, R) not in samples]
     for (K, R), plain in picks:
+        if (K, R) not in samples:
+            continue
         count = shape_counts[(K, R)]
-        table, q, r, n, m, mode, xdrop = sampler.samples[(K, R)]
+        table, q, r, n, m, mode, xdrop = samples[(K, R)]
         p_rec, pt_rec = persistent_timing(f"main_{K}x{R}", table, q, r, n,
                                           m, 20 if plain else 3, mode=mode,
                                           xdrop=xdrop, plain=plain)
@@ -1766,11 +1817,12 @@ def main():
         pt_recs.append(pt_rec)
         worst_p = max(worst_p, p_rec["max_abs_err"])
         worst_pt = max(worst_pt, pt_rec["max_abs_err"])
-    del sampler
+    del samples
     emit("persistent_shapes", {
         "seconds": time.perf_counter() - t0,
         "launches_by_table_shape": {f"{K}x{R}": c for (K, R), c
                                     in shape_counts.most_common()},
+        "replays_run": replays_run, "not_sampled": not_sampled,
         "persistent": p_recs[3:], "traceback_table": pt_recs[3:]})
 
     # ---- 9. the main paths went through the kernels ----

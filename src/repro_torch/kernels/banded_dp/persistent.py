@@ -15,10 +15,10 @@ padded rows in order (the `run_persistent` layout of `core.backends`).
 The table itself is sorted longest live sweep first, which is the order
 the kernel starts its blocks in.
 
-The kernel has two bodies, picked for the whole request by
-`persistent_body`: one warp per table row (B1's warp body, band state in
-registers) when the widest band is at most `WARP_MAX_BAND`, one block per
-row above. ``block_body=True`` is a measurement switch that runs the block
+The kernel has two bodies, picked for the whole request by the per-group
+kernel's rule (`kernel_body`) on its widest band: one warp per table row
+(B1's warp body, band state in registers) when the widest band is at most
+`WARP_MAX_BAND`, one block per row above. ``block_body=True`` is a measurement switch that runs the block
 body at any band; no main path sets it. Launches are counted by body in
 ``persistent_align_cuda.bodies``.
 
@@ -199,16 +199,6 @@ def _lib():
     return lib
 
 
-def persistent_body(band_max: int, block_body: bool = False) -> str:
-    """The body a persistent launch runs, for a request whose widest band
-    is `band_max`, as `csrc/persistent.cu` picks it: the per-group
-    kernel's rule (`kernel_body`) on the widest band — "warp" (one warp
-    per table row) for 1..`WARP_MAX_BAND`, "block" (one block per row) up
-    to `MAX_BAND`, and at any band with `block_body`. Raises ValueError
-    outside 1..`MAX_BAND`."""
-    return kernel_body(band_max, block_body)
-
-
 def persistent_align_cuda(table: WorkTable, q, r, n, m, *,
                           sc: ScoringConfig, adaptive: bool = True,
                           collect_tb: bool = True, mode: str = "global",
@@ -253,7 +243,7 @@ def persistent_align_cuda(table: WorkTable, q, r, n, m, *,
         raise ValueError("the work table must be a contiguous "
                          f"({R}, {len(TABLE_COLS)}) int64 tensor on {dev}")
     for s in table.spans:
-        persistent_body(s.band)
+        kernel_body(s.band)
         if not 0 <= s.steps <= MAX_SWEEP or s.q_len < 1 or s.r_len < 1:
             raise ValueError(f"group geometry {s} outside the kernel's "
                              "range")
@@ -292,7 +282,7 @@ def persistent_align_cuda(table: WorkTable, q, r, n, m, *,
         persistent_align_cuda.launches += 1
         persistent_align_cuda.shapes[(table.steps_max, R)] += 1
         persistent_align_cuda.bodies[
-            persistent_body(table.band_max, block_body)] += 1
+            kernel_body(table.band_max, block_body)] += 1
     out = {key: stats[i] for i, key in enumerate(STAT_KEYS)}
     if collect_tb:
         out["tb"] = tb

@@ -146,11 +146,6 @@ def _lib(name, fn_name, n_int):
     return fn
 
 
-def kernel_takes(dtype, D) -> bool:
-    """Whether a kernel is built for (dtype, head size D)."""
-    return dtype in KERNEL_DTYPES and D in KERNEL_HEAD_DIMS
-
-
 def kernel_route(dtype, D):
     """Which kernel takes (dtype, D) on a CUDA tensor: "tc" (the wgmma
     kernel, `csrc/flash_tc.cu`) for bf16 at `TC_HEAD_DIMS`, "tf32x3"

@@ -11,9 +11,8 @@ On CUDA tensors "chunked" launches the hand-written kernel B5
 (`kernels/local_attention/csrc/`: `flash_tc.cu` for bf16 at D in
 {64, 128, 256}, `flash_tf32x3.cu` for the rest of f32 / bf16 at the built
 head sizes) at any sequence length, straight through
-`flash_attention_cuda`; a (dtype, head size) no kernel is built for runs
-the reference's tensor code on the card (`_torch_attention`, counted in
-its ``calls``). "pallas" keeps the reference wrapper's block rule
+`flash_attention_cuda`, which raises for a (dtype, head size) no kernel
+is built for. "pallas" keeps the reference wrapper's block rule
 (`ops.flash_attention`: T must divide the blocks clipped to T) on every
 device. On CPU tensors each impl keeps its reference meaning, and
 "pallas" takes the kernels' plain version.
@@ -33,8 +32,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.local_attention.local_attention import (
-    flash_attention_cuda, kernel_takes)
+from repro_torch.kernels.local_attention.local_attention import \
+    flash_attention_cuda
 from repro_torch.kernels.local_attention.ops import flash_attention
 from repro_torch.models import layers
 
@@ -162,20 +161,6 @@ def _chunked_attention(q, k, v, window, q_chunk=512, k_chunk=512):
     return out.reshape(B, Hq, T, D).to(q.dtype)
 
 
-def _torch_attention(q, k, v, window, q_chunk, k_chunk):
-    """The reference's "chunked" route in tensor code: naive attention up
-    to one query chunk, chunked above. Runs where the tensors live."""
-    _torch_attention.calls += 1
-    if q.shape[2] <= q_chunk:
-        return _naive_attention(q, k, v, window)
-    return _chunked_attention(q, k, v, window, q_chunk, k_chunk)
-
-
-#: Calls since the count was last set to 0: on CUDA tensors, the
-#: "chunked" calls whose (dtype, head size) no kernel takes.
-_torch_attention.calls = 0
-
-
 def attention_apply(p, cfg, x, positions, *, window=None, impl="chunked",
                     q_chunk=512, k_chunk=512, rope=None):
     """Training / prefill self-attention. x: (B, T, d_model)."""
@@ -185,12 +170,12 @@ def attention_apply(p, cfg, x, positions, *, window=None, impl="chunked",
     q, k, v = _project_qkv(p, cfg, x, positions, rope=rope)
     if impl == "pallas":
         out = flash_attention(q, k, v, window=window)
-    elif impl == "naive":
-        out = _naive_attention(q, k, v, window)
-    elif q.is_cuda and kernel_takes(q.dtype, q.shape[-1]):
+    elif impl == "chunked" and q.is_cuda:
         out = flash_attention_cuda(q, k, v, window=window)
+    elif impl == "naive" or T <= q_chunk:
+        out = _naive_attention(q, k, v, window)
     else:
-        out = _torch_attention(q, k, v, window, q_chunk, k_chunk)
+        out = _chunked_attention(q, k, v, window, q_chunk, k_chunk)
     out = out.transpose(1, 2).reshape(B, T, cfg.n_heads * cfg.head_dim)
     return layers.dense_apply(p["wo"], out)
 

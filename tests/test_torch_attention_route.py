@@ -4,9 +4,8 @@ reference serves through `_naive_attention`).
 
 On CUDA tensors "chunked" goes straight to `flash_attention_cuda` (both
 kernels take any T), with no block check; a (dtype, head size) no kernel
-is built for runs the reference's tensor code, counted in
-`_torch_attention.calls`; "pallas" keeps the reference wrapper's block
-rule. The CUDA side is posed by a CPU tensor that says it lives on a card
+is built for raises there, as every CUDA wrapper of the port does;
+"pallas" keeps the reference wrapper's block rule. The CUDA side is posed by a CPU tensor that says it lives on a card
 (as tests/test_torch_wavefront_warp.py does), with the kernel entry point
 replaced by a recorder. On the CPU, "chunked" equals the JAX package's
 `attention_apply` within the f32 tolerance of tests/test_torch_lm.py
@@ -78,30 +77,22 @@ def test_chunked_on_cuda_reaches_the_kernel_without_the_block_check(
         recorder, window):
     cfg, _, tp, x, pos = _setup(head_dim=128)
     assert T % 128
-    calls = tattn._torch_attention.calls
     xc = torch.from_numpy(x).as_subclass(_FakeCuda)
     out = tattn.attention_apply(tp, cfg, xc, torch.from_numpy(pos),
                                 window=window, impl="chunked")
     assert out.shape == (1, T, cfg.d_model)
     assert recorder == [("kernel", (1, cfg.n_heads, T, 128), window)]
-    assert tattn._torch_attention.calls == calls
 
 
-def test_chunked_on_cuda_at_an_unbuilt_head_size_runs_the_counted_route(
-        recorder):
-    cfg, p, tp, x, pos = _setup(head_dim=48)
-    assert not la.kernel_takes(torch.float32, 48)
-    calls = tattn._torch_attention.calls
+def test_chunked_on_cuda_at_an_unbuilt_head_size_raises():
+    """No route to PyTorch attention on the card: the kernel's route
+    refuses a head size it was not built for, before any launch."""
+    cfg, _, tp, x, pos = _setup(head_dim=48)
+    assert 48 not in la.KERNEL_HEAD_DIMS
     xc = torch.from_numpy(x).as_subclass(_FakeCuda)
-    out = tattn.attention_apply(tp, cfg, xc, torch.from_numpy(pos),
-                                impl="chunked", q_chunk=512)
-    assert recorder == []
-    assert tattn._torch_attention.calls == calls + 1
-    # The reference's route at this T: naive attention (T <= q_chunk).
-    ref = jattn.attention_apply(p, cfg, jnp.asarray(x), jnp.asarray(pos),
-                                impl="chunked")
-    np.testing.assert_allclose(out.as_subclass(torch.Tensor).numpy(),
-                               np.asarray(ref), atol=TOL, rtol=TOL)
+    with pytest.raises(ValueError, match="D=48 not built"):
+        tattn.attention_apply(tp, cfg, xc, torch.from_numpy(pos),
+                              impl="chunked", q_chunk=512)
 
 
 def test_pallas_keeps_the_block_rule_as_the_reference_does():
@@ -122,7 +113,6 @@ def test_chunked_on_cpu_matches_jax_at_t200(window, q_chunk):
     """T <= q_chunk takes naive attention in both packages; q_chunk = 100
     takes the chunked loop (two query chunks)."""
     cfg, p, tp, x, pos = _setup(seed=9)
-    calls = tattn._torch_attention.calls
     a = jattn.attention_apply(p, cfg, jnp.asarray(x), jnp.asarray(pos),
                               window=window, impl="chunked", q_chunk=q_chunk,
                               k_chunk=q_chunk)
@@ -130,5 +120,4 @@ def test_chunked_on_cpu_matches_jax_at_t200(window, q_chunk):
                               torch.from_numpy(pos), window=window,
                               impl="chunked", q_chunk=q_chunk,
                               k_chunk=q_chunk)
-    assert tattn._torch_attention.calls == calls + 1
     np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=TOL, rtol=TOL)

@@ -20,8 +20,7 @@ from repro_torch.kernels.banded_dp.banded_dp import (MAX_BAND, WARP_MAX_BAND,
                                                      kernel_body)
 from repro_torch.kernels.banded_dp.persistent import (pack_groups,
                                                       persistent_align_cuda,
-                                                      persistent_align_plain,
-                                                      persistent_body)
+                                                      persistent_align_plain)
 from torch_parity import (JAX_SC, SCALAR_KEYS, TORCH_SC, make_pairs,
                           pad_pairs)
 
@@ -29,22 +28,19 @@ RLE_KEYS = ("cig_ops", "cig_runs", "cig_len")
 
 
 def test_body_by_widest_band():
+    """A persistent launch runs the per-group kernel's rule (`kernel_body`)
+    on the request's widest band."""
     assert WARP_MAX_BAND == 128
-    assert [persistent_body(b) for b in range(1, 129)] == ["warp"] * 128
-    assert {persistent_body(b) for b in range(129, MAX_BAND + 1)} == \
-        {"block"}
-    assert {persistent_body(b, block_body=True)
+    assert [kernel_body(b) for b in range(1, 129)] == ["warp"] * 128
+    assert {kernel_body(b) for b in range(129, MAX_BAND + 1)} == {"block"}
+    assert {kernel_body(b, block_body=True)
             for b in range(1, MAX_BAND + 1)} == {"block"}
-    # The per-group kernel's rule, on the request's widest band.
-    assert all(persistent_body(b, s) == kernel_body(b, s)
-               for b in (1, 20, 60, 100, 128, 129, 1024)
-               for s in (False, True))
 
 
 @pytest.mark.parametrize("band", [0, 1025])
 def test_body_refuses_bands_outside_the_kernel(band):
     with pytest.raises(ValueError, match="outside the kernel's range"):
-        persistent_body(band)
+        kernel_body(band)
 
 
 def _group(seed, lengths, band, t_max=None, unrelated=()):
@@ -108,9 +104,8 @@ def test_plain_on_a_request_across_the_edge_matches_jax(mode, xdrop):
     reference backend, on a request with bands 20, 100 and 129."""
     groups = _mixed_request()
     table, (q, r, n, m) = _flat(groups)
-    assert table.band_max == 129 and persistent_body(table.band_max) == \
-        "block"
-    assert persistent_body(max(g[4] for g in groups[:2])) == "warp"
+    assert table.band_max == 129 and kernel_body(table.band_max) == "block"
+    assert kernel_body(max(g[4] for g in groups[:2])) == "warp"
     kw = dict(adaptive=True, collect_tb=True, mode=mode, xdrop=xdrop)
     ref = jax_get_backend("reference").run_persistent(groups, sc=JAX_SC,
                                                       **kw)
