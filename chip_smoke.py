@@ -21,9 +21,15 @@ alignment paths through their entry points at a real stream size: one
 ragged `AlignmentEngine.align`
 request (65,536 short pairs, 2,048 at 2 kbp, 256 in the 8192 bucket) and
 an `AlignmentService` that answers 33,280 requests, each once pipelined
-and once with `dispatch="persistent"`; then read mapping on a 4 Mbp
-genome (`MinimizerIndex` -> chaining kernel -> `ReadMapper` ->
-`AlignmentService`) for 16,384 Illumina and 1,024 PacBio reads. Every
+and once with `dispatch="persistent"`; 8,192 of those requests through
+one service and through an `AlignmentRouter` over two replicas, each
+dispatcher on a CUDA stream of its own (results equal); edit distance
+(paper Fig. 14) on 4,096 Illumina and 256 PacBio pairs, CUDA backend
+against plain and a full-band sample against Levenshtein; then read
+mapping on a 4 Mbp genome (`MinimizerIndex` -> chaining kernel ->
+`ReadMapper` -> `AlignmentService`) for 16,384 Illumina and 1,024 PacBio
+reads, with the chaining kernel held against plain at both reads' set
+shapes, at A = 200 and 300 and on masks that are not a prefix. Every
 phase prints one JSON line; any failed check raises, so the exit code is
 non-zero. Without a CUDA device the script exits 1 and prints no result.
 The last line of standard output is the device record.
@@ -65,6 +71,8 @@ from repro_torch.core import traceback_device as tbd  # noqa: E402
 from repro_torch.core.batch import (DEFAULT_BUCKET_EDGES, pad_group,  # noqa: E402
                                     plan_buckets)
 from repro_torch.core.engine import PERSISTENT_PAD, AlignmentEngine  # noqa: E402
+from repro_torch.core.edit_distance import (  # noqa: E402
+    edit_distance_batch, levenshtein_reference)
 from repro_torch.core.full_dp import cigar_score, full_dp_score  # noqa: E402
 from repro_torch.core.scoring import MINIMAP2  # noqa: E402
 from repro_torch.data.genome import (ERROR_PROFILES, ReadSimulator,  # noqa: E402
@@ -80,7 +88,7 @@ from repro_torch.kernels.local_attention.local_attention import (  # noqa: E402
     flash_attention_tc_cuda, flash_attention_tf32x3_cuda, kernel_route)
 from repro_torch.map import STATUS_MAPPED, MinimizerIndex, ReadMapper  # noqa: E402
 from repro_torch.map import chain as chain_mod  # noqa: E402
-from repro_torch.serve import AlignmentService  # noqa: E402
+from repro_torch.serve import AlignmentRouter, AlignmentService  # noqa: E402
 from repro_torch.data.tokens import TokenPipeline  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import init_cache, init_params  # noqa: E402
@@ -105,6 +113,9 @@ WALKER_OPS_PER_STEP = 60
 # (multiply, divide, count of leading zeros, shift), add, select, and the
 # share of the two warp reductions.
 CHAIN_OPS_PER_PAIR = 30
+# Most slots per set the chaining kernel keeps in registers
+# (`MAX_REG_SLOTS` of map/csrc/chain.cu); above, f and pred in shared memory.
+CHAIN_REG_SLOTS = 256
 
 
 def emit(tag: str, obj: dict) -> None:
@@ -215,16 +226,11 @@ def check_case(q, r, n, m, ref=None, **kw):
                                   walker=tbd.decode_packed_tb_plain)
     torch.cuda.synchronize()
     keys = ("cig_ops", "cig_runs", "cig_len")
-    werr = 0
-    for direct in (False, True):
-        dk = tbd.device_decode_result(
-            ker, n, m, band=band, mode=mode,
-            walker=lambda *a, **k: tbd.decode_packed_tb_cuda(
-                *a, direct_reads=direct, **k))
-        torch.cuda.synchronize()
-        werr = max(werr, assert_equal(
-            {k: dp[k] for k in keys}, {k: dk[k] for k in keys},
-            f"walker ({tbd.walker_design(direct)}) {kw}"))
+    dk = tbd.device_decode_result(ker, n, m, band=band, mode=mode,
+                                  walker=tbd.decode_packed_tb_cuda)
+    torch.cuda.synchronize()
+    werr = assert_equal({k: dp[k] for k in keys}, {k: dk[k] for k in keys},
+                        f"walker {kw}")
     return err, werr
 
 
@@ -292,22 +298,8 @@ def shape_timing(name, spec, q, r, n, m, reps):
         tb, los, nd, md, band=spec.band))
     wk_err = assert_equal(dict(zip(keys, rle_ref)), dict(zip(keys, rle)),
                           f"walker at {name}")
-    old = tbd.decode_packed_tb_cuda(tb, los, nd, md, band=spec.band,
-                                    direct_reads=True)
-    torch.cuda.synchronize()
-    wk_err = max(wk_err, assert_equal(dict(zip(keys, rle_ref)),
-                                      dict(zip(keys, old)),
-                                      f"direct walker at {name}"))
-    del old
-
-    def walk(direct):
-        return lambda: tbd.decode_packed_tb_cuda(
-            tb, los, nd, md, band=spec.band, direct_reads=direct)
-    # In turns: staged, direct, direct, staged.
-    wk_ms, direct_ms = time_cuda(walk(False), reps), time_cuda(walk(True),
-                                                                reps)
-    direct_ms2, wk_ms2 = time_cuda(walk(True), reps), time_cuda(walk(False),
-                                                                 reps)
+    wk_ms = time_cuda(lambda: tbd.decode_packed_tb_cuda(
+        tb, los, nd, md, band=spec.band), reps)
 
     path_steps = int(rle[1].sum())
     wf_bound, wf_by = wavefront_bound(n, m, N, q.shape[1], r.shape[1],
@@ -319,8 +311,7 @@ def shape_timing(name, spec, q, r, n, m, reps):
         dict(base, ms=wf_ms, plain_ms=wf_plain_ms, bound_ms=wf_bound,
              bound_by=wf_by, max_abs_err=wf_err,
              body=kernel_body(spec.band), block_ms=block_ms),
-        dict(base, ms=wk_ms, ms_again=wk_ms2, direct_ms=direct_ms,
-             direct_ms_again=direct_ms2, plain_ms=wk_plain_ms,
+        dict(base, ms=wk_ms, plain_ms=wk_plain_ms,
              bound_ms=wk_bound, bound_by=wk_by, max_abs_err=wk_err,
              path_steps=path_steps, segments=int(rle[2].sum()),
              window_rows=tbd.window_rows(spec.band, spec.t_max)))
@@ -438,8 +429,8 @@ def check_persistent(groups, **kw):
     """The persistent kernel vs plain on one request, through the body its
     widest band picks and through the block body (`block_body=True`),
     each vs plain and so vs the other; with traceback also the table
-    walker, staged and direct, vs its plain version on the kernel's
-    planes. Returns (max_abs_err persistent, max_abs_err walker or None,
+    walker vs its plain version on the kernel's planes. Returns
+    (max_abs_err persistent, max_abs_err walker or None,
     retired, {body: launches})."""
     table, (q, r, n, m) = on_card(groups)
     ref = persistent_align_plain(table, q, r, n, m, sc=MINIMAP2, **kw)
@@ -459,13 +450,9 @@ def check_persistent(groups, **kw):
         return err, None, retired, bodies
     dp = walk_table(ker, table, n, m, kw["mode"],
                     tbd.decode_packed_tb_table_plain)
-    werr = 0
-    for direct in (False, True):
-        dk = walk_table(ker, table, n, m, kw["mode"],
-                        lambda *a: tbd.decode_packed_tb_table_cuda(
-                            *a, direct_reads=direct))
-        werr = max(werr, assert_equal(
-            dp, dk, f"table walker ({tbd.walker_design(direct)}) {kw}"))
+    dk = walk_table(ker, table, n, m, kw["mode"],
+                    tbd.decode_packed_tb_table_cuda)
+    werr = assert_equal(dp, dk, f"table walker {kw}")
     return err, werr, retired, bodies
 
 
@@ -543,12 +530,12 @@ def persistent_bound(table, n, m):
 def persistent_timing(name, table, q, r, n, m, reps, mode="global",
                       xdrop=None, plain=True):
     """The persistent kernel and the table walker on one request on the
-    card: held against their plain versions and timed, both bodies of
-    the kernel and both designs of the walker, each pair in turns (new,
-    old, old, new) by `time_cuda`. With `plain` False (a request too
-    large for the plain versions' time), each kernel is held against its
-    other body / design instead, which the other cases hold against
-    plain."""
+    card: held against their plain versions and timed by `time_cuda`, the
+    kernel's two bodies in turns (warp, block, block, warp). With `plain`
+    False (the whole ragged request, too large for the plain versions'
+    time), the kernel is held against its block body, which the other
+    cases hold against plain, and the table walker by the main paths'
+    gate `TABLE_WALKER_GATE`."""
     kw = dict(sc=MINIMAP2, adaptive=True, collect_tb=True, mode=mode,
               xdrop=xdrop)
     body = kernel_body(table.band_max)
@@ -583,23 +570,9 @@ def persistent_timing(name, table, q, r, n, m, reps, mode="global",
         wk_err = assert_equal(dict(zip(keys, rle_ref)),
                               dict(zip(keys, rle)), f"table walker at {name}")
     else:
-        wk_plain_ms = "not measured (held against the direct walker)"
-        rle_ref, wk_err = rle, 0
-    old = tbd.decode_packed_tb_table_cuda(table, tb, los, si, sj,
-                                          direct_reads=True)
-    torch.cuda.synchronize()
-    wk_err = max(wk_err, assert_equal(dict(zip(keys, rle_ref)),
-                                      dict(zip(keys, old)),
-                                      f"direct table walker at {name}"))
-    del old
-
-    def walk(direct):
-        return lambda: tbd.decode_packed_tb_table_cuda(
-            table, tb, los, si, sj, direct_reads=direct)
-    wk_ms, direct_ms = time_cuda(walk(False), reps), time_cuda(walk(True),
-                                                                reps)
-    direct_ms2, wk_ms2 = time_cuda(walk(True), reps), time_cuda(walk(False),
-                                                                 reps)
+        wk_plain_ms, wk_err = "not measured", 0
+    wk_ms = time_cuda(lambda: tbd.decode_packed_tb_table_cuda(
+        table, tb, los, si, sj), reps)
 
     n_h, m_h = n.cpu().numpy(), m.cpu().numpy()
     bound, by = persistent_bound(table, n_h, m_h)
@@ -612,10 +585,18 @@ def persistent_timing(name, table, q, r, n, m, reps, mode="global",
     return (dict(base, body=body, ms=ms, ms_again=ms2, block_ms=block_ms,
                  block_ms_again=block_ms2, plain_ms=plain_ms,
                  bound_ms=bound, bound_by=by, max_abs_err=err),
-            dict(base, ms=wk_ms, ms_again=wk_ms2, direct_ms=direct_ms,
-                 direct_ms_again=direct_ms2, plain_ms=wk_plain_ms,
+            dict(base, ms=wk_ms, plain_ms=wk_plain_ms,
+                 held_against="plain" if plain else TABLE_WALKER_GATE,
                  bound_ms=wk_bound, bound_by=wk_by, max_abs_err=wk_err,
                  path_steps=path_steps))
+
+
+#: What the table walker on the whole ragged request is held against: the
+#: main paths' gate, which compares every CIGAR of that request through the
+#: table walker with the per-group walker's, itself held against plain.
+TABLE_WALKER_GATE = ("persistent == pipelined on the ragged request "
+                     "(engine_persistent): every CIGAR through the table "
+                     "walker equals the per-group walker's")
 
 
 class TableSampler:
@@ -671,10 +652,18 @@ def chain_bound(valid):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def chain_check(anchor_sets, params, reps=0):
-    """The chaining kernel vs its plain version on padded anchor sets;
-    timed when `reps` > 0."""
-    padded = chain_mod._pad_anchors(anchor_sets, params.anchors_cap)
+def live_slots(valid):
+    """Valid slots per anchor set: what the chaining kernel steps."""
+    a = valid.sum(axis=1)
+    return {"mean": float(a.mean()), "p50": float(np.percentile(a, 50)),
+            "p99": float(np.percentile(a, 99)), "max": int(a.max()),
+            "empty_sets": int((a == 0).sum())}
+
+
+def chain_check(name, padded, params, reps=0):
+    """The chaining kernel vs its plain version on padded anchor sets
+    (`torch.equal` on f, pred, mask and endpoints); timed when `reps` >
+    0."""
     qp, rp, valid = (torch.from_numpy(a).to(DEV) for a in padded)
     kw = dict(k=params.k, max_gap=params.max_gap,
               max_dd=params.max_diag_diff)
@@ -684,17 +673,42 @@ def chain_check(anchor_sets, params, reps=0):
     plain_ms, ref = time_host(
         lambda: chain_mod.chain_padded_plain(qp, rp, valid, **kw))
     err = assert_equal(dict(zip(keys, ref)), dict(zip(keys, ker)),
-                       "chain")
-    rec = {"sets": len(anchor_sets), "padded_sets": int(qp.shape[0]),
-           "slots": int(qp.shape[1]),
-           "valid_anchors": int(padded[2].sum()), "max_abs_err": err,
-           "chained_sets": int((ker[3] >= 0).sum())}
+                       f"chain at {name}")
+    A = int(qp.shape[1])
+    rec = {"shape": name, "padded_sets": int(qp.shape[0]), "slots": A,
+           "route": "registers" if A <= CHAIN_REG_SLOTS else "shared memory",
+           "prefix_masks": bool((np.diff(padded[2].astype(np.int8), axis=1)
+                                 <= 0).all()),
+           "valid_anchors": int(padded[2].sum()),
+           "live_slots": live_slots(padded[2]), "max_abs_err": err,
+           "chained_sets": int((ker[3] >= 0).sum()), "plain_ms": plain_ms}
     if reps:
         bound, by = chain_bound(padded[2])
         rec.update(ms=time_cuda(
             lambda: chain_mod.chain_padded_cuda(qp, rp, valid, **kw), reps),
-            plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+            bound_ms=bound, bound_by=by)
     return rec
+
+
+def chain_checks(ill_sets, pb_sets, params, reps):
+    """B4 at the mapping paths' two set shapes (Illumina and PacBio reads'
+    two strands at A = 128, both timed), at A = 200 (registers, 7 of 8
+    a lane) and A = 300 (f and pred in shared memory) on the PacBio sets,
+    and on the Illumina sets with a third of the valid slots knocked out
+    (masks that are not a prefix)."""
+    cap = params.anchors_cap
+    ill = chain_mod._pad_anchors(ill_sets, cap)
+    holes = np.random.default_rng(11).random(ill[2].shape) < 0.33
+    return [
+        chain_check("illumina_sets", ill, params, reps),
+        chain_check("pacbio_sets", chain_mod._pad_anchors(pb_sets, cap),
+                    params, reps),
+        chain_check("pacbio_a200", chain_mod._pad_anchors(pb_sets, 200),
+                    params),
+        chain_check("pacbio_a300", chain_mod._pad_anchors(pb_sets, 300),
+                    params),
+        chain_check("illumina_holes", (ill[0], ill[1], ill[2] & ~holes),
+                    params)]
 
 
 # ---------------------------------------------------------------------------
@@ -1329,11 +1343,9 @@ def zero_counts():
 
 
 #: Launches by kind of the wrappers that count them: B1 and B2 by body
-#: ("warp" / "block"), the two walkers by design ("staged" / "direct").
+#: ("warp" / "block").
 BY_KIND = {"banded_dp": banded_align_cuda.bodies,
-           "persistent": persistent_align_cuda.bodies,
-           "traceback": tbd.decode_packed_tb_cuda.designs,
-           "traceback_table": tbd.decode_packed_tb_table_cuda.designs}
+           "persistent": persistent_align_cuda.bodies}
 
 
 class PathCounts:
@@ -1434,18 +1446,113 @@ def fetched_bytes_per_pair(engine, reads, refs):
     return total / len(reads)
 
 
+def closed_loop(front, reads, refs):
+    """A closed loop of single-pair requests through `front` (a started
+    AlignmentService or AlignmentRouter), which it then closes. Returns
+    (results, stats, seconds from the first submit to the last result)."""
+    with front:
+        t0 = time.perf_counter()
+        futures = [front.submit(rd, rf) for rd, rf in zip(reads, refs)]
+        results = [f.result(timeout=600) for f in futures]
+        seconds = time.perf_counter() - t0
+        stats = front.stats()
+    stats.pop("priority", None)
+    stats.pop("depth_signatures", None)
+    return results, stats, seconds
+
+
 def serve_run(engine, reads, refs):
     """A closed loop of single-pair requests through an AlignmentService
     over `engine`. Returns (results, service stats, seconds)."""
-    t0 = time.perf_counter()
-    with AlignmentService(engine, collect_tb=True,
-                          max_inflight_groups="auto") as svc:
-        futures = [svc.submit(rd, rf) for rd, rf in zip(reads, refs)]
-        results = [f.result(timeout=600) for f in futures]
-        stats = svc.stats()
-    stats.pop("priority", None)
-    stats.pop("depth_signatures", None)
-    return results, stats, time.perf_counter() - t0
+    return closed_loop(AlignmentService(engine, collect_tb=True,
+                                        max_inflight_groups="auto"),
+                       reads, refs)
+
+
+def router_phase(paths, reads, refs):
+    """The same closed loop through one AlignmentService and through an
+    AlignmentRouter over two replicas, each over a fresh engine on the
+    card and warmed up first; every result of the router equals the
+    single service's. Returns the record of the `router` line."""
+    opts = dict(collect_tb=True, max_inflight_groups="auto",
+                warmup=[(150, 150)])
+    runs = {}
+    for replicas in (1, 2):
+        with paths.path(f"router_{replicas}"):
+            if replicas == 1:
+                front = AlignmentService(AlignmentEngine(backend="auto"),
+                                         **opts)
+                services = [front]
+            else:
+                front = AlignmentRouter(replicas,
+                                        engine_opts=dict(backend="auto"),
+                                        seed=0, **opts)
+                services = [r.service for r in front.pool.replicas]
+            results, stats, seconds = closed_loop(front, reads, refs)
+        runs[replicas] = {
+            "results": results, "seconds": seconds,
+            "requests_per_s": len(results) / seconds,
+            "streams": [svc.stream.cuda_stream for svc in services],
+            "completed_by_replica": [svc.metrics.completed
+                                     for svc in services],
+            "launches": paths.paths[f"router_{replicas}"]}
+    single = runs[1].pop("results")
+    for p, res in enumerate(runs[2].pop("results")):
+        assert res.keys() == single[p].keys(), p
+        for key, v in res.items():
+            assert (v == single[p][key] if key == "cigar"
+                    else int(v) == int(single[p][key])), (p, key)
+    streams = runs[2]["streams"]
+    default = torch.cuda.default_stream(DEV).cuda_stream
+    assert len(set(streams)) == 2 and default not in streams, streams
+    assert all(c > 0 for c in runs[2]["completed_by_replica"]), runs[2]
+    return {"requests": len(reads), "equal_to_single_service": True,
+            "replicas": {str(k): v for k, v in runs.items()}}
+
+
+def pad_lists(reads, refs):
+    """Ragged (reads, refs) as padded (q, r, n, m) arrays."""
+    n = np.asarray([len(x) for x in reads], np.int32)
+    m = np.asarray([len(x) for x in refs], np.int32)
+    q = np.full((len(reads), int(n.max())), 4, np.int8)
+    r = np.full((len(refs), int(m.max())), 4, np.int8)
+    for p, (a, b) in enumerate(zip(reads, refs)):
+        q[p, :len(a)] = a
+        r[p, :len(b)] = b
+    return q, r, n, m
+
+
+def edit_distance_phase(paths, streams):
+    """Edit distance (paper Fig. 14) through the CUDA backend on each of
+    `streams` ({name: (reads, refs)}), held against the plain backend on
+    the same card (distances and CIGARs equal), then a 64-pair sample with
+    a band over the whole matrix held against `levenshtein_reference`."""
+    recs = []
+    for name, (reads, refs) in streams.items():
+        q, r, n, m = pad_lists(reads, refs)
+        with paths.path(f"edit_distance_{name}"):
+            ms, out = time_host(lambda: edit_distance_batch(
+                q, r, n, m, with_traceback=True))
+        plain_ms, plain = time_host(lambda: edit_distance_batch(
+            q, r, n, m, with_traceback=True, backend="reference"))
+        assert np.array_equal(out["distance"], plain["distance"]), name
+        assert out["cigars"] == plain["cigars"], name
+        for p, cig in enumerate(out["cigars"]):
+            assert consumed(cig) == (n[p], m[p]), (name, p)
+        recs.append({"stream": name, "pairs": len(reads), "band": out["band"],
+                     "t_max": out["t_max"], "ms": ms,
+                     "pairs_per_s": len(reads) / ms * 1e3,
+                     "plain_ms": plain_ms,
+                     "mean_distance": float(out["distance"].mean()),
+                     "launches": paths.paths[f"edit_distance_{name}"]})
+    reads, refs = next(iter(streams.values()))
+    q, r, n, m = pad_lists(reads[:64], refs[:64])
+    band = int(max(n.max(), m.max())) + 2
+    full = edit_distance_batch(q, r, n, m, band=band)
+    lev = [levenshtein_reference(reads[p], refs[p]) for p in range(64)]
+    assert full["distance"].tolist() == lev
+    return {"streams": recs, "levenshtein_sample": {
+        "pairs": 64, "band": band, "equal": True}}
 
 
 def map_reads(index, sims, dispatch, bw, stats):
@@ -1617,12 +1724,9 @@ def main():
         "persistent_warp": ptxas_facts(
             logs.get("persistent", ""), "persistent_warp_kernel",
             r"I(Lb\dELb\dELb\dELb\d)E"),
-        "traceback_staged": ptxas_facts(
-            logs.get("traceback", ""), "", r"\d(traceback(?:_table)?_kernel)E"),
-        "traceback_direct": ptxas_facts(
-            logs.get("traceback", ""), "",
-            r"\d(traceback(?:_table)?_direct_kernel)E")}
-    for name in ("persistent_warp", "traceback_staged"):
+        "traceback": ptxas_facts(logs.get("traceback", ""), "",
+                                 r"\d(traceback(?:_table)?_kernel)E")}
+    for name in ("persistent_warp", "traceback"):
         assert all(f["spill_stores"] == 0 and f["spill_loads"] == 0
                    for f in ptxas[name].values()), ptxas[name]
     emit("kernel_checks", {
@@ -1750,7 +1854,25 @@ def main():
                     "requests_per_s": len(results) / serve_s,
                     "launches": paths.paths[name], "stats": svc_stats})
 
-    # ---- 7. read mapping: seed -> chain -> align ----
+    # ---- 7. the replicated tier: two replicas against one service ----
+    n_rt, n_rt_mid = (1024, 32) if args.quick else (8192, 256)
+    t0 = time.perf_counter()
+    router = router_phase(
+        paths, s_reads[:n_rt - n_rt_mid] + s_reads[n_req:n_req + n_rt_mid],
+        s_refs[:n_rt - n_rt_mid] + s_refs[n_req:n_req + n_rt_mid])
+    router["seconds"] = time.perf_counter() - t0
+    emit("router", router)
+
+    # ---- 8. edit distance: CUDA backend vs plain, and vs Levenshtein ----
+    n_ed, n_ed_mid = (512, 32) if args.quick else (4096, 256)
+    t0 = time.perf_counter()
+    edit = edit_distance_phase(paths, {
+        "illumina_150": [x[:n_ed] for x in short],
+        "pacbio_1900": [x[:n_ed_mid] for x in mid]})
+    edit["seconds"] = time.perf_counter() - t0
+    emit("edit_distance", edit)
+
+    # ---- 9. read mapping: seed -> chain -> align ----
     classes = (("illumina", ill, None, 0.99), ("pacbio", pb, 64, 0.95))
     mapped, records = {}, []
     for dispatch in ("persistent", "pipelined"):
@@ -1772,17 +1894,29 @@ def main():
     for label, *_ in classes:
         assert mapped[("persistent", label)] \
             == mapped[("pipelined", label)], label
-    chain_ill = chain_check(anchor_sets(index, [sr.read for sr in ill]),
-                            params, reps=5)
-    chain_pb = chain_check(anchor_sets(index, [sr.read for sr in pb]),
-                           params)
+    chains = chain_checks(anchor_sets(index, [sr.read for sr in ill]),
+                          anchor_sets(index, [sr.read for sr in pb]), params,
+                          reps=3 if args.quick else 10)
+    chain_ill, chain_pb = chains[:2]
+    # B4's cost per run: each mapping path's launches at its set shape.
+    chain_cost = sum(
+        paths.paths[f"map_{d}_{label}"]["chain"] * (rec["ms"]
+                                                     - rec["bound_ms"])
+        for d in ("persistent", "pipelined")
+        for label, rec in (("illumina", chain_ill), ("pacbio", chain_pb)))
+    chain_ptxas = ptxas_facts(logs.get("chain", ""), "chain_kernel")
+    assert all(f["spill_stores"] == 0 and f["spill_loads"] == 0
+               for f in chain_ptxas.values()), chain_ptxas
     emit("map", {"genome": len(genome), "k": index.k, "w": index.w,
                  "minimizers": index.num_minimizers,
                  "index_seconds": index_seconds, "runs": records,
                  "persistent_equals_pipelined": True,
-                 "chain_checks": [chain_ill, chain_pb]})
+                 "chain_checks": chains,
+                 "chain_cost_per_run_ms": chain_cost,
+                 "chain_ptxas": chain_ptxas
+                 or "not measured (library not rebuilt)"})
 
-    # ---- 8. B2 and the table walker at the main paths' commonest tables --
+    # ---- 10. B2 and the table walker at the main paths' commonest tables -
     t0 = time.perf_counter()
     shape_counts = paths.shapes["persistent"]
     # The two commonest tables, held against plain, and the largest (the
@@ -1825,7 +1959,7 @@ def main():
         "replays_run": replays_run, "not_sampled": not_sampled,
         "persistent": p_recs[3:], "traceback_table": pt_recs[3:]})
 
-    # ---- 9. the main paths went through the kernels ----
+    # ---- 11. the main paths went through the kernels ----
     tot = paths.total
     common = {"route": "cuda", "library_ms": None}
     wf, wk = wf_shapes[-1], wk_shapes[-1]
@@ -1848,26 +1982,20 @@ def main():
              replaces="src/repro/core/traceback_device.py:43",
              launches=tot("traceback", "traceback_table"),
              launches_by_class=paths.by_class("traceback"),
-             launches_by_design=dict(paths.kinds["traceback"]),
              max_abs_err=max(worst_wk, worst_pt),
              ms=wk["ms"], plain_ms=wk["plain_ms"], bound_ms=wk["bound_ms"],
              bound_by=wk["bound_by"], shape=wk["shape"],
-             direct_ms=wk["direct_ms"],
              ms_by_shape={x["shape"]: x["ms"] for x in wk_shapes},
-             direct_ms_by_shape={x["shape"]: x["direct_ms"]
-                                 for x in wk_shapes},
              bound_ms_by_shape={x["shape"]: x["bound_ms"]
                                 for x in wk_shapes},
              table_launches=tot("traceback_table"), table_ms=pt_mix["ms"],
-             table_direct_ms=pt_mix["direct_ms"],
              table_plain_ms=pt_mix["plain_ms"],
              table_bound_ms=pt_mix["bound_ms"],
              table_shape=pt_mix["shape"],
              table_ms_by_shape={x["shape"]: x["ms"] for x in pt_recs},
-             table_direct_ms_by_shape={x["shape"]: x["direct_ms"]
-                                       for x in pt_recs},
-             table_launches_by_class=paths.by_class("traceback_table"),
-             table_launches_by_design=dict(paths.kinds["traceback_table"])),
+             table_held_against={x["shape"]: x["held_against"]
+                                 for x in pt_recs},
+             table_launches_by_class=paths.by_class("traceback_table")),
         dict(common, name="persistent",
              source="src/repro_torch/kernels/banded_dp/csrc/persistent.cu",
              replaces="src/repro/kernels/banded_dp/persistent.py:402",
@@ -1884,18 +2012,22 @@ def main():
              source="src/repro_torch/map/csrc/chain.cu",
              replaces="src/repro/map/chain.py:101",
              launches=tot("chain"),
-             max_abs_err=max(chain_ill["max_abs_err"],
-                             chain_pb["max_abs_err"]),
+             max_abs_err=max(c["max_abs_err"] for c in chains),
              ms=chain_ill["ms"], plain_ms=chain_ill["plain_ms"],
              bound_ms=chain_ill["bound_ms"],
-             bound_by=chain_ill["bound_by"], shape="illumina_sets"),
+             bound_by=chain_ill["bound_by"], shape=chain_ill["shape"],
+             ms_by_shape={c["shape"]: c["ms"] for c in chains if "ms" in c},
+             bound_ms_by_shape={c["shape"]: c["bound_ms"] for c in chains
+                                if "ms" in c},
+             plain_ms_by_shape={c["shape"]: c["plain_ms"] for c in chains},
+             live_slots=chain_ill["live_slots"],
+             cost_per_run_ms=chain_cost),
     ]
     for k in kernels:
         assert k["launches"] > 0 and k["max_abs_err"] == 0, k
     # Every B1 and B2 launch of the main paths ran the warp body (bands
-    # <= 100), and every walker launch the staged design.
-    for key, kind in (("banded_dp", "warp"), ("persistent", "warp"),
-                      ("traceback", "staged"), ("traceback_table", "staged")):
+    # <= 100).
+    for key, kind in (("banded_dp", "warp"), ("persistent", "warp")):
         got = paths.kinds[key]
         assert got[kind] == tot(key) and sum(got.values()) == tot(key), \
             (key, got)

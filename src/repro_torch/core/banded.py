@@ -497,6 +497,30 @@ def banded_align_batch(q_batch, r_batch, n_batch, m_batch, *, sc, band,
 banded_align_batch.calls = 0
 
 
+def banded_align(q_pad, r_pad, n, m, *, sc, band, adaptive=True,
+                 collect_tb=True, mode="global", t_max: int | None = None,
+                 cell_dtype: str = "int32", xdrop: int | None = None,
+                 device=None):
+    """Align one (query, reference) pair: `banded_align_batch` at N = 1,
+    the reference's single-pair entry point.
+
+    q_pad: (n_pad,) encoded query (padded with 4); r_pad: (m_pad,)
+    reference; n, m: true lengths. Other arguments as for
+    `banded_align_batch`. Returns the same dict with 0-d int32 scalars
+    and, when collect_tb, 'tb' (T, ceil(B/2)) uint8 and 'los' (T+1,)
+    int32, where T = t_max or n_pad + m_pad.
+    """
+    q = torch.as_tensor(q_pad, device=device)
+    dev = q.device
+    out = banded_align_batch(
+        q[None], torch.as_tensor(r_pad, device=dev)[None],
+        torch.as_tensor(n, device=dev).reshape(1),
+        torch.as_tensor(m, device=dev).reshape(1), sc=sc, band=band,
+        adaptive=adaptive, collect_tb=collect_tb, mode=mode, t_max=t_max,
+        cell_dtype=cell_dtype, xdrop=xdrop)
+    return {key: v[0] for key, v in out.items()}
+
+
 # ---------------------------------------------------------------------------
 # Traceback decode (paper §V-C3) — host-side, mirroring the peripheral
 # traceback logic. Exact affine walk using the 4-bit flags.

@@ -54,11 +54,6 @@
 // behind the walk. Parallelism comes only from the number of pairs in
 // flight. Fusing the walk behind the wavefront kernel, while the plane is
 // still in L2, is left to later work.
-//
-// `direct_reads` (a measurement switch; no main path sets it) launches the
-// earlier design instead: one warp per pair whose lane 0 reads `los` and
-// the flags straight from global memory at every step, writes segments in
-// walk order and reverses them in global memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -111,23 +106,6 @@ __host__ inline Smem smem_for(int flag_cap, int rows_cap, int nbuf) {
               nbuf};
 }
 
-// Flags at (ii, jj) and whether the cell is inside the band, read from
-// global memory (the direct walker).
-struct Plane {
-  const uint8_t* tb;   // (T, Bp)
-  const int* los;      // (T + 1,)
-  int T, Bp, band;
-
-  __device__ __forceinline__ int lookup(int ii, int jj, bool& ok) const {
-    const int t = ii + jj;
-    const int k = ii - los[clampi(t, 0, T)];
-    ok = t >= 1 && k >= 0 && k < band;
-    const int kc = clampi(k, 0, band - 1);
-    const int byte = tb[(long long)clampi(t - 1, 0, T - 1) * Bp + (kc >> 1)];
-    return (byte >> ((kc & 1) * 4)) & 0xF;
-  }
-};
-
 // The M/I/D state machine of one step at (i, j) in state st, from the
 // flags of (i, j) (its band test and direction d), of (i-1, j) and of
 // (i, j-1) (band tests and flags): moves (i, j), updates st and returns
@@ -156,16 +134,6 @@ __device__ __forceinline__ int advance(int& i, int& j, int& st, bool in_band,
   return emit;
 }
 
-// One step of the direct walker: the three lookups from global memory.
-__device__ __forceinline__ int walk_step(const Plane& pl, int& i, int& j,
-                                         int& st) {
-  bool in_band, up_ok, left_ok;
-  const int c = pl.lookup(i, j, in_band);
-  const int cu = pl.lookup(i - 1, j, up_ok);
-  const int cl = pl.lookup(i, j - 1, left_ok);
-  return advance(i, j, st, in_band, c & 3, up_ok, cu, left_ok, cl);
-}
-
 // The flags of band lane k in `row`. A lane outside [0, band) reads lane
 // band - 1 instead: its value is never used (every use is gated by the
 // lane's band test), and the read stays inside the row.
@@ -176,7 +144,10 @@ __device__ __forceinline__ int nibble(const uint8_t* row, int k, int band) {
 
 // One step of the staged walker at t = i + j >= 1, from a window whose
 // first flag row and band offset (row and offset `lo` of the plane) are at
-// F and L: the reads of `Plane::lookup` with the clamps that t >= 1 makes
+// F and L. It makes the plain walker's three lookups (`lookup` in
+// core/traceback_device.py: for a cell at s = ii + jj, lane k = ii -
+// los[clamp(s, 0, T)], flags of lane clamp(k) in row clamp(s - 1, 0, T - 1),
+// in band when s >= 1 and 0 <= k < band) with the clamps that t >= 1 makes
 // identities dropped, the two neighbour lookups sharing their band offset
 // and row, band tests as one unsigned compare, and the clamp of an
 // out-of-band lane (whose flags are never used) as one unsigned min.
@@ -193,43 +164,6 @@ __device__ __forceinline__ int staged_step(const uint8_t* F, const int* L,
                  t >= 2 && (unsigned)ku < B, nibble(nrow, ku, band),
                  t >= 2 && (unsigned)(ku + 1) < B,
                  nibble(nrow, ku + 1, band));
-}
-
-// ---------------------------------------------------------------------------
-// The direct walker (measurement switch): global reads at every step.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void walk_direct(const Plane& pl, int i, int j,
-                                            uint8_t* ops, int* runs,
-                                            int* len, int K) {
-  const int lane = threadIdx.x & 31;
-  int nseg = 0;
-  if (lane == 0) {
-    int st = 0;
-    int cur_op = 0, cur_run = 0;
-    for (int step = 0; step < pl.T && (i > 0 || j > 0); ++step) {
-      const int emit = walk_step(pl, i, j, st);
-      if (emit == cur_op) {
-        ++cur_run;
-      } else {
-        if (cur_op) { ops[nseg] = (uint8_t)cur_op; runs[nseg] = cur_run; ++nseg; }
-        cur_op = emit;
-        cur_run = 1;
-      }
-    }
-    if (cur_op) { ops[nseg] = (uint8_t)cur_op; runs[nseg] = cur_run; ++nseg; }
-    *len = nseg;
-  }
-  nseg = __shfl_sync(FULL, nseg, 0);   // also orders lane 0's stores
-  __syncwarp();
-
-  // Walk order -> path order.
-  for (int s = lane; s < nseg / 2; s += 32) {
-    const int e = nseg - 1 - s;
-    const uint8_t o = ops[s]; ops[s] = ops[e]; ops[e] = o;
-    const int r = runs[s]; runs[s] = runs[e]; runs[e] = r;
-  }
-  for (int s = nseg + lane; s < K; s += 32) { ops[s] = 0; runs[s] = 0; }
 }
 
 // ---------------------------------------------------------------------------
@@ -442,34 +376,6 @@ __global__ void traceback_table_kernel(
               smem + warp * sm.warp_bytes(), sm);
 }
 
-__global__ void traceback_direct_kernel(
-    const uint8_t* __restrict__ tb, const int* __restrict__ los,
-    const int* __restrict__ start_i, const int* __restrict__ start_j,
-    uint8_t* __restrict__ cig_ops, int* __restrict__ cig_runs,
-    int* __restrict__ cig_len, int N, int T, int Bp, int band) {
-  const int pair = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (pair >= N) return;
-  const Plane pl{tb + (long long)pair * T * Bp,
-                 los + (long long)pair * (T + 1), T, Bp, band};
-  walk_direct(pl, start_i[pair], start_j[pair], cig_ops + (long long)pair * T,
-              cig_runs + (long long)pair * T, cig_len + pair, T);
-}
-
-__global__ void traceback_table_direct_kernel(
-    const long long* __restrict__ table, const uint8_t* __restrict__ tb,
-    const int* __restrict__ los, const int* __restrict__ start_i,
-    const int* __restrict__ start_j, uint8_t* __restrict__ cig_ops,
-    int* __restrict__ cig_runs, int* __restrict__ cig_len, int R, int K) {
-  const int w = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (w >= R) return;
-  const long long* e = table + (long long)w * NCOL;
-  const int row = (int)e[ROW], band = (int)e[BAND];
-  const Plane pl{tb + e[TB_OFF], los + e[LOS_OFF], (int)e[STEPS],
-                 (band + 1) >> 1, band};
-  walk_direct(pl, start_i[row], start_j[row], cig_ops + (long long)row * K,
-              cig_runs + (long long)row * K, cig_len + row, K);
-}
-
 // Warps per block of a staged launch over `n` pairs, and its block count.
 inline int staged_warps(int n) {
   const int w = 1 + (n - 1) / SMS;
@@ -492,23 +398,14 @@ extern "C" int traceback_window_rows(int band, int T) {
   return window_rows(band, T);
 }
 
-// Launches the walker on `stream` for N pairs: the staged walker, or with
-// `direct_reads` the direct one. Returns the CUDA error code of the launch
-// (0 = success). Allocates nothing, does not synchronise.
+// Launches the walker on `stream` for N pairs. Returns the CUDA error code
+// of the launch (0 = success). Allocates nothing, does not synchronise.
 extern "C" int traceback_launch(
     const void* tb, const void* los, const void* start_i, const void* start_j,
     void* cig_ops, void* cig_runs, void* cig_len,
-    int N, int T, int Bp, int band, int direct_reads, void* stream) {
+    int N, int T, int Bp, int band, void* stream) {
   if (N <= 0 || T <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (direct_reads) {
-    const int warps = 4;
-    traceback_direct_kernel<<<(N + warps - 1) / warps, warps * 32, 0, s>>>(
-        (const uint8_t*)tb, (const int*)los, (const int*)start_i,
-        (const int*)start_j, (uint8_t*)cig_ops, (int*)cig_runs,
-        (int*)cig_len, N, T, Bp, band);
-    return (int)cudaGetLastError();
-  }
   const int W = window_rows(band, T);
   const Smem sm = smem_for(W * Bp, W, W < T ? 2 : 1);
   const int warps = staged_warps(N);
@@ -532,18 +429,9 @@ extern "C" int traceback_table_launch(
     const void* table, const void* tb, const void* los, const void* start_i,
     const void* start_j, void* cig_ops, void* cig_runs, void* cig_len,
     int R, int K, int flag_cap, int rows_cap, int two_windows,
-    int direct_reads, void* stream) {
+    void* stream) {
   if (R <= 0 || K <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (direct_reads) {
-    const int warps = 4;
-    traceback_table_direct_kernel<<<(R + warps - 1) / warps, warps * 32, 0,
-                                    s>>>(
-        (const long long*)table, (const uint8_t*)tb, (const int*)los,
-        (const int*)start_i, (const int*)start_j, (uint8_t*)cig_ops,
-        (int*)cig_runs, (int*)cig_len, R, K);
-    return (int)cudaGetLastError();
-  }
   const Smem sm = smem_for(flag_cap, rows_cap, two_windows ? 2 : 1);
   const int warps = staged_warps(R);
   const size_t bytes = (size_t)warps * sm.warp_bytes();

@@ -37,11 +37,6 @@ offset, into one ``(R, K)`` RLE plane with K the longest group sweep —
 exactly the merged layout of `core.backends.merge_persistent_outputs`.
 Its plain version walks group by group and merges.
 
-Both CUDA wrappers take ``direct_reads=True``, a measurement switch that
-launches the earlier walker (lane 0 reads the plane from global memory at
-every step), so that the two designs can be held and timed on the same
-planes; no main path sets it. Launches are counted by design in
-``.designs`` ("staged" / "direct").
 """
 
 from __future__ import annotations
@@ -76,11 +71,6 @@ def window_rows(band: int, T: int) -> int:
             WINDOW_MAX_ROWS)
     return min(W, int(T))
 
-
-def walker_design(direct_reads: bool) -> str:
-    """The kernel a CUDA walker launch runs: "staged" (the plane read
-    through shared-memory windows), or "direct" with `direct_reads`."""
-    return "direct" if direct_reads else "staged"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -178,10 +168,10 @@ def _lib():
     lib = build.load("traceback")
     fn = lib.traceback_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 7 + [_I] * 5 + [_P]
+        fn.argtypes = [_P] * 7 + [_I] * 4 + [_P]
         fn.restype = _I
         table = lib.traceback_table_launch
-        table.argtypes = [_P] * 8 + [_I] * 6 + [_P]
+        table.argtypes = [_P] * 8 + [_I] * 5 + [_P]
         table.restype = _I
         lib.traceback_window_rows.argtypes = [_I, _I]
         lib.traceback_window_rows.restype = _I
@@ -193,13 +183,9 @@ def _lib():
     return lib
 
 
-def decode_packed_tb_cuda(tb, los, start_i, start_j, *, band: int,
-                          direct_reads: bool = False):
+def decode_packed_tb_cuda(tb, los, start_i, start_j, *, band: int):
     """Launch the walker kernel on CUDA tensors (current stream, no
-    synchronisation). `direct_reads` is a measurement switch that launches
-    the earlier design (global reads at every step) instead of the staged
-    one; the main paths never set it. Raises on anything the kernel does
-    not take."""
+    synchronisation). Raises on anything the kernel does not take."""
     if not tb.is_cuda:
         raise ValueError("decode_packed_tb_cuda takes CUDA tensors")
     dev = tb.device
@@ -228,22 +214,19 @@ def decode_packed_tb_cuda(tb, los, start_i, start_j, *, band: int,
         err = lib.traceback_launch(
             tb.data_ptr(), los.data_ptr(), si.data_ptr(), sj.data_ptr(),
             cig_ops.data_ptr(), cig_runs.data_ptr(), cig_len.data_ptr(),
-            N, T, Bp, int(band), int(bool(direct_reads)),
-            torch.cuda.current_stream().cuda_stream)
+            N, T, Bp, int(band), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"traceback kernel launch failed: CUDA error "
                            f"{err}")
     decode_packed_tb_cuda.launches += 1
     decode_packed_tb_cuda.shapes[(T, N)] += 1
-    decode_packed_tb_cuda.designs[walker_design(direct_reads)] += 1
     return cig_ops, cig_runs, cig_len
 
 
 #: Kernel launches since the count was last set to 0, and the same launches
-#: by (sweep length T, pairs N) and by design ("staged" / "direct").
+#: by (sweep length T, pairs N).
 decode_packed_tb_cuda.launches = 0
 decode_packed_tb_cuda.shapes = collections.Counter()
-decode_packed_tb_cuda.designs = collections.Counter()
 
 
 def decode_packed_tb(tb, los, start_i, start_j, *, band: int, device=None):
@@ -363,13 +346,11 @@ def table_windows(table) -> tuple[int, int, bool]:
             any(W < s.steps for W, s in wins))
 
 
-def decode_packed_tb_table_cuda(table, tb, los, start_i, start_j, *,
-                                direct_reads: bool = False):
+def decode_packed_tb_table_cuda(table, tb, los, start_i, start_j):
     """Launch the table walker kernel once for every row of `table` (CUDA
     tensors, current stream, no synchronisation). Same arguments and
-    results as `decode_packed_tb_table_plain`; `direct_reads` as for
-    `decode_packed_tb_cuda`. Raises on anything the kernel does not
-    take."""
+    results as `decode_packed_tb_table_plain`. Raises on anything the
+    kernel does not take."""
     if not tb.is_cuda:
         raise ValueError("decode_packed_tb_table_cuda takes CUDA tensors")
     dev = tb.device
@@ -399,22 +380,19 @@ def decode_packed_tb_table_cuda(table, tb, los, start_i, start_j, *,
             table.rows.data_ptr(), tb.data_ptr(), los.data_ptr(),
             si.data_ptr(), sj.data_ptr(), cig_ops.data_ptr(),
             cig_runs.data_ptr(), cig_len.data_ptr(), R, K, flag_cap,
-            rows_cap, int(two), int(bool(direct_reads)),
-            torch.cuda.current_stream().cuda_stream)
+            rows_cap, int(two), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"traceback table kernel launch failed: CUDA "
                            f"error {err}")
     decode_packed_tb_table_cuda.launches += 1
     decode_packed_tb_table_cuda.shapes[(K, R)] += 1
-    decode_packed_tb_table_cuda.designs[walker_design(direct_reads)] += 1
     return cig_ops, cig_runs, cig_len
 
 
 #: Kernel launches since the count was last set to 0, and the same launches
-#: by (longest sweep, table rows) and by design ("staged" / "direct").
+#: by (longest sweep, table rows).
 decode_packed_tb_table_cuda.launches = 0
 decode_packed_tb_table_cuda.shapes = collections.Counter()
-decode_packed_tb_table_cuda.designs = collections.Counter()
 
 
 def decode_packed_tb_table(table, tb, los, start_i, start_j):

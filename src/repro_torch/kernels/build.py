@@ -14,6 +14,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -38,6 +39,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# Dispatcher threads of several services (a router's replicas) may reach a
+# kernel's first `load` together.
+_LOAD_LOCK = threading.Lock()
 
 
 def build_dir() -> Path:
@@ -106,8 +110,11 @@ def load(name: str) -> ctypes.CDLL:
     source is newer than the library (or the library is missing)."""
     lib = _LIBS.get(name)
     if lib is None:
-        if _stale(name):
-            _finish(name, *_start(name))
-        lib = ctypes.CDLL(str(lib_path(name)))
-        _LIBS[name] = lib
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                if _stale(name):
+                    _finish(name, *_start(name))
+                lib = ctypes.CDLL(str(lib_path(name)))
+                _LIBS[name] = lib
     return lib

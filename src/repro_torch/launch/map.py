@@ -2,7 +2,8 @@
 
 Builds a minimizer index over a simulated reference, draws reads with
 ground-truth loci from `ReadSimulator`, and maps them through a
-`ReadMapper` backed by an `AlignmentService`: seeding on the host, one
+`ReadMapper` backed by an `AlignmentService` (or, with `--replicas N`,
+an `AlignmentRouter` over N replicas): seeding on the host, one
 launch of the chaining kernel, and the candidate windows through the
 engine's kernels. Because the simulator labels every read with its true
 locus and strand, the run reports *accuracy* (recall to within the
@@ -15,9 +16,11 @@ alignment band) alongside throughput and the serving metrics.
         --profile pacbio --read-len 1000 --base-bandwidth 64 \\
         --dispatch persistent
 
+    PYTHONPATH=src python -m repro_torch.launch.map --reads 200 \\
+        --replicas 2
+
 Runs on the card and exits with an error without one (`--device cpu
---backend reference` asks for the CPU explicitly). `--replicas N`
-(N > 1) exits with an error: the replicated tier is ROADMAP A6.
+--backend reference` asks for the CPU explicitly).
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from repro_torch.core.engine import AlignmentEngine
 from repro_torch.data.genome import ReadSimulator, random_genome
 from repro_torch.map import (MinimizerIndex, ReadMapper, STATUS_MAPPED,
                              STATUS_SEED_CAPPED)
-from repro_torch.serve import AlignmentService
+from repro_torch.serve import AlignmentRouter, AlignmentService
 
 
 def main(argv=None):
@@ -68,8 +71,8 @@ def main(argv=None):
                     default="pipelined")
     ap.add_argument("--max-wait-ms", type=float, default=2.0)
     ap.add_argument("--replicas", type=int, default=1,
-                    help="serving-tier replica count; >1 needs the "
-                         "replicated tier, not ported yet (ROADMAP A6)")
+                    help=">1 maps through an AlignmentRouter over N "
+                         "single-engine replicas")
     ap.add_argument("--device", default="cuda",
                     help="where the engine and the chaining run "
                          "(default: the card)")
@@ -80,14 +83,14 @@ def main(argv=None):
         ap.error("--reads must be positive")
     if args.replicas < 1:
         ap.error("--replicas must be >= 1")
-    if args.replicas > 1:
-        ap.error("--replicas > 1 needs the replicated tier "
-                 "(serve/router.py), not ported yet: ROADMAP A6")
 
-    engine = AlignmentEngine(
-        backend=args.backend, device=args.device, sc=RAPIDX.scoring,
-        capacity=args.capacity, dispatch=args.dispatch, xdrop=args.xdrop,
-        base_bandwidth=args.base_bandwidth)
+    def make_engine(_i=0):
+        return AlignmentEngine(
+            backend=args.backend, device=args.device, sc=RAPIDX.scoring,
+            capacity=args.capacity, dispatch=args.dispatch,
+            xdrop=args.xdrop, base_bandwidth=args.base_bandwidth)
+
+    engine = make_engine()
 
     genome = random_genome(args.genome, seed=args.seed)
     t0 = time.perf_counter()
@@ -98,15 +101,23 @@ def main(argv=None):
           f"minimizers={index.num_minimizers} hot={index.num_hot} "
           f"({t_index:.2f}s)")
     print(f"[map] device={engine.device} backend={engine.backend_name} "
-          f"dispatch={engine.dispatch}")
+          f"dispatch={engine.dispatch} replicas={args.replicas}")
 
     sim = ReadSimulator(genome, args.profile, seed=args.seed + 1,
                         rc_prob=args.rc_prob)
     sim_reads = [sim.sample(args.read_len) for _ in range(args.reads)]
 
+    service_opts = dict(mode="semiglobal", max_wait_ms=args.max_wait_ms)
+    if args.replicas > 1:
+        front = AlignmentRouter(
+            args.replicas,
+            engine_factory=lambda i: engine if i == 0 else make_engine(),
+            **service_opts)
+    else:
+        front = AlignmentService(engine, **service_opts)
+
     t0 = time.perf_counter()
-    with AlignmentService(engine, mode="semiglobal",
-                          max_wait_ms=args.max_wait_ms) as front:
+    with front:
         mapper = ReadMapper(index, front, window_pad=args.window_pad)
         results = mapper.map_batch([sr.read for sr in sim_reads])
         stats = front.stats()

@@ -8,18 +8,25 @@ class and drives the AlignmentEngine's dispatch pipeline on the GPU
 service metrics dict — requests/s, p50/p99 latency, batch fill ratio,
 bytes fetched, flush causes.
 
+`--replicas N` (N > 1) serves the stream through the replicated tier
+instead: a `repro_torch.serve.AlignmentRouter` over N single-engine
+replicas, each dispatcher thread queuing its engine's work on a CUDA
+stream of its own.
+
     PYTHONPATH=src python -m repro_torch.launch.serve --reads 512 \
         --rate 2000 --policy adaptive --warmup --no-mesh
 
     PYTHONPATH=src python -m repro_torch.launch.serve --reads 512 \
         --dispatch persistent --no-mesh
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --reads 512 \
+        --no-mesh --replicas 2
+
 Runs on the card and exits with an error without one (`--device cpu
 --backend reference` asks for the CPU explicitly). `--dispatch
 persistent` runs each flush as one launch of the persistent wavefront
-and one of the table walker. Single device only: without `--no-mesh` or
-with `--replicas N` (N > 1) it exits with an error naming the ROADMAP
-item that ports that mode (A9, A6).
+and one of the table walker. Single device only: without `--no-mesh` it
+exits with an error naming the ROADMAP item that ports the mesh (A9).
 """
 
 from __future__ import annotations
@@ -32,10 +39,10 @@ import torch
 from repro_torch.configs.rapidx import CONFIG as RAPIDX
 from repro_torch.core.engine import AlignmentEngine
 from repro_torch.data.genome import ReadSimulator, random_genome
-from repro_torch.serve import AlignmentService
+from repro_torch.serve import AlignmentRouter, AlignmentService
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--reads", type=int, default=512,
                     help="total requests to stream through the service")
@@ -78,34 +85,38 @@ def main():
                     help="single-device engine; the only mode so far "
                          "(the mesh path is ROADMAP A9)")
     ap.add_argument("--replicas", type=int, default=1,
-                    help="serving-tier replica count; >1 is not ported "
-                         "yet (ROADMAP A6)")
+                    help="serving-tier replica count: >1 routes the "
+                         "stream through an AlignmentRouter over N "
+                         "single-engine replicas with drain/failover, "
+                         "each on a CUDA stream of its own")
     ap.add_argument("--device", default="cuda",
                     help="where the engine runs (default: the card)")
     ap.add_argument("--backend", default="auto",
                     help="'auto' (the CUDA kernels), 'cuda' or 'reference'")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     if args.reads <= 0:
         ap.error("--reads must be positive")
     if args.replicas < 1:
         ap.error("--replicas must be >= 1")
 
-    if args.replicas > 1:
-        ap.error("--replicas > 1 needs the replicated tier "
-                 "(serve/router.py), not ported yet: ROADMAP A6")
     if not args.no_mesh:
         ap.error("the mesh path is not ported yet (ROADMAP A9): pass "
                  "--no-mesh")
 
-    engine = AlignmentEngine(
-        backend=args.backend, device=args.device, sc=RAPIDX.scoring,
-        capacity=args.capacity, dispatch=args.dispatch, xdrop=args.xdrop,
-        compilation_cache_dir=args.compilation_cache_dir)
+    def make_engine(_i=0):
+        return AlignmentEngine(
+            backend=args.backend, device=args.device, sc=RAPIDX.scoring,
+            capacity=args.capacity, dispatch=args.dispatch,
+            xdrop=args.xdrop,
+            compilation_cache_dir=args.compilation_cache_dir)
+
+    engine = make_engine()
     kind = (torch.cuda.get_device_name(engine.device)
             if engine.device.type == "cuda" else "cpu")
     print(f"[serve] device={engine.device} ({kind}) "
           f"backend={engine.backend_name} dispatch={engine.dispatch} "
-          f"policy={args.policy} scoring={RAPIDX.scoring.name}")
+          f"replicas={args.replicas} policy={args.policy} "
+          f"scoring={RAPIDX.scoring.name}")
 
     genome = random_genome(1_000_000, seed=7)
     sim = ReadSimulator(genome, args.profile, seed=8)
@@ -126,7 +137,15 @@ def main():
 
     service_opts = dict(max_wait_ms=args.max_wait_ms, policy=args.policy,
                         max_inflight_groups=depth, warmup=warmup)
-    front = AlignmentService(engine, **service_opts)
+    if args.replicas > 1:
+        # Replica 0 reuses the probe engine; the rest get their own (an
+        # engine is owned by exactly one dispatcher thread).
+        front = AlignmentRouter(
+            args.replicas,
+            engine_factory=lambda i: engine if i == 0 else make_engine(),
+            **service_opts)
+    else:
+        front = AlignmentService(engine, **service_opts)
 
     period = 1.0 / args.rate if args.rate > 0 else 0.0
     t0 = time.perf_counter()
@@ -146,7 +165,9 @@ def main():
     mean = sum(int(s) for s in scores) / len(scores)
     print(f"[serve] {args.reads} reads in {wall:.2f}s "
           f"({args.reads / wall:.0f} reads/s) mean_score={mean:.1f}")
-    tier = f" depth={stats['pipeline_depth']}"
+    tier = (f" replicas_serving={stats['replicas_serving']}"
+            if "replicas_serving" in stats else
+            f" depth={stats['pipeline_depth']}")
     print(f"[serve] p50={stats['p50_ms']:.1f}ms p99={stats['p99_ms']:.1f}ms "
           f"fill_ratio={stats['fill_ratio']:.2f} "
           f"dispatches={stats['dispatches']} "

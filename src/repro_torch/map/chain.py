@@ -22,9 +22,10 @@ devices, which the end-to-end mapper identity tests rely on). The DP
 is a sequential recurrence over anchors sorted by reference position,
 followed by a backtrack from the best endpoint. `chain_padded` runs it over
 a batch of padded anchor sets: on CUDA tensors the hand-written kernel
-(``csrc/chain.cu``, one thread block per set, one launch per call) or an
-error; on CPU tensors its plain version `chain_padded_plain`, a batched
-loop of tensor ops over the A anchor slots.
+(``csrc/chain.cu``, one warp per set, stepping only the set's valid slots,
+one launch per call) or an error; on CPU tensors its plain version
+`chain_padded_plain`, a batched loop of tensor ops over the A anchor
+slots.
 
 Ragged anchor lists pad to `anchors_cap` (evenly-spaced subsample when
 over — deterministic), and the batch dimension rounds up to a multiple of
@@ -48,7 +49,7 @@ NEG = -(2 ** 30)
 #: Batch-dimension pad multiple.
 _BATCH_PAD = 16
 
-#: Most anchor slots per set one launch takes (one slot per thread).
+#: Most anchor slots per set one launch takes.
 MAX_ANCHORS = 1024
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

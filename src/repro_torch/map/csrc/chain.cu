@@ -12,19 +12,47 @@
 // then the membership mask of the chain ending at the leftmost argmax of f
 // and that endpoint (-1 when no slot is valid).
 //
-// Design: one block per anchor set, one thread per slot. Thread j keeps
-// f[j] and pred[j] in registers; slots j >= i still hold NEG when slot i
-// is scored, exactly as in the reference (f is written in order). For
-// each i every thread forms its candidate, each warp reduces it to
-// (max, lowest lane) with `__reduce_max_sync` / `__reduce_min_sync`, and
-// the warps' results are joined in lane order behind one barrier per i
-// (the partials are double-buffered by the parity of i). Thread i applies
-// the update to its own registers. The backtrack is a walk of at most A
-// steps by one thread through pred in shared memory.
+// Design: one warp per anchor set, `WARPS` sets per block, no block-wide
+// barrier. Slot j lives on lane j % 32 in register j / 32: f, pred and the
+// slot's read / reference position and valid bit stay in registers for
+// A <= 256 (`chain_kernel<S>`, S = 1, 2, 4 or 8 registers a lane; the main
+// path's A = 128 is S = 4). Above 256 f and pred live in the warp's share
+// of shared memory (`chain_kernel<0>`). Positions and valid flags are
+// staged once in the warp's shared memory, from which every lane reads the
+// broadcast q[i], r[i], valid[i] of the step.
 //
-// What bounds it on an H100: the A dependent steps, each a barrier and
-// two warp reductions — a serial chain per anchor set, not bytes or int32
-// throughput (see PERF.md). Parallelism comes from the number of sets.
+//   * Only live slots are stepped. A ballot over valid finds the last valid
+//     slot L, and the loop runs i = 0 .. L; a step whose slot is not valid
+//     is skipped by the whole warp (f stays NEG, pred -1). A set with no
+//     valid slot writes NEG / -1 / 0 and endpoint -1 at once.
+//   * At step i only slots j < i form a candidate: a lane leaves its
+//     register loop at the first register s with s * 32 >= i.
+//   * Each lane keeps its own leftmost maximum, scanning its registers
+//     upward with a strict >; one `__reduce_max_sync` gives the maximum
+//     and one `__reduce_min_sync` the lowest slot among the lanes that
+//     hold it. Lane i % 32 stores f[i] and pred[i] into register i / 32 by
+//     an unrolled select (a register index must be known when compiling).
+//   * The endpoint is the same two-step reduction over all A slots; lane 0
+//     walks pred (copied to shared memory) for at most A steps, and the
+//     write-out is coalesced: register s of the 32 lanes is 32 consecutive
+//     slots.
+//
+// Why skipping slots j >= i, and steps past L, is exact. In the reference
+// a slot j >= i still holds f[j] = NEG when slot i is scored (f is written
+// in order), so where ok holds its candidate is NEG + gain <= NEG + k. A
+// valid j < i has f[j] >= k and a candidate >= k + gain, far above that for
+// any gain above NEG (every max_dd with max_dd * k < 2^31); an invalid j
+// fails ok and gives NEG. So either the maximum lies among j < i, with the
+// same leftmost slot, or best <= NEG + k: then extend is false and f[i]
+// and pred[i] do not depend on which slot won. An invalid i gives NEG / -1
+// whatever the candidates, and every i > L is invalid. None of this needs
+// sorted positions or a prefix mask.
+//
+// What bounds it on an H100: the dependent steps of one set (a shared
+// broadcast, a short register scan, two warp reductions and the select) —
+// a serial chain per set whose length is the set's live slots, not A.
+// Parallelism comes from the number of sets, eight warps a block; the
+// bytes (positions in, f / pred / mask out) are small beside it (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,8 +60,14 @@
 namespace {
 
 constexpr int NEG = -(1 << 30);
-constexpr int MAX_WARPS = 32;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned NONE = 0xffffffffu;
+// Anchor sets (warps) a block takes, and the dynamic shared memory a block
+// may use without an opt-in.
+constexpr int WARPS = 8;
+constexpr int SMEM_BUDGET = 48 * 1024;
+// Most slots kept in registers (8 a lane).
+constexpr int MAX_REG_SLOTS = 256;
 
 __device__ __forceinline__ int gap_cost(int dd, int k) {
   // dd >= 0, so truncating division is the reference's floor division.
@@ -42,98 +76,216 @@ __device__ __forceinline__ int gap_cost(int dd, int k) {
   return lin + lg;
 }
 
-// Leftmost maximum of (v, slot) over the block: per-warp reductions,
-// joined in warp order through `red` (2 * MAX_WARPS ints) behind one
-// barrier. Every thread gets the result.
-__device__ __forceinline__ void block_argmax(int v, int slot, int* red,
-                                             int& best, int& arg) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int w_max = __reduce_max_sync(FULL, v);
-  const unsigned w_arg =
-      __reduce_min_sync(FULL, v == w_max ? (unsigned)slot : 0xffffffffu);
-  if (lane == 0) {
-    red[warp] = w_max;
-    red[MAX_WARPS + warp] = (int)w_arg;
-  }
-  __syncthreads();
-  best = red[0];
-  arg = red[MAX_WARPS];
-  for (int w = 1; w < nwarps; ++w) {
-    if (red[w] > best) { best = red[w]; arg = red[MAX_WARPS + w]; }
-  }
+// The candidate of slot j (positions qj, rj, valid vj, score fj) for the
+// anchor at (qi, ri): f[j] + gain(j, i) where ok(j, i) holds, else NEG.
+__device__ __forceinline__ int candidate(int qi, int ri, int qj, int rj,
+                                         bool vj, int fj, int k, int max_gap,
+                                         int max_dd) {
+  // Positions are >= 0, so these differences cannot overflow; the unsigned
+  // casts only keep the compiler from assuming they do not.
+  const int dq = (int)((unsigned)qi - (unsigned)qj);
+  const int dr = (int)((unsigned)ri - (unsigned)rj);
+  const int diff = (int)((unsigned)dr - (unsigned)dq);
+  const int dd = (int)(diff < 0 ? 0u - (unsigned)diff : (unsigned)diff);
+  const bool ok = vj && dq > 0 && dr > 0 && dq <= max_gap && dr <= max_gap &&
+                  dd >= 0 && dd <= max_dd;
+  // gain is formed only where ok holds, where it cannot overflow.
+  return ok ? fj + (min(min(dq, dr), k) - gap_cost(dd, k)) : NEG;
 }
 
+// Leftmost maximum over the warp of each lane's (best, slot): every lane
+// gets the maximum and the lowest slot holding it.
+__device__ __forceinline__ void warp_argmax(int best, unsigned slot,
+                                            int& wbest, unsigned& wslot) {
+  wbest = __reduce_max_sync(FULL, best);
+  wslot = __reduce_min_sync(FULL, best == wbest ? slot : NONE);
+}
+
+// One warp's shared memory for A slots: positions, pred (for the walk;
+// also f with S == 0), and the valid flags, later the best-chain mask.
+struct Smem {
+  int* q;
+  int* r;
+  int* pred;
+  int* f;
+  uint8_t* flag;
+};
+
+__host__ __device__ inline int warp_smem_bytes(int A, bool f_shared) {
+  return (4 * A * (f_shared ? 4 : 3) + A + 15) & ~15;
+}
+
+template <int S>
 __global__ void chain_kernel(
     const int* __restrict__ qp, const int* __restrict__ rp,
     const uint8_t* __restrict__ valid, int* __restrict__ f_out,
     int* __restrict__ pred_out, uint8_t* __restrict__ mask_out,
-    int* __restrict__ best_out, int A, int k, int max_gap, int max_dd) {
-  extern __shared__ int smem[];
-  int* sq = smem;                       // (A,)
-  int* sr = sq + A;                     // (A,)
-  int* sv = sr + A;                     // (A,) valid, then best-chain mask
-  int* spred = sv + A;                  // (A,)
-  int* red = spred + A;                 // [2 parities][2][MAX_WARPS]
-
-  const long long set = blockIdx.x;
-  const int j = threadIdx.x;
-  const bool slot = j < A;
+    int* __restrict__ best_out, int R, int A, int k, int max_gap,
+    int max_dd) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  constexpr bool SHARED = S == 0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long set = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (set >= R) return;                 // whole warps leave together
   const long long base = set * A;
-  if (slot) {
-    sq[j] = qp[base + j];
-    sr[j] = rp[base + j];
-    sv[j] = valid[base + j];
-  }
-  __syncthreads();
-  const int qj = slot ? sq[j] : 0, rj = slot ? sr[j] : 0;
-  const bool vj = slot && sv[j];
-  int f = NEG, pred = -1;
+  uint8_t* mine = smem + warp * warp_smem_bytes(A, SHARED);
+  const Smem sm{reinterpret_cast<int*>(mine),
+                reinterpret_cast<int*>(mine) + A,
+                reinterpret_cast<int*>(mine) + 2 * A,
+                reinterpret_cast<int*>(mine) + 3 * A,
+                mine + 4 * A * (SHARED ? 4 : 3)};
 
-  for (int i = 0; i < A; ++i) {
-    // Positions are >= 0, so these differences cannot overflow; the
-    // unsigned casts only keep the compiler from assuming they do not.
-    const int dq = (int)((unsigned)sq[i] - (unsigned)qj);
-    const int dr = (int)((unsigned)sr[i] - (unsigned)rj);
-    const int diff = (int)((unsigned)dr - (unsigned)dq);
-    const int dd = (int)(diff < 0 ? 0u - (unsigned)diff : (unsigned)diff);
-    const bool ok = slot && vj && dq > 0 && dr > 0 && dq <= max_gap &&
-                    dr <= max_gap && dd >= 0 && dd <= max_dd;
-    // gain is formed only where ok holds, where it cannot overflow.
-    const int cand = ok ? f + (min(min(dq, dr), k) - gap_cost(dd, k)) : NEG;
-    int best, arg;
-    block_argmax(slot ? cand : NEG, slot ? j : 0x7fffffff,
-                 red + (i & 1) * 2 * MAX_WARPS, best, arg);
-    if (j == i) {
-      const bool extend = best > k;     // strict: ties start a fresh chain
-      f = vj ? (extend ? best : k) : NEG;
-      pred = vj && extend ? arg : -1;
+  // Stage positions and flags; f = NEG, pred = -1 everywhere.
+  for (int j = lane; j < A; j += 32) {
+    sm.q[j] = qp[base + j];
+    sm.r[j] = rp[base + j];
+    sm.flag[j] = valid[base + j];
+    if (SHARED) {
+      sm.f[j] = NEG;
+      sm.pred[j] = -1;
+    }
+  }
+  __syncwarp();
+
+  // Registers of the lane's slots j = s * 32 + lane (S > 0).
+  constexpr int SR = SHARED ? 1 : S;
+  int f[SR], pred[SR], qj[SR], rj[SR];
+  unsigned vbits = 0;
+  if (!SHARED) {
+#pragma unroll
+    for (int s = 0; s < SR; ++s) {
+      const int j = s * 32 + lane;
+      const bool in = j < A;
+      f[s] = NEG;
+      pred[s] = -1;
+      qj[s] = in ? sm.q[j] : 0;
+      rj[s] = in ? sm.r[j] : 0;
+      vbits |= (in && sm.flag[j]) ? 1u << s : 0u;
     }
   }
 
-  // ---- backtrack from the leftmost argmax of f ----
-  // The partials go to the parity the last step did not use: threads may
-  // still be reading that step's.
-  if (slot) spred[j] = pred;
-  int fmax, best_idx;
-  block_argmax(slot ? f : NEG, slot ? j : 0x7fffffff,
-               red + (A & 1) * 2 * MAX_WARPS, fmax, best_idx);
-  if (!(fmax > NEG)) best_idx = -1;
-  if (slot) sv[j] = 0;
-  __syncthreads();
-  if (j == 0) {
-    for (int cur = best_idx, s = 0; cur >= 0 && s < A; ++s) {
-      sv[cur] = 1;
-      cur = spred[cur];
+  // The last valid slot L.
+  int last = -1;
+  for (int c = 0; c * 32 < A; ++c) {
+    const int j = c * 32 + lane;
+    const unsigned bal = __ballot_sync(FULL, j < A && sm.flag[j]);
+    if (bal) last = c * 32 + 31 - __clz(bal);
+  }
+  if (last < 0) {
+    for (int j = lane; j < A; j += 32) {
+      f_out[base + j] = NEG;
+      pred_out[base + j] = -1;
+      mask_out[base + j] = 0;
     }
-    best_out[set] = best_idx;
+    if (lane == 0) best_out[set] = -1;
+    return;
   }
-  __syncthreads();
-  if (slot) {
-    f_out[base + j] = f;
-    pred_out[base + j] = pred;
-    mask_out[base + j] = (uint8_t)sv[j];
+
+  for (int i = 0; i <= last; ++i) {
+    if (!sm.flag[i]) continue;          // the same answer on every lane
+    const int qi = sm.q[i], ri = sm.r[i];
+    int lbest = NEG;
+    unsigned lslot = NONE;
+    if (SHARED) {
+      for (int j = lane; j < i; j += 32) {
+        const int c = candidate(qi, ri, sm.q[j], sm.r[j], sm.flag[j],
+                                sm.f[j], k, max_gap, max_dd);
+        if (c > lbest) { lbest = c; lslot = (unsigned)j; }
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < SR; ++s) {
+        if (s * 32 >= i) break;
+        const int j = s * 32 + lane;
+        const int c = candidate(qi, ri, qj[s], rj[s],
+                                j < i && ((vbits >> s) & 1u), f[s], k,
+                                max_gap, max_dd);
+        if (c > lbest) { lbest = c; lslot = (unsigned)j; }
+      }
+    }
+    int wbest;
+    unsigned wslot;
+    warp_argmax(lbest, lslot, wbest, wslot);
+    const bool extend = wbest > k;      // strict: ties start a fresh chain
+    const int fi = extend ? wbest : k;
+    const int pi = extend ? (int)wslot : -1;
+    if (lane == (i & 31)) {
+      if (SHARED) {
+        sm.f[i] = fi;
+        sm.pred[i] = pi;
+      } else {
+#pragma unroll
+        for (int s = 0; s < SR; ++s) {
+          if (s == (i >> 5)) { f[s] = fi; pred[s] = pi; }
+        }
+      }
+    }
+    if (SHARED) __syncwarp();
   }
+
+  // ---- endpoint: leftmost argmax of f (slot `last` is valid, so > NEG) --
+  int lbest = NEG;
+  unsigned lslot = NONE;
+  if (SHARED) {
+    for (int j = lane; j < A; j += 32) {
+      if (sm.f[j] > lbest) { lbest = sm.f[j]; lslot = (unsigned)j; }
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < SR; ++s) {
+      const int j = s * 32 + lane;
+      if (j < A) {
+        sm.pred[j] = pred[s];
+        if (f[s] > lbest) { lbest = f[s]; lslot = (unsigned)j; }
+      }
+    }
+  }
+  int fmax;
+  unsigned end;
+  warp_argmax(lbest, lslot, fmax, end);
+  __syncwarp();                         // every lane's reads of the flags
+  for (int j = lane; j < A; j += 32) sm.flag[j] = 0;
+  __syncwarp();
+  if (lane == 0) {
+    for (int cur = (int)end, s = 0; cur >= 0 && s < A; ++s) {
+      sm.flag[cur] = 1;
+      cur = sm.pred[cur];
+    }
+    best_out[set] = (int)end;
+  }
+  __syncwarp();
+
+  if (SHARED) {
+    for (int j = lane; j < A; j += 32) {
+      f_out[base + j] = sm.f[j];
+      pred_out[base + j] = sm.pred[j];
+      mask_out[base + j] = sm.flag[j];
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < SR; ++s) {
+      const int j = s * 32 + lane;
+      if (j < A) {
+        f_out[base + j] = f[s];
+        pred_out[base + j] = pred[s];
+        mask_out[base + j] = sm.flag[j];
+      }
+    }
+  }
+}
+
+template <int S>
+int launch(const void* qp, const void* rp, const void* valid, void* f,
+           void* pred, void* mask, void* best, int R, int A, int k,
+           int max_gap, int max_dd, cudaStream_t stream) {
+  const int per_warp = warp_smem_bytes(A, S == 0);
+  int warps = SMEM_BUDGET / per_warp;
+  warps = warps < 1 ? 1 : (warps > WARPS ? WARPS : warps);
+  const int blocks = (R + warps - 1) / warps;
+  chain_kernel<S><<<blocks, warps * 32, (size_t)warps * per_warp, stream>>>(
+      (const int*)qp, (const int*)rp, (const uint8_t*)valid, (int*)f,
+      (int*)pred, (uint8_t*)mask, (int*)best, R, A, k, max_gap, max_dd);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -147,10 +299,20 @@ extern "C" int chain_launch(
     void* stream) {
   if (R <= 0) return 0;
   if (A < 1 || A > 1024) return (int)cudaErrorInvalidValue;
-  const int threads = ((A + 31) / 32) * 32;
-  const size_t smem = (size_t)(4 * A + 2 * 2 * MAX_WARPS) * sizeof(int);
-  chain_kernel<<<R, threads, smem, (cudaStream_t)stream>>>(
-      (const int*)qp, (const int*)rp, (const uint8_t*)valid, (int*)f,
-      (int*)pred, (uint8_t*)mask, (int*)best, A, k, max_gap, max_dd);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const int regs = (A + 31) / 32;
+  if (regs == 1)
+    return launch<1>(qp, rp, valid, f, pred, mask, best, R, A, k, max_gap,
+                     max_dd, s);
+  if (regs == 2)
+    return launch<2>(qp, rp, valid, f, pred, mask, best, R, A, k, max_gap,
+                     max_dd, s);
+  if (regs <= 4)
+    return launch<4>(qp, rp, valid, f, pred, mask, best, R, A, k, max_gap,
+                     max_dd, s);
+  if (A <= MAX_REG_SLOTS)
+    return launch<8>(qp, rp, valid, f, pred, mask, best, R, A, k, max_gap,
+                     max_dd, s);
+  return launch<0>(qp, rp, valid, f, pred, mask, best, R, A, k, max_gap,
+                   max_dd, s);
 }

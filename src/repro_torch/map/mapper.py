@@ -12,9 +12,10 @@ each read,
      (`repro_torch.map.chain`), each projecting a candidate reference
      window,
   3. **align** — the top candidate windows become banded semiglobal
-     alignment requests submitted to an `AlignmentService`, primary
-     candidates at normal priority, rescue candidates as bulk; X-drop on
-     the engine retires junk candidates on-device, and
+     alignment requests submitted to an `AlignmentService` (or
+     `AlignmentRouter` — same surface), primary candidates at normal
+     priority, rescue candidates as bulk; X-drop on the engine retires
+     junk candidates on-device, and
   4. **report** — results scatter back per read: the best candidate's
      chain-projected locus and strand, its alignment score, and a
      mapping quality from the best-vs-second-best alignment score margin
@@ -105,11 +106,11 @@ class ReadMapper:
 
     Args:
       index: the reference minimizer index (owns the genome array).
-      service: an `AlignmentService` constructed with
-        `mode="semiglobal"` over that same reference's engine config —
-        semiglobal scoring (free reference end gaps) is what "locate a
-        read inside a padded window" means. The mapper only submits;
-        service policy/priorities/backpressure all apply.
+      service: an `AlignmentService` or `AlignmentRouter` constructed
+        with `mode="semiglobal"` over that same reference's engine
+        config — semiglobal scoring (free reference end gaps) is what
+        "locate a read inside a padded window" means. The mapper only
+        submits; service policy/priorities/backpressure all apply.
       chain_params: chaining configuration; None derives k from the
         index and keeps the defaults.
       max_candidates: candidate windows aligned per read (best vs
@@ -124,7 +125,8 @@ class ReadMapper:
       priorities: (primary, rescue) SLA classes for submitted
         alignments.
       device: where chaining runs; None = the service's engine's device
-        (the card unless the engine was built for the CPU).
+        (a router's: its first replica's), the card unless the engine was
+        built for the CPU.
     """
 
     def __init__(self, index: MinimizerIndex, service, *,
@@ -151,8 +153,12 @@ class ReadMapper:
         self.both_strands = both_strands
         self.priorities = priorities
         self.collect_tb = bool(getattr(service, "collect_tb", False))
-        self.device = (device if device is not None
-                       else service.engine.device)
+        if device is None:
+            engine = getattr(service, "engine", None)
+            if engine is None:
+                engine = service.pool.replicas[0].engine
+            device = engine.device
+        self.device = device
 
     # ------------------------------------------------------------------
     # Pipeline stages.

@@ -55,8 +55,12 @@ both of which the backend contract guarantees are result-invariant
 (DESIGN.md §3, asserted by tests/test_service.py with both policies).
 
 The engine itself is not thread-safe; only the dispatcher thread ever
-touches it. CUDA's current device and stream are per-thread, so the
-dispatcher thread selects the engine's device once when it starts. `time_fn` injects the service clock (arrival timestamps and
+touches it. CUDA's current device and stream are per-thread: on a CUDA
+engine the dispatcher thread selects the engine's device and makes a
+CUDA stream of its own (`stream`) its current stream once, when it
+starts, so every launch, copy and event of the engine is queued there and
+several services over one card (the replicas of a router) can overlap.
+`time_fn` injects the service clock (arrival timestamps and
 flush deadlines) for deterministic controller tests; the dispatcher
 then polls wall time briefly instead of sleeping on fake-clock
 deadlines.
@@ -223,6 +227,8 @@ class AlignmentService:
         self._draining = False
         self._wait_until: float | None = None
         self._error: BaseException | None = None
+        #: The dispatcher thread's CUDA stream (None on the CPU).
+        self.stream: torch.cuda.Stream | None = None
         self._thread = threading.Thread(target=self._loop,
                                         name="alignment-service-dispatch",
                                         daemon=True)
@@ -410,6 +416,8 @@ class AlignmentService:
             device = getattr(self.engine, "device", None)
             if device is not None and device.type == "cuda":
                 torch.cuda.set_device(device)
+                self.stream = torch.cuda.Stream(device)
+                torch.cuda.set_stream(self.stream)
             while True:
                 got_new = self._drain_queue(pending)
                 flushed = False

@@ -41,7 +41,8 @@ def test_port_has_its_modules():
                 "core/traceback_device.py", "core/backends/cuda.py",
                 "kernels/banded_dp/ops.py", "kernels/banded_dp/persistent.py",
                 "map/__init__.py", "map/index.py", "map/chain.py",
-                "map/mapper.py", "serve/service.py", "launch/serve.py",
+                "map/mapper.py", "serve/service.py", "serve/router.py",
+                "core/edit_distance.py", "core/diff_dp.py", "launch/serve.py",
                 "launch/map.py", "configs/base.py", "configs/archs.py",
                 "data/tokens.py", "models/layers.py", "models/attention.py",
                 "models/blocks.py", "models/model.py", "models/interop.py",

@@ -105,13 +105,15 @@ def test_map_batch_flags_hot_seeds_like_jax():
 
 
 def test_launch_map_runs_on_the_cpu(capsys):
-    results = map_launcher.main([
-        "--reads", "6", "--genome", "30000", "--device", "cpu",
-        "--backend", "reference", "--dispatch", "persistent",
-        "--capacity", "8"])
+    args = ["--reads", "6", "--genome", "30000", "--device", "cpu",
+            "--backend", "reference", "--dispatch", "persistent",
+            "--capacity", "8"]
+    results = map_launcher.main(args)
     out = capsys.readouterr().out
     assert len(results) == 6 and "recall=" in out and "[map] index" in out
-    with pytest.raises(SystemExit):
-        map_launcher.main(["--replicas", "2", "--device", "cpu",
-                           "--backend", "reference"])
-    assert "ROADMAP A6" in capsys.readouterr().err
+    # Through the replicated tier: an AlignmentRouter over two replicas
+    # maps every read as the single service does.
+    routed = map_launcher.main(args + ["--replicas", "2"])
+    out = capsys.readouterr().out
+    assert "replicas=2" in out and "recall=" in out
+    assert routed == results

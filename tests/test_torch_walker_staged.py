@@ -315,33 +315,34 @@ def test_table_rows_walk_in_their_own_windows():
         np.testing.assert_array_equal(a, b.numpy(), err_msg=key)
 
 
-def test_cuda_walkers_refuse_cpu_tensors_in_both_designs():
-    """Both designs of both entry points launch only on CUDA tensors; the
-    dispatching wrapper takes the plain walker for CPU tensors and has no
-    design switch."""
+def test_cuda_walkers_refuse_cpu_tensors_and_the_removed_switch():
+    """Both CUDA entry points launch only on CUDA tensors: on CPU tensors
+    they raise and launch nothing. The dispatching wrapper takes the plain
+    walker for CPU tensors. None of the three takes the switch that
+    selected the earlier walker design: it was removed with it."""
     tb, los, si, sj = _planes(5, (40, 30), 20)
-    for direct in (False, True):
-        launches = ttbd.decode_packed_tb_cuda.launches
-        designs = dict(ttbd.decode_packed_tb_cuda.designs)
-        with pytest.raises(ValueError, match="CUDA tensors"):
-            ttbd.decode_packed_tb_cuda(tb, los, si, sj, band=20,
-                                       direct_reads=direct)
-        assert ttbd.decode_packed_tb_cuda.launches == launches
-        assert dict(ttbd.decode_packed_tb_cuda.designs) == designs
     groups = [(*pad_pairs(*make_pairs(6, (30, 20)), 40, 40), 20, None)]
     table, arrays = pack_groups(groups)
     q, r, n, m = (torch.from_numpy(a) for a in arrays)
     out = persistent_align_plain(table, q, r, n, m, sc=TORCH_SC)
-    for direct in (False, True):
-        launches = ttbd.decode_packed_tb_table_cuda.launches
+    calls = [
+        (ttbd.decode_packed_tb_cuda,
+         lambda **kw: ttbd.decode_packed_tb_cuda(tb, los, si, sj, band=20,
+                                                 **kw)),
+        (ttbd.decode_packed_tb_table_cuda,
+         lambda **kw: ttbd.decode_packed_tb_table_cuda(
+             table, out["tb"], out["los"], n, m, **kw))]
+    for wrapper, call in calls:
+        launches = wrapper.launches
         with pytest.raises(ValueError, match="CUDA tensors"):
-            ttbd.decode_packed_tb_table_cuda(table, out["tb"], out["los"],
-                                             n, m, direct_reads=direct)
-        assert ttbd.decode_packed_tb_table_cuda.launches == launches
-    assert [ttbd.walker_design(d) for d in (False, True)] == \
-        ["staged", "direct"]
-    calls = ttbd.decode_packed_tb_plain.calls
+            call()
+        assert wrapper.launches == launches
+    plain = ttbd.decode_packed_tb_plain.calls
     ttbd.decode_packed_tb(tb, los, si, sj, band=20)
-    assert ttbd.decode_packed_tb_plain.calls == calls + 1
-    with pytest.raises(TypeError):
-        ttbd.decode_packed_tb(tb, los, si, sj, band=20, direct_reads=True)
+    assert ttbd.decode_packed_tb_plain.calls == plain + 1
+    for call in [c for _, c in calls] + [
+            lambda **kw: ttbd.decode_packed_tb(tb, los, si, sj, band=20,
+                                               **kw)]:
+        with pytest.raises(TypeError):
+            call(direct_reads=True)
+    assert ttbd.decode_packed_tb_plain.calls == plain + 1
