@@ -23,13 +23,16 @@ request (65,536 short pairs, 2,048 at 2 kbp, 256 in the 8192 bucket) and
 an `AlignmentService` that answers 33,280 requests, each once pipelined
 and once with `dispatch="persistent"`; 8,192 of those requests through
 one service and through an `AlignmentRouter` over two replicas, each
-dispatcher on a CUDA stream of its own (results equal); edit distance
-(paper Fig. 14) on 4,096 Illumina and 256 PacBio pairs, CUDA backend
-against plain and a full-band sample against Levenshtein; then read
+dispatcher on a CUDA stream of its own (results equal; per-replica fill
+and flush causes; one traced loop for the streams' busy and overlapping
+time); `launch.serve --no-mesh` and `launch.map` at 1 and 2 replicas
+(results equal); edit distance (paper Fig. 14) on 4,096 Illumina and 256
+PacBio pairs, CUDA backend against plain, a full-band sample against
+Levenshtein, and the single-pair entry point on the card; then read
 mapping on a 4 Mbp genome (`MinimizerIndex` -> chaining kernel ->
 `ReadMapper` -> `AlignmentService`) for 16,384 Illumina and 1,024 PacBio
 reads, with the chaining kernel held against plain at both reads' set
-shapes, at A = 200 and 300 and on masks that are not a prefix. Every
+shapes, at A = 40, 200 and 300 and on masks that are not a prefix. Every
 phase prints one JSON line; any failed check raises, so the exit code is
 non-zero. Without a CUDA device the script exits 1 and prints no result.
 The last line of standard output is the device record.
@@ -72,7 +75,7 @@ from repro_torch.core.batch import (DEFAULT_BUCKET_EDGES, pad_group,  # noqa: E4
                                     plan_buckets)
 from repro_torch.core.engine import PERSISTENT_PAD, AlignmentEngine  # noqa: E402
 from repro_torch.core.edit_distance import (  # noqa: E402
-    edit_distance_batch, levenshtein_reference)
+    edit_distance, edit_distance_batch, levenshtein_reference)
 from repro_torch.core.full_dp import cigar_score, full_dp_score  # noqa: E402
 from repro_torch.core.scoring import MINIMAP2  # noqa: E402
 from repro_torch.data.genome import (ERROR_PROFILES, ReadSimulator,  # noqa: E402
@@ -86,6 +89,8 @@ from repro_torch.core.backends import cuda as cuda_backend  # noqa: E402
 from repro_torch.kernels.local_attention.local_attention import (  # noqa: E402
     flash_attention_cuda, flash_attention_fma_cuda, flash_attention_plain,
     flash_attention_tc_cuda, flash_attention_tf32x3_cuda, kernel_route)
+from repro_torch.launch import map as map_launcher  # noqa: E402
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.map import STATUS_MAPPED, MinimizerIndex, ReadMapper  # noqa: E402
 from repro_torch.map import chain as chain_mod  # noqa: E402
 from repro_torch.serve import AlignmentRouter, AlignmentService  # noqa: E402
@@ -694,8 +699,9 @@ def chain_checks(ill_sets, pb_sets, params, reps):
     """B4 at the mapping paths' two set shapes (Illumina and PacBio reads'
     two strands at A = 128, both timed), at A = 200 (registers, 7 of 8
     a lane) and A = 300 (f and pred in shared memory) on the PacBio sets,
-    and on the Illumina sets with a third of the valid slots knocked out
-    (masks that are not a prefix)."""
+    on the Illumina sets with a third of the valid slots knocked out
+    (masks that are not a prefix), and at A = 40 (the 4-register
+    instance, which serves every A <= 128, with slots past A)."""
     cap = params.anchors_cap
     ill = chain_mod._pad_anchors(ill_sets, cap)
     holes = np.random.default_rng(11).random(ill[2].shape) < 0.33
@@ -708,6 +714,8 @@ def chain_checks(ill_sets, pb_sets, params, reps):
         chain_check("pacbio_a300", chain_mod._pad_anchors(pb_sets, 300),
                     params),
         chain_check("illumina_holes", (ill[0], ill[1], ill[2] & ~holes),
+                    params),
+        chain_check("illumina_a40", chain_mod._pad_anchors(ill_sets, 40),
                     params)]
 
 
@@ -1469,11 +1477,87 @@ def serve_run(engine, reads, refs):
                        reads, refs)
 
 
+def merge_spans(spans):
+    """Sorted, non-overlapping union of (start, end) intervals."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def stream_trace(fn):
+    """Run `fn` once under torch.profiler; `stream_busy` of the device
+    events in the exported trace."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_ms, _ = time_host(fn)
+    path = build.build_dir() / "stream_trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    path.unlink()
+    return stream_busy(events, wall_ms)
+
+
+def stream_busy(events, wall_ms):
+    """Per device stream of a chrome trace its kernels and copies and
+    their busy ms (intervals merged); the ms during which two or more
+    streams were busy at once; the busy share of `wall_ms`. "not
+    measured" when the trace holds no device event."""
+    spans, kernels = collections.defaultdict(list), collections.Counter()
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in (
+                "kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        stream = e.get("args", {}).get("stream", e.get("tid"))
+        t0 = float(e["ts"])
+        spans[stream].append((t0, t0 + float(e.get("dur", 0))))
+        kernels[stream] += e["cat"] == "kernel"
+    if not spans:
+        return {"streams": "not measured"}
+    merged = {s: merge_spans(v) for s, v in spans.items()}
+    edges = sorted((t, d) for v in merged.values() for a, b in v
+                   for t, d in ((a, 1), (b, -1)))
+    busy = overlap = 0.0
+    active, last = 0, edges[0][0]
+    for t, d in edges:
+        busy += (t - last) * (active >= 1)
+        overlap += (t - last) * (active >= 2)
+        active, last = active + d, t
+    return {"traced_wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / 1e3 / wall_ms,
+            "two_or_more_streams_busy_ms": overlap / 1e3,
+            "streams": [{"stream": s, "events": len(spans[s]),
+                         "kernels": kernels[s],
+                         "busy_ms": sum(b - a for a, b in v) / 1e3}
+                        for s, v in sorted(merged.items(),
+                                           key=lambda kv: str(kv[0]))]}
+
+
+#: Per-replica service gauges the `router` line keeps.
+REPLICA_KEYS = ("completed", "dispatches", "fill_ratio", "real_pairs",
+                "padded_slots", "p50_ms", "p99_ms")
+
+
+def replica_gauges(stats):
+    """Fill ratio, flush causes and latency of each replica (of the one
+    service at 1 replica) from its `stats()`."""
+    per = stats["replicas"].values() if "replicas" in stats else [stats]
+    return [{k: v for k, v in s.items()
+             if k in REPLICA_KEYS or k.startswith("flush_")} for s in per]
+
+
 def router_phase(paths, reads, refs):
     """The same closed loop through one AlignmentService and through an
     AlignmentRouter over two replicas, each over a fresh engine on the
     card and warmed up first; every result of the router equals the
-    single service's. Returns the record of the `router` line."""
+    single service's. Then the two-replica loop once more, traced: how
+    long the two replicas' streams were busy, and at the same time.
+    Returns the record of the `router` line."""
     opts = dict(collect_tb=True, max_inflight_groups="auto",
                 warmup=[(150, 150)])
     runs = {}
@@ -1495,6 +1579,7 @@ def router_phase(paths, reads, refs):
             "streams": [svc.stream.cuda_stream for svc in services],
             "completed_by_replica": [svc.metrics.completed
                                      for svc in services],
+            "by_replica": replica_gauges(stats),
             "launches": paths.paths[f"router_{replicas}"]}
     single = runs[1].pop("results")
     for p, res in enumerate(runs[2].pop("results")):
@@ -1506,8 +1591,48 @@ def router_phase(paths, reads, refs):
     default = torch.cuda.default_stream(DEV).cuda_stream
     assert len(set(streams)) == 2 and default not in streams, streams
     assert all(c > 0 for c in runs[2]["completed_by_replica"]), runs[2]
+
+    def loop():
+        futures = [front.submit(rd, rf) for rd, rf in zip(reads, refs)]
+        return [f.result(timeout=600) for f in futures]
+    front = AlignmentRouter(2, engine_opts=dict(backend="auto"), seed=0,
+                            **opts)
+    with front:
+        loop()                          # warm: pinned buffers, allocator
+        trace = stream_trace(loop)
     return {"requests": len(reads), "equal_to_single_service": True,
-            "replicas": {str(k): v for k, v in runs.items()}}
+            "replicas": {str(k): v for k, v in runs.items()},
+            "trace_2_replicas": trace}
+
+
+def launcher_phase(paths, quick):
+    """`launch.serve --no-mesh` and `launch.map`, each at 1 and at 2
+    replicas, through their `main`: at 2 replicas every request goes
+    through an AlignmentRouter and the results equal the single
+    service's. Returns the record of the `launchers` line."""
+    serve_args = ["--reads", "128" if quick else "512", "--no-mesh"]
+    map_args = ["--reads", "64" if quick else "200"]
+    out = {}
+    for name, main_fn, args in (("serve", serve_launcher.main, serve_args),
+                                ("map", map_launcher.main, map_args)):
+        got = {}
+        for replicas in (1, 2):
+            tag = f"launch_{name}_{replicas}"
+            t0 = time.perf_counter()
+            with paths.path(tag):
+                got[replicas] = main_fn(args + ["--replicas", str(replicas)])
+            out[tag] = {"argv": args + ["--replicas", str(replicas)],
+                        "seconds": time.perf_counter() - t0,
+                        "launches": paths.paths[tag]}
+        if name == "serve":
+            (one, _), (two, stats) = got[1], got[2]
+            assert stats["replicas_serving"] == 2, stats
+            assert all(s["completed"] > 0
+                       for s in stats["replicas"].values()), stats
+            assert [int(s) for s in one] == [int(s) for s in two]
+        else:
+            assert got[1] == got[2]
+    return out
 
 
 def pad_lists(reads, refs):
@@ -1551,8 +1676,24 @@ def edit_distance_phase(paths, streams):
     full = edit_distance_batch(q, r, n, m, band=band)
     lev = [levenshtein_reference(reads[p], refs[p]) for p in range(64)]
     assert full["distance"].tolist() == lev
+    # The single-pair entry point on the card (a batch of one through the
+    # same kernels), at its own band (the path counted) == the plain
+    # single-pair wavefront and host decoder on the CPU; at the full band
+    # (a check, on the block body above band 128) == Levenshtein.
+    with paths.path("edit_distance_single"):
+        single = [edit_distance(reads[p], refs[p], with_traceback=True)
+                  for p in range(8)]
+    for p, own in enumerate(single):
+        assert own == edit_distance(reads[p], refs[p], with_traceback=True,
+                                    device="cpu"), p
+        dist, cig = edit_distance(reads[p], refs[p], band=band,
+                                  with_traceback=True)
+        assert dist == lev[p] and consumed(cig) == (n[p], m[p]), p
     return {"streams": recs, "levenshtein_sample": {
-        "pairs": 64, "band": band, "equal": True}}
+        "pairs": 64, "band": band, "equal": True},
+        "single_pair": {"pairs": 8, "equal_to_levenshtein": True,
+                        "equal_to_plain_cpu": True,
+                        "launches": paths.paths["edit_distance_single"]}}
 
 
 def map_reads(index, sims, dispatch, bw, stats):
@@ -1862,6 +2003,10 @@ def main():
         s_refs[:n_rt - n_rt_mid] + s_refs[n_req:n_req + n_rt_mid])
     router["seconds"] = time.perf_counter() - t0
     emit("router", router)
+    t0 = time.perf_counter()
+    launchers = launcher_phase(paths, args.quick)
+    launchers["seconds"] = time.perf_counter() - t0
+    emit("launchers", launchers)
 
     # ---- 8. edit distance: CUDA backend vs plain, and vs Levenshtein ----
     n_ed, n_ed_mid = (512, 32) if args.quick else (4096, 256)

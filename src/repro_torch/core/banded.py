@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.scoring import ScoringConfig
+from repro_torch.kernels import build
 
 NEG = -(1 << 28)
 DEAD_THRESHOLD = -(1 << 27)
@@ -265,7 +266,7 @@ def banded_align_batch(q_batch, r_batch, n_batch, m_batch, *, sc, band,
     los[:, 0] = 0), where T = t_max or Lq + Lr. Rows of 'tb' at non-live
     steps are 0 and 'los' holds the frozen offset there.
     """
-    banded_align_batch.calls += 1
+    build.count(banded_align_batch, "calls")
     q = torch.as_tensor(q_batch, device=device)
     dev = q.device
     q = q.to(torch.int32)

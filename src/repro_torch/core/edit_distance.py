@@ -7,9 +7,10 @@ and the arithmetic precision change (5-bit -> 3-bit on ReRAM; here the
 int8 invariant tightens). We expose distance-only (traceback disabled)
 and full-traceback variants to reproduce both Fig. 14 curves.
 
-`edit_distance_batch` runs on the card by default, through the engine's
-CUDA kernels (the wavefront and, with traceback, the walker); pass
-``device="cpu", backend="reference"`` for the plain versions on the CPU.
+`edit_distance_batch` and `edit_distance` run on the card by default,
+through the engine's CUDA kernels (the wavefront and, with traceback, the
+walker); pass ``device="cpu", backend="reference"`` for the plain versions
+on the CPU.
 """
 
 from __future__ import annotations
@@ -67,19 +68,34 @@ def edit_distance_batch(q_pad, r_pad, n, m, *, band: int | None = None,
 
 
 def edit_distance(q, r, *, band: int | None = None,
-                  with_traceback: bool = False, device="cuda"):
-    """Single-pair convenience wrapper: the plain wavefront
-    (`banded_align`) on `device` (default the card) and the host
-    decoder. Returns (distance, cigar|None)."""
+                  with_traceback: bool = False, device="cuda",
+                  backend: str = "auto"):
+    """Single-pair convenience wrapper. Returns (distance, cigar|None).
+
+    On a CUDA device (the default; raises without one), or with an
+    explicit `backend`, the pair runs as a batch of one through
+    `edit_distance_batch` — the engine's kernels and the device decoder,
+    the run-length CIGAR fetched to the host. On the CPU with
+    backend="auto" it runs the plain single-pair wavefront
+    (`banded_align`) and the host decoder, as the reference does. Both
+    routes give the same distance and CIGAR.
+    """
     from repro_torch.core.batch import check_device
 
     q = np.asarray(q, dtype=np.int8)
     r = np.asarray(r, dtype=np.int8)
     if band is None:
         band = adaptive_bandwidth(max(len(q), len(r)), base_bandwidth=10)
+    device = check_device(device)
+    if device.type == "cuda" or backend != "auto":
+        out = edit_distance_batch(q[None], r[None], [len(q)], [len(r)],
+                                  band=band, with_traceback=with_traceback,
+                                  backend=backend, device=device)
+        return (int(out["distance"][0]),
+                out["cigars"][0] if with_traceback else None)
     out = banded_align(q, r, len(q), len(r), sc=EDIT_DISTANCE, band=band,
                        adaptive=True, collect_tb=with_traceback,
-                       device=check_device(device))
+                       device=device)
     dist = int(-out["score"])
     cigar = None
     if with_traceback:

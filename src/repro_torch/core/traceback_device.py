@@ -81,7 +81,7 @@ def decode_packed_tb_plain(tb, los, start_i, start_j, *, band: int):
     Same arguments and results as `decode_packed_tb`; runs on the device
     the tensors live on.
     """
-    decode_packed_tb_plain.calls += 1
+    build.count(decode_packed_tb_plain, "calls")
     dev = tb.device
     N, T, _ = tb.shape
     idx = torch.arange(N, device=dev)
@@ -218,8 +218,7 @@ def decode_packed_tb_cuda(tb, los, start_i, start_j, *, band: int):
     if err != 0:
         raise RuntimeError(f"traceback kernel launch failed: CUDA error "
                            f"{err}")
-    decode_packed_tb_cuda.launches += 1
-    decode_packed_tb_cuda.shapes[(T, N)] += 1
+    build.count(decode_packed_tb_cuda, shapes=(T, N))
     return cig_ops, cig_runs, cig_len
 
 
@@ -384,8 +383,7 @@ def decode_packed_tb_table_cuda(table, tb, los, start_i, start_j):
     if err != 0:
         raise RuntimeError(f"traceback table kernel launch failed: CUDA "
                            f"error {err}")
-    decode_packed_tb_table_cuda.launches += 1
-    decode_packed_tb_table_cuda.shapes[(K, R)] += 1
+    build.count(decode_packed_tb_table_cuda, shapes=(K, R))
     return cig_ops, cig_runs, cig_len
 
 

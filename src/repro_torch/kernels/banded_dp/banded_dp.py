@@ -130,9 +130,7 @@ def banded_align_cuda(q_pad, r_pad, n, m, *, sc: ScoringConfig, band: int,
         if err != 0:
             raise RuntimeError(f"banded_dp kernel launch failed: CUDA "
                                f"error {err}")
-        banded_align_cuda.launches += 1
-        banded_align_cuda.shapes[(T, N)] += 1
-        banded_align_cuda.bodies[body] += 1
+        build.count(banded_align_cuda, shapes=(T, N), bodies=body)
     out = {key: stats[i] for i, key in enumerate(STAT_KEYS)}
     if collect_tb:
         out["tb"] = tb

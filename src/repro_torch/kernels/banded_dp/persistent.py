@@ -279,10 +279,8 @@ def persistent_align_cuda(table: WorkTable, q, r, n, m, *,
         if err != 0:
             raise RuntimeError(f"persistent kernel launch failed: CUDA "
                                f"error {err}")
-        persistent_align_cuda.launches += 1
-        persistent_align_cuda.shapes[(table.steps_max, R)] += 1
-        persistent_align_cuda.bodies[
-            kernel_body(table.band_max, block_body)] += 1
+        build.count(persistent_align_cuda, shapes=(table.steps_max, R),
+                    bodies=kernel_body(table.band_max, block_body))
     out = {key: stats[i] for i, key in enumerate(STAT_KEYS)}
     if collect_tb:
         out["tb"] = tb

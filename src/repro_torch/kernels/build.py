@@ -42,6 +42,19 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 # Dispatcher threads of several services (a router's replicas) may reach a
 # kernel's first `load` together.
 _LOAD_LOCK = threading.Lock()
+# The same threads bump the wrappers' launch counters.
+_COUNT_LOCK = threading.Lock()
+
+
+def count(fn, attr: str = "launches", **keyed) -> None:
+    """Add one to the counter `fn.<attr>` (a wrapper's ``launches``, a
+    plain version's ``calls``) and, for each ``name=key``, to
+    ``fn.<name>[key]`` (a `collections.Counter`), under one lock: the
+    dispatcher threads of several services launch at once."""
+    with _COUNT_LOCK:
+        setattr(fn, attr, getattr(fn, attr) + 1)
+        for name, key in keyed.items():
+            getattr(fn, name)[key] += 1
 
 
 def build_dir() -> Path:

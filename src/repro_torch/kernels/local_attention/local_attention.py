@@ -88,7 +88,7 @@ def flash_attention_plain(q, k, v, *, window=None, block_q=128,
     as they were (alpha = 1, p = 0) — the kernel's skip. f32 math on the
     upcast inputs, q scaled after the upcast; output in q's dtype.
     """
-    flash_attention_plain.calls += 1
+    build.count(flash_attention_plain, "calls")
     group, bq, bk, W = check_inputs(q, k, v, window=window, block_q=block_q,
                                     block_k=block_k)
     B, Hq, T, D = q.shape
@@ -214,7 +214,7 @@ def flash_attention_tc_cuda(q, k, v, *, window=None):
     out = _launch(_lib("flash_tc", "flash_attention_tc_launch", 6), q, k, v,
                   sizes, W, (), "flash_tc")
     if q.numel():
-        flash_attention_tc_cuda.launches += 1
+        build.count(flash_attention_tc_cuda)
     return out
 
 
@@ -234,7 +234,7 @@ def flash_attention_tf32x3_cuda(q, k, v, *, window=None):
                   q, k, v, sizes, W, (KERNEL_DTYPES[q.dtype],),
                   "flash_tf32x3")
     if q.numel():
-        flash_attention_tf32x3_cuda.launches += 1
+        build.count(flash_attention_tf32x3_cuda)
     return out
 
 
@@ -252,7 +252,7 @@ def flash_attention_fma_cuda(q, k, v, *, window=None):
     out = _launch(_lib("local_attention", "flash_attention_launch", 7), q,
                   k, v, sizes, W, (KERNEL_DTYPES[q.dtype],), "local_attention")
     if q.numel():
-        flash_attention_fma_cuda.launches += 1
+        build.count(flash_attention_fma_cuda)
     return out
 
 

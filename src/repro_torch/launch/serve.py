@@ -43,6 +43,8 @@ from repro_torch.serve import AlignmentRouter, AlignmentService
 
 
 def main(argv=None):
+    """Serve the stream; returns (each request's score, the service's or
+    router's stats)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--reads", type=int, default=512,
                     help="total requests to stream through the service")
@@ -175,6 +177,7 @@ def main(argv=None):
           f"rejected={stats['rejected']}{tier} "
           f"flushes=fill:{stats['flush_fill']}/timeout:"
           f"{stats['flush_timeout']}/stall:{stats['flush_stall']}")
+    return scores, stats
 
 
 if __name__ == "__main__":

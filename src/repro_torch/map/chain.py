@@ -121,7 +121,7 @@ def chain_padded_plain(qp, rp, valid, *, k: int, max_gap: int,
     """Plain PyTorch version of the chaining kernel: all sets in lockstep,
     one step per anchor slot, on the tensors' device. Same arguments and
     results as `chain_padded`."""
-    chain_padded_plain.calls += 1
+    build.count(chain_padded_plain, "calls")
     qp = qp.to(torch.int32)
     rp = rp.to(torch.int32)
     R, A = qp.shape
@@ -200,7 +200,7 @@ def chain_padded_cuda(qp, rp, valid, *, k: int, max_gap: int, max_dd: int):
         if err != 0:
             raise RuntimeError(f"chain kernel launch failed: CUDA error "
                                f"{err}")
-        chain_padded_cuda.launches += 1
+        build.count(chain_padded_cuda)
     return f, pred, mask, best
 
 

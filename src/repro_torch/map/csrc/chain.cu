@@ -15,8 +15,8 @@
 // Design: one warp per anchor set, `WARPS` sets per block, no block-wide
 // barrier. Slot j lives on lane j % 32 in register j / 32: f, pred and the
 // slot's read / reference position and valid bit stay in registers for
-// A <= 256 (`chain_kernel<S>`, S = 1, 2, 4 or 8 registers a lane; the main
-// path's A = 128 is S = 4). Above 256 f and pred live in the warp's share
+// A <= 256 (`chain_kernel<S>`: S = 4 registers a lane for every A <= 128,
+// the main path's A = 128 among them, S = 8 up to 256). Above 256 f and pred live in the warp's share
 // of shared memory (`chain_kernel<0>`). Positions and valid flags are
 // staged once in the warp's shared memory, from which every lane reads the
 // broadcast q[i], r[i], valid[i] of the step.
@@ -300,14 +300,7 @@ extern "C" int chain_launch(
   if (R <= 0) return 0;
   if (A < 1 || A > 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int regs = (A + 31) / 32;
-  if (regs == 1)
-    return launch<1>(qp, rp, valid, f, pred, mask, best, R, A, k, max_gap,
-                     max_dd, s);
-  if (regs == 2)
-    return launch<2>(qp, rp, valid, f, pred, mask, best, R, A, k, max_gap,
-                     max_dd, s);
-  if (regs <= 4)
+  if (A <= 128)
     return launch<4>(qp, rp, valid, f, pred, mask, best, R, A, k, max_gap,
                      max_dd, s);
   if (A <= MAX_REG_SLOTS)

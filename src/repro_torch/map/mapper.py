@@ -124,8 +124,8 @@ class ReadMapper:
         strand truth comes from `ReadSimulator(rc_prob=...)`).
       priorities: (primary, rescue) SLA classes for submitted
         alignments.
-      device: where chaining runs; None = the service's engine's device
-        (a router's: its first replica's), the card unless the engine was
+      device: where chaining runs; None = `service.device` (a router's:
+        its first replica's engine's), the card unless the engine was
         built for the CPU.
     """
 
@@ -153,12 +153,7 @@ class ReadMapper:
         self.both_strands = both_strands
         self.priorities = priorities
         self.collect_tb = bool(getattr(service, "collect_tb", False))
-        if device is None:
-            engine = getattr(service, "engine", None)
-            if engine is None:
-                engine = service.pool.replicas[0].engine
-            device = engine.device
-        self.device = device
+        self.device = device if device is not None else service.device
 
     # ------------------------------------------------------------------
     # Pipeline stages.

@@ -360,6 +360,12 @@ class AlignmentRouter:
         while pending:
             yield pending.popleft().result()
 
+    @property
+    def device(self):
+        """Where the replicas' results live (every replica's engine
+        serves the same device: the first's)."""
+        return self.pool.replicas[0].engine.device
+
     def stats(self) -> dict:
         """Tier aggregate (exact — see `aggregate_metrics`) plus
         per-replica gauges and the router's own counters."""

@@ -351,6 +351,11 @@ class AlignmentService:
         while pending:
             yield pending.popleft().result()
 
+    @property
+    def device(self) -> torch.device:
+        """Where the engine's results live."""
+        return self.engine.device
+
     def stats(self) -> dict:
         """The metrics dict plus the live queue/pipeline gauges."""
         out = self.metrics.snapshot()

@@ -54,7 +54,10 @@ def warp_chain(qp, rp, valid, *, k, max_gap, max_dd):
     qp, rp = qp.astype(np.int64), rp.astype(np.int64)
     valid = valid.astype(bool)
     R, A = qp.shape
-    S = -(-A // LANES)
+    # Registers a lane of the instance `chain_launch` picks: 4 for every
+    # A <= 128, 8 up to 256; above, f and pred sit in shared memory, which
+    # the emulation keeps as ceil(A / 32) registers.
+    S = 4 if A <= 128 else 8 if A <= 256 else -(-A // LANES)
 
     def regs(x, fill):          # (R, A) -> (R, S registers, 32 lanes)
         out = np.full((R, S * LANES), fill, x.dtype)

@@ -81,6 +81,11 @@ def test_edit_distance_batch_defaults_to_the_card():
         ed.edit_distance_batch(q, r, n, m)
     with pytest.raises(RuntimeError, match="is_available"):
         ed.edit_distance(q[0, :n[0]], r[0, :m[0]])
+    # The single pair's CUDA route is the engine's CUDA backend, which
+    # refuses the CPU rather than running its plain version there.
+    with pytest.raises(ValueError, match="cannot run on device cpu"):
+        ed.edit_distance(q[0, :n[0]], r[0, :m[0]], device="cpu",
+                         backend="cuda")
 
 
 def test_edit_distance_single_pair_and_levenshtein_match_jax():
@@ -99,6 +104,28 @@ def test_edit_distance_single_pair_and_levenshtein_match_jax():
                                                 with_traceback=True)
         assert ours[0] >= lev
         assert ed.edit_distance(a, b, band=full, device="cpu") == (lev, None)
+
+
+@pytest.mark.parametrize("band", ["full", None, 5])
+def test_edit_distance_single_pair_batch_route_matches_jax(band):
+    """The route a single pair takes on the card — a batch of one through
+    the engine and the device decoder — here with the engine's plain
+    backend on the CPU: the same distance and CIGAR as the JAX single-pair
+    wavefront and as the port's own plain single-pair route."""
+    rng = np.random.default_rng(76)
+    for k in range(4):
+        a = rng.integers(0, 4, int(rng.integers(1, 50))).astype(np.int8)
+        b = (mutate(rng, a) if k % 2 else
+             rng.integers(0, 4, int(rng.integers(1, 50))).astype(np.int8))
+        bw = max(len(a), len(b)) + 2 if band == "full" else band
+        ours = ed.edit_distance(a, b, band=bw, with_traceback=True,
+                                device="cpu", backend="reference")
+        assert ours == jax_ed.edit_distance(a, b, band=bw,
+                                            with_traceback=True)
+        assert ours == ed.edit_distance(a, b, band=bw, with_traceback=True,
+                                        device="cpu")
+        assert ed.edit_distance(a, b, band=bw, device="cpu",
+                                backend="reference") == (ours[0], None)
 
 
 @pytest.mark.parametrize("mode,xdrop", [("global", None),

@@ -35,11 +35,13 @@ flush before anything reaches the device (nothing may be lost),
 observable state — no sleep-and-hope.
 """
 
+import collections
 import threading
 import time
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core.engine import AlignmentEngine as JaxEngine
 from repro.serve import AlignmentRouter as JaxRouter
@@ -462,9 +464,46 @@ def test_injected_clock_reaches_every_replica():
 def test_launch_serve_replicas_on_the_cpu(capsys):
     """`launch.serve --replicas 2` streams its requests through an
     AlignmentRouter over two replicas (here on the CPU, asked for)."""
-    serve_launcher.main(["--reads", "24", "--no-mesh", "--device", "cpu",
-                         "--backend", "reference", "--replicas", "2",
-                         "--read-len", "60", "--max-wait-ms", "1"])
+    args = ["--reads", "24", "--no-mesh", "--device", "cpu", "--backend",
+            "reference", "--read-len", "60", "--max-wait-ms", "1"]
+    scores, _ = serve_launcher.main(args)
+    capsys.readouterr()
+    routed, stats = serve_launcher.main(args + ["--replicas", "2"])
     out = capsys.readouterr().out
     assert "replicas=2" in out and "replicas_serving=2" in out
     assert "24 reads in" in out
+    assert stats["replicas_serving"] == 2 and stats["completed"] == 24
+    assert [int(s) for s in routed] == [int(s) for s in scores]
+
+
+def test_service_and_router_report_their_engines_device():
+    """`device` — what `ReadMapper` reads to place its chaining — is the
+    engine's on a service and the first replica's on a router."""
+    with AlignmentService(AlignmentEngine(**CPU)) as svc:
+        assert svc.device == svc.engine.device == torch.device("cpu")
+    router = AlignmentRouter(2, engine_opts=CPU)
+    try:
+        assert router.device == router.pool.replicas[0].engine.device
+        assert router.device == torch.device("cpu")
+    finally:
+        router.close()
+
+
+def test_launch_counters_are_exact_across_threads():
+    """The replicas' dispatcher threads bump the wrappers' launch counters
+    at once (`build.count`): every bump lands."""
+    def wrapper():
+        pass
+    wrapper.launches = 0
+    wrapper.shapes = collections.Counter()
+
+    def launch_many():
+        for _ in range(20_000):
+            build.count(wrapper, shapes=(256, 64))
+    threads = [threading.Thread(target=launch_many) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert wrapper.launches == 80_000
+    assert wrapper.shapes == {(256, 64): 80_000}
