@@ -26,7 +26,11 @@ one service and through an `AlignmentRouter` over two replicas, each
 dispatcher on a CUDA stream of its own (results equal; per-replica fill
 and flush causes; one traced loop for the streams' busy and overlapping
 time); `launch.serve --no-mesh` and `launch.map` at 1 and 2 replicas
-(results equal); edit distance (paper Fig. 14) on 4,096 Illumina and 256
+(results equal); the ragged request through the engine sharded over a
+mesh of the visible cards, equal to unsharded, with a trace holding no
+NCCL kernel and no peer copy, and `launch.serve` on that mesh (`mesh`);
+`alignment_roofline` on the H100's int32 record per bucket class beside
+the measured pairs/s and B1's kernel-table bound (`roofline`); edit distance (paper Fig. 14) on 4,096 Illumina and 256
 PacBio pairs, CUDA backend against plain, a full-band sample against
 Levenshtein, and the single-pair entry point on the card; then read
 mapping on a 4 Mbp genome (`MinimizerIndex` -> chaining kernel ->
@@ -73,7 +77,9 @@ from repro_torch.core import banded  # noqa: E402
 from repro_torch.core import traceback_device as tbd  # noqa: E402
 from repro_torch.core.batch import (DEFAULT_BUCKET_EDGES, pad_group,  # noqa: E402
                                     plan_buckets)
-from repro_torch.core.engine import PERSISTENT_PAD, AlignmentEngine  # noqa: E402
+from repro_torch.core.distributed import make_aligner  # noqa: E402
+from repro_torch.core.engine import (PERSISTENT_PAD, SCALAR_KEYS,  # noqa: E402
+                                     AlignmentEngine)
 from repro_torch.core.edit_distance import (  # noqa: E402
     edit_distance, edit_distance_batch, levenshtein_reference)
 from repro_torch.core.full_dp import cigar_score, full_dp_score  # noqa: E402
@@ -91,8 +97,12 @@ from repro_torch.kernels.local_attention.local_attention import (  # noqa: E402
     flash_attention_tc_cuda, flash_attention_tf32x3_cuda, kernel_route)
 from repro_torch.launch import map as map_launcher  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.map import STATUS_MAPPED, MinimizerIndex, ReadMapper  # noqa: E402
 from repro_torch.map import chain as chain_mod  # noqa: E402
+from repro_torch.roofline.analysis import H100, H100_INT32  # noqa: E402
+from repro_torch.roofline.analytic import (DISPATCH_OVERHEAD_S,  # noqa: E402
+                                           alignment_roofline)
 from repro_torch.serve import AlignmentRouter, AlignmentService  # noqa: E402
 from repro_torch.data.tokens import TokenPipeline  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
@@ -101,12 +111,12 @@ from repro_torch.train import make_prefill_step, make_serve_step  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): 3.35 TB/s of HBM and
-# 67 TFLOP/s float32 outside the tensor cores. That float32 figure counts
-# 128 lanes per SM and two operations per fused multiply-add; int32 has 64
-# lanes per SM and one operation per instruction, a quarter of it.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 4
+# Published peaks of one H100 SXM (NVIDIA data sheet), from the port's
+# roofline records: 3.35 TB/s of HBM and 16.75 TOP/s int32 (a quarter of
+# the 67 TFLOP/s float32 figure: half the lanes, one operation per
+# instruction instead of two per fused multiply-add).
+HBM_BYTES_PER_S = H100_INT32.hbm_bw
+INT32_OPS_PER_S = H100_INT32.peak_flops
 
 # int32 operations per band cell and wavefront step, counted from the plain
 # version's step (selects, compares, adds, maxima, index clamps, flag
@@ -725,7 +735,7 @@ def chain_checks(ill_sets, pb_sets, params, reps):
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): dense bf16 and TF32
 # on the tensor cores, and float32 outside them.
-BF16_FLOP_PER_S = 989e12
+BF16_FLOP_PER_S = H100.peak_flops
 TF32_FLOP_PER_S = 494.7e12
 F32_FLOP_PER_S = 67e12
 # Tensor-core passes per product of the split-TF32 kernel, each 4*D FLOP
@@ -1635,6 +1645,181 @@ def launcher_phase(paths, quick):
     return out
 
 
+def shard_trace(fn):
+    """Run `fn` once under torch.profiler and count, in the exported
+    trace, the device kernels by device, the copies by kind, the NCCL
+    kernels and the peer-to-peer copies (card to card): a sharded run
+    holds none of the last two."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_ms, _ = time_host(fn)
+    path = build.build_dir() / "shard_trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    path.unlink()
+    kernels, copies = collections.Counter(), collections.Counter()
+    nccl = peer = 0
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        if e.get("cat") == "kernel":
+            kernels[str(e.get("args", {}).get("device"))] += 1
+            nccl += "nccl" in e["name"].lower()
+        elif e.get("cat") == "gpu_memcpy":
+            copies[e["name"].split(" (")[0]] += 1
+            peer += "PtoP" in e["name"]
+    return {"traced_wall_ms": wall_ms, "kernels_by_device": dict(kernels),
+            "copies_by_kind": dict(copies), "nccl_kernels": nccl,
+            "peer_copies": peer}
+
+
+def mesh_phase(paths, reads, refs, out_all, short, eng64):
+    """The sharded engine over a mesh of the visible cards: the ragged
+    request through `align` at every shard count up to the card count,
+    `torch.equal` to the unsharded engine's results (`out_all`); sharded
+    and unsharded pairs/s in turns (unsharded, sharded, sharded,
+    unsharded); `make_aligner` on one padded 150 bp group against
+    `align_arrays`; a traced sharded run with no NCCL kernel and no peer
+    copy; `launch.serve` with the mesh against `--no-mesh`. Returns the
+    record of the `mesh` line."""
+    t0 = time.perf_counter()
+    n_dev = torch.cuda.device_count()
+    out = {"cards": n_dev, "by_shards": {}}
+    for shards in range(1, n_dev + 1):
+        tag = f"mesh_{shards}"
+        with paths.path(tag):
+            engm = AlignmentEngine(backend="auto",
+                                   mesh=make_debug_mesh(data=shards))
+            assert engm.num_shards == shards, engm.num_shards
+            got, rec = timed_align(engm, reads, refs, "global",
+                                   f"ragged request, {shards} shard(s)")
+        for key in SCALAR_KEYS + ("band",):
+            assert torch.equal(torch.from_numpy(got[key]),
+                               torch.from_numpy(out_all[key])), (tag, key)
+        assert got["cigars"] == out_all["cigars"], tag
+        out["by_shards"][shards] = dict(rec, launches=paths.paths[tag],
+                                        equal_to_unsharded=True)
+    # engm: the mesh over every card.
+    rates = []
+    for label, engine in (("unsharded", eng64), ("sharded", engm),
+                          ("sharded", engm), ("unsharded", eng64)):
+        with paths.path(f"mesh_turn_{len(rates)}"):
+            _, rec = timed_align(engine, reads, refs, "global", label)
+        rates.append({"engine": label, "pairs_per_s": rec["pairs_per_s"],
+                      "seconds": rec["seconds"]})
+    out["turns"] = rates
+    # One padded 150 bp group, whole capacity blocks per shard.
+    rows = 64 * n_dev
+    spec = plan_buckets([len(x) for x in short[0][:rows]],
+                        [len(x) for x in short[1][:rows]])[0].spec
+    q, r, n, m = pad_group(short[0][:rows], short[1][:rows], spec,
+                           pad_multiple=rows)
+    with paths.path("mesh_aligner"):
+        aligner = make_aligner(engm.mesh, MINIMAP2, band=spec.band,
+                               collect_tb=True, t_max=spec.t_max,
+                               decode="device")
+        shards_out = aligner(q, r, n, m)
+        ref = eng64.align_arrays(q, r, n, m, band=spec.band,
+                                 collect_tb=True, t_max=spec.t_max,
+                                 decode="device")
+        torch.cuda.synchronize()
+    assert len(shards_out) == n_dev
+    for o, dev in zip(shards_out, engm.shard_devices):
+        assert all(t.device == dev for t in o.values()), dev
+    for key in ref:
+        joined = torch.cat([o[key].cpu() for o in shards_out])
+        assert torch.equal(joined, ref[key].cpu()), key
+    out["aligner"] = {"rows": rows, "band": spec.band, "t_max": spec.t_max,
+                      "equal_to_align_arrays": True,
+                      "launches": paths.paths["mesh_aligner"]}
+    with paths.path("mesh_trace"):
+        trace = shard_trace(lambda: engm.align(reads, refs, collect_tb=True))
+    assert sum(trace["kernels_by_device"].values()) > 0, trace
+    assert trace["nccl_kernels"] == 0 and trace["peer_copies"] == 0, trace
+    out["trace"] = trace
+    served = {}
+    for tag, argv in (("launch_serve_mesh", ["--reads", "512"]),
+                      ("launch_serve_no_mesh", ["--reads", "512",
+                                                "--no-mesh"])):
+        with paths.path(tag):
+            served[tag] = serve_launcher.main(argv)
+        out[tag] = {"argv": argv, "launches": paths.paths[tag]}
+    assert [int(x) for x in served["launch_serve_mesh"][0]] \
+        == [int(x) for x in served["launch_serve_no_mesh"][0]]
+    out["launch_serve_mesh_equal_to_no_mesh"] = True
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def roofline_phase(reads, refs, engine, pipelined, persistent, num_shards):
+    """`alignment_roofline` on the H100's int32 record for each bucket
+    class of the ragged request (mean length (n + m) / 2, band, pairs; its
+    dispatch slices as the pipelined dispatch groups) and for the whole
+    request, pipelined and persistent, beside the measured pairs/s and
+    the share of the bound; the measured host time per dispatch slice
+    against the model's assumed `DISPATCH_OVERHEAD_S`; and B1's
+    kernel-table bound at the same classes (`WAVEFRONT_OPS_PER_CELL` per
+    cell, not the model's 15). Host arithmetic only."""
+    t0 = time.perf_counter()
+    classes, totals = [], {"pipelined": 0.0, "persistent_overlap": 0.0}
+    b1_total_ms, slices_total = 0.0, 0
+    for g in engine.plan([len(x) for x in reads], [len(x) for x in refs]):
+        n = np.asarray([len(reads[i]) for i in g.indices], np.int64)
+        m = np.asarray([len(refs[i]) for i in g.indices], np.int64)
+        pairs, spec = len(g.indices), g.spec
+        bucket = max(spec.q_len, spec.r_len)
+        slices = -(-pairs // (spec.capacity * num_shards))
+        rec = {"length": float((n + m).mean() / 2), "band": spec.band,
+               "global_batch": pairs, "shape": f"bucket{bucket}",
+               "mesh": str(num_shards), "mesh_shape": [num_shards],
+               "n_groups": slices}
+        pipe = alignment_roofline(dict(rec, dispatch="pipelined"),
+                                  H100_INT32)
+        pers = alignment_roofline(dict(rec, dispatch="persistent"),
+                                  H100_INT32)
+        b1_ms, b1_by = wavefront_bound(n, m, pairs, spec.q_len, spec.r_len,
+                                       spec.t_max, spec.band, True)
+        totals["pipelined"] += pipe["step_time_total_s"]
+        totals["persistent_overlap"] += pers["step_time_overlap_s"]
+        b1_total_ms += b1_ms
+        slices_total += slices
+        classes.append({
+            "bucket": bucket, "pairs": pairs,
+            "length": rec["length"], "band": spec.band,
+            "dispatch_slices": slices,
+            "pipelined_bound_pairs_per_s": pipe["pairs_per_s_per_chip_bound"],
+            "persistent_bound_pairs_per_s":
+                pers["pairs_per_s_per_chip_bound"],
+            "roofline_overlap_ms": pipe["step_time_overlap_s"] * 1e3,
+            "roofline_dominant": pipe["dominant"],
+            "roofline_ops_per_cell": 15,
+            "b1_bound_ms": b1_ms, "b1_bound_by": b1_by,
+            "b1_ops_per_cell": WAVEFRONT_OPS_PER_CELL,
+            "b1_bound_pairs_per_s": pairs / (b1_ms / 1e3)})
+    N = len(reads)
+    pipe_bound = N / totals["pipelined"]
+    pers_bound = N / (totals["persistent_overlap"] + DISPATCH_OVERHEAD_S)
+    return {
+        "hardware": dataclasses.asdict(H100_INT32), "shards": num_shards,
+        "classes": classes, "pairs": N,
+        "pipelined": {"bound_pairs_per_s": pipe_bound,
+                      "measured_pairs_per_s": pipelined["pairs_per_s"],
+                      "share": pipelined["pairs_per_s"] / pipe_bound},
+        "persistent": {"bound_pairs_per_s": pers_bound,
+                       "measured_pairs_per_s": persistent["pairs_per_s"],
+                       "share": persistent["pairs_per_s"] / pers_bound},
+        "b1_bound_pairs_per_s": N / (b1_total_ms / 1e3),
+        "dispatch_slices": slices_total,
+        "assumed_dispatch_overhead_ms": DISPATCH_OVERHEAD_S * 1e3,
+        "measured_host_ms_per_dispatch_slice":
+            pipelined["seconds"] * 1e3 / slices_total,
+        "measured_host_ms_per_persistent_request":
+            persistent["seconds"] * 1e3,
+        "seconds": time.perf_counter() - t0}
+
+
 def pad_lists(reads, refs):
     """Ragged (reads, refs) as padded (q, r, n, m) arrays."""
     n = np.asarray([len(x) for x in reads], np.int32)
@@ -1977,6 +2162,12 @@ def main():
         "equal_to_pipelined": True,
         "fetched_bytes_per_pair": st["fetched_bytes"] / len(reads),
         "traces": p_traces, "counts": paths.paths["engine_persistent"]})
+
+    # ---- 5b. the sharded engine over the cards' mesh; the roofline ----
+    mesh = mesh_phase(paths, reads, refs, out_all, short, eng64)
+    emit("mesh", mesh)
+    emit("roofline", roofline_phase(reads, refs, eng64, runs[0], rec_p,
+                                    eng64.num_shards))
 
     # ---- 6. serve: closed loop, pipelined then persistent ----
     n_req, n_req_mid = (2048, 32) if args.quick else (32768, 512)

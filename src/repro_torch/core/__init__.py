@@ -1,5 +1,5 @@
 """RAPIDx core algorithms (paper §III-IV), PyTorch port: serving path,
-edit distance and the difference-DP oracle."""
+edit distance, the difference-DP oracle and the PIM cost model."""
 
 from repro_torch.core.scoring import (BWA_MEM, CONSTANT_GAP, EDIT_DISTANCE,
                                       LINEAR_GAP, MINIMAP2, PRESETS,
@@ -28,3 +28,4 @@ from repro_torch.core.edit_distance import (edit_distance,
 from repro_torch.core.backends import (available_backends, get_backend,
                                        resolve_backend)
 from repro_torch.core.engine import AlignmentEngine
+from repro_torch.core import pim_model

@@ -22,6 +22,7 @@ these phases continuously).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -226,25 +227,54 @@ def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def enqueue_dispatch(run, q_pad, r_pad, n, m, *, capacity: int,
-                     device="cuda"):
-    """Enqueue one padded single-length-class group on the device.
+def on_device(device: torch.device):
+    """Make `device` current for the block (a no-op off CUDA)."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def shard_rows(a: np.ndarray, shards: int, capacity: int) -> list:
+    """The rows of `a` each of `shards` shards runs: shard s takes block s
+    of capacity rows from every slice of capacity x shards rows."""
+    if shards == 1:
+        return [a]
+    if a.shape[0] % (capacity * shards):
+        raise ValueError(f"{a.shape[0]} rows are not whole slices of "
+                         f"{capacity} x {shards} shards")
+    blocks = a.reshape((-1, shards, capacity) + a.shape[1:])
+    return [np.ascontiguousarray(blocks[:, s]).reshape((-1,) + a.shape[1:])
+            for s in range(shards)]
+
+
+def enqueue_dispatch(run, q_pad, r_pad, n, m, *, capacity: int, devices):
+    """Enqueue one padded single-length-class group on its devices.
 
     `run` is a fully-bound backend callable `(q, r, n, m) -> result
-    dict` — a partial over `backend.run`. The group's arrays are copied
-    to `device` once, then executed in fixed-capacity slices; the raw
-    per-slice result dicts are returned as *device tensors*. Every copy
-    and launch is queued on the device's current stream and nothing here
-    synchronises, so the device stays busy while the caller enqueues
-    further groups or decodes earlier ones (`finalize_dispatch`).
+    dict` — a partial over `backend.run`. The group runs in slices of
+    capacity x len(devices) rows, each slice split into one block of
+    `capacity` rows per device in order (one device: the slices are the
+    blocks). Each device's rows are copied to it once; every copy and
+    launch is queued on that device's current stream and nothing here
+    synchronises, so the devices stay busy while the caller enqueues
+    further groups or decodes earlier ones (`finalize_dispatch`). Returns
+    the raw result dicts, one per (slice, device) in row order, as
+    tensors on the device that computed them — none moves between
+    devices.
     """
-    device = torch.device(device)
-    q_d, r_d, n_d, m_d = (upload(np.asarray(a), device)
-                          for a in (q_pad, r_pad, n, m))
+    devices = [torch.device(d) for d in devices]
+    parts = zip(*(shard_rows(np.asarray(a), len(devices), capacity)
+                  for a in (q_pad, r_pad, n, m)))
+    uploaded = []
+    for dev, arrays in zip(devices, parts):
+        with on_device(dev):
+            uploaded.append([upload(a, dev) for a in arrays])
     outs = []
-    for lo in range(0, q_d.shape[0], capacity):
+    for lo in range(0, uploaded[0][0].shape[0], capacity):
         sl = slice(lo, lo + capacity)
-        outs.append(run(q_d[sl], r_d[sl], n_d[sl], m_d[sl]))
+        for dev, (q_d, r_d, n_d, m_d) in zip(devices, uploaded):
+            with on_device(dev):
+                outs.append(run(q_d[sl], r_d[sl], n_d[sl], m_d[sl]))
     return outs
 
 
@@ -263,24 +293,29 @@ class HostFetch:
     """The only device->host copy site of the engine. Counts the bytes it
     materialises (`nbytes`).
 
-    By default each copy is queued on the current stream and so waits for
-    everything queued before it, later groups' launches included. With
-    `ready` (a CUDA event recorded right after one group's or request's
-    launches) and `copy_stream`, the copies run on that second stream once
-    the event has fired, so fetching this work does not wait for work
-    enqueued after it."""
+    By default each copy is queued on the current stream of the tensor's
+    device and so waits for everything queued there before it, later
+    groups' launches included. With `ready` ({device: CUDA event recorded
+    right after one group's or request's launches there}) and
+    `copy_streams` ({device: second stream}), a tensor on such a device is
+    copied on that device's second stream once its event has fired, so
+    fetching this work does not wait for work enqueued after it. Every
+    copy goes device-to-host; shards are joined by the caller on the
+    host."""
 
-    def __init__(self, ready=None, copy_stream=None):
-        self.copy_stream = copy_stream if ready is not None else None
+    def __init__(self, ready=None, copy_streams=None):
+        self.streams = {}
         self.nbytes = 0
-        if self.copy_stream is not None:
-            self.copy_stream.wait_event(ready)
+        for dev, event in (ready or {}).items():
+            self.streams[dev] = copy_streams[dev]
+            self.streams[dev].wait_event(event)
 
     def __call__(self, x: torch.Tensor) -> np.ndarray:
-        if self.copy_stream is not None and x.is_cuda:
-            with torch.cuda.stream(self.copy_stream):
+        stream = self.streams.get(x.device)
+        if stream is not None:
+            with torch.cuda.stream(stream):
                 host = x.to("cpu", non_blocking=True)
-            self.copy_stream.synchronize()
+            stream.synchronize()
         else:
             host = x.cpu()
         arr = host.numpy()
@@ -291,7 +326,7 @@ class HostFetch:
 def finalize_dispatch(outs, n, m, *, band: int, num_real: int,
                       collect_tb: bool = False, mode: str = "global",
                       decode: str = "device", stats: dict | None = None,
-                      ready=None, copy_stream=None):
+                      ready=None, copy_streams=None):
     """Materialise an enqueued group: merge slices to numpy (this blocks
     only on *this* group's device work), strip dummy padding down to
     `num_real`, and — when collect_tb — produce the group's CIGARs.
@@ -313,10 +348,12 @@ def finalize_dispatch(outs, n, m, *, band: int, num_real: int,
     layer accumulating it per flush sees the true fetch traffic rather
     than the stripped result size.
 
-    Every copy goes through one `HostFetch`; with `ready` and
-    `copy_stream` it copies on the second stream behind this group's
-    event."""
-    fetch = HostFetch(ready, copy_stream)
+    `outs` is `enqueue_dispatch`'s list in row order (with several
+    shards, their blocks interleaved slice by slice), so concatenating the
+    fetched blocks joins the shards on the host in order. Every copy goes
+    through one `HostFetch`; with `ready` and `copy_streams` it copies on
+    each device's second stream behind this group's event there."""
+    fetch = HostFetch(ready, copy_streams)
 
     if collect_tb and decode == "device":
         from repro_torch.core.traceback_device import rle_to_cigars
@@ -382,7 +419,7 @@ def run_dispatch(bk, q_pad, r_pad, n, m, *, sc: ScoringConfig, band: int,
                             collect_tb=collect_tb, mode=mode, t_max=t_max,
                             decode=decode, xdrop=xdrop)
     outs = enqueue_dispatch(run, q_pad, r_pad, n, m, capacity=capacity,
-                            device=device)
+                            devices=(device,))
     return finalize_dispatch(outs, n, m, band=band, num_real=num_real,
                              collect_tb=collect_tb, mode=mode,
                              decode=decode)

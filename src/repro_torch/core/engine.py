@@ -20,8 +20,16 @@ engine
      only for an event recorded behind group k's own launches — so the
      device computes group k+1 while the host fetches and CIGAR-decodes
      group k, with at most two groups' buffers live,
-  3. scatters results back into the caller's original read order, and
-  4. when tracebacks are requested, walks every group's packed
+  3. with `mesh=` (a `launch.mesh.DeviceMesh`), shards each dispatch
+     slice over the mesh's data axes (paper Fig. 6(a) tile level):
+     one capacity block per shard per slice, each block uploaded to its
+     shard's device and launched on that device's current stream, each
+     shard's results copied device-to-host behind an event of its own
+     device and joined on the host in shard order — alignment needs no
+     inter-tile communication, so no tensor moves between devices and
+     no collective runs,
+  4. scatters results back into the caller's original read order, and
+  5. when tracebacks are requested, walks every group's packed
      (T, ceil(B/2)) flag plane **on-device** (`core.traceback_device`)
      and fetches only fixed-width RLE CIGAR arrays trimmed to the
      longest path present — O(path segments) host bytes per pair instead
@@ -41,8 +49,8 @@ same `plan` / `enqueue_group` / `finalize_group` primitives.
 With `dispatch="persistent"` the whole request is one launch of the
 persistent wavefront over every group plus one launch of the table
 walker (`enqueue_persistent` / `finalize_persistent`), and the host
-waits only when it fetches the results. Not ported yet, and refused at construction: sharding over a
-mesh of devices (`mesh=`, ROADMAP A9).
+waits only when it fetches the results; it runs on one device and
+cannot be combined with `mesh=`.
 """
 
 from __future__ import annotations
@@ -96,7 +104,7 @@ class PendingDispatch:
     num_real: int        # request pairs before dummy padding
     collect_tb: bool
     mode: str
-    ready: object = None  # CUDA event recorded behind the group's launches
+    ready: dict | None = None  # {device: CUDA event behind its launches}
 
     @property
     def num_slots(self) -> int:
@@ -127,7 +135,7 @@ class PendingPersistent:
     num_real: int        # request pairs before dummy padding
     collect_tb: bool
     mode: str
-    ready: object = None  # CUDA event recorded behind the two launches
+    ready: dict | None = None  # {device: CUDA event behind the launches}
 
     @property
     def num_slots(self) -> int:
@@ -183,7 +191,9 @@ class AlignmentEngine:
         100 per BWA-MEM's evidence). Raise it for long-read scenarios
         that need a wider band than the short-read default.
       capacity: pairs per dispatch group slice (sequence-level k): one
-        kernel launch covers this many pairs, one thread block each.
+        kernel launch covers this many pairs. With `mesh=` this is the
+        *per-shard* capacity: each dispatch slice spans
+        capacity x num_shards pairs.
       backend_opts: forwarded to the backend constructor.
       trim: sweep each group only t_max wavefront steps (max true n + m
         of its members) instead of the full padded q_len + r_len.
@@ -219,9 +229,14 @@ class AlignmentEngine:
         RLE CIGAR arrays; "host" fetches the packed plane and decodes
         with the numpy `traceback_banded_batch` (oracle / CPU fallback).
         CIGARs are bit-identical either way.
-      mesh: must be None. Sharding dispatch slices over several devices
-        is not ported yet and raises NotImplementedError (ROADMAP A9).
-      batch_axes: kept for signature parity with `mesh`; unused.
+      mesh: optional `launch.mesh.DeviceMesh` — shard every dispatch
+        slice's batch over `batch_axes`, one block per shard, no
+        communication between shards. `device` then becomes the first
+        shard's device; every shard's device must exist (a CUDA mesh
+        without cards raises). Pipelined dispatch only.
+      batch_axes: mesh axes to shard over; None = every axis named
+        "pod"/"data" in the mesh (alignment never uses "model": along it
+        the shards would be replicas, and only its first entry runs).
       compilation_cache_dir: kept for signature parity and unused. The
         kernels take band, sweep length, sequence lengths and the
         persistent work table as run-time arguments, so there is no
@@ -252,9 +267,11 @@ class AlignmentEngine:
             raise ValueError(f"dispatch must be 'pipelined' or "
                              f"'persistent', got {self.dispatch!r}")
         if self.mesh is not None:
-            raise NotImplementedError(
-                "mesh= (sharded dispatch) is not ported yet: ROADMAP A9")
-        self.device = check_device(self.device)
+            self._shards = self._mesh_shards()
+            self.device = self._shards[0]
+        else:
+            self.device = check_device(self.device)
+            self._shards = (self.device,)
         self.backend = get_backend(self.backend,
                                    **(self.backend_opts or {}))
         if self.backend.name == "cuda" and self.device.type != "cuda":
@@ -272,8 +289,27 @@ class AlignmentEngine:
             # the bound is monotonic in the band width, so checking the
             # cap covers every dispatch this engine can plan.
             validate_narrow_cells(self.sc, self.band_cap)
-        # Second stream for the result fetch (see finalize_dispatch).
-        self._copy_stream = None
+        # Per device, a second stream for the result fetch (see
+        # finalize_dispatch).
+        self._copy_streams: dict = {}
+
+    def _mesh_shards(self) -> tuple:
+        """Validate the mesh settings; the shards' devices in order."""
+        from repro_torch.launch.mesh import DeviceMesh
+
+        if not isinstance(self.mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a launch.mesh.DeviceMesh, got "
+                            f"{type(self.mesh).__name__}")
+        if self.dispatch == "persistent":
+            raise ValueError(
+                "dispatch='persistent' runs the whole request as one "
+                "single-device launch and cannot shard over a mesh; use "
+                "the pipelined dispatch with mesh=")
+        if self.batch_axes is None:
+            self.batch_axes = tuple(a for a in self.mesh.axis_names
+                                    if a in ("pod", "data"))
+        return tuple(check_device(d)
+                     for d in self.mesh.shard_devices(self.batch_axes))
 
     @property
     def backend_name(self) -> str:
@@ -281,8 +317,48 @@ class AlignmentEngine:
 
     @property
     def num_shards(self) -> int:
-        """Devices a dispatch slice spans: always 1 (no mesh path yet)."""
-        return 1
+        """Mesh shards a dispatch slice spans (1 without a mesh)."""
+        return len(self._shards)
+
+    @property
+    def shard_devices(self) -> tuple:
+        """The device of each shard, in shard order (without a mesh:
+        `device` alone)."""
+        return self._shards
+
+    # ------------------------------------------------------------------
+    # Mesh path: each shard's block on its own device.
+    # ------------------------------------------------------------------
+    def sharded_runner(self, *, band: int, collect_tb: bool = False,
+                       mode: str = "global", t_max: int | None = None,
+                       decode: str = "host"):
+        """The sharded backend call for one dispatch signature: a function
+        of padded host arrays (q, r, n, m) whose batch divides by
+        `num_shards`. It splits the batch into `num_shards` contiguous
+        blocks, uploads block s to shard s's device and queues the backend
+        there (no synchronisation), and returns one raw result dict per
+        shard, in shard order, each on its own shard's device. No tensor
+        crosses between devices and no collective runs — including with
+        decode="device", where each shard's walker runs on its own block
+        (the walk is per-pair)."""
+        if self.mesh is None:
+            raise ValueError("sharded_runner requires AlignmentEngine("
+                             "mesh=...)")
+        run = functools.partial(
+            self.backend.run, sc=self.sc, band=band, adaptive=self.adaptive,
+            collect_tb=collect_tb, mode=mode, t_max=t_max, decode=decode,
+            cell_dtype=self.cell_dtype, xdrop=self.xdrop)
+
+        def runner(q_pad, r_pad, n, m):
+            N = int(q_pad.shape[0])
+            if N == 0 or N % self.num_shards:
+                raise ValueError(f"a batch of {N} rows does not split "
+                                 f"over {self.num_shards} shards")
+            _check_t_max(t_max, n, m)
+            return enqueue_dispatch(run, q_pad, r_pad, n, m,
+                                    capacity=N // self.num_shards,
+                                    devices=self._shards)
+        return runner
 
     # ------------------------------------------------------------------
     # Padded single-length-class path (arrays in, device tensors out).
@@ -295,7 +371,10 @@ class AlignmentEngine:
         The thin path used by plane-level tooling and tests; takes numpy
         arrays or tensors, places them on the engine's device and
         returns the raw backend result dict as tensors there (queued on
-        the current stream, not synchronised). `t_max` optionally trims
+        the current stream, not synchronised). With `mesh=`, the batch
+        (host arrays, leading dimension divisible by `num_shards`) goes
+        through `sharded_runner` and the result is its list of per-shard
+        dicts, each on its shard's device. `t_max` optionally trims
         the sweep (caller guarantees t_max >= max true n + m). `decode`
         defaults to "host" here — the raw-plane contract (tb/los) that
         the oracle tests consume; pass "device" to get the on-device
@@ -305,6 +384,10 @@ class AlignmentEngine:
             L = max(int(q_pad.shape[1]), int(r_pad.shape[1]))
             band = adaptive_bandwidth(L, default_base_bandwidth(
                 L, self.base_bandwidth), cap=self.band_cap)
+        if self.mesh is not None:
+            return self.sharded_runner(band=band, collect_tb=collect_tb,
+                                       mode=mode, t_max=t_max,
+                                       decode=decode)(q_pad, r_pad, n, m)
         _check_t_max(t_max, n, m)
         q_pad, r_pad, n, m = (torch.as_tensor(a).to(self.device)
                               for a in (q_pad, r_pad, n, m))
@@ -336,11 +419,13 @@ class AlignmentEngine:
         device (asynchronous — no host sync). `reads`/`refs` are the
         group members in group order (the caller keeps the scatter
         indices). Returns the `PendingDispatch` handle for
-        `finalize_group`; on a CUDA device it carries an event recorded
-        behind the group's last launch."""
+        `finalize_group`; on CUDA it carries, per shard device, an event
+        recorded behind the group's last launch there. With `mesh=`, the
+        group pads to whole slices of capacity x num_shards rows and each
+        slice's blocks run on their shards' devices."""
         t_max = spec.t_max if self.trim else None
-        q_pad, r_pad, n, m = pad_group(reads, refs, spec,
-                                       pad_multiple=spec.capacity)
+        q_pad, r_pad, n, m = pad_group(
+            reads, refs, spec, pad_multiple=spec.capacity * self.num_shards)
         run = functools.partial(
             self.backend.run, sc=self.sc, band=spec.band,
             adaptive=self.adaptive, collect_tb=collect_tb,
@@ -348,35 +433,44 @@ class AlignmentEngine:
             cell_dtype=self.cell_dtype, xdrop=self.xdrop)
         outs, ready = self._queue(lambda: enqueue_dispatch(
             run, q_pad, r_pad, n, m, capacity=spec.capacity,
-            device=self.device))
+            devices=self._shards))
         return PendingDispatch(spec=spec, n=n, m=m, outs=outs,
                                num_real=len(reads), collect_tb=collect_tb,
                                mode=mode, ready=ready)
 
     def _queue(self, launch):
-        """Run `launch` (which queues device work) on this engine's
-        device; on a CUDA device also record an event behind its work.
-        Returns (its result, the event or None)."""
+        """Run `launch` (which queues device work) with this engine's
+        device current; on CUDA also record, on every shard's device, an
+        event behind the work queued there. Returns (its result, {device:
+        event} or None)."""
         if self.device.type != "cuda":
             return launch(), None
         with torch.cuda.device(self.device):
             out = launch()
-            ready = torch.cuda.Event()
-            ready.record()
+        ready = {}
+        for dev in self._shards:
+            with torch.cuda.device(dev):
+                ready[dev] = torch.cuda.Event()
+                ready[dev].record()
         return out, ready
 
-    def _fetch_stream(self, ready):
-        """The engine's second stream for fetches behind `ready`, created
-        at the first CUDA fetch (None when there is no event)."""
-        if ready is not None and self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(device=self.device)
-        return self._copy_stream
+    def _fetch_streams(self, ready):
+        """{device: the engine's second stream there} for fetches behind
+        `ready`, each created at the first CUDA fetch on its device (None
+        when there are no events)."""
+        if ready is None:
+            return None
+        for dev in ready:
+            if dev not in self._copy_streams:
+                self._copy_streams[dev] = torch.cuda.Stream(device=dev)
+        return self._copy_streams
 
     def finalize_group(self, pending: PendingDispatch, *,
                        stats: dict | None = None) -> dict:
         """Materialise an enqueued group: blocks only on *that* group's
-        device work (the fetch runs on a second stream behind the
-        group's own event), strips dummy padding, and (with collect_tb)
+        device work (the fetch runs, per device, on a second stream behind
+        the group's own event there; shards join on the host in shard
+        order), strips dummy padding, and (with collect_tb)
         joins its CIGARs per the engine's decode stage. With `stats`,
         reports the bytes this fetch really materialised
         (`stats["fetched_bytes"]`, padded rows included)."""
@@ -386,7 +480,7 @@ class AlignmentEngine:
                                  collect_tb=pending.collect_tb,
                                  mode=pending.mode, decode=self.decode,
                                  stats=stats, ready=pending.ready,
-                                 copy_stream=self._fetch_stream(
+                                 copy_streams=self._fetch_streams(
                                      pending.ready))
 
     # ------------------------------------------------------------------
@@ -444,7 +538,7 @@ class AlignmentEngine:
         rows included)."""
         from repro_torch.core.traceback_device import rle_to_cigars
 
-        fetch = HostFetch(pending.ready, self._fetch_stream(pending.ready))
+        fetch = HostFetch(pending.ready, self._fetch_streams(pending.ready))
         N = pending.num_real
         out = {k: np.zeros(N, np.int32) for k in SCALAR_KEYS}
         out["band"] = np.zeros(N, np.int32)

@@ -3,15 +3,22 @@
 A thin client of the streaming `repro_torch.serve.AlignmentService`: a
 simulated sequencer emits read/window pairs at an open-loop arrival
 rate, the service's background dispatcher micro-batches them by length
-class and drives the AlignmentEngine's dispatch pipeline on the GPU
-(CUDA kernels, device decode, depth-k lookahead), and the run reports the
-service metrics dict — requests/s, p50/p99 latency, batch fill ratio,
-bytes fetched, flush causes.
+class and drives the mesh-sharded AlignmentEngine's dispatch pipeline on
+the GPUs (CUDA kernels, device decode, depth-k lookahead), and the run
+reports the service metrics dict — requests/s, p50/p99 latency, batch
+fill ratio, bytes fetched, flush causes.
 
+By default the engine shards every dispatch slice over a mesh of all
+visible cards (`launch.mesh.make_debug_mesh(data=torch.cuda.
+device_count())`; one card: one shard). `--no-mesh` runs one device.
 `--replicas N` (N > 1) serves the stream through the replicated tier
 instead: a `repro_torch.serve.AlignmentRouter` over N single-engine
 replicas, each dispatcher thread queuing its engine's work on a CUDA
-stream of its own.
+stream of its own — scale-out by dispatcher count, where the mesh is
+scale-up by device count, so the replicated path runs each replica
+mesh-free.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --reads 512
 
     PYTHONPATH=src python -m repro_torch.launch.serve --reads 512 \
         --rate 2000 --policy adaptive --warmup --no-mesh
@@ -23,10 +30,10 @@ stream of its own.
         --no-mesh --replicas 2
 
 Runs on the card and exits with an error without one (`--device cpu
---backend reference` asks for the CPU explicitly). `--dispatch
-persistent` runs each flush as one launch of the persistent wavefront
-and one of the table walker. Single device only: without `--no-mesh` it
-exits with an error naming the ROADMAP item that ports the mesh (A9).
+--backend reference` asks for the CPU explicitly: a one-shard CPU mesh
+unless `--no-mesh`). `--dispatch persistent` runs each flush as one
+launch of the persistent wavefront and one of the table walker, on one
+device (it implies `--no-mesh`).
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import torch
 from repro_torch.configs.rapidx import CONFIG as RAPIDX
 from repro_torch.core.engine import AlignmentEngine
 from repro_torch.data.genome import ReadSimulator, random_genome
+from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.serve import AlignmentRouter, AlignmentService
 
 
@@ -70,7 +78,8 @@ def main(argv=None):
                     default="pipelined",
                     help="engine dispatch mode: 'pipelined' launches "
                          "per dispatch group slice, 'persistent' runs each "
-                         "flush as one launch of each kernel")
+                         "flush as one launch of each kernel (one "
+                         "device, implies --no-mesh)")
     ap.add_argument("--warmup", action="store_true",
                     help="build/load the kernels and run one dummy "
                          "alignment before accepting traffic")
@@ -84,13 +93,14 @@ def main(argv=None):
                          "rejected counter / rejected_fraction gauge in "
                          "the metrics). Default: off")
     ap.add_argument("--no-mesh", action="store_true",
-                    help="single-device engine; the only mode so far "
-                         "(the mesh path is ROADMAP A9)")
+                    help="single-device engine (default: shard every "
+                         "dispatch slice over all visible cards)")
     ap.add_argument("--replicas", type=int, default=1,
                     help="serving-tier replica count: >1 routes the "
                          "stream through an AlignmentRouter over N "
                          "single-engine replicas with drain/failover, "
-                         "each on a CUDA stream of its own")
+                         "each on a CUDA stream of its own (each replica "
+                         "runs mesh-free)")
     ap.add_argument("--device", default="cuda",
                     help="where the engine runs (default: the card)")
     ap.add_argument("--backend", default="auto",
@@ -101,14 +111,19 @@ def main(argv=None):
     if args.replicas < 1:
         ap.error("--replicas must be >= 1")
 
-    if not args.no_mesh:
-        ap.error("the mesh path is not ported yet (ROADMAP A9): pass "
-                 "--no-mesh")
+    use_mesh = (not args.no_mesh and args.dispatch != "persistent"
+                and args.replicas == 1)
+    mesh = None
+    if use_mesh:
+        on_card = torch.device(args.device).type == "cuda"
+        # At least one: with no card the mesh raises, naming why.
+        n_dev = max(torch.cuda.device_count(), 1) if on_card else 1
+        mesh = make_debug_mesh(data=n_dev, model=1, device=args.device)
 
     def make_engine(_i=0):
         return AlignmentEngine(
             backend=args.backend, device=args.device, sc=RAPIDX.scoring,
-            capacity=args.capacity, dispatch=args.dispatch,
+            capacity=args.capacity, mesh=mesh, dispatch=args.dispatch,
             xdrop=args.xdrop,
             compilation_cache_dir=args.compilation_cache_dir)
 
@@ -116,9 +131,10 @@ def main(argv=None):
     kind = (torch.cuda.get_device_name(engine.device)
             if engine.device.type == "cuda" else "cpu")
     print(f"[serve] device={engine.device} ({kind}) "
-          f"backend={engine.backend_name} dispatch={engine.dispatch} "
-          f"replicas={args.replicas} policy={args.policy} "
-          f"scoring={RAPIDX.scoring.name}")
+          f"backend={engine.backend_name} shards={engine.num_shards} "
+          f"mesh={'off' if mesh is None else mesh.shape} "
+          f"dispatch={engine.dispatch} replicas={args.replicas} "
+          f"policy={args.policy} scoring={RAPIDX.scoring.name}")
 
     genome = random_genome(1_000_000, seed=7)
     sim = ReadSimulator(genome, args.profile, seed=8)

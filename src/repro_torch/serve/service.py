@@ -56,10 +56,12 @@ both of which the backend contract guarantees are result-invariant
 
 The engine itself is not thread-safe; only the dispatcher thread ever
 touches it. CUDA's current device and stream are per-thread: on a CUDA
-engine the dispatcher thread selects the engine's device and makes a
-CUDA stream of its own (`stream`) its current stream once, when it
-starts, so every launch, copy and event of the engine is queued there and
-several services over one card (the replicas of a router) can overlap.
+engine the dispatcher thread makes a CUDA stream of its own the current
+stream of every device the engine's shards run on (`streams`; `stream`
+is the one on the engine's first device), once, when it starts, and
+selects the engine's device, so every launch, copy and event of the
+engine is queued on the thread's streams and several services over one
+card (the replicas of a router) can overlap.
 `time_fn` injects the service clock (arrival timestamps and
 flush deadlines) for deterministic controller tests; the dispatcher
 then polls wall time briefly instead of sleeping on fake-clock
@@ -227,7 +229,9 @@ class AlignmentService:
         self._draining = False
         self._wait_until: float | None = None
         self._error: BaseException | None = None
-        #: The dispatcher thread's CUDA stream (None on the CPU).
+        #: The dispatcher thread's CUDA stream on each shard's device, and
+        #: the one on the engine's device (empty / None on the CPU).
+        self.streams: dict = {}
         self.stream: torch.cuda.Stream | None = None
         self._thread = threading.Thread(target=self._loop,
                                         name="alignment-service-dispatch",
@@ -353,7 +357,8 @@ class AlignmentService:
 
     @property
     def device(self) -> torch.device:
-        """Where the engine's results live."""
+        """Where the engine's results live (a meshed engine's: its first
+        shard's device)."""
         return self.engine.device
 
     def stats(self) -> dict:
@@ -420,9 +425,12 @@ class AlignmentService:
         try:
             device = getattr(self.engine, "device", None)
             if device is not None and device.type == "cuda":
+                for dev in getattr(self.engine, "shard_devices", (device,)):
+                    if dev not in self.streams:
+                        self.streams[dev] = torch.cuda.Stream(dev)
+                        torch.cuda.set_stream(self.streams[dev])
                 torch.cuda.set_device(device)
-                self.stream = torch.cuda.Stream(device)
-                torch.cuda.set_stream(self.stream)
+                self.stream = self.streams[device]
             while True:
                 got_new = self._drain_queue(pending)
                 flushed = False

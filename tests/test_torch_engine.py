@@ -125,7 +125,9 @@ def test_warmup_and_unported_modes():
     pe = AlignmentEngine(backend="reference", device="cpu",
                          dispatch="persistent")
     assert pe.warmup([(40, 40)], collect_tb=True) == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    # The mesh path is ported (tests/test_torch_distributed.py); a mesh
+    # that is not a DeviceMesh is refused.
+    with pytest.raises(TypeError, match="DeviceMesh"):
         AlignmentEngine(backend="reference", device="cpu", mesh=object())
     with pytest.raises(ValueError, match="at least one group"):
         te.backend.run_persistent([], sc=TORCH_SC)

@@ -48,7 +48,10 @@ def test_port_has_its_modules():
                 "models/blocks.py", "models/model.py", "models/interop.py",
                 "kernels/local_attention/ops.py",
                 "kernels/local_attention/local_attention.py",
-                "kernels/local_attention/ref.py", "train/train_step.py"):
+                "kernels/local_attention/ref.py", "train/train_step.py",
+                "core/pim_model.py", "core/distributed.py",
+                "launch/mesh.py", "roofline/__init__.py",
+                "roofline/analysis.py", "roofline/analytic.py"):
         assert f"src/repro_torch/{mod}" in names
 
 
