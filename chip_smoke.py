@@ -16,7 +16,16 @@ serving path — gemma3-27b at
 full width, 14 of its 62 layers, random bf16 weights from `--seed`: one
 32,768-token prefill, 4 x 1,152 tokens decoded through the KV caches and
 held against prefill logits, and an f32 check of the kernel path against
-naive attention and of decode against prefill — and then the port's
+naive attention and of decode against prefill — then the recurrent
+kernels B6 (RG-LRU scan), B7 (chunkwise mLSTM) and B8 (sLSTM, a thread-
+block cluster per head) against their plain versions at the main paths'
+shapes and at ragged edges (`recurrent_checks`), the MoE family —
+qwen2-moe-a2.7b whole: a 32,768-token prefill, 4 x 256 decode steps with
+the tokens capacity drops, and one full-width MoE layer each of
+qwen2-moe-a2.7b and mixtral-8x22b in f32 against the CPU (`lm_moe`) —
+and the recurrent family — recurrentgemma-9b and xlstm-125m whole: a
+32,768-token prefill each, decode against prefill in bf16 and f32, and
+each recurrent mixer alone in f32 (`lm_recurrent`) — and then the port's
 alignment paths through their entry points at a real stream size: one
 ragged `AlignmentEngine.align`
 request (65,536 short pairs, 2,048 at 2 kbp, 256 in the 8192 bucket) and
@@ -106,7 +115,12 @@ from repro_torch.roofline.analytic import (DISPATCH_OVERHEAD_S,  # noqa: E402
 from repro_torch.serve import AlignmentRouter, AlignmentService  # noqa: E402
 from repro_torch.data.tokens import TokenPipeline  # noqa: E402
 from repro_torch.models import attention as attn_mod  # noqa: E402
+from repro_torch.models import blocks as block_mod  # noqa: E402
 from repro_torch.models import init_cache, init_params  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import rglru as rglru_mod  # noqa: E402
+from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
+from repro_torch.models.model import tree_map  # noqa: E402
 from repro_torch.train import make_prefill_step, make_serve_step  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -1153,8 +1167,7 @@ def teacher_forcing(params, cfg, toks, dtype, paths, tag):
         "batch": B, "steps": T, "dtype": str(dtype).split(".")[-1],
         "ms_per_step": dec_s * 1e3 / T, "tokens_per_s": B * T / dec_s,
         "launches": paths.paths[f"lm_decode{tag}"],
-        "prefill_launches":
-            paths.paths[f"lm_prefill_all{tag}"][B5_KERNEL[dtype]],
+        "prefill_launches": paths.paths[f"lm_prefill_all{tag}"],
         "rel_l2_max": float(err.max()), "rel_l2_mean": float(err.mean()),
         "max_abs_err": float(d.max()),
         "allclose_2e-3": bool((d <= 2e-3 + 2e-3 * ref.abs()).all()),
@@ -1162,7 +1175,7 @@ def teacher_forcing(params, cfg, toks, dtype, paths, tag):
         "argmax_agree": float((dec.argmax(-1) == ref.argmax(-1))
                               .float().mean()),
         "context_rel_l2_median": float(ctx.median()),
-        "ring_wraps": T > cfg.window}
+        "ring_wraps": cfg.window is not None and T > cfg.window}
 
 
 def lm_phase(args, paths):
@@ -1208,7 +1221,7 @@ def lm_phase(args, paths):
     Bd, Td = (2, 1152) if quick else (4, 1152)
     dtoks = lm_tokens(cfg, Bd, Td, args.seed + 1)
     tf = teacher_forcing(params, cfg, dtoks, torch.bfloat16, paths, "")
-    assert tf.pop("prefill_launches") == per_prefill
+    assert tf.pop("prefill_launches")["flash_tc"] == per_prefill
     # bf16 bound: the logits are bf16-rounded in both paths (unit roundoff
     # u = 2^-9), and the paths round at different places inside attention
     # (f32 softmax in B5, bf16 probabilities in decode), each layer
@@ -1266,7 +1279,7 @@ def lm_phase(args, paths):
     if not ok:
         raise AssertionError(f"f32 kernel path != naive: {rec['f32_check']}")
     tf = teacher_forcing(p32, cfg, dtoks[:2], torch.float32, paths, "_f32")
-    assert tf.pop("prefill_launches") == per_prefill
+    assert tf.pop("prefill_launches")["flash_tf32x3"] == per_prefill
     tf["tolerance"] = ("atol = rtol = 2e-3 (as above), and rel L2 per "
                        "position <= 1/4 of the median change that replacing "
                        "the first half of the context makes")
@@ -1279,6 +1292,519 @@ def lm_phase(args, paths):
         raise AssertionError(f"f32 decode != prefill: {tf}")
     rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return rec
+
+
+# ---------------------------------------------------------------------------
+# Recurrent kernels (B6-B8) vs their plain versions.
+# ---------------------------------------------------------------------------
+
+#: Kernel vs plain for B6-B8 (stated before their first card run): both
+#: sides compute in f32, the kernels summing in other orders (B6's chunked
+#: scan, B7's reassociated chunk products and warp scans, B8's split dot
+#: products), so each f32 output may differ by 1e-4 of the largest |plain
+#: value| of that output; a bf16 output (B6's y) by one bf16 ulp of the
+#: value more (both round an f32 result).
+REC_TOL = 1e-4
+# f32 operations per (b, t, d) of B6's gates and step (two sigmoids, exp,
+# sqrt, max and the products; a transcendental counts one).
+RGLRU_OPS_PER_ELEM = 16
+# f32 operations per (b, head, step, unit) of B8's cell update beside the
+# 8 Dh recurrent-product operations.
+SLSTM_CELL_OPS = 24
+
+
+def rec_err(out, ref):
+    """(max |out - ref|, within `REC_TOL`)."""
+    d = (out.float() - ref.float()).abs()
+    tol = REC_TOL * float(ref.float().abs().max())
+    if ref.dtype == torch.bfloat16:
+        r = ref.float().abs()
+        ok = bool((d <= torch.exp2(torch.floor(torch.log2(
+            r.clamp_min(1e-30))) - 7) + tol).all())
+    else:
+        ok = float(d.max()) <= tol
+    return float(d.max()), ok
+
+
+def rec_errs(outs, refs):
+    errs = [rec_err(a, b) for a, b in zip(outs, refs)]
+    return max(e for e, _ in errs), all(ok for _, ok in errs)
+
+
+def bound_of(ops, nbytes):
+    """(ms, what binds): f32 operations on the FMA units at 67 TFLOP/s,
+    bytes at 3.35 TB/s."""
+    t_ops, t_bytes = ops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def rglru_check(name, B, T, D, dtype, seed, with_h0=False, reps=0):
+    """B6 against `rglru_scan_plain` on random dense outputs, x and
+    Lambda in the Griffin init's range; timed when `reps` > 0."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    wa, wx, x = (torch.randn(B, T, D, device=DEV, generator=g).to(dtype)
+                 for _ in range(3))
+    lam = (0.01 + 0.49 * torch.rand(D, device=DEV, generator=g)).to(dtype)
+    h0 = torch.randn(B, D, device=DEV, generator=g) if with_h0 else None
+    out = rglru_mod.rglru_scan_cuda(wa, wx, x, lam, h0)
+    torch.cuda.synchronize()
+    plain_ms, ref = time_host(
+        lambda: rglru_mod.rglru_scan_plain(wa, wx, x, lam, h0))
+    err, ok = rec_errs(out, ref)
+    rec = {"shape": name, "B": B, "T": T, "D": D,
+           "dtype": str(dtype).split(".")[-1], "h0": with_h0,
+           "chunks": -(-T // rglru_mod.KERNEL_CHUNK),
+           "max_abs_err": err, "within_tolerance": ok, "plain_ms": plain_ms}
+    if reps:
+        es = x.element_size()
+        nbytes = 4 * B * T * D * es + D * lam.element_size() \
+            + B * D * 4 * (2 if with_h0 else 1)
+        bound, by = bound_of(B * T * D * RGLRU_OPS_PER_ELEM, nbytes)
+        rec.update(ms=time_cuda(
+            lambda: rglru_mod.rglru_scan_cuda(wa, wx, x, lam, h0), reps),
+            bound_ms=bound, bound_by=by)
+    if not ok:
+        raise AssertionError(f"B6 != plain: {rec}")
+    return rec
+
+
+def mlstm_check(name, B, H, T, D, chunk, seed, with_state=False, reps=0):
+    """B7 against `mlstm_chunk_scan_plain`: q, k, v as the (B, H, T, D)
+    views `_mlstm_qkv_gates` makes (k scaled by 1/sqrt(D)), gates
+    i~ ~ N(0, 1) and f~ = log_sigmoid(N(0, 1) + 1); a random carried
+    state when `with_state`."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+
+    def heads():
+        return torch.randn(B, T, H, D, device=DEV, generator=g) \
+            .transpose(1, 2)
+    q, k, v = heads(), heads() / D ** 0.5, heads()
+    it = torch.randn(B, T, H, device=DEV, generator=g).transpose(1, 2)
+    ft = torch.nn.functional.logsigmoid(
+        torch.randn(B, T, H, device=DEV, generator=g) + 1.0).transpose(1, 2)
+    state = xlstm_mod.mlstm_state_init(B, H, D, device=DEV)
+    if with_state:
+        state = {"C": torch.randn(B, H, D, D, device=DEV, generator=g),
+                 "n": torch.randn(B, H, D, device=DEV, generator=g),
+                 "m": torch.randn(B, H, device=DEV, generator=g)}
+    args = (q, k, v, it, ft, state, chunk)
+    h, st = xlstm_mod.mlstm_chunk_scan_cuda(*args)
+    torch.cuda.synchronize()
+    plain_ms, (hr, sr) = time_host(
+        lambda: xlstm_mod.mlstm_chunk_scan_plain(*args))
+    err, ok = rec_errs([h, st["C"], st["n"], st["m"]],
+                       [hr, sr["C"], sr["n"], sr["m"]])
+    rec = {"shape": name, "B": B, "H": H, "T": T, "D": D, "chunk": chunk,
+           "state_in": with_state, "max_abs_err": err,
+           "within_tolerance": ok, "plain_ms": plain_ms}
+    if reps:
+        L, nc = chunk, T // chunk
+        ops = B * H * nc * (2 * L * (L + 1) * D + 4 * L * D * D + 4 * L * D)
+        nbytes = 4 * (4 * B * T * H * D + 2 * B * H * T
+                      + 2 * B * H * (D * D + D + 1))
+        bound, by = bound_of(ops, nbytes)
+        rec.update(ms=time_cuda(
+            lambda: xlstm_mod.mlstm_chunk_scan_cuda(*args), reps),
+            bound_ms=bound, bound_by=by)
+    if not ok:
+        raise AssertionError(f"B7 != plain: {rec}")
+    return rec
+
+
+def slstm_check(name, B, T, H, Dh, dtype, seed, with_state=False, reps=0):
+    """B8 against `slstm_scan_plain`: wx ~ N(0, 1) (the dense outputs of
+    a normalised input), R ~ N(0, 1/Dh) as the init; a random state when
+    `with_state` (n > 0, as the recurrence keeps it)."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    d = H * Dh
+    wx = {gn: torch.randn(B, T, d, device=DEV, generator=g).to(dtype)
+          for gn in "zifo"}
+    r = {gn: (torch.randn(H, Dh, Dh, device=DEV, generator=g)
+              * Dh ** -0.5).to(dtype) for gn in "zifo"}
+    state = xlstm_mod.slstm_state_init(B, H, Dh, device=DEV)
+    if with_state:
+        state = {"h": torch.rand(B, H, Dh, device=DEV, generator=g) * 2 - 1,
+                 "c": torch.randn(B, H, Dh, device=DEV, generator=g),
+                 "n": 1 + torch.rand(B, H, Dh, device=DEV, generator=g),
+                 "m": torch.randn(B, H, Dh, device=DEV, generator=g)}
+    h, st = xlstm_mod.slstm_scan_cuda(wx, r, state)
+    torch.cuda.synchronize()
+    plain_ms, (hr, sr) = time_host(
+        lambda: xlstm_mod.slstm_scan_plain(wx, r, state))
+    keys = ("h", "c", "n", "m")
+    err, ok = rec_errs([h, *(st[k_] for k_ in keys)],
+                       [hr, *(sr[k_] for k_ in keys)])
+    rec = {"shape": name, "B": B, "T": T, "H": H, "Dh": Dh,
+           "dtype": str(dtype).split(".")[-1], "state_in": with_state,
+           "max_abs_err": err, "within_tolerance": ok, "plain_ms": plain_ms}
+    if reps:
+        es = wx["z"].element_size()
+        ops = B * T * H * Dh * (8 * Dh + SLSTM_CELL_OPS)
+        nbytes = 4 * B * T * d * es + 4 * H * Dh * Dh * r["z"].element_size() \
+            + B * T * d * 4 + 8 * B * d * 4
+        bound, by = bound_of(ops, nbytes)
+        ms = time_cuda(lambda: xlstm_mod.slstm_scan_cuda(wx, r, state), reps)
+        rec.update(ms=ms, bound_ms=bound, bound_by=by,
+                   us_per_step=ms * 1e3 / T)
+    if not ok:
+        raise AssertionError(f"B8 != plain: {rec}")
+    return rec
+
+
+def recurrent_checks(quick):
+    """B6, B7 and B8 against their plain versions on the card, each at
+    the main path's shape (recurrentgemma-9b's and xlstm-125m's prefill of
+    one 32,768-token sequence; --quick 4,096), timed there, and at ragged
+    edges: B6 at T = 1,000 (not a multiple of its 64-step chunk) with an
+    incoming h, f32 and bf16; B7 with chunk 40 (not its 64-row tile) and
+    a carried state, and the ragged T = 200 = 5 chunks of 40; B8 at
+    T = 37 with a state, at Dh = 20 (not a multiple of its 8 cluster
+    ranks), and at T = 1 (decode) in bf16."""
+    T = 4096 if quick else 32768
+    reps = 3 if quick else 5
+    rg = get_config("recurrentgemma-9b")
+    xl = get_config("xlstm-125m")
+    b6 = [rglru_check("main", 1, T, rg.d_model, torch.bfloat16, 21,
+                      reps=reps),
+          rglru_check("ragged_f32", 2, 1000, rg.d_model, torch.float32, 22,
+                      with_h0=True),
+          rglru_check("ragged_bf16", 2, 1000, rg.d_model, torch.bfloat16, 23,
+                      with_h0=True)]
+    b7 = [mlstm_check("main", 1, xl.n_heads, T, xl.head_dim, 64, 24,
+                      reps=reps),
+          mlstm_check("chunk40_state", 2, xl.n_heads, 200, xl.head_dim, 40,
+                      25, with_state=True),
+          mlstm_check("d16_chunk16", 2, 3, 48, 16, 16, 26, with_state=True)]
+    Dh = xl.d_model // xl.n_heads
+    b8 = [slstm_check("main", 1, T, xl.n_heads, Dh, torch.bfloat16, 27,
+                      reps=reps),
+          slstm_check("ragged_f32_state", 2, 37, xl.n_heads, Dh,
+                      torch.float32, 28, with_state=True),
+          slstm_check("dh20", 2, 16, 3, 20, torch.float32, 29,
+                      with_state=True),
+          slstm_check("decode_bf16", 4, 1, xl.n_heads, Dh, torch.bfloat16,
+                      30, with_state=True, reps=20)]
+    return {"rglru_scan": b6, "mlstm_chunk": b7, "slstm": b8}
+
+
+# ---------------------------------------------------------------------------
+# The MoE and recurrent model families.
+# ---------------------------------------------------------------------------
+
+def model_prefill(cfg, params, T, seed, paths, name):
+    """One T-token prefill (bf16, last-position logits) inside `paths`,
+    then its device trace: tokens/s and busy share."""
+    toks = lm_tokens(cfg, 1, T, seed)
+    prefill = make_prefill_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    with paths.path(name):
+        logits = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+    assert logits.shape == (1, 1, cfg.vocab_size), logits.shape
+    assert bool(torch.isfinite(logits).all())
+    trace = device_trace(lambda: prefill(params, {"tokens": toks}))
+    wall_ms = trace.get("wall_ms") \
+        or time_host(lambda: prefill(params, {"tokens": toks}))[0]
+    return {"tokens": T, "seconds": wall_ms / 1e3,
+            "tokens_per_s": T / (wall_ms / 1e3), "trace": trace,
+            "launches": paths.paths[name],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def param_record(cfg, params):
+    return {"arch": cfg.name, "n_layers": cfg.n_layers,
+            "n_layers_published": get_config(cfg.name).n_layers,
+            "d_model": cfg.d_model, "pattern": list(cfg.pattern),
+            "params": sum(t.numel() for t in tree_leaves(params)),
+            "param_gb": sum(t.numel() * t.element_size()
+                            for t in tree_leaves(params)) / 1e9}
+
+
+def kinds_of(cfg):
+    """Layers of each kind in cfg's stack."""
+    return collections.Counter(cfg.pattern[i % len(cfg.pattern)]
+                               for i in range(cfg.n_layers))
+
+
+@contextlib.contextmanager
+def moe_routing_count(stats):
+    """Count, for every `moe_apply` call, the (token, expert) choices and
+    those an expert kept within its capacity (the rest are dropped),
+    through the port's own `route` on the same inputs."""
+    orig = moe_mod.moe_apply
+
+    def counted(p, cfg, x, **kw):
+        N, d = x.shape[0] * x.shape[1], x.shape[2]
+        chunk = kw.get("token_chunk", 8192)
+        if not (N > chunk and N % chunk == 0):
+            r = moe_mod.route(p, cfg, x.reshape(N, d),
+                              capacity_factor=kw.get("capacity_factor", 1.25))
+            stats["choices"] += N * cfg.moe_top_k
+            stats["kept"] += int((r["combine"] > 0).sum())
+        return orig(p, cfg, x, **kw)
+    moe_mod.moe_apply = counted
+    try:
+        yield
+    finally:
+        moe_mod.moe_apply = orig
+        stats["dropped"] = stats["choices"] - stats["kept"]
+
+
+def moe_decode(cfg, params, B, T, seed, paths, name):
+    """B x T tokens decoded from empty caches (bf16): ms per step, finite
+    logits; then the same steps again with the routing counted (capacity
+    drops) and the logits compared bit for bit with the first run."""
+    toks = lm_tokens(cfg, B, T, seed)
+    serve = make_serve_step(cfg)
+
+    def run():
+        cache = init_cache(cfg, B, T, torch.bfloat16, device=DEV)
+        out = torch.empty((B, T, cfg.vocab_size), device=DEV)
+        for t in range(T):
+            lg, cache = serve(params, {"tokens": toks[:, t:t + 1]}, cache)
+            out[:, t] = lg[:, 0]
+        return out
+    with paths.path(name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = run()
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+    assert bool(torch.isfinite(logits).all())
+    stats = collections.Counter()
+    with moe_routing_count(stats):
+        again = run()
+
+    def steps(n=16):
+        cache = init_cache(cfg, B, T, torch.bfloat16, device=DEV)
+        for t in range(n):
+            serve(params, {"tokens": toks[:, t:t + 1]}, cache)
+    return {"batch": B, "steps": T, "ms_per_step": dec_s * 1e3 / T,
+            "trace_16_steps": device_trace(steps),
+            "tokens_per_s": B * T / dec_s, "launches": paths.paths[name],
+            "capacity_per_expert": moe_mod.capacity(cfg, B),
+            "routing": dict(stats),
+            "repeat_bitwise_equal": bool(torch.equal(logits, again))}
+
+
+#: MoE layer, card vs CPU (f32, TF32 off): the CPU tests' bound, atol =
+#: rtol = 1e-4 — the same f32 function with its products summed in
+#: another order (cuBLAS vs the CPU's BLAS), a few thousand terms deep.
+MOE_TOL = 1e-4
+
+
+def min_gap(sorted_desc, k):
+    """Smallest non-zero gap between the k-th and (k+1)-th values of the
+    rows (exact ties go by the tie rule, not by rounding); None where no
+    row has k + 1 values or every gap is 0."""
+    if k >= sorted_desc.shape[1]:
+        return None
+    gap = sorted_desc[:, k - 1] - sorted_desc[:, k]
+    gap = gap[gap > 0]
+    return float(gap.min()) if gap.numel() else None
+
+
+def moe_layer_check(arch, N, seed):
+    """One full-width MoE layer of `arch`, random f32 weights made on the
+    card, N tokens: `moe_apply` on the card (twice: bit for bit equal)
+    against the same function on the CPU on copies of the same tensors.
+    Routing (each token's top-k, each expert's top-C) equal; the f32
+    margins at the k-th and C-th places say how far from a float flip the
+    reference values were."""
+    cfg = get_config(arch)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    p = moe_mod.moe_init(gen, cfg, torch.float32)
+    x = torch.randn(1, N, cfg.d_model, device=DEV, generator=gen)
+    card_ms, y = time_host(lambda: moe_mod.moe_apply(p, cfg, x))
+    repeat_equal = bool(torch.equal(y, moe_mod.moe_apply(p, cfg, x)))
+    r = moe_mod.route(p, cfg, x[0])
+    pc = tree_map(lambda t: t.cpu(), p)
+    xc = x.cpu()
+    del p
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    yc = moe_mod.moe_apply(pc, cfg, xc)
+    cpu_s = time.perf_counter() - t0
+    rc = moe_mod.route(pc, cfg, xc[0])
+    del pc
+    srt = torch.sort(rc["probs"], dim=-1, descending=True).values
+    k, C = cfg.moe_top_k, rc["idx"].shape[1]
+    wt = torch.sort(rc["w"].T, dim=-1, descending=True).values
+    d = (y.cpu() - yc).abs()
+    ok = bool((d <= MOE_TOL + MOE_TOL * yc.abs()).all())
+    rec = {"arch": arch, "tokens": N, "experts": cfg.moe_num_experts,
+           "top_k": k, "d_ff": cfg.moe_d_ff, "capacity": C,
+           "expert_weights_gb_bf16": 3 * cfg.moe_num_experts * cfg.d_model
+           * cfg.moe_d_ff * 2 / 1e9,
+           "top_i_equal": bool(torch.equal(r["top_i"].cpu(), rc["top_i"])),
+           "idx_equal": bool(torch.equal(r["idx"].cpu(), rc["idx"])),
+           "topk_margin_min": min_gap(srt, k),
+           "capacity_margin_min": min_gap(wt, C),
+           "max_abs_err": float(d.max()), "out_abs_max": float(yc.abs().max()),
+           "within_tolerance": ok, "repeat_bitwise_equal": repeat_equal,
+           "card_ms": card_ms, "cpu_seconds": cpu_s,
+           "tolerance": "atol = rtol = 1e-4 (f32, TF32 off)"}
+    if not (ok and rec["top_i_equal"] and rec["idx_equal"]
+            and repeat_equal):
+        raise AssertionError(f"MoE layer card != CPU: {rec}")
+    return rec
+
+
+def lm_moe_phase(args, paths):
+    """qwen2-moe-a2.7b whole (24 layers, full width, bf16, random weights
+    from --seed; --quick 4 layers): one 32,768-token prefill (--quick
+    4,096; one B5 launch per layer), 4 x 256 decode steps (--quick 2 x
+    64); then one full-width MoE layer each of qwen2-moe-a2.7b and
+    mixtral-8x22b in f32 on the card against the CPU."""
+    quick = args.quick
+    cfg = get_config("qwen2-moe-a2.7b")
+    if quick:
+        cfg = dataclasses.replace(cfg, n_layers=4)
+    t0 = time.perf_counter()
+    params = init_params(cfg, args.seed, torch.bfloat16, device=DEV)
+    torch.cuda.synchronize()
+    rec = param_record(cfg, params)
+    rec["init_seconds"] = time.perf_counter() - t0
+    T = 4096 if quick else 32768
+    rec["prefill"] = model_prefill(cfg, params, T, args.seed, paths,
+                                   "lm_moe_prefill")
+    got = rec["prefill"]["launches"]
+    assert got["flash_tc"] == cfg.n_layers and got["flash_tf32x3"] == 0, got
+    stats = collections.Counter()
+    with moe_routing_count(stats):
+        make_prefill_step(cfg)(params, {"tokens": lm_tokens(cfg, 1, T,
+                                                            args.seed)})
+    rec["prefill"]["routing"] = dict(stats)
+    emit("lm_progress", {"moe_prefill": rec["prefill"]})
+    Bd, Td = (2, 64) if quick else (4, 256)
+    rec["decode"] = moe_decode(cfg, params, Bd, Td, args.seed + 1, paths,
+                               "lm_moe_decode")
+    assert rec["decode"]["repeat_bitwise_equal"], rec["decode"]
+    del params
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec["layer_checks"] = [
+        moe_layer_check("qwen2-moe-a2.7b", 512, args.seed + 5),
+        moe_layer_check("mixtral-8x22b", 128, args.seed + 6)]
+    torch.cuda.empty_cache()
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return rec
+
+
+def recurrent_model(args, arch, quick_layers, paths, tag, expect):
+    """`arch` whole at full width (--quick `quick_layers` layers): a bf16
+    prefill of one 32,768-token sequence (--quick 4,096) with its kernel
+    launches, then decode against prefill (teacher forcing) on 2 x 256
+    tokens (--quick 2 x 128; multiples of the mLSTM chunk) in bf16 and,
+    on f32 weights, in f32."""
+    quick = args.quick
+    cfg = get_config(arch)
+    if quick:
+        cfg = dataclasses.replace(cfg, n_layers=quick_layers)
+    n = kinds_of(cfg)
+    want = {key: sum(n[kind] for kind in kinds)
+            for key, kinds in expect.items()}
+    params = init_params(cfg, args.seed, torch.bfloat16, device=DEV)
+    rec = param_record(cfg, params)
+    T = 4096 if quick else 32768
+    rec["prefill"] = model_prefill(cfg, params, T, args.seed, paths,
+                                   f"lm_prefill{tag}")
+    got = rec["prefill"]["launches"]
+    assert all(got[key] == v for key, v in want.items()), (got, want)
+    rec["prefill"]["expected_launches"] = want
+    emit("lm_progress", {f"prefill{tag}": rec["prefill"]})
+    Bt, Tt = (2, 128) if quick else (2, 256)
+    toks = lm_tokens(cfg, Bt, Tt, args.seed + 3)
+    tf = teacher_forcing(params, cfg, toks, torch.bfloat16, paths, tag)
+    tf.pop("prefill_launches")
+    tf["tolerance"] = "rel L2 per position <= 2^-5 (the lm line's bound)"
+    tf["within_tolerance"] = tf["rel_l2_max"] <= 2 ** -5
+    rec["decode_vs_prefill_bf16"] = tf
+    del params
+    torch.cuda.empty_cache()
+    if not tf["within_tolerance"]:
+        raise AssertionError(f"{arch} bf16 decode != prefill: {tf}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    p32 = init_params(cfg, args.seed, torch.float32, device=DEV)
+    tf = teacher_forcing(p32, cfg, toks, torch.float32, paths, f"{tag}_f32")
+    tf.pop("prefill_launches")
+    tf["tolerance"] = "atol = rtol = 2e-3 (the reference's own bound)"
+    tf["within_tolerance"] = tf.pop("allclose_2e-3")
+    rec["decode_vs_prefill_f32"] = tf
+    rec["decode_depth_cut"] = "none: the teacher-forcing checks run the " \
+        "whole stack"
+    del p32
+    torch.cuda.empty_cache()
+    if not tf["within_tolerance"]:
+        raise AssertionError(f"{arch} f32 decode != prefill: {tf}")
+    return rec
+
+
+def mixer_teacher_forcing(arch, kind, seed, B=2, T=256):
+    """One `kind` block of `arch` at full width, f32 weights and input
+    (TF32 off): its mixer output (block output minus input) from the
+    prefill (the kernels) against one-token decode from an empty cache —
+    the model-level check without the embeddings' residual stream, which
+    at random weights dwarfs what the mixers add. The scale the agreement
+    is small against: how far each position's output moves when its token
+    is decoded alone, from an empty cache (what the carried state and conv
+    context contribute)."""
+    cfg = get_config(arch)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    p = block_mod.block_init(gen, cfg, kind, torch.float32)
+    d = cfg.d_model
+    x = torch.randn(B, T, d, device=DEV, generator=gen)
+    pos = torch.arange(T, device=DEV)[None].expand(B, T)
+    with torch.no_grad():
+        ref = block_mod.block_apply(p, cfg, kind, x, pos) - x
+        cache = block_mod.block_cache_init(cfg, kind, B, T, torch.float32,
+                                           device=DEV)
+        dec = torch.empty_like(ref)
+        for t in range(T):
+            y, cache = block_mod.block_decode(p, cfg, kind, x[:, t:t + 1],
+                                              cache)
+            dec[:, t] = (y - x[:, t:t + 1])[:, 0]
+        xs = x.reshape(B * T, 1, d)
+        alone = block_mod.block_decode(
+            p, cfg, kind, xs, block_mod.block_cache_init(
+                cfg, kind, B * T, 1, torch.float32, device=DEV))[0] - xs
+        state = rel_l2(alone.reshape(B, T, d), ref)
+    diff = (dec - ref).abs()
+    err = rel_l2(dec, ref)
+    rec = {"arch": arch, "kind": kind, "batch": B, "steps": T,
+           "d_model": d, "max_abs_err": float(diff.max()),
+           "out_abs_max": float(ref.abs().max()),
+           "rel_l2_max": float(err.max()),
+           "state_rel_l2_median": float(state.median()),
+           "tolerance": "atol = rtol = 2e-3, and rel L2 per position <= "
+                        "1/4 of the median change decoding each token "
+                        "alone makes"}
+    rec["within_tolerance"] = bool(
+        (diff <= 2e-3 + 2e-3 * ref.abs()).all()) \
+        and rec["rel_l2_max"] <= rec["state_rel_l2_median"] / 4
+    if not rec["within_tolerance"]:
+        raise AssertionError(f"{kind} mixer decode != prefill: {rec}")
+    return rec
+
+
+def lm_recurrent_phase(args, paths):
+    """recurrentgemma-9b whole (38 layers: 26 RG-LRU, 12 local attention;
+    --quick 8) and xlstm-125m whole (12 layers: 6 mLSTM, 6 sLSTM; --quick
+    4)."""
+    torch.cuda.reset_peak_memory_stats()
+    rg = recurrent_model(args, "recurrentgemma-9b", 8, paths, "_rg",
+                         {"rglru_scan": ("rglru",), "flash_tc": ("local",)})
+    xl = recurrent_model(args, "xlstm-125m", 4, paths, "_xl",
+                         {"mlstm_chunk": ("mlstm",), "slstm": ("slstm",)})
+    mixers = [mixer_teacher_forcing("recurrentgemma-9b", "rglru",
+                                    args.seed + 7),
+              mixer_teacher_forcing("xlstm-125m", "mlstm", args.seed + 8),
+              mixer_teacher_forcing("xlstm-125m", "slstm", args.seed + 9)]
+    return {"recurrentgemma": rg, "xlstm": xl, "mixers_f32": mixers,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
 def tree_leaves(tree):
@@ -1320,12 +1846,18 @@ COUNTERS = {
     "flash_tc": flash_attention_tc_cuda,
     "flash_tf32x3": flash_attention_tf32x3_cuda,
     "flash_fma": flash_attention_fma_cuda,
+    "rglru_scan": rglru_mod.rglru_scan_cuda,
+    "mlstm_chunk": xlstm_mod.mlstm_chunk_scan_cuda,
+    "slstm": xlstm_mod.slstm_scan_cuda,
 }
 PLAIN = {
     "plain_banded": banded.banded_align_batch,
     "plain_traceback": tbd.decode_packed_tb_plain,
     "plain_chain": chain_mod.chain_padded_plain,
     "plain_flash": flash_attention_plain,
+    "plain_rglru": rglru_mod.rglru_scan_plain,
+    "plain_mlstm": xlstm_mod.mlstm_chunk_scan_plain,
+    "plain_slstm": xlstm_mod.slstm_scan_plain,
 }
 
 
@@ -1984,6 +2516,24 @@ def main():
     lm["seconds"] = time.perf_counter() - t0
     emit("lm", lm)
 
+    # ---- 2b. B6-B8 vs their plain versions; the MoE and recurrent
+    # model families ----
+    t0 = time.perf_counter()
+    rec_checks = recurrent_checks(args.quick)
+    emit("recurrent_checks", dict(
+        rec_checks, seconds=time.perf_counter() - t0,
+        tolerance=f"f32 outputs: max |kernel - plain| <= {REC_TOL} x max "
+                  f"|plain| of that output; bf16 outputs: one bf16 ulp of "
+                  f"the value more"))
+    t0 = time.perf_counter()
+    lm_moe = lm_moe_phase(args, paths)
+    lm_moe["seconds"] = time.perf_counter() - t0
+    emit("lm_moe", lm_moe)
+    t0 = time.perf_counter()
+    lm_rec = lm_recurrent_phase(args, paths)
+    lm_rec["seconds"] = time.perf_counter() - t0
+    emit("lm_recurrent", lm_rec)
+
     rng = np.random.default_rng(args.seed)
     genome = random_genome(4_000_000, seed=args.seed + 1)
     n_short, n_mid, n_long = (4096, 64, 64) if args.quick \
@@ -2431,6 +2981,34 @@ def main():
                        fma_bf16_32k_local_ms=loc["fma_ms"])
     assert tot("flash_fma") == 0, "a main path launched the FMA kernel"
     for k in kernels[-2:]:
+        assert k["launches"] > 0 and k["within_tolerance"], k
+    rec_common = dict(common, tolerance=f"{REC_TOL} x max |plain| per f32 "
+                      f"output; one bf16 ulp more for bf16")
+    for name, src, replaces in (
+            ("rglru_scan", "rglru_scan.cu", "src/repro/models/rglru.py:51"),
+            ("mlstm_chunk", "mlstm_chunk.cu",
+             "src/repro/models/xlstm.py:117"),
+            ("slstm", "slstm.cu", "src/repro/models/xlstm.py:220")):
+        recs = rec_checks[name]
+        main_rec = recs[0]
+        kernels.append(dict(
+            rec_common, name=name,
+            source=f"src/repro_torch/models/csrc/{src}", replaces=replaces,
+            launches=tot(name), max_abs_err=max(r["max_abs_err"]
+                                                for r in recs),
+            within_tolerance=all(r["within_tolerance"] for r in recs),
+            ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
+            bound_ms=main_rec["bound_ms"], bound_by=main_rec["bound_by"],
+            shape=main_rec["shape"] + ": " + ", ".join(
+                f"{k_}={main_rec[k_]}" for k_ in ("B", "T", "H", "D", "Dh",
+                                                  "dtype", "chunk")
+                if k_ in main_rec),
+            ragged_shapes=[r["shape"] for r in recs[1:]]))
+        if name == "slstm":
+            kernels[-1].update(us_per_step=main_rec["us_per_step"],
+                               decode_ms=recs[-1]["ms"],
+                               decode_bound_ms=recs[-1]["bound_ms"])
+    for k in kernels[-3:]:
         assert k["launches"] > 0 and k["within_tolerance"], k
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("total", {"seconds": time.perf_counter() - t_start})

@@ -33,6 +33,9 @@ SOURCES = {
     / "flash_tc.cu",
     "flash_tf32x3": _PKG / "kernels" / "local_attention" / "csrc"
     / "flash_tf32x3.cu",
+    "rglru_scan": _PKG / "models" / "csrc" / "rglru_scan.cu",
+    "mlstm_chunk": _PKG / "models" / "csrc" / "mlstm_chunk.cu",
+    "slstm": _PKG / "models" / "csrc" / "slstm.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

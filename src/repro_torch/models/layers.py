@@ -139,3 +139,36 @@ def mlp_apply(p, x, *, kind: str = "swiglu"):
     else:
         raise ValueError(kind)
     return dense_apply(p["down"], h)
+
+
+# ---------------------------------------------------------------------------
+# Depthwise causal temporal convolution
+# ---------------------------------------------------------------------------
+
+def conv1d_init(gen, dim: int, width: int = 4, dtype=torch.float32, *,
+                lead=()):
+    """Depthwise causal temporal conv (Griffin / mLSTM front conv)."""
+    return {"w": _trunc_normal(gen, (*lead, width, dim), dtype,
+                               1.0 / width ** 0.5),
+            "b": torch.zeros((*lead, dim), dtype=dtype, device=gen.device)}
+
+
+def conv1d_apply(p, x, state=None):
+    """x: (B, T, D). Causal depthwise conv. With `state` ((B, width-1, D)
+    trailing context) it runs in streaming / decode mode. Returns (y,
+    new_state): the last width-1 inputs, for the next call."""
+    w = p["w"].to(x.dtype)
+    width = w.shape[0]
+    if state is None:
+        pad = x.new_zeros((*x.shape[:-2], width - 1, x.shape[-1]))
+        xp = torch.cat([pad, x], dim=-2)
+        new_state = xp[..., -(width - 1):, :] if width > 1 else None
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=-2)
+        new_state = xp[..., -(width - 1):, :]
+    # y[t] = sum_k w[k] * xp[t + k], summed in k order as the reference.
+    T = x.shape[-2]
+    y = w[0] * xp[..., 0:T, :]
+    for k in range(1, width):
+        y = y + w[k] * xp[..., k:k + T, :]
+    return y + p["b"].to(x.dtype), new_state

@@ -166,8 +166,9 @@ def model_apply(params, cfg, batch, *, compute_dtype=torch.float32):
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, *,
                device="cuda"):
-    """Empty decode caches: period-stacked KVCaches (leading n_periods
-    dimension, lengths (n_periods,)) plus one per remainder layer."""
+    """Empty decode caches, period-stacked (a leading n_periods dimension)
+    plus one per remainder layer: KVCaches (lengths (n_periods,)) for the
+    attention kinds, dicts of state tensors for the recurrent kinds."""
     device = check_device(device)
     cache = {}
     if cfg.n_periods > 0:
@@ -188,7 +189,9 @@ def model_decode(params, cfg, batch, cache, *, compute_dtype=torch.float32,
 
     batch: {"tokens": (B, 1)} (or {"embeds": (B, 1, d)}).
     Returns (logits (B, 1, vocab) f32, cache) — the cache updated in
-    place, through views of its period stacks.
+    place, through views of its period stacks (`blocks.block_decode`
+    writes every KV entry and recurrent state into the cache's own
+    tensors), so the caches the blocks return are not gathered.
     """
     if cfg.input_mode in ("tokens", "patch_prefix"):
         x = layers.embed_apply(params["embed"], batch["tokens"],

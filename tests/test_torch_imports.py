@@ -51,7 +51,8 @@ def test_port_has_its_modules():
                 "kernels/local_attention/ref.py", "train/train_step.py",
                 "core/pim_model.py", "core/distributed.py",
                 "launch/mesh.py", "roofline/__init__.py",
-                "roofline/analysis.py", "roofline/analytic.py"):
+                "roofline/analysis.py", "roofline/analytic.py",
+                "models/moe.py", "models/rglru.py", "models/xlstm.py"):
         assert f"src/repro_torch/{mod}" in names
 
 
