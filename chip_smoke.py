@@ -16,10 +16,16 @@ serving path — gemma3-27b at
 full width, 14 of its 62 layers, random bf16 weights from `--seed`: one
 32,768-token prefill, 4 x 1,152 tokens decoded through the KV caches and
 held against prefill logits, and an f32 check of the kernel path against
-naive attention and of decode against prefill — then the recurrent
-kernels B6 (RG-LRU scan), B7 (chunkwise mLSTM) and B8 (sLSTM, a thread-
-block cluster per head) against their plain versions at the main paths'
-shapes and at ragged edges (`recurrent_checks`), the MoE family —
+naive attention and of decode against prefill — then B8's per-step
+exchange alone (`slstm_exchange`: the probe `models/csrc/slstm_probe.cu`
+at B8's grid, cluster barrier against one-way `st.async` at cluster
+sizes 2-16; its fastest exchange is B8's latency floor), the recurrent
+kernels B6 (RG-LRU scan), B7 (chunkwise mLSTM: three chunk-parallel
+passes, each held against its own plain version) and B8 (sLSTM, a
+thread-block cluster per head, R in registers, a one-way h exchange)
+against their plain versions at the main paths' shapes and at ragged
+edges, with B7's and B8's first designs (on no route) held and timed in
+turns beside them (`recurrent_checks`), the MoE family —
 qwen2-moe-a2.7b whole: a 32,768-token prefill, 4 x 256 decode steps with
 the tokens capacity drops, and one full-width MoE layer each of
 qwen2-moe-a2.7b and mixtral-8x22b in f32 against the CPU (`lm_moe`) —
@@ -1369,53 +1375,146 @@ def rglru_check(name, B, T, D, dtype, seed, with_h0=False, reps=0):
     return rec
 
 
-def mlstm_check(name, B, H, T, D, chunk, seed, with_state=False, reps=0):
-    """B7 against `mlstm_chunk_scan_plain`: q, k, v as the (B, H, T, D)
-    views `_mlstm_qkv_gates` makes (k scaled by 1/sqrt(D)), gates
-    i~ ~ N(0, 1) and f~ = log_sigmoid(N(0, 1) + 1); a random carried
-    state when `with_state`."""
+def mlstm_inputs(B, H, T, D, seed, with_state=False, extreme=0):
+    """q, k, v as the (B, H, T, D) views `_mlstm_qkv_gates` makes (k
+    scaled by 1/sqrt(D)), gates i~ ~ N(0, 1) and f~ = log_sigmoid(N(0, 1)
+    + 1); a random carried state when `with_state`. `extreme` = the chunk
+    length L: tests/test_torch_xlstm_passes.py's extreme gates, by chunk c
+    — i~ + 6 on the middle step when c % 3 == 0, i~ - 40 on every step
+    when c % 3 == 1 (M_c keeps the carried m), the forget pre-activation
+    - 8 on the middle step when c % 3 == 2 (M_c = G_c) — and q, k shifted
+    by 2 and 2/sqrt(D) on every column (a shared direction that keeps the
+    normaliser away from zero, so that f32 in any order is good to ~1e-6
+    of the largest output)."""
     g = torch.Generator(device=DEV).manual_seed(seed)
 
     def heads():
         return torch.randn(B, T, H, D, device=DEV, generator=g) \
             .transpose(1, 2)
     q, k, v = heads(), heads() / D ** 0.5, heads()
-    it = torch.randn(B, T, H, device=DEV, generator=g).transpose(1, 2)
-    ft = torch.nn.functional.logsigmoid(
-        torch.randn(B, T, H, device=DEV, generator=g) + 1.0).transpose(1, 2)
+    it = torch.randn(B, T, H, device=DEV, generator=g)
+    fpre = torch.randn(B, T, H, device=DEV, generator=g) + 1.0
+    if extreme:
+        L = extreme
+        t = torch.arange(T, device=DEV)[None, :, None]
+        c, mid = t // L, t % L == L // 2
+        it = torch.where(mid & (c % 3 == 0), it + 6.0, it)
+        it = torch.where(c % 3 == 1, it - 40.0, it)
+        fpre = torch.where(mid & (c % 3 == 2), fpre - 8.0, fpre)
+        q, k = q + 2.0, k + 2.0 / D ** 0.5
+    it = it.transpose(1, 2)
+    ft = torch.nn.functional.logsigmoid(fpre).transpose(1, 2)
     state = xlstm_mod.mlstm_state_init(B, H, D, device=DEV)
     if with_state:
         state = {"C": torch.randn(B, H, D, D, device=DEV, generator=g),
                  "n": torch.randn(B, H, D, device=DEV, generator=g),
                  "m": torch.randn(B, H, device=DEV, generator=g)}
+    return q, k, v, it, ft, state
+
+
+def mlstm_bounds(B, H, T, D, L):
+    """(ms, what binds) of B7 whole (the first design's figure: f32 FMA
+    operations, q, k, v, gates, h and the state once) and of each pass
+    (its own inputs read once, its outputs — the D^2 + D + 2 values of a
+    chunk's state — written once)."""
+    nc = T // L
+    state_b = 4 * B * H * nc * (D * D + D + 2)
+    whole = bound_of(B * H * nc * (2 * L * (L + 1) * D + 4 * L * D * D
+                                   + 4 * L * D),
+                     4 * (4 * B * T * H * D + 2 * B * H * T
+                          + 2 * B * H * (D * D + D + 1)))
+    states = bound_of(B * H * nc * (2 * L * D * D + 2 * L * D + 4 * L),
+                      4 * (2 * B * T * H * D + 2 * B * H * T) + state_b)
+    scan = bound_of(B * H * nc * (3 * (D * D + D) + 6),
+                    2 * state_b + 8 * B * H * (D * D + D + 1))
+    outputs = bound_of(B * H * nc * (2 * L * L * D + L * (L + 1) * D
+                                     + 2 * L * D * D + 2 * L * D + 8 * L),
+                       4 * (4 * B * T * H * D + 2 * B * H * T) + state_b)
+    return {"whole": whole, "mlstm_chunk_states": states,
+            "mlstm_state_scan": scan, "mlstm_chunk_outputs": outputs}
+
+
+def mlstm_check(name, B, H, T, D, chunk, seed, with_state=False,
+                extreme=0, reps=0):
+    """B7 on the card: the whole (the three pass kernels) and the first
+    design against `mlstm_chunk_scan_plain`, and each pass kernel against
+    its plain version fed by the plain versions of the passes before it.
+    With `reps`, the designs timed in turns (first, passes, passes,
+    first) and each pass alone."""
+    q, k, v, it, ft, state = mlstm_inputs(B, H, T, D, seed, with_state,
+                                          extreme)
     args = (q, k, v, it, ft, state, chunk)
+    keys = ("C", "n", "m")
     h, st = xlstm_mod.mlstm_chunk_scan_cuda(*args)
+    hf, stf = xlstm_mod.mlstm_chunk_scan_first_cuda(*args)
     torch.cuda.synchronize()
     plain_ms, (hr, sr) = time_host(
         lambda: xlstm_mod.mlstm_chunk_scan_plain(*args))
-    err, ok = rec_errs([h, st["C"], st["n"], st["m"]],
-                       [hr, sr["C"], sr["n"], sr["m"]])
+    refs = [hr, *(sr[k_] for k_ in keys)]
+    err, ok = rec_errs([h, *(st[k_] for k_ in keys)], refs)
+    ferr, fok = rec_errs([hf, *(stf[k_] for k_ in keys)], refs)
+
+    def parts(work, scal, m_col):
+        return [work[..., :D, :D], work[..., D, :D], scal[..., m_col]]
+    passes = {}
+    ms1, (wp, sp) = time_host(
+        lambda: xlstm_mod.mlstm_chunk_states_plain(k, v, it, ft, chunk))
+    wc, sc = xlstm_mod.mlstm_chunk_states_cuda(k, v, it, ft, chunk)
+    passes["mlstm_chunk_states"] = (ms1, *rec_errs(
+        parts(wc, sc, 0) + [sc[..., 1]], parts(wp, sp, 0) + [sp[..., 1]]))
+    wc, sc = wp.clone(), sp.clone()
+    ms2, sr2 = time_host(
+        lambda: xlstm_mod.mlstm_state_scan_plain(wp, sp, state))
+    st2 = xlstm_mod.mlstm_state_scan_cuda(wc, sc, state)
+    passes["mlstm_state_scan"] = (ms2, *rec_errs(
+        parts(wc, sc, 2) + [st2[k_] for k_ in keys],
+        parts(wp, sp, 2) + [sr2[k_] for k_ in keys]))
+    ms3, hp = time_host(lambda: xlstm_mod.mlstm_chunk_outputs_plain(
+        q, k, v, it, ft, wp, sp, chunk))
+    hc = xlstm_mod.mlstm_chunk_outputs_cuda(q, k, v, it, ft, wp, sp, chunk)
+    passes["mlstm_chunk_outputs"] = (ms3, *rec_err(hc, hp))
     rec = {"shape": name, "B": B, "H": H, "T": T, "D": D, "chunk": chunk,
-           "state_in": with_state, "max_abs_err": err,
-           "within_tolerance": ok, "plain_ms": plain_ms}
+           "state_in": with_state, "extreme_gates": bool(extreme),
+           "max_abs_err": err, "within_tolerance": ok, "plain_ms": plain_ms,
+           "first_max_abs_err": ferr, "first_within_tolerance": fok,
+           "scratch_bytes": xlstm_mod.mlstm_work_bytes(B, H, T, D, chunk),
+           "passes": {key: {"plain_ms": p[0], "max_abs_err": p[1],
+                            "within_tolerance": p[2]}
+                      for key, p in passes.items()}}
     if reps:
-        L, nc = chunk, T // chunk
-        ops = B * H * nc * (2 * L * (L + 1) * D + 4 * L * D * D + 4 * L * D)
-        nbytes = 4 * (4 * B * T * H * D + 2 * B * H * T
-                      + 2 * B * H * (D * D + D + 1))
-        bound, by = bound_of(ops, nbytes)
-        rec.update(ms=time_cuda(
-            lambda: xlstm_mod.mlstm_chunk_scan_cuda(*args), reps),
-            bound_ms=bound, bound_by=by)
-    if not ok:
+        bounds = mlstm_bounds(B, H, T, D, chunk)
+        turns = [time_cuda(lambda: fn(*args), reps) for fn in (
+            xlstm_mod.mlstm_chunk_scan_first_cuda,
+            xlstm_mod.mlstm_chunk_scan_cuda,
+            xlstm_mod.mlstm_chunk_scan_cuda,
+            xlstm_mod.mlstm_chunk_scan_first_cuda)]
+        rec.update(ms=(turns[1] + turns[2]) / 2,
+                   first_ms=(turns[0] + turns[3]) / 2, ms_turns=turns,
+                   bound_ms=bounds["whole"][0],
+                   bound_by=bounds["whole"][1])
+        wt, stt = wp.clone(), sp.clone()
+        for key, fn in (
+                ("mlstm_chunk_states",
+                 lambda: xlstm_mod.mlstm_chunk_states_cuda(k, v, it, ft,
+                                                           chunk)),
+                ("mlstm_state_scan",
+                 lambda: xlstm_mod.mlstm_state_scan_cuda(wt, stt, state)),
+                ("mlstm_chunk_outputs",
+                 lambda: xlstm_mod.mlstm_chunk_outputs_cuda(
+                     q, k, v, it, ft, wp, sp, chunk))):
+            passes_rec = rec["passes"][key]
+            passes_rec.update(ms=time_cuda(fn, reps),
+                              bound_ms=bounds[key][0],
+                              bound_by=bounds[key][1])
+    if not (ok and fok and all(p[2] for p in passes.values())):
         raise AssertionError(f"B7 != plain: {rec}")
     return rec
 
 
-def slstm_check(name, B, T, H, Dh, dtype, seed, with_state=False, reps=0):
-    """B8 against `slstm_scan_plain`: wx ~ N(0, 1) (the dense outputs of
-    a normalised input), R ~ N(0, 1/Dh) as the init; a random state when
-    `with_state` (n > 0, as the recurrence keeps it)."""
+def slstm_inputs(B, T, H, Dh, dtype, seed, with_state=False):
+    """wx ~ N(0, 1) (the dense outputs of a normalised input), R ~ N(0,
+    1/Dh) as the init; a random state when `with_state` (n > 0, as the
+    recurrence keeps it)."""
     g = torch.Generator(device=DEV).manual_seed(seed)
     d = H * Dh
     wx = {gn: torch.randn(B, T, d, device=DEV, generator=g).to(dtype)
@@ -1428,28 +1527,117 @@ def slstm_check(name, B, T, H, Dh, dtype, seed, with_state=False, reps=0):
                  "c": torch.randn(B, H, Dh, device=DEV, generator=g),
                  "n": 1 + torch.rand(B, H, Dh, device=DEV, generator=g),
                  "m": torch.randn(B, H, Dh, device=DEV, generator=g)}
+    return wx, r, state
+
+
+def slstm_check(name, B, T, H, Dh, dtype, seed, with_state=False, reps=0,
+                variants=False):
+    """B8 (default launch shape) and its first design against
+    `slstm_scan_plain`; with `reps` both timed in turns (first, new, new,
+    first); with `variants` every other cluster size up to 8 and the cell
+    update on tanhf / expf / log1pf, each held against the same plain
+    result and timed."""
+    wx, r, state = slstm_inputs(B, T, H, Dh, dtype, seed, with_state)
+    keys = ("h", "c", "n", "m")
     h, st = xlstm_mod.slstm_scan_cuda(wx, r, state)
+    hf, stf = xlstm_mod.slstm_scan_first_cuda(wx, r, state)
     torch.cuda.synchronize()
     plain_ms, (hr, sr) = time_host(
         lambda: xlstm_mod.slstm_scan_plain(wx, r, state))
-    keys = ("h", "c", "n", "m")
-    err, ok = rec_errs([h, *(st[k_] for k_ in keys)],
-                       [hr, *(sr[k_] for k_ in keys)])
+    refs = [hr, *(sr[k_] for k_ in keys)]
+    err, ok = rec_errs([h, *(st[k_] for k_ in keys)], refs)
+    ferr, fok = rec_errs([hf, *(stf[k_] for k_ in keys)], refs)
     rec = {"shape": name, "B": B, "T": T, "H": H, "Dh": Dh,
            "dtype": str(dtype).split(".")[-1], "state_in": with_state,
-           "max_abs_err": err, "within_tolerance": ok, "plain_ms": plain_ms}
+           "cluster": xlstm_mod.slstm_cluster(Dh),
+           "max_abs_err": err, "within_tolerance": ok, "plain_ms": plain_ms,
+           "first_max_abs_err": ferr, "first_within_tolerance": fok}
     if reps:
+        d = H * Dh
         es = wx["z"].element_size()
         ops = B * T * H * Dh * (8 * Dh + SLSTM_CELL_OPS)
         nbytes = 4 * B * T * d * es + 4 * H * Dh * Dh * r["z"].element_size() \
             + B * T * d * 4 + 8 * B * d * 4
         bound, by = bound_of(ops, nbytes)
-        ms = time_cuda(lambda: xlstm_mod.slstm_scan_cuda(wx, r, state), reps)
-        rec.update(ms=ms, bound_ms=bound, bound_by=by,
-                   us_per_step=ms * 1e3 / T)
-    if not ok:
+        turns = [time_cuda(lambda: fn(wx, r, state), reps) for fn in (
+            xlstm_mod.slstm_scan_first_cuda, xlstm_mod.slstm_scan_cuda,
+            xlstm_mod.slstm_scan_cuda, xlstm_mod.slstm_scan_first_cuda)]
+        ms, first_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        rec.update(ms=ms, first_ms=first_ms, ms_turns=turns, bound_ms=bound,
+                   bound_by=by, us_per_step=ms * 1e3 / T,
+                   first_us_per_step=first_ms * 1e3 / T)
+    if variants:
+        rec["variants"] = []
+        for cl in range(xlstm_mod.slstm_cluster(Dh), 9):
+            for fast in (True, False):
+                def run(cl=cl, fast=fast):
+                    return xlstm_mod.slstm_scan_cuda(wx, r, state,
+                                                     cluster=cl, fast=fast)
+                hv, sv = run()
+                verr, vok = rec_errs([hv, *(sv[k_] for k_ in keys)], refs)
+                vms = time_cuda(run, max(reps, 1))
+                rec["variants"].append({
+                    "cluster": cl, "fast": fast, "max_abs_err": verr,
+                    "within_tolerance": vok, "ms": vms,
+                    "us_per_step": vms * 1e3 / T})
+    if not (ok and fok):
         raise AssertionError(f"B8 != plain: {rec}")
     return rec
+
+
+#: Cluster sizes the exchange probe and B8 are tried at (16 needs the
+#: non-portable cluster attribute and may not launch).
+PROBE_CLUSTERS = (2, 4, 6, 8, 16)
+PROBE_VARIANTS = ("dsmem_cluster_sync", "st_async_mbarrier",
+                  "st_async_mbarrier_cell", "tagged_dsmem_spin")
+
+
+def slstm_exchange_probe(quick):
+    """`models/csrc/slstm_probe.cu` at B8's main grid shape (xlstm-125m: 4
+    heads of Dh 192, one cluster each) over T empty steps: µs per step of
+    each exchange variant at each cluster size, in turns (each size's
+    variants back to back, twice); the least of the one-way variants is
+    B8's latency floor per step."""
+    import ctypes
+    fn = build.load("slstm_probe").slstm_probe_launch
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    xl = get_config("xlstm-125m")
+    Dh, BH = xl.d_model // xl.n_heads, xl.n_heads
+    T = 4096 if quick else 32768
+    out = torch.empty(BH, Dh, device=DEV)
+    stream = torch.cuda.current_stream().cuda_stream
+    us = {v: {} for v in PROBE_VARIANTS}
+    errors = {}
+    for cl in PROBE_CLUSTERS:
+        for rep in range(2):
+            for vi, v in enumerate(PROBE_VARIANTS):
+                err = fn(vi, cl, BH, Dh, 64, out.data_ptr(), stream)
+                if err:
+                    errors[f"{v}@{cl}"] = err
+                    continue
+                torch.cuda.synchronize()
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                err = fn(vi, cl, BH, Dh, T, out.data_ptr(), stream)
+                t1.record()
+                torch.cuda.synchronize()
+                assert err == 0 and torch.isfinite(out).all(), (v, cl, err)
+                step = t0.elapsed_time(t1) * 1e3 / T
+                us[v][cl] = min(us[v].get(cl, step), step)
+    exchange = [(t, v, cl) for v in PROBE_VARIANTS if not v.endswith("cell")
+                for cl, t in us[v].items()]
+    floor, floor_variant, floor_cluster = min(exchange)
+    return {"T": T, "B_H": BH, "Dh": Dh, "us_per_step": us,
+            "launch_errors": errors, "floor_us_per_step": floor,
+            "floor_variant": floor_variant, "floor_cluster": floor_cluster,
+            "variants": {v: d for v, d in zip(PROBE_VARIANTS, (
+                "plain DSMEM stores + cluster barrier (B8's first design)",
+                "st.async into each rank + own mbarrier parity wait",
+                "the same + the sLSTM cell update on each unit's thread",
+                "64-bit (step, h) DSMEM stores, spin on own buffer + one "
+                "block barrier"))}}
 
 
 def recurrent_checks(quick):
@@ -1458,9 +1646,13 @@ def recurrent_checks(quick):
     one 32,768-token sequence; --quick 4,096), timed there, and at ragged
     edges: B6 at T = 1,000 (not a multiple of its 64-step chunk) with an
     incoming h, f32 and bf16; B7 with chunk 40 (not its 64-row tile) and
-    a carried state, and the ragged T = 200 = 5 chunks of 40; B8 at
-    T = 37 with a state, at Dh = 20 (not a multiple of its 8 cluster
-    ranks), and at T = 1 (decode) in bf16."""
+    a carried state, the ragged T = 200 = 5 chunks of 40, D 16 at chunk
+    16, B 2 at 3 chunks, and the extreme gates that switch M_c between the
+    carried m and G_c; B8 at T = 37 with a state, at Dh = 20 (not a
+    multiple of its cluster ranks), at T = 1 (decode) in bf16, at the
+    largest head size the wrapper takes (256) and at B 64 x 4 heads (more
+    clusters than the SMs hold at once). B7's and B8's first designs are
+    held at every shape and timed in turns with the new ones."""
     T = 4096 if quick else 32768
     reps = 3 if quick else 5
     rg = get_config("recurrentgemma-9b")
@@ -1471,20 +1663,27 @@ def recurrent_checks(quick):
                       with_h0=True),
           rglru_check("ragged_bf16", 2, 1000, rg.d_model, torch.bfloat16, 23,
                       with_h0=True)]
-    b7 = [mlstm_check("main", 1, xl.n_heads, T, xl.head_dim, 64, 24,
-                      reps=reps),
-          mlstm_check("chunk40_state", 2, xl.n_heads, 200, xl.head_dim, 40,
-                      25, with_state=True),
-          mlstm_check("d16_chunk16", 2, 3, 48, 16, 16, 26, with_state=True)]
+    H, D = xl.n_heads, xl.head_dim
+    b7 = [mlstm_check("main", 1, H, T, D, 64, 24, reps=reps),
+          mlstm_check("chunk40_state", 2, H, 200, D, 40, 25,
+                      with_state=True),
+          mlstm_check("d16_chunk16", 2, 3, 48, 16, 16, 26, with_state=True),
+          mlstm_check("b2_3chunks", 2, H, 192, D, 64, 31, with_state=True),
+          mlstm_check("extreme_gates", 2, H, 1024, D, 64, 32,
+                      with_state=True, extreme=64)]
     Dh = xl.d_model // xl.n_heads
-    b8 = [slstm_check("main", 1, T, xl.n_heads, Dh, torch.bfloat16, 27,
-                      reps=reps),
-          slstm_check("ragged_f32_state", 2, 37, xl.n_heads, Dh,
-                      torch.float32, 28, with_state=True),
+    b8 = [slstm_check("main", 1, T, H, Dh, torch.bfloat16, 27, reps=reps,
+                      variants=True),
+          slstm_check("ragged_f32_state", 2, 37, H, Dh, torch.float32, 28,
+                      with_state=True),
           slstm_check("dh20", 2, 16, 3, 20, torch.float32, 29,
                       with_state=True),
-          slstm_check("decode_bf16", 4, 1, xl.n_heads, Dh, torch.bfloat16,
-                      30, with_state=True, reps=20)]
+          slstm_check("dh256", 1, 64, 2, xlstm_mod.SLSTM_MAX_HEAD_DIM,
+                      torch.float32, 33, with_state=True),
+          slstm_check("b64_h4", 64, 32, H, Dh, torch.bfloat16, 34,
+                      with_state=True),
+          slstm_check("decode_bf16", 4, 1, H, Dh, torch.bfloat16, 30,
+                      with_state=True, reps=20, variants=True)]
     return {"rglru_scan": b6, "mlstm_chunk": b7, "slstm": b8}
 
 
@@ -1798,7 +1997,10 @@ def lm_recurrent_phase(args, paths):
     rg = recurrent_model(args, "recurrentgemma-9b", 8, paths, "_rg",
                          {"rglru_scan": ("rglru",), "flash_tc": ("local",)})
     xl = recurrent_model(args, "xlstm-125m", 4, paths, "_xl",
-                         {"mlstm_chunk": ("mlstm",), "slstm": ("slstm",)})
+                         {"mlstm_chunk_states": ("mlstm",),
+                          "mlstm_state_scan": ("mlstm",),
+                          "mlstm_chunk_outputs": ("mlstm",),
+                          "slstm": ("slstm",)})
     mixers = [mixer_teacher_forcing("recurrentgemma-9b", "rglru",
                                     args.seed + 7),
               mixer_teacher_forcing("xlstm-125m", "mlstm", args.seed + 8),
@@ -1847,8 +2049,12 @@ COUNTERS = {
     "flash_tf32x3": flash_attention_tf32x3_cuda,
     "flash_fma": flash_attention_fma_cuda,
     "rglru_scan": rglru_mod.rglru_scan_cuda,
-    "mlstm_chunk": xlstm_mod.mlstm_chunk_scan_cuda,
+    "mlstm_chunk_states": xlstm_mod.mlstm_chunk_states_cuda,
+    "mlstm_state_scan": xlstm_mod.mlstm_state_scan_cuda,
+    "mlstm_chunk_outputs": xlstm_mod.mlstm_chunk_outputs_cuda,
+    "mlstm_chunk_first": xlstm_mod.mlstm_chunk_scan_first_cuda,
     "slstm": xlstm_mod.slstm_scan_cuda,
+    "slstm_first": xlstm_mod.slstm_scan_first_cuda,
 }
 PLAIN = {
     "plain_banded": banded.banded_align_batch,
@@ -1857,6 +2063,9 @@ PLAIN = {
     "plain_flash": flash_attention_plain,
     "plain_rglru": rglru_mod.rglru_scan_plain,
     "plain_mlstm": xlstm_mod.mlstm_chunk_scan_plain,
+    "plain_mlstm_states": xlstm_mod.mlstm_chunk_states_plain,
+    "plain_mlstm_scan": xlstm_mod.mlstm_state_scan_plain,
+    "plain_mlstm_outputs": xlstm_mod.mlstm_chunk_outputs_plain,
     "plain_slstm": xlstm_mod.slstm_scan_plain,
 }
 
@@ -2519,6 +2728,10 @@ def main():
     # ---- 2b. B6-B8 vs their plain versions; the MoE and recurrent
     # model families ----
     t0 = time.perf_counter()
+    probe = slstm_exchange_probe(args.quick)
+    probe["seconds"] = time.perf_counter() - t0
+    emit("slstm_exchange", probe)
+    t0 = time.perf_counter()
     rec_checks = recurrent_checks(args.quick)
     emit("recurrent_checks", dict(
         rec_checks, seconds=time.perf_counter() - t0,
@@ -2984,32 +3197,67 @@ def main():
         assert k["launches"] > 0 and k["within_tolerance"], k
     rec_common = dict(common, tolerance=f"{REC_TOL} x max |plain| per f32 "
                       f"output; one bf16 ulp more for bf16")
-    for name, src, replaces in (
-            ("rglru_scan", "rglru_scan.cu", "src/repro/models/rglru.py:51"),
-            ("mlstm_chunk", "mlstm_chunk.cu",
-             "src/repro/models/xlstm.py:117"),
-            ("slstm", "slstm.cu", "src/repro/models/xlstm.py:220")):
-        recs = rec_checks[name]
+    def rec_entry(name, src, replaces, recs, **extra):
         main_rec = recs[0]
-        kernels.append(dict(
+        return dict(
             rec_common, name=name,
             source=f"src/repro_torch/models/csrc/{src}", replaces=replaces,
-            launches=tot(name), max_abs_err=max(r["max_abs_err"]
-                                                for r in recs),
-            within_tolerance=all(r["within_tolerance"] for r in recs),
-            ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
-            bound_ms=main_rec["bound_ms"], bound_by=main_rec["bound_by"],
-            shape=main_rec["shape"] + ": " + ", ".join(
+            launches=tot(name), shape=main_rec["shape"] + ": " + ", ".join(
                 f"{k_}={main_rec[k_]}" for k_ in ("B", "T", "H", "D", "Dh",
                                                   "dtype", "chunk")
                 if k_ in main_rec),
-            ragged_shapes=[r["shape"] for r in recs[1:]]))
-        if name == "slstm":
-            kernels[-1].update(us_per_step=main_rec["us_per_step"],
-                               decode_ms=recs[-1]["ms"],
-                               decode_bound_ms=recs[-1]["bound_ms"])
-    for k in kernels[-3:]:
+            ragged_shapes=[r["shape"] for r in recs[1:]], **extra)
+    b6 = rec_checks["rglru_scan"]
+    kernels.append(rec_entry(
+        "rglru_scan", "rglru_scan.cu", "src/repro/models/rglru.py:51", b6,
+        max_abs_err=max(r["max_abs_err"] for r in b6),
+        within_tolerance=all(r["within_tolerance"] for r in b6),
+        ms=b6[0]["ms"], plain_ms=b6[0]["plain_ms"],
+        bound_ms=b6[0]["bound_ms"], bound_by=b6[0]["bound_by"]))
+    # B7: one entry per pass kernel; the whole (three launches) and the
+    # first design, timed in turns, beside the first pass.
+    b7 = rec_checks["mlstm_chunk"]
+    main7 = b7[0]
+    whole7 = {key: main7[key] for key in (
+        "ms", "first_ms", "ms_turns", "plain_ms", "bound_ms", "bound_by",
+        "scratch_bytes")}
+    whole7.update(max_abs_err=max(r["max_abs_err"] for r in b7),
+                  first_max_abs_err=max(r["first_max_abs_err"] for r in b7),
+                  first_launches=tot("mlstm_chunk_first"))
+    for i, key in enumerate(("mlstm_chunk_states", "mlstm_state_scan",
+                             "mlstm_chunk_outputs")):
+        pr = main7["passes"][key]
+        kernels.append(rec_entry(
+            key, "mlstm_chunk.cu", "src/repro/models/xlstm.py:117", b7,
+            max_abs_err=max(r["passes"][key]["max_abs_err"] for r in b7),
+            within_tolerance=all(r["passes"][key]["within_tolerance"]
+                                 for r in b7),
+            ms=pr["ms"], plain_ms=pr["plain_ms"], bound_ms=pr["bound_ms"],
+            bound_by=pr["bound_by"], **({"b7_whole": whole7} if i == 0
+                                         else {})))
+    b8 = rec_checks["slstm"]
+    main8, dec8 = b8[0], b8[-1]
+    kernels.append(rec_entry(
+        "slstm", "slstm.cu", "src/repro/models/xlstm.py:220", b8,
+        max_abs_err=max(r["max_abs_err"] for r in b8),
+        within_tolerance=all(r["within_tolerance"] for r in b8),
+        ms=main8["ms"], plain_ms=main8["plain_ms"],
+        bound_ms=main8["bound_ms"], bound_by=main8["bound_by"],
+        latency_floor_ms=probe["floor_us_per_step"] * main8["T"] / 1e3,
+        latency_floor_us_per_step=probe["floor_us_per_step"],
+        us_per_step=main8["us_per_step"], cluster=main8["cluster"],
+        first_ms=main8["first_ms"], ms_turns=main8["ms_turns"],
+        first_us_per_step=main8["first_us_per_step"],
+        first_max_abs_err=max(r["first_max_abs_err"] for r in b8),
+        first_launches=tot("slstm_first"), decode_ms=dec8["ms"],
+        decode_first_ms=dec8["first_ms"], decode_ms_turns=dec8["ms_turns"],
+        decode_bound_ms=dec8["bound_ms"],
+        decode_bound_by=dec8["bound_by"]))
+    for k in kernels[-5:]:
         assert k["launches"] > 0 and k["within_tolerance"], k
+    # The first designs are on no route: no main path launched them.
+    assert tot("mlstm_chunk_first") == 0 and tot("slstm_first") == 0, \
+        (tot("mlstm_chunk_first"), tot("slstm_first"))
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("total", {"seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -36,6 +36,11 @@ SOURCES = {
     "rglru_scan": _PKG / "models" / "csrc" / "rglru_scan.cu",
     "mlstm_chunk": _PKG / "models" / "csrc" / "mlstm_chunk.cu",
     "slstm": _PKG / "models" / "csrc" / "slstm.cu",
+    "slstm_probe": _PKG / "models" / "csrc" / "slstm_probe.cu",
+    # B7's and B8's first designs, on no route: timed beside their
+    # redesigns by chip_smoke.py only.
+    "mlstm_chunk_first": _PKG / "models" / "csrc" / "mlstm_chunk_first.cu",
+    "slstm_first": _PKG / "models" / "csrc" / "slstm_first.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -12,58 +12,120 @@
 //
 // Strictly sequential in t: every step needs all of h_{t-1}.
 //
-// Design: one thread-block cluster of 8 blocks per (b, head). Block r of
-// the cluster owns units [r U, (r+1) U), U = ceil(Dh / 8), one warp a unit.
-// It keeps the four gates' R columns of its units in shared memory, as
-// f32, for the whole sequence (4 x 192 x 24 x 4 B = 74 KB at Dh 192; the
-// whole R of a head, 590 KB in f32, fits no single SM). Each step a warp
-// forms its unit's four pre-activations — lanes 8g..8g+7 split gate g's
-// dot product over k and reduce by shuffles — lane 0 updates the unit's
-// c, n, m, h in registers, and eight lanes write the new h into the h
-// buffer of every block of the cluster through distributed shared memory.
-// One cluster barrier per step; the h buffer is double-buffered, so a
-// block may start step t+1's writes while another still reads step t's
-// buffer only after that block has passed the barrier of step t. The wx
-// inputs of step t+1 are loaded during step t.
+// What bounds it on an H100: the chain of steps. Neither the bytes (R
+// once, wx once, h out) nor the operations (8 Dh^2 FLOP per (b, head,
+// step)) come near: at xlstm-125m's 1 x 4 heads x 32,768 steps the
+// operations bound is 0.59 ms, 18 ns a step. A step's latency is set by
+// handing h to every SM that holds part of R and by the cell update, so
+// the design shortens that chain.
 //
-// What bounds it on an H100: the serial chain of steps, one cluster
-// barrier and one exchange through distributed shared memory each, not
-// bytes (R once, wx once, h out) nor operations (8 Dh^2 FLOP per (b,
-// head, step)).
+// Design. One thread-block cluster of CL blocks per (b, head) (CL is a
+// launch argument; the wrapper takes the fewest blocks that hold <= 32
+// units each, 6 at Dh 192); block r owns units [r U, (r+1) U),
+// U = ceil(Dh / CL), one unit per lane. A block has 8 warps: warp w holds
+// rows k of [w KS, (w+1) KS) of its units' four R columns in registers,
+// as f32 (a bf16 R is widened once when loaded; 4 x KS <= 128 registers a
+// thread at Dh 256, within the 255 that 256 threads may each hold),
+// loaded once per launch, neighbouring lanes on neighbouring columns
+// (coalesced). Each step:
+//
+//   1. every thread waits for h_{t-1} in its block's own h buffer, dots
+//      its KS values of h (float4 reads, a broadcast) with its four R
+//      columns and writes the four partial sums to shared memory;
+//   2. one block barrier; warp 0 adds the 8 partials of its unit's four
+//      gates, adds wx, and runs the cell update, lane = unit, so the units
+//      of a block update in parallel and the four gates' activations are
+//      independent chains of one lane;
+//   3. warp 0 stores h_t into the h buffer of every block of the cluster
+//      (itself included) with `st.async`, each completing 4 bytes on that
+//      block's mbarrier, and writes h_t to global memory (U contiguous
+//      floats, one store instruction).
+//
+// The exchange is one-way: no cluster barrier. Each block has two h
+// buffers with one mbarrier each; a block waits on the parity of its own
+// barrier and re-arms it (`arrive.expect_tx` of Dh x 4 bytes) as soon as
+// the wait returns. Why a store into buffer (t+1) % 2 can never land
+// while a block still reads it for step t-1: a block at step t already
+// holds every peer's h_{t-1}, and each peer sent that only after the
+// block barrier of its step t-1, which all of that peer's threads pass
+// only after reading their h for step t-1. For the same reason a
+// barrier's phase has completed before any byte of its next phase
+// arrives. The last step sends nothing, so no store is in flight into a
+// block that has exited.
+//
+// wx is pulled into L2 by warp 0 `PREFETCH` steps ahead and loaded into
+// registers two steps ahead (the loop is unrolled by two so that no
+// register is moved while its load is in flight). The cell update uses
+// the fast intrinsics (__expf, __logf, __fdividef; tanh as
+// 1 - 2 / (exp(2|x|) + 1)) when `fast` is set: their errors (a few ulp,
+// absolute below 1e-6 in the activations) stay far inside the kernel's
+// stated tolerance; `fast` = 0 uses tanhf, expf and log1pf as the first
+// design did. chip_smoke.py times both, and every cluster size up to 8.
+//
+// Tried and not adopted: 16 warps of half as many rows (R's 64 registers
+// a thread and the partial sums did not fit the 128 registers that 512
+// threads may each hold, and spilled to local memory); a wx ring in
+// registers four steps deep (no faster than the L2 prefetch); a hang
+// guard counting the barrier polls (it lengthened every step); bf16 R
+// kept packed as bf16x2 and widened by a shift each step (the f32 slice
+// fits the registers, so the shift would only add instructions); a
+// staging tile for h_out (warp 0's store of U contiguous floats is already
+// one coalesced instruction); the exchange as 64-bit (step, h) stores
+// that the receiver spins on (slower than `st.async`: slstm_probe.cu).
+// chip_smoke.py's `slstm_exchange` line times the exchange alone at
+// cluster sizes 2-16 (the latency floor of a step) and its
+// `recurrent_checks` line the kernel (PERF.md §6).
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace cg = cooperative_groups;
+#include "cluster_exchange.cuh"
 
 namespace {
 
-constexpr int CL = 8;              // blocks per cluster
-constexpr int MAX_UNITS = 32;      // warps per block
-constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int KS_MAX = 32;          // rows of R per thread: Dh <= 256
+constexpr int MAX_UNITS = 32;       // units per block: one per lane
+constexpr int PREFETCH = 16;        // steps ahead that wx is pulled into L2
 
-__device__ __forceinline__ float load(const float* p, int64_t i) {
-  return p[i];
-}
-__device__ __forceinline__ float load(const __nv_bfloat16* p, int64_t i) {
-  return __bfloat162float(p[i]);
-}
-
-// Stride of one gate's R column in shared memory: a multiple of 32 plus 8,
-// so the four gates' lanes (k = j + 8 i at gate g) fall on 32 banks.
-__host__ __device__ inline int gate_stride(int Dh) {
-  return (Dh + 31) / 32 * 32 + 8;
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
 
-__device__ __forceinline__ float log_sigmoid(float x) {
-  return -(fmaxf(-x, 0.0f) + log1pf(expf(-fabsf(x))));
-}
+template <bool FAST>
+struct Cell {
+  float c, n, m, h;
 
-template <typename TX, typename TR>
-__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(MAX_UNITS * 32)
+  __device__ __forceinline__ void step(float pz, float pi, float pf,
+                                       float po) {
+    const float ft = pf + 1.0f;
+    float z, o, lsf;
+    if (FAST) {
+      const float az = fabsf(pz);
+      z = copysignf(1.0f - __fdividef(2.0f, __expf(2.0f * az) + 1.0f), pz);
+      o = __fdividef(1.0f, 1.0f + __expf(-po));
+      lsf = fminf(ft, 0.0f) - __logf(1.0f + __expf(-fabsf(ft)));
+    } else {
+      z = tanhf(pz);
+      o = 1.0f / (1.0f + expf(-po));
+      lsf = -(fmaxf(-ft, 0.0f) + log1pf(expf(-fabsf(ft))));
+    }
+    const float m_new = fmaxf(lsf + m, pi);
+    const float ip = FAST ? __expf(pi - m_new) : expf(pi - m_new);
+    const float fp = FAST ? __expf(lsf + m - m_new) : expf(lsf + m - m_new);
+    c = fp * c + ip * z;
+    n = fp * n + ip;
+    h = FAST ? __fdividef(o * c, fmaxf(n, 1e-6f)) : o * c / fmaxf(n, 1e-6f);
+    m = m_new;
+  }
+};
+
+template <typename TX, typename TR, bool FAST>
+__global__ void __launch_bounds__(THREADS, 1)
 slstm_kernel(const TX* __restrict__ wz, const TX* __restrict__ wi,
              const TX* __restrict__ wf, const TX* __restrict__ wo,
              const TR* __restrict__ rz, const TR* __restrict__ ri,
@@ -72,110 +134,163 @@ slstm_kernel(const TX* __restrict__ wz, const TX* __restrict__ wi,
              const float* __restrict__ n0, const float* __restrict__ m0,
              float* __restrict__ hout, float* __restrict__ h1,
              float* __restrict__ c1, float* __restrict__ n1,
-             float* __restrict__ m1, int T, int H, int Dh, int U) {
-  extern __shared__ float smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int GS = gate_stride(Dh);
-  float* Rs = smem;                         // [U][4][GS]
-  float* hbuf = smem + (size_t)U * 4 * GS;  // [2][Dh]
+             float* __restrict__ m1, int T, int H, int Dh, int U, int KS) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* part = reinterpret_cast<float4*>(smem + 16);   // [WARPS][32]
+  float* hbuf = reinterpret_cast<float*>(smem + 16 + WARPS * 32 * 16);
+  const int HP = WARPS * KS;                              // [2][HP]
+  const uint32_t bar0 = cx::smem_addr(smem);              // 2 mbarriers
+  const uint32_t hb0 = cx::smem_addr(hbuf);
+  const uint32_t rank = cx::cluster_rank(), CL = cx::cluster_size();
+  const uint32_t bytes = (uint32_t)Dh * 4;
 
   const int bh = blockIdx.y;                // b * H + head
   const int head = bh % H, b = bh / H;
-  const int tid = threadIdx.x, lane = tid & 31, u = tid >> 5;
-  const int e = rank * U + u;               // this warp's unit
-  const bool live = e < Dh;
-  const int g = lane >> 3, j = lane & 7;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int e = (int)rank * U + lane;       // this lane's unit
+  const bool live = lane < U && e < Dh;
+  const int k0 = w * KS;
 
-  const TR* Rg[4] = {rz, ri, rf, ro};
-  const int64_t rhead = (int64_t)head * Dh * Dh;
-  for (int idx = tid; idx < 4 * Dh * U; idx += blockDim.x) {
-    const int uu = idx % U, k = (idx / U) % Dh, gg = idx / (U * Dh);
-    const int ee = rank * U + uu;
-    Rs[(uu * 4 + gg) * GS + k] =
-        ee < Dh ? load(Rg[gg], rhead + (int64_t)k * Dh + ee) : 0.0f;
+  // This thread's rows of its unit's four R columns, zero past Dh.
+  float R[4][KS_MAX];
+  {
+    const TR* Rg[4] = {rz, ri, rf, ro};
+    const int64_t col = (int64_t)head * Dh * Dh + e;
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int i = 0; i < KS_MAX; ++i) {
+        const int k = k0 + i;
+        R[g][i] = live && i < KS && k < Dh
+                      ? to_f32(Rg[g][col + (int64_t)k * Dh]) : 0.0f;
+      }
   }
   const int64_t sbase = (int64_t)bh * Dh;
-  for (int k = tid; k < Dh; k += blockDim.x) hbuf[k] = h0[sbase + k];
-  float c = 0.0f, n = 1.0f, m = 0.0f;
-  if (live && lane == 0) {
-    c = c0[sbase + e];
-    n = n0[sbase + e];
-    m = m0[sbase + e];
+  for (int k = tid; k < 2 * HP; k += THREADS)
+    hbuf[k] = k < Dh ? h0[sbase + k] : 0.0f;
+  if (tid == 0) {
+    cx::mbar_init(bar0, 1);
+    cx::mbar_init(bar0 + 8, 1);
+    cx::fence_mbar_init();
+    cx::mbar_expect_tx(bar0 + 8, bytes);   // step 0's h, into buffer 1
+    cx::mbar_expect_tx(bar0, bytes);       // step 1's, into buffer 0
   }
-  const TX* wg = g == 0 ? wz : g == 1 ? wi : g == 2 ? wf : wo;
+  Cell<FAST> cell{0.0f, 1.0f, 0.0f, 0.0f};
+  const bool cell_lane = w == 0 && live;
+  if (cell_lane) {
+    cell.c = c0[sbase + e];
+    cell.n = n0[sbase + e];
+    cell.m = m0[sbase + e];
+  }
   const int64_t D = (int64_t)H * Dh;
   const int64_t col = (int64_t)head * Dh + e;
-  const bool loader = live && j == 0;
-  float wx = loader ? load(wg, (int64_t)b * T * D + col) : 0.0f;
-  const float* Rrow = Rs + (u * 4 + g) * GS;
-  float h = 0.0f;
-  cluster.sync();   // every block running, every h buffer filled
-
-  int cur = 0;
-  for (int t = 0; t < T; ++t) {
-    const float wx_next = (loader && t + 1 < T)
-        ? load(wg, ((int64_t)b * T + t + 1) * D + col) : 0.0f;
-    const float* hc = hbuf + cur * Dh;
-    float acc = 0.0f;
-    if (live)
-      for (int k = j; k < Dh; k += 8) acc += hc[k] * Rrow[k];
-    acc += __shfl_xor_sync(FULL, acc, 4);
-    acc += __shfl_xor_sync(FULL, acc, 2);
-    acc += __shfl_xor_sync(FULL, acc, 1);
-    const float pre = wx + acc;
-    const float pz = __shfl_sync(FULL, pre, 0);
-    const float pi = __shfl_sync(FULL, pre, 8);
-    const float pf = __shfl_sync(FULL, pre, 16);
-    const float po = __shfl_sync(FULL, pre, 24);
-    if (lane == 0 && live) {
-      const float z = tanhf(pz);
-      const float ft = pf + 1.0f;
-      const float o = 1.0f / (1.0f + expf(-po));
-      const float lsf = log_sigmoid(ft);
-      const float m_new = fmaxf(lsf + m, pi);
-      const float ip = expf(pi - m_new);
-      const float fp = expf(lsf + m - m_new);
-      c = fp * c + ip * z;
-      n = fp * n + ip;
-      h = o * c / fmaxf(n, 1e-6f);
-      m = m_new;
-      hout[((int64_t)b * T + t) * D + col] = h;
-    }
-    const float hn = __shfl_sync(FULL, h, 0);
-    if (live && lane < CL) {
-      float* remote = cluster.map_shared_rank(hbuf + (cur ^ 1) * Dh, lane);
-      remote[e] = hn;
-    }
-    cluster.sync();
-    cur ^= 1;
-    wx = wx_next;
+  const TX* wg[4] = {wz, wi, wf, wo};
+  TX wxa[4], wxb[4];   // wx of steps t and t + 1, loaded two steps ahead
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    wxa[g] = cell_lane ? wg[g][(int64_t)b * T * D + col] : TX(0.0f);
+    wxb[g] = cell_lane && T > 1 ? wg[g][((int64_t)b * T + 1) * D + col]
+                                : TX(0.0f);
   }
-  if (live && lane == 0) {
-    h1[sbase + e] = h;
-    c1[sbase + e] = c;
-    n1[sbase + e] = n;
-    m1[sbase + e] = m;
+  cx::cluster_sync();   // every block running, every barrier armed
+
+  uint32_t parity = 0;  // bit j: the phase parity to wait for on barrier j
+  auto step = [&](int t, TX (&wx)[4]) {
+    const int cur = t & 1;
+    if (t > 0) {
+      cx::mbar_wait(bar0 + 8 * cur, (parity >> cur) & 1);
+      parity ^= 1u << cur;
+      if (tid == 0) cx::mbar_expect_tx(bar0 + 8 * cur, bytes);
+    }
+    const float* hc = hbuf + cur * HP + k0;
+    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < KS_MAX / 4; ++j) {
+      if (4 * j < KS) {
+        const float4 hv = *reinterpret_cast<const float4*>(hc + 4 * j);
+        const float hk[4] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          a0 = fmaf(hk[i], R[0][4 * j + i], a0);
+          a1 = fmaf(hk[i], R[1][4 * j + i], a1);
+          a2 = fmaf(hk[i], R[2][4 * j + i], a2);
+          a3 = fmaf(hk[i], R[3][4 * j + i], a3);
+        }
+      }
+    }
+    part[w * 32 + lane] = make_float4(a0, a1, a2, a3);
+    __syncthreads();
+    if (w != 0) return;
+    // The warps' partial sums, in four independent chains.
+    float4 p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = part[i * 32 + lane];
+#pragma unroll
+    for (int i = 4; i < WARPS; ++i) {
+      const float4 q = part[i * 32 + lane];
+      p[i & 3].x += q.x;
+      p[i & 3].y += q.y;
+      p[i & 3].z += q.z;
+      p[i & 3].w += q.w;
+    }
+#pragma unroll
+    for (int s = 2; s > 0; s >>= 1)
+#pragma unroll
+      for (int i = 0; i < s; ++i) {
+        p[i].x += p[i + s].x;
+        p[i].y += p[i + s].y;
+        p[i].z += p[i + s].z;
+        p[i].w += p[i + s].w;
+      }
+    if (live) {
+      cell.step(to_f32(wx[0]) + p[0].x, to_f32(wx[1]) + p[0].y,
+                to_f32(wx[2]) + p[0].z, to_f32(wx[3]) + p[0].w);
+      if (t + 1 < T) {
+        const uint32_t dst = hb0 + 4 * ((cur ^ 1) * HP + e);
+        const uint32_t bar = bar0 + 8 * (cur ^ 1);
+        for (uint32_t q = 0; q < CL; ++q)
+          cx::st_async(cx::map_rank(dst, q), cell.h, cx::map_rank(bar, q));
+      }
+      hout[((int64_t)b * T + t) * D + col] = cell.h;
+      if (t + PREFETCH < T) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          asm volatile("prefetch.global.L2 [%0];" :: "l"(
+              wg[g] + ((int64_t)b * T + t + PREFETCH) * D + col));
+      }
+      if (t + 2 < T) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          wx[g] = wg[g][((int64_t)b * T + t + 2) * D + col];
+      }
+    }
+  };
+  for (int t = 0; t < T; t += 2) {
+    step(t, wxa);
+    if (t + 1 < T) step(t + 1, wxb);
+  }
+  if (cell_lane) {
+    h1[sbase + e] = cell.h;
+    c1[sbase + e] = cell.c;
+    n1[sbase + e] = cell.n;
+    m1[sbase + e] = cell.m;
   }
 }
 
 template <typename TX, typename TR>
-cudaError_t launch(void* const* p, int B, int T, int H, int Dh,
-                   cudaStream_t s) {
+cudaError_t launch(void* const* p, int B, int T, int H, int Dh, int CL,
+                   bool fast, cudaStream_t s) {
   const int U = (Dh + CL - 1) / CL;
-  const size_t bytes =
-      ((size_t)U * 4 * gate_stride(Dh) + 2 * (size_t)Dh) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      slstm_kernel<TX, TR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return err;
-  slstm_kernel<TX, TR><<<dim3(CL, B * H), U * 32, bytes, s>>>(
-      (const TX*)p[0], (const TX*)p[1], (const TX*)p[2], (const TX*)p[3],
-      (const TR*)p[4], (const TR*)p[5], (const TR*)p[6], (const TR*)p[7],
-      (const float*)p[8], (const float*)p[9], (const float*)p[10],
-      (const float*)p[11], (float*)p[12], (float*)p[13], (float*)p[14],
-      (float*)p[15], (float*)p[16], T, H, Dh, U);
-  return cudaGetLastError();
+  const int KS = ((Dh + WARPS - 1) / WARPS + 3) / 4 * 4;
+  const size_t smem = 16 + WARPS * 32 * 16 + 2 * (size_t)WARPS * KS * 4;
+  auto run = [&](auto kernel) {
+    return cx::launch_clustered(
+        kernel, CL, B * H, THREADS, smem, s, p[0], p[1], p[2], p[3], p[4],
+        p[5], p[6], p[7], p[8], p[9], p[10], p[11], p[12], p[13], p[14],
+        p[15], p[16], T, H, Dh, U, KS);
+  };
+  return fast ? run(slstm_kernel<TX, TR, true>)
+              : run(slstm_kernel<TX, TR, false>);
 }
 
 }  // namespace
@@ -183,28 +298,33 @@ cudaError_t launch(void* const* p, int B, int T, int H, int Dh,
 // wz, wi, wf, wo: (B, T, H*Dh) in the wx type; rz, ri, rf, ro: (H, Dh, Dh)
 // in the R type; h0, c0, n0, m0: (B, H, Dh) f32; hout (B, T, H*Dh) f32 and
 // h1, c1, n1, m1 (B, H, Dh) f32 out. dtypes = 2 * wx code + R code (0 f32,
-// 1 bf16).
-extern "C" int slstm_launch(const void* wz, const void* wi, const void* wf,
-                            const void* wo, const void* rz, const void* ri,
-                            const void* rf, const void* ro, const void* h0,
-                            const void* c0, const void* n0, const void* m0,
-                            void* hout, void* h1, void* c1, void* n1,
-                            void* m1, int B, int T, int H, int Dh, int dtypes,
-                            void* stream) {
+// 1 bf16). cluster: blocks per (b, head), 1..16 with ceil(Dh / cluster)
+// <= 32. fast: the cell update on the fast intrinsics.
+extern "C" int slstm_launch(
+    const void* wz, const void* wi, const void* wf, const void* wo,
+    const void* rz, const void* ri, const void* rf, const void* ro,
+    const void* h0, const void* c0, const void* n0, const void* m0,
+    void* hout, void* h1, void* c1, void* n1, void* m1, int B, int T, int H,
+    int Dh, int dtypes, int cluster, int fast, void* stream) {
   if (B <= 0 || T <= 0) return 0;
-  if (H <= 0 || Dh <= 0 || Dh > CL * MAX_UNITS || (int64_t)B * H > 65535)
+  if (H <= 0 || Dh <= 0 || Dh > WARPS * KS_MAX || (int64_t)B * H > 65535 ||
+      cluster < 1 || cluster > 16 || (Dh + cluster - 1) / cluster > MAX_UNITS)
     return (int)cudaErrorInvalidValue;
   void* const p[17] = {(void*)wz, (void*)wi, (void*)wf, (void*)wo,
                        (void*)rz, (void*)ri, (void*)rf, (void*)ro,
                        (void*)h0, (void*)c0, (void*)n0, (void*)m0,
                        hout, h1, c1, n1, m1};
   cudaStream_t s = (cudaStream_t)stream;
+  const bool f = fast != 0;
   switch (dtypes) {
-    case 0: return (int)launch<float, float>(p, B, T, H, Dh, s);
-    case 1: return (int)launch<float, __nv_bfloat16>(p, B, T, H, Dh, s);
-    case 2: return (int)launch<__nv_bfloat16, float>(p, B, T, H, Dh, s);
+    case 0: return (int)launch<float, float>(p, B, T, H, Dh, cluster, f, s);
+    case 1:
+      return (int)launch<float, __nv_bfloat16>(p, B, T, H, Dh, cluster, f, s);
+    case 2:
+      return (int)launch<__nv_bfloat16, float>(p, B, T, H, Dh, cluster, f, s);
     case 3:
-      return (int)launch<__nv_bfloat16, __nv_bfloat16>(p, B, T, H, Dh, s);
+      return (int)launch<__nv_bfloat16, __nv_bfloat16>(p, B, T, H, Dh,
+                                                        cluster, f, s);
   }
   return (int)cudaErrorInvalidValue;
 }

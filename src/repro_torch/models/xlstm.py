@@ -14,10 +14,12 @@ two ways, as the reference:
     step (T = 1: plain tensor ops).
   * `mlstm_chunkwise` — within a chunk of length c a masked attention-like
     product, across chunks a carried (C, n, m). On CUDA tensors the chunk
-    loop is the hand-written kernel B7 (``csrc/mlstm_chunk.cu``), on CPU
-    tensors its plain version `mlstm_chunk_scan_plain` (the reference's
-    chunk step in einsums). With b_r = cumsum(f~), w_s = i~_s - b_s,
-    g_r = runmax(w), M_r = max(m_0, g_r):
+    loop is the hand-written B7 (``csrc/mlstm_chunk.cu``): three kernels —
+    every chunk's own state contribution in parallel, a cheap serial scan
+    over chunks, every chunk's output in parallel — each with a plain
+    version below; on CPU tensors `mlstm_chunk_scan_plain` (the
+    reference's chunk step in einsums). With b_r = cumsum(f~),
+    w_s = i~_s - b_s, g_r = runmax(w), M_r = max(m_0, g_r):
         weight(r,s) = exp(w_s - M_r)  (s <= r)
         inter scale = exp(m_0 - M_r)
         m_{u,r} = b_r + M_r, and the chunk-end state uses M_c.
@@ -25,14 +27,19 @@ two ways, as the reference:
 sLSTM keeps the true nonlinear recurrence (R h_{t-1} feeds the gates), so
 it steps over time by construction — per-head block-diagonal recurrence.
 On CUDA tensors the whole step loop is the hand-written kernel B8
-(``csrc/slstm.cu``: one thread-block cluster per (batch row, head)), on
-CPU tensors its plain version `slstm_scan_plain` (the reference's step).
-Both serve prefill and the one-token decode step.
+(``csrc/slstm.cu``: one thread-block cluster per (batch row, head), R in
+registers, h handed one way between the blocks each step), on CPU tensors
+its plain version `slstm_scan_plain` (the reference's step). Both serve
+prefill and the one-token decode step. The first designs of B7 and B8
+(``csrc/mlstm_chunk_first.cu``, ``csrc/slstm_first.cu``) are on no route:
+`mlstm_chunk_scan_first_cuda` and `slstm_scan_first_cuda` exist only to
+be timed beside the new ones.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -46,8 +53,7 @@ KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: Longest chunk the mLSTM kernel takes (its tiles are 64 rows).
 MAX_KERNEL_CHUNK = 64
 #: Largest head sizes the kernels take: B7 keeps q, k tiles of D columns
-#: in shared memory; B8 gives each of its 8 cluster ranks at most 32 units
-#: (one warp each).
+#: in shared memory; B8 keeps at most 32 rows of R a thread (8 warps).
 MLSTM_MAX_HEAD_DIM = 256
 SLSTM_MAX_HEAD_DIM = 256
 
@@ -204,45 +210,281 @@ def mlstm_chunk_scan_plain(q, k, v, it, ft, state, chunk: int):
 mlstm_chunk_scan_plain.calls = 0
 
 
-def _mlstm_lib():
-    fn = build.load("mlstm_chunk").mlstm_chunk_launch
+# B7 on CUDA tensors: three kernels (`csrc/mlstm_chunk.cu`) — chunk states,
+# the inter-chunk scan, chunk outputs — through a scratch of per-chunk
+# states, `work` (B, H, nc, D + 1, DP) f32 (rows < D: C, row D: n, zero
+# past column D) and `scal` (B, H, nc, 4) f32 (b_last, G, incoming m, 0).
+# Each pass has a plain version of the same arguments and results below;
+# together they compute `mlstm_chunk_scan_plain`'s function.
+
+def mlstm_work_cols(head_dim: int) -> int:
+    """Columns DP of a scratch row: the head size rounded up to the 64
+    columns of the passes' tiles."""
+    return -(-head_dim // 64) * 64
+
+
+def mlstm_work_shapes(B, H, T, D, chunk):
+    """Shapes of the scratch pair (work, scal) for (B, H, T, D) inputs
+    cut into chunks of `chunk` steps."""
+    nc = T // chunk
+    return (B, H, nc, D + 1, mlstm_work_cols(D)), (B, H, nc, 4)
+
+
+def mlstm_work_bytes(B, H, T, D, chunk) -> int:
+    """Bytes of the scratch pair of one B7 call."""
+    a, b = mlstm_work_shapes(B, H, T, D, chunk)
+    return 4 * (math.prod(a) + math.prod(b))
+
+
+def _gate_scan(it, ft, chunk):
+    """Per chunk: b = cumsum(f~), w = i~ - b, as (B, H, nc, L)."""
+    B, H, T = it.shape
+    fc = ft.reshape(B, H, T // chunk, chunk)
+    b = torch.cumsum(fc, dim=-1)
+    return b, it.reshape(B, H, T // chunk, chunk) - b
+
+
+def mlstm_chunk_states_plain(k, v, it, ft, chunk: int):
+    """Plain PyTorch version of B7's first pass: per (b, head, chunk) with
+    G = max_s w_s, dC = sum_s exp(w_s - G) k_s v_s^T into work[..., :D,
+    :D], dn = sum_s exp(w_s - G) k_s into work[..., D, :D], and b_last, G
+    into scal[..., 0:2]. k, v (B, H, T, D) f32, it, ft (B, H, T) f32.
+    Returns (work, scal)."""
+    build.count(mlstm_chunk_states_plain, "calls")
+    B, H, T, D = k.shape
+    wshape, sshape = mlstm_work_shapes(B, H, T, D, chunk)
+    nc = wshape[2]
+    b, w = _gate_scan(it, ft, chunk)
+    G = w.max(dim=-1).values
+    a = torch.exp(w - G[..., None])
+    kc = k.reshape(B, H, nc, chunk, D)
+    vc = v.reshape(B, H, nc, chunk, D)
+    work = torch.zeros(wshape, dtype=torch.float32, device=k.device)
+    work[..., :D, :D] = torch.einsum("bhcs,bhcsk,bhcsv->bhckv", a, kc, vc)
+    work[..., D, :D] = torch.einsum("bhcs,bhcsk->bhck", a, kc)
+    scal = torch.zeros(sshape, dtype=torch.float32, device=k.device)
+    scal[..., 0] = b[..., -1]
+    scal[..., 1] = G
+    return work, scal
+
+
+mlstm_chunk_states_plain.calls = 0
+
+
+def mlstm_state_scan_plain(work, scal, state):
+    """Plain PyTorch version of B7's second pass, in place like the
+    kernel: walks the chunks from `state` {C, n, m}, M_c = max(m, G_c),
+    C = exp(m - M_c) C + exp(G_c - M_c) dC (n likewise), m = b_last +
+    M_c, leaving in work / scal[..., 2] each chunk's incoming (C, n, m).
+    Returns the final state."""
+    build.count(mlstm_state_scan_plain, "calls")
+    B, H, nc, D1, DP = work.shape
+    D = D1 - 1
+    C = torch.zeros((B, H, D1, DP), dtype=torch.float32, device=work.device)
+    C[..., :D, :D] = state["C"]
+    C[..., D, :D] = state["n"]
+    m = state["m"].float().clone()
+    for c in range(nc):
+        G = scal[:, :, c, 1]
+        M = torch.maximum(m, G)
+        alpha = torch.exp(m - M)[..., None, None]
+        beta = torch.exp(G - M)[..., None, None]
+        dC = work[:, :, c].clone()
+        work[:, :, c] = C
+        scal[:, :, c, 2] = m
+        C = alpha * C + beta * dC
+        m = scal[:, :, c, 0] + M
+    return {"C": C[..., :D, :D].contiguous(), "n": C[..., D, :D].contiguous(),
+            "m": m}
+
+
+mlstm_state_scan_plain.calls = 0
+
+
+def mlstm_chunk_outputs_plain(q, k, v, it, ft, work, scal, chunk: int):
+    """Plain PyTorch version of B7's third pass: every chunk's h from its
+    q, k, v, gates and its incoming (C, n, m) in work / scal, the
+    reference's chunk step (`mlstm_chunk_scan_plain`) over all chunks at
+    once. Returns h (B, T, H*D) f32."""
+    build.count(mlstm_chunk_outputs_plain, "calls")
+    B, H, T, D = q.shape
+    nc = T // chunk
+    b, w = _gate_scan(it, ft, chunk)
+    m0 = scal[..., 2]
+    M = torch.maximum(m0[..., None], torch.cummax(w, dim=-1).values)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=q.device))
+    Dw = torch.where(mask, torch.exp(w[..., None, :] - M[..., :, None]), 0.0)
+    qc, kc, vc = (x.reshape(B, H, nc, chunk, D) for x in (q, k, v))
+    S = torch.einsum("bhcrd,bhcsd->bhcrs", qc, kc)
+    intra = torch.einsum("bhcrs,bhcsd->bhcrd", Dw * S, vc)
+    scale = torch.exp(m0[..., None] - M)
+    inter = torch.einsum("bhcrd,bhcdv->bhcrv", qc, work[..., :D, :D]) \
+        * scale[..., None]
+    n_r = work[..., None, D, :D] * scale[..., None] \
+        + torch.einsum("bhcrs,bhcsd->bhcrd", Dw, kc)
+    dot = torch.einsum("bhcrd,bhcrd->bhcr", n_r, qc)
+    denom = torch.maximum(dot.abs(), torch.exp(-(b + M)))
+    h = (inter + intra) / denom[..., None]
+    return h.reshape(B, H, T, D).transpose(1, 2).reshape(B, T, H * D)
+
+
+mlstm_chunk_outputs_plain.calls = 0
+
+
+def _mlstm_fn(name, nargs):
+    fn = getattr(build.load("mlstm_chunk"), name)
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * nargs[0] + [_I] * nargs[1] + [_P]
+        fn.restype = _I
+    return fn
+
+
+def _check_mlstm_inputs(name, tensors, it, ft, chunk):
+    """The checks the passes share: tensors (k, v or q, k, v) f32 (B, H,
+    T, D) with one set of strides and unit stride along D; it, ft f32 (B,
+    H, T) with one set of strides; 1 <= chunk <= 64 dividing T; D <= 256.
+    Returns (B, H, T, D)."""
+    _check_cuda(name, *tensors, it, ft)
+    B, H, T, D = tensors[0].shape
+    if any(t.shape != (B, H, T, D) for t in tensors) \
+            or it.shape != (B, H, T) or ft.shape != (B, H, T):
+        raise ValueError("q, k, v must be (B, H, T, D) and it, ft (B, H, T)")
+    if any(t.dtype != torch.float32 for t in (*tensors, it, ft)):
+        raise ValueError(f"{name} takes float32 q, k, v, it, ft")
+    if any(t.stride() != tensors[0].stride() for t in tensors) \
+            or tensors[0].stride(3) != 1 or it.stride() != ft.stride():
+        raise ValueError("q, k, v need one set of strides with unit stride "
+                         "along D, and it, ft one set")
+    if not B * H * T:
+        raise ValueError(f"{name} takes non-empty inputs")
+    if not 1 <= chunk <= MAX_KERNEL_CHUNK or T % chunk:
+        raise ValueError(f"chunk={chunk} must be in 1..{MAX_KERNEL_CHUNK} "
+                         f"and divide T={T}")
+    if not 1 <= D <= MLSTM_MAX_HEAD_DIM:
+        raise ValueError(f"head size {D} outside 1..{MLSTM_MAX_HEAD_DIM}")
+    if max(tensors[0].stride() + it.stride()) >= 2 ** 31:
+        raise ValueError("strides past 2^31 elements: the kernels take "
+                         "32-bit strides")
+    return B, H, T, D
+
+
+def _check_work(work, scal, B, H, T, D, chunk):
+    wshape, sshape = mlstm_work_shapes(B, H, T, D, chunk)
+    _check_cuda("B7 scratch", work, scal)
+    if tuple(work.shape) != wshape or tuple(scal.shape) != sshape \
+            or work.dtype != torch.float32 or scal.dtype != torch.float32 \
+            or not (work.is_contiguous() and scal.is_contiguous()):
+        raise ValueError(f"work / scal must be contiguous float32 {wshape} "
+                         f"/ {sshape}")
+
+
+def mlstm_chunk_states_cuda(k, v, it, ft, chunk: int):
+    """Launch B7's first pass on CUDA tensors (as
+    `mlstm_chunk_states_plain`). On the current stream, not
+    synchronised."""
+    B, H, T, D = _check_mlstm_inputs("mlstm_chunk_states_cuda", (k, v), it,
+                                     ft, chunk)
+    wshape, sshape = mlstm_work_shapes(B, H, T, D, chunk)
+    work = torch.empty(wshape, dtype=torch.float32, device=k.device)
+    scal = torch.empty(sshape, dtype=torch.float32, device=k.device)
+    with torch.cuda.device(k.device):
+        err = _mlstm_fn("mlstm_chunk_states_launch", (6, 11))(
+            k.data_ptr(), v.data_ptr(), it.data_ptr(), ft.data_ptr(),
+            work.data_ptr(), scal.data_ptr(), B, H, T, D, chunk,
+            *k.stride()[:3], *it.stride(),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "mlstm_chunk_states")
+    build.count(mlstm_chunk_states_cuda)
+    return work, scal
+
+
+mlstm_chunk_states_cuda.launches = 0
+
+
+def mlstm_state_scan_cuda(work, scal, state):
+    """Launch B7's second pass on CUDA tensors (as `mlstm_state_scan_plain`:
+    work and scal rewritten in place). Returns the final state. On the
+    current stream, not synchronised."""
+    B, H, nc, D1, _ = work.shape
+    D = D1 - 1
+    _check_work(work, scal, B, H, nc, D, 1)
+    C0, n0, m0 = (state[key].float().contiguous() for key in ("C", "n", "m"))
+    _check_cuda("mlstm_state_scan_cuda", work, C0, n0, m0)
+    if C0.shape != (B, H, D, D) or n0.shape != (B, H, D) \
+            or m0.shape != (B, H):
+        raise ValueError("state must be C (B,H,D,D), n (B,H,D), m (B,H)")
+    C1, n1, m1 = torch.empty_like(C0), torch.empty_like(n0), \
+        torch.empty_like(m0)
+    with torch.cuda.device(work.device):
+        err = _mlstm_fn("mlstm_state_scan_launch", (8, 4))(
+            work.data_ptr(), scal.data_ptr(), C0.data_ptr(), n0.data_ptr(),
+            m0.data_ptr(), C1.data_ptr(), n1.data_ptr(), m1.data_ptr(),
+            B, H, nc, D, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "mlstm_state_scan")
+    build.count(mlstm_state_scan_cuda)
+    return {"C": C1, "n": n1, "m": m1}
+
+
+mlstm_state_scan_cuda.launches = 0
+
+
+def mlstm_chunk_outputs_cuda(q, k, v, it, ft, work, scal, chunk: int):
+    """Launch B7's third pass on CUDA tensors (as
+    `mlstm_chunk_outputs_plain`). On the current stream, not
+    synchronised."""
+    B, H, T, D = _check_mlstm_inputs("mlstm_chunk_outputs_cuda", (q, k, v),
+                                     it, ft, chunk)
+    _check_work(work, scal, B, H, T, D, chunk)
+    h = torch.empty((B, T, H * D), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _mlstm_fn("mlstm_chunk_outputs_launch", (8, 11))(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), it.data_ptr(),
+            ft.data_ptr(), work.data_ptr(), scal.data_ptr(), h.data_ptr(),
+            B, H, T, D, chunk, *q.stride()[:3], *it.stride(),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "mlstm_chunk_outputs")
+    build.count(mlstm_chunk_outputs_cuda)
+    return h
+
+
+mlstm_chunk_outputs_cuda.launches = 0
+
+
+def mlstm_chunk_scan_cuda(q, k, v, it, ft, state, chunk: int):
+    """B7 on CUDA tensors, same arguments and results as
+    `mlstm_chunk_scan_plain`: the three pass kernels in turn, through a
+    scratch of `mlstm_work_bytes` bytes. q, k, v f32 (B, H, T, D) with unit
+    stride along D and one set of strides for the three (the views
+    `_mlstm_qkv_gates` makes qualify); it, ft f32 (B, H, T) with one set
+    of strides; state f32; 1 <= chunk <= 64 dividing T; D <= 256. On the
+    current stream, not synchronised."""
+    _check_cuda("mlstm_chunk_scan_cuda", q, k, v, it, ft,
+                *(state[key] for key in ("C", "n", "m")))
+    _check_mlstm_inputs("mlstm_chunk_scan_cuda", (q, k, v), it, ft, chunk)
+    work, scal = mlstm_chunk_states_cuda(k, v, it, ft, chunk)
+    state = mlstm_state_scan_cuda(work, scal, state)
+    return mlstm_chunk_outputs_cuda(q, k, v, it, ft, work, scal,
+                                    chunk), state
+
+
+def _mlstm_first_lib():
+    fn = build.load("mlstm_chunk_first").mlstm_chunk_first_launch
     if fn.argtypes is None:
         fn.argtypes = [_P] * 12 + [_I] * 11 + [_P]
         fn.restype = _I
     return fn
 
 
-def mlstm_chunk_scan_cuda(q, k, v, it, ft, state, chunk: int):
-    """Launch the B7 kernel on CUDA tensors, same arguments and results as
-    `mlstm_chunk_scan_plain`: q, k, v f32 (B, H, T, D) with unit stride
-    along D and one set of strides for the three (the views
-    `_mlstm_qkv_gates` makes qualify); it, ft f32 (B, H, T) with one set
-    of strides; state f32; 1 <= chunk <= 64 dividing T; D <= 256. On the
-    current stream, not synchronised."""
-    _check_cuda("mlstm_chunk_scan_cuda", q, k, v, it, ft,
-                *(state[key] for key in ("C", "n", "m")))
-    B, H, T, D = q.shape
-    if k.shape != q.shape or v.shape != q.shape \
-            or it.shape != (B, H, T) or ft.shape != (B, H, T):
-        raise ValueError("q, k, v must be (B, H, T, D) and it, ft (B, H, T)")
-    if any(t.dtype != torch.float32 for t in (q, k, v, it, ft)):
-        raise ValueError("mlstm_chunk_scan_cuda takes float32 q, k, v, it, "
-                         "ft")
-    if q.stride() != k.stride() or q.stride() != v.stride() \
-            or q.stride(3) != 1 or it.stride() != ft.stride():
-        raise ValueError("q, k, v need one set of strides with unit stride "
-                         "along D, and it, ft one set")
-    if not B * H * T:
-        raise ValueError("mlstm_chunk_scan_cuda takes non-empty inputs")
-    if not 1 <= chunk <= MAX_KERNEL_CHUNK or T % chunk:
-        raise ValueError(f"chunk={chunk} must be in 1..{MAX_KERNEL_CHUNK} "
-                         f"and divide T={T}")
-    if not 1 <= D <= MLSTM_MAX_HEAD_DIM:
-        raise ValueError(f"head size {D} outside 1..{MLSTM_MAX_HEAD_DIM}")
-    if max(q.stride() + it.stride()) >= 2 ** 31:
-        raise ValueError("strides past 2^31 elements: the kernel takes "
-                         "32-bit strides")
+def mlstm_chunk_scan_first_cuda(q, k, v, it, ft, state, chunk: int):
+    """B7's first design (`csrc/mlstm_chunk_first.cu`: one block per (b,
+    head, 32 v columns) walking every chunk), on no route: kept to be
+    timed beside the passes. Arguments and results as
+    `mlstm_chunk_scan_cuda`."""
+    B, H, T, D = _check_mlstm_inputs("mlstm_chunk_scan_first_cuda",
+                                     (q, k, v), it, ft, chunk)
     C0, n0, m0 = (state[key].float().contiguous() for key in ("C", "n", "m"))
+    _check_cuda("mlstm_chunk_scan_first_cuda", C0, n0, m0)
     if C0.shape != (B, H, D, D) or n0.shape != (B, H, D) \
             or m0.shape != (B, H):
         raise ValueError("state must be C (B,H,D,D), n (B,H,D), m (B,H)")
@@ -250,20 +492,18 @@ def mlstm_chunk_scan_cuda(q, k, v, it, ft, state, chunk: int):
     C1, n1, m1 = torch.empty_like(C0), torch.empty_like(n0), \
         torch.empty_like(m0)
     with torch.cuda.device(q.device):
-        err = _mlstm_lib()(
+        err = _mlstm_first_lib()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), it.data_ptr(),
             ft.data_ptr(), C0.data_ptr(), n0.data_ptr(), m0.data_ptr(),
             h.data_ptr(), C1.data_ptr(), n1.data_ptr(), m1.data_ptr(),
-            B, H, T, D, chunk, q.stride(0), q.stride(1), q.stride(2),
-            it.stride(0), it.stride(1), it.stride(2),
+            B, H, T, D, chunk, *q.stride()[:3], *it.stride(),
             torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "mlstm_chunk")
-    build.count(mlstm_chunk_scan_cuda)
+    _raise_on(err, "mlstm_chunk_first")
+    build.count(mlstm_chunk_scan_first_cuda)
     return h, {"C": C1, "n": n1, "m": m1}
 
 
-#: Kernel launches since the count was last set to 0.
-mlstm_chunk_scan_cuda.launches = 0
+mlstm_chunk_scan_first_cuda.launches = 0
 
 
 def mlstm_chunk_scan(q, k, v, it, ft, state, chunk: int):
@@ -358,24 +598,35 @@ def slstm_scan_plain(wx, r, state):
 slstm_scan_plain.calls = 0
 
 
-def _slstm_lib():
-    fn = build.load("slstm").slstm_launch
+#: Most units a block of the B8 kernel takes (one per lane of a warp).
+SLSTM_MAX_UNITS = 32
+#: Largest thread-block cluster B8 launches (above 8 with the non-portable
+#: cluster attribute).
+SLSTM_MAX_CLUSTER = 16
+
+
+def slstm_cluster(head_dim: int) -> int:
+    """Blocks per (batch row, head) of B8: the fewest that keep a block at
+    <= `SLSTM_MAX_UNITS` units (6 at xlstm-125m's Dh 192). Fewer ranks mean
+    fewer stores a step and a faster exchange (the probe, PERF.md §6)."""
+    return -(-head_dim // SLSTM_MAX_UNITS)
+
+
+def _slstm_fn(name, nints):
+    fn = getattr(build.load(name), f"{name}_launch")
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 17 + [_I] * 5 + [_P]
+        fn.argtypes = [_P] * 17 + [_I] * nints + [_P]
         fn.restype = _I
     return fn
 
 
-def slstm_scan_cuda(wx, r, state):
-    """Launch the B8 kernel on CUDA tensors, same arguments and results as
-    `slstm_scan_plain`: the four wx contiguous (B, T, H*Dh) in one dtype
-    of `KERNEL_DTYPES`, the four r contiguous (H, Dh, Dh) in one dtype of
-    `KERNEL_DTYPES`, state f32; Dh <= 256. On the current stream, not
-    synchronised."""
+def _slstm_args(name, wx, r, state):
+    """Checks B8's arguments; returns (wxs, rs, state tensors, B, T, H, Dh,
+    dtype code)."""
     wxs = [wx[g] for g in _GATES]
     rs = [r[g] for g in _GATES]
     st = [state[key] for key in ("h", "c", "n", "m")]
-    _check_cuda("slstm_scan_cuda", *wxs, *rs, *st)
+    _check_cuda(name, *wxs, *rs, *st)
     B, T, d = wxs[0].shape
     H, Dh = rs[0].shape[0], rs[0].shape[1]
     if any(t.shape != (B, T, d) for t in wxs) or H * Dh != d \
@@ -389,21 +640,44 @@ def slstm_scan_cuda(wx, r, state):
         raise ValueError(f"wx and r must each have one dtype of "
                          f"{list(KERNEL_DTYPES)}")
     if not all(t.is_contiguous() for t in (*wxs, *rs)):
-        raise ValueError("slstm_scan_cuda takes contiguous wx and r")
+        raise ValueError(f"{name} takes contiguous wx and r")
     if not 1 <= Dh <= SLSTM_MAX_HEAD_DIM:
         raise ValueError(f"head size {Dh} outside 1..{SLSTM_MAX_HEAD_DIM}")
     if not B * T:
-        raise ValueError("slstm_scan_cuda takes non-empty inputs")
+        raise ValueError(f"{name} takes non-empty inputs")
+    if B * H > 65535:
+        raise ValueError(f"B * H = {B * H} clusters past the grid's 65,535")
     st = [t.float().contiguous() for t in st]
     if any(t.shape != (B, H, Dh) for t in st):
         raise ValueError(f"state tensors must be ({B}, {H}, {Dh})")
-    h = torch.empty((B, T, d), dtype=torch.float32, device=wxs[0].device)
+    code = KERNEL_DTYPES[wxs[0].dtype] * 2 + KERNEL_DTYPES[rs[0].dtype]
+    return wxs, rs, st, B, T, H, Dh, code
+
+
+def slstm_scan_cuda(wx, r, state, *, cluster: int | None = None,
+                    fast: bool = True):
+    """Launch the B8 kernel on CUDA tensors, same arguments and results as
+    `slstm_scan_plain`: the four wx contiguous (B, T, H*Dh) in one dtype
+    of `KERNEL_DTYPES`, the four r contiguous (H, Dh, Dh) in one dtype of
+    `KERNEL_DTYPES`, state f32; Dh <= 256. `cluster`: blocks per (batch
+    row, head), default `slstm_cluster(Dh)`, at least that and at most
+    `SLSTM_MAX_CLUSTER`; `fast`: the cell update on the fast intrinsics
+    (False: tanhf, expf, log1pf). On the current stream, not
+    synchronised."""
+    wxs, rs, st, B, T, H, Dh, code = _slstm_args("slstm_scan_cuda", wx, r,
+                                                 state)
+    least = slstm_cluster(Dh)
+    cluster = least if cluster is None else cluster
+    if not least <= cluster <= SLSTM_MAX_CLUSTER:
+        raise ValueError(f"cluster={cluster} outside {least}.."
+                         f"{SLSTM_MAX_CLUSTER} for Dh={Dh}")
+    h = torch.empty((B, T, H * Dh), dtype=torch.float32,
+                    device=wxs[0].device)
     out = [torch.empty_like(t) for t in st]
     with torch.cuda.device(h.device):
-        err = _slstm_lib()(
+        err = _slstm_fn("slstm", 7)(
             *(t.data_ptr() for t in (*wxs, *rs, *st, h, *out)),
-            B, T, H, Dh,
-            KERNEL_DTYPES[wxs[0].dtype] * 2 + KERNEL_DTYPES[rs[0].dtype],
+            B, T, H, Dh, code, cluster, int(fast),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "slstm")
     build.count(slstm_scan_cuda)
@@ -412,6 +686,28 @@ def slstm_scan_cuda(wx, r, state):
 
 #: Kernel launches since the count was last set to 0.
 slstm_scan_cuda.launches = 0
+
+
+def slstm_scan_first_cuda(wx, r, state):
+    """B8's first design (`csrc/slstm_first.cu`: a cluster of 8 blocks
+    per (b, head), one cluster barrier a step), on no route: kept to be
+    timed beside the new design. Arguments and results as
+    `slstm_scan_cuda`."""
+    wxs, rs, st, B, T, H, Dh, code = _slstm_args("slstm_scan_first_cuda",
+                                                 wx, r, state)
+    h = torch.empty((B, T, H * Dh), dtype=torch.float32,
+                    device=wxs[0].device)
+    out = [torch.empty_like(t) for t in st]
+    with torch.cuda.device(h.device):
+        err = _slstm_fn("slstm_first", 5)(
+            *(t.data_ptr() for t in (*wxs, *rs, *st, h, *out)),
+            B, T, H, Dh, code, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "slstm_first")
+    build.count(slstm_scan_first_cuda)
+    return h, dict(zip(("h", "c", "n", "m"), out))
+
+
+slstm_scan_first_cuda.launches = 0
 
 
 def slstm_scan(wx, r, state):
