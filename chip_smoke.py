@@ -1375,17 +1375,20 @@ def rglru_check(name, B, T, D, dtype, seed, with_h0=False, reps=0):
     return rec
 
 
-def mlstm_inputs(B, H, T, D, seed, with_state=False, extreme=0):
+def mlstm_inputs(B, H, T, D, seed, with_state=False, extreme=0,
+                 spike=6.0, shared_qk=True):
     """q, k, v as the (B, H, T, D) views `_mlstm_qkv_gates` makes (k
     scaled by 1/sqrt(D)), gates i~ ~ N(0, 1) and f~ = log_sigmoid(N(0, 1)
     + 1); a random carried state when `with_state`. `extreme` = the chunk
     length L: tests/test_torch_xlstm_passes.py's extreme gates, by chunk c
-    — i~ + 6 on the middle step when c % 3 == 0, i~ - 40 on every step
-    when c % 3 == 1 (M_c keeps the carried m), the forget pre-activation
-    - 8 on the middle step when c % 3 == 2 (M_c = G_c) — and q, k shifted
-    by 2 and 2/sqrt(D) on every column (a shared direction that keeps the
-    normaliser away from zero, so that f32 in any order is good to ~1e-6
-    of the largest output)."""
+    — i~ + `spike` on the middle step when c % 3 == 0, i~ - 40 on every
+    step when c % 3 == 1 (M_c keeps the carried m), the forget
+    pre-activation - 8 on the middle step when c % 3 == 2 (M_c = G_c) —
+    and, with `shared_qk`, q, k shifted by 2 and 2/sqrt(D) on every column
+    (a shared direction that keeps the normaliser away from zero, so that
+    f32 in any order is good to ~1e-6 of the largest output). Without it
+    and with a spike of 15 some rows' |n . q| nears the stabiliser's floor
+    exp(-m), and f32 in any order strays (`mlstm_f64_witness`)."""
     g = torch.Generator(device=DEV).manual_seed(seed)
 
     def heads():
@@ -1398,10 +1401,11 @@ def mlstm_inputs(B, H, T, D, seed, with_state=False, extreme=0):
         L = extreme
         t = torch.arange(T, device=DEV)[None, :, None]
         c, mid = t // L, t % L == L // 2
-        it = torch.where(mid & (c % 3 == 0), it + 6.0, it)
+        it = torch.where(mid & (c % 3 == 0), it + spike, it)
         it = torch.where(c % 3 == 1, it - 40.0, it)
         fpre = torch.where(mid & (c % 3 == 2), fpre - 8.0, fpre)
-        q, k = q + 2.0, k + 2.0 / D ** 0.5
+        if shared_qk:
+            q, k = q + 2.0, k + 2.0 / D ** 0.5
     it = it.transpose(1, 2)
     ft = torch.nn.functional.logsigmoid(fpre).transpose(1, 2)
     state = xlstm_mod.mlstm_state_init(B, H, D, device=DEV)
@@ -1511,6 +1515,78 @@ def mlstm_check(name, B, H, T, D, chunk, seed, with_state=False,
     return rec
 
 
+def mlstm_f64_witness(name, B, H, T, D, chunk, seed):
+    """B7 and its first design at the extreme gates' ill-conditioned
+    recipe (`mlstm_inputs(..., spike=15, shared_qk=False)`, a carried
+    state), where f32 in any summation order may stray from the exact
+    answer by more than `REC_TOL`: both designs and the f32 plain version
+    held against `mlstm_chunk_scan_plain` in f64 on the same inputs, so
+    that the record shows which side strays. Gate (stated before its
+    first card run), per output: a design's distance from the f64 result
+    <= the f32 plain version's distance from it + REC_TOL x max |f64|.
+    Whether a design also lies within REC_TOL x max |f64| outright is
+    recorded beside."""
+    q, k, v, it, ft, state = mlstm_inputs(B, H, T, D, seed, True, chunk,
+                                          spike=15.0, shared_qk=False)
+    args = (q, k, v, it, ft, state, chunk)
+    keys = ("C", "n", "m")
+
+    def outs(h_st):
+        return [h_st[0], *(h_st[1][k_] for k_ in keys)]
+    ref = outs(xlstm_mod.mlstm_chunk_scan_plain(
+        *(x.double() for x in args[:5]),
+        {k_: x.double() for k_, x in state.items()}, chunk))
+    plain = outs(xlstm_mod.mlstm_chunk_scan_plain(*args))
+    designs = {"new": outs(xlstm_mod.mlstm_chunk_scan_cuda(*args)),
+               "first": outs(xlstm_mod.mlstm_chunk_scan_first_cuda(*args))}
+    torch.cuda.synchronize()
+
+    def dist(a, b):
+        return [float((x.double() - y.double()).abs().max())
+                for x, y in zip(a, b)]
+    tols = [REC_TOL * float(r.abs().max()) for r in ref]
+    plain_d = dist(plain, ref)
+    rec = {"shape": name, "B": B, "H": H, "T": T, "D": D, "chunk": chunk,
+           "recipe": "i~ + 15 spike, no shared q/k direction, carried state",
+           "outputs": ["h", *keys], "tol_f64": tols,
+           "plain_f32_vs_f64": plain_d}
+    ok = True
+    for key, out in designs.items():
+        d = dist(out, ref)
+        gate = all(x <= p + t for x, p, t in zip(d, plain_d, tols))
+        ok = ok and gate
+        rec[key] = {"vs_f64": d, "vs_plain_f32": dist(out, plain),
+                    "within_rec_tol_of_f64": all(
+                        x <= t for x, t in zip(d, tols)),
+                    "within_gate": gate}
+    rec["within_gate"] = ok
+    if not ok:
+        raise AssertionError(f"B7 strays from f64 beyond f32 plain: {rec}")
+    return rec
+
+
+def witness_summary(witness):
+    """`mlstm_f64_witness` records of several seeds, h only: each side's
+    largest distance from the f64 result, the seeds on which each side
+    lies beyond REC_TOL x max |f64|, and on how many seeds the kernel lies
+    nearer the f64 result than the f32 plain version."""
+    def beyond(side):
+        return [w["shape"] for w in witness if side(w) > w["tol_f64"][0]]
+    return {
+        "seeds": len(witness),
+        "max_vs_f64": max(w["new"]["vs_f64"][0] for w in witness),
+        "max_first_vs_f64": max(w["first"]["vs_f64"][0] for w in witness),
+        "max_plain_f32_vs_f64": max(w["plain_f32_vs_f64"][0]
+                                    for w in witness),
+        "beyond_tol": {
+            "new": beyond(lambda w: w["new"]["vs_f64"][0]),
+            "first": beyond(lambda w: w["first"]["vs_f64"][0]),
+            "plain_f32": beyond(lambda w: w["plain_f32_vs_f64"][0])},
+        "new_nearer_than_plain_f32": sum(
+            w["new"]["vs_f64"][0] < w["plain_f32_vs_f64"][0]
+            for w in witness)}
+
+
 def slstm_inputs(B, T, H, Dh, dtype, seed, with_state=False):
     """wx ~ N(0, 1) (the dense outputs of a normalised input), R ~ N(0,
     1/Dh) as the init; a random state when `with_state` (n > 0, as the
@@ -1530,13 +1606,9 @@ def slstm_inputs(B, T, H, Dh, dtype, seed, with_state=False):
     return wx, r, state
 
 
-def slstm_check(name, B, T, H, Dh, dtype, seed, with_state=False, reps=0,
-                variants=False):
-    """B8 (default launch shape) and its first design against
-    `slstm_scan_plain`; with `reps` both timed in turns (first, new, new,
-    first); with `variants` every other cluster size up to 8 and the cell
-    update on tanhf / expf / log1pf, each held against the same plain
-    result and timed."""
+def slstm_check(name, B, T, H, Dh, dtype, seed, with_state=False, reps=0):
+    """B8 and its first design against `slstm_scan_plain`; with `reps`
+    both timed in turns (first, new, new, first)."""
     wx, r, state = slstm_inputs(B, T, H, Dh, dtype, seed, with_state)
     keys = ("h", "c", "n", "m")
     h, st = xlstm_mod.slstm_scan_cuda(wx, r, state)
@@ -1566,20 +1638,6 @@ def slstm_check(name, B, T, H, Dh, dtype, seed, with_state=False, reps=0,
         rec.update(ms=ms, first_ms=first_ms, ms_turns=turns, bound_ms=bound,
                    bound_by=by, us_per_step=ms * 1e3 / T,
                    first_us_per_step=first_ms * 1e3 / T)
-    if variants:
-        rec["variants"] = []
-        for cl in range(xlstm_mod.slstm_cluster(Dh), 9):
-            for fast in (True, False):
-                def run(cl=cl, fast=fast):
-                    return xlstm_mod.slstm_scan_cuda(wx, r, state,
-                                                     cluster=cl, fast=fast)
-                hv, sv = run()
-                verr, vok = rec_errs([hv, *(sv[k_] for k_ in keys)], refs)
-                vms = time_cuda(run, max(reps, 1))
-                rec["variants"].append({
-                    "cluster": cl, "fast": fast, "max_abs_err": verr,
-                    "within_tolerance": vok, "ms": vms,
-                    "us_per_step": vms * 1e3 / T})
     if not (ok and fok):
         raise AssertionError(f"B8 != plain: {rec}")
     return rec
@@ -1589,7 +1647,7 @@ def slstm_check(name, B, T, H, Dh, dtype, seed, with_state=False, reps=0,
 #: non-portable cluster attribute and may not launch).
 PROBE_CLUSTERS = (2, 4, 6, 8, 16)
 PROBE_VARIANTS = ("dsmem_cluster_sync", "st_async_mbarrier",
-                  "st_async_mbarrier_cell", "tagged_dsmem_spin")
+                  "st_async_mbarrier_cell")
 
 
 def slstm_exchange_probe(quick):
@@ -1635,9 +1693,7 @@ def slstm_exchange_probe(quick):
             "variants": {v: d for v, d in zip(PROBE_VARIANTS, (
                 "plain DSMEM stores + cluster barrier (B8's first design)",
                 "st.async into each rank + own mbarrier parity wait",
-                "the same + the sLSTM cell update on each unit's thread",
-                "64-bit (step, h) DSMEM stores, spin on own buffer + one "
-                "block barrier"))}}
+                "the same + the sLSTM cell update on each unit's thread"))}}
 
 
 def recurrent_checks(quick):
@@ -1648,7 +1704,9 @@ def recurrent_checks(quick):
     incoming h, f32 and bf16; B7 with chunk 40 (not its 64-row tile) and
     a carried state, the ragged T = 200 = 5 chunks of 40, D 16 at chunk
     16, B 2 at 3 chunks, and the extreme gates that switch M_c between the
-    carried m and G_c; B8 at T = 37 with a state, at Dh = 20 (not a
+    carried m and G_c (and, at their ill-conditioned first recipe and 16
+    seeds, both designs and the f32 plain version against an f64 plain
+    result: `mlstm_f64_witness`); B8 at T = 37 with a state, at Dh = 20 (not a
     multiple of its cluster ranks), at T = 1 (decode) in bf16, at the
     largest head size the wrapper takes (256) and at B 64 x 4 heads (more
     clusters than the SMs hold at once). B7's and B8's first designs are
@@ -1671,9 +1729,11 @@ def recurrent_checks(quick):
           mlstm_check("b2_3chunks", 2, H, 192, D, 64, 31, with_state=True),
           mlstm_check("extreme_gates", 2, H, 1024, D, 64, 32,
                       with_state=True, extreme=64)]
+    witness = [mlstm_f64_witness(f"extreme_gates_spike15_seed{seed}", 2, H,
+                                 1024, D, 64, seed)
+               for seed in range(32, 48)]
     Dh = xl.d_model // xl.n_heads
-    b8 = [slstm_check("main", 1, T, H, Dh, torch.bfloat16, 27, reps=reps,
-                      variants=True),
+    b8 = [slstm_check("main", 1, T, H, Dh, torch.bfloat16, 27, reps=reps),
           slstm_check("ragged_f32_state", 2, 37, H, Dh, torch.float32, 28,
                       with_state=True),
           slstm_check("dh20", 2, 16, 3, 20, torch.float32, 29,
@@ -1683,17 +1743,19 @@ def recurrent_checks(quick):
           slstm_check("b64_h4", 64, 32, H, Dh, torch.bfloat16, 34,
                       with_state=True),
           slstm_check("decode_bf16", 4, 1, H, Dh, torch.bfloat16, 30,
-                      with_state=True, reps=20, variants=True)]
-    return {"rglru_scan": b6, "mlstm_chunk": b7, "slstm": b8}
+                      with_state=True, reps=20)]
+    return {"rglru_scan": b6, "mlstm_chunk": b7,
+            "mlstm_f64_witness": witness, "slstm": b8}
 
 
 # ---------------------------------------------------------------------------
 # The MoE and recurrent model families.
 # ---------------------------------------------------------------------------
 
-def model_prefill(cfg, params, T, seed, paths, name):
+def model_prefill(cfg, params, T, seed, paths, name, kernels=None):
     """One T-token prefill (bf16, last-position logits) inside `paths`,
-    then its device trace: tokens/s and busy share."""
+    then its device trace: tokens/s and busy share (and `kernels`' device
+    ms, as `device_trace` takes them)."""
     toks = lm_tokens(cfg, 1, T, seed)
     prefill = make_prefill_step(cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -1702,7 +1764,7 @@ def model_prefill(cfg, params, T, seed, paths, name):
         torch.cuda.synchronize()
     assert logits.shape == (1, 1, cfg.vocab_size), logits.shape
     assert bool(torch.isfinite(logits).all())
-    trace = device_trace(lambda: prefill(params, {"tokens": toks}))
+    trace = device_trace(lambda: prefill(params, {"tokens": toks}), kernels)
     wall_ms = trace.get("wall_ms") \
         or time_host(lambda: prefill(params, {"tokens": toks}))[0]
     return {"tokens": T, "seconds": wall_ms / 1e3,
@@ -1892,10 +1954,12 @@ def lm_moe_phase(args, paths):
     return rec
 
 
-def recurrent_model(args, arch, quick_layers, paths, tag, expect):
+def recurrent_model(args, arch, quick_layers, paths, tag, expect,
+                    kernels=None):
     """`arch` whole at full width (--quick `quick_layers` layers): a bf16
     prefill of one 32,768-token sequence (--quick 4,096) with its kernel
-    launches, then decode against prefill (teacher forcing) on 2 x 256
+    launches (and `kernels`' device ms in its trace, as `device_trace`
+    takes them), then decode against prefill (teacher forcing) on 2 x 256
     tokens (--quick 2 x 128; multiples of the mLSTM chunk) in bf16 and,
     on f32 weights, in f32."""
     quick = args.quick
@@ -1909,7 +1973,7 @@ def recurrent_model(args, arch, quick_layers, paths, tag, expect):
     rec = param_record(cfg, params)
     T = 4096 if quick else 32768
     rec["prefill"] = model_prefill(cfg, params, T, args.seed, paths,
-                                   f"lm_prefill{tag}")
+                                   f"lm_prefill{tag}", kernels)
     got = rec["prefill"]["launches"]
     assert all(got[key] == v for key, v in want.items()), (got, want)
     rec["prefill"]["expected_launches"] = want
@@ -2000,7 +2064,10 @@ def lm_recurrent_phase(args, paths):
                          {"mlstm_chunk_states": ("mlstm",),
                           "mlstm_state_scan": ("mlstm",),
                           "mlstm_chunk_outputs": ("mlstm",),
-                          "slstm": ("slstm",)})
+                          "slstm": ("slstm",)},
+                         {key: f"{key}_kernel" for key in (
+                             "mlstm_chunk_states", "mlstm_state_scan",
+                             "mlstm_chunk_outputs", "slstm")})
     mixers = [mixer_teacher_forcing("recurrentgemma-9b", "rglru",
                                     args.seed + 7),
               mixer_teacher_forcing("xlstm-125m", "mlstm", args.seed + 8),
@@ -2158,13 +2225,15 @@ def timed_align(engine, reads, refs, mode, label):
     return out, rec
 
 
-def device_trace(fn):
+def device_trace(fn, kernels=None):
     """Time `fn` on the host clock (second call), then run it again under
     torch.profiler and sum the device time of every kernel and copy by
     name: the device's busy share of the untraced wall time, and where
     it went (tracing slows the host, so the traced wall time is given
-    apart). Returns "not measured" in place of the numbers when the
-    trace holds no device event."""
+    apart). `kernels` {label: part of a kernel's name}: the count and
+    device ms of the trace's kernels whose name holds that part
+    (`by_kernel`). Returns "not measured" in place of the numbers when
+    the trace holds no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()                            # warm: pinned buffers, allocator
@@ -2173,12 +2242,17 @@ def device_trace(fn):
                              ProfilerActivity.CUDA]) as prof:
         traced_ms, _ = time_host(fn)
     by_name: dict = {}
+    by_kernel = {label: [0, 0.0] for label in kernels or {}}
     for evt in prof.events():
         if evt.device_type != DeviceType.CUDA:
             continue
         rec = by_name.setdefault(evt.name[:60], [0, 0.0])
         rec[0] += 1
         rec[1] += evt.time_range.elapsed_us()
+        for label, part in (kernels or {}).items():
+            if part in evt.name:
+                by_kernel[label][0] += 1
+                by_kernel[label][1] += evt.time_range.elapsed_us()
     if not by_name:
         return {"device_busy_share": "not measured"}
     busy_us = sum(us for _, us in by_name.values())
@@ -2188,7 +2262,9 @@ def device_trace(fn):
             "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / 1e3 / wall_ms,
             "top": [{"name": k, "count": c, "ms": us / 1e3}
-                    for k, (c, us) in top]}
+                    for k, (c, us) in top],
+            "by_kernel": {label: {"count": c, "ms": us / 1e3}
+                          for label, (c, us) in by_kernel.items()}}
 
 
 def fetched_bytes_per_pair(engine, reads, refs):
@@ -3223,7 +3299,9 @@ def main():
         "scratch_bytes")}
     whole7.update(max_abs_err=max(r["max_abs_err"] for r in b7),
                   first_max_abs_err=max(r["first_max_abs_err"] for r in b7),
-                  first_launches=tot("mlstm_chunk_first"))
+                  first_launches=tot("mlstm_chunk_first"),
+                  f64_witness_h=witness_summary(
+                      rec_checks["mlstm_f64_witness"]))
     for i, key in enumerate(("mlstm_chunk_states", "mlstm_state_scan",
                              "mlstm_chunk_outputs")):
         pr = main7["passes"][key]

@@ -91,7 +91,8 @@ __device__ __forceinline__ uint32_t cluster_size() {
 }
 
 // Launches `kernel` on a grid of (cluster x grid_y) blocks, in clusters of
-// `cluster` blocks along x (above 8 with the non-portable attribute).
+// `cluster` blocks along x (above 8 with the non-portable attribute, which
+// only the probe asks for).
 template <typename... Params, typename... Args>
 cudaError_t launch_clustered(void (*kernel)(Params...), int cluster,
                              int grid_y, int threads, size_t smem,

@@ -19,15 +19,20 @@
 // handing h to every SM that holds part of R and by the cell update, so
 // the design shortens that chain.
 //
-// Design. One thread-block cluster of CL blocks per (b, head) (CL is a
-// launch argument; the wrapper takes the fewest blocks that hold <= 32
-// units each, 6 at Dh 192); block r owns units [r U, (r+1) U),
-// U = ceil(Dh / CL), one unit per lane. A block has 8 warps: warp w holds
-// rows k of [w KS, (w+1) KS) of its units' four R columns in registers,
-// as f32 (a bf16 R is widened once when loaded; 4 x KS <= 128 registers a
-// thread at Dh 256, within the 255 that 256 threads may each hold),
-// loaded once per launch, neighbouring lanes on neighbouring columns
-// (coalesced). Each step:
+// Design. One thread-block cluster of CL blocks per (b, head), CL =
+// ceil(Dh / 32) (`slstm_cluster` in xlstm.py passes it: the fewest blocks
+// that hold <= 32 units each, 6 at Dh 192); block r owns units
+// [r U, (r+1) U), U = ceil(Dh / CL), one unit per lane. Why the fewest:
+// the exchange alone (slstm_probe.cu, `st.async` one way; chip_smoke.py
+// on an H100 80GB HBM3 at 700 W) took 0.283 / 0.342 / 0.346 /
+// 0.354 / 0.380 us a step at cluster 2 / 4 / 6 / 8 / 16, and the whole
+// kernel at Dh 192 took 0.692 us a step at cluster 6 against 0.717 at 7
+// and 0.701 at 8 (with a 15.1 us decode step at 8 against 8.8 at 6).
+// A block has 8 warps: warp w holds rows k of [w KS, (w+1) KS) of its
+// units' four R columns in registers, as f32 (a bf16 R is widened once
+// when loaded; 4 x KS <= 128 registers a thread at Dh 256, within the 255
+// that 256 threads may each hold), loaded once per launch, neighbouring
+// lanes on neighbouring columns (coalesced). Each step:
 //
 //   1. every thread waits for h_{t-1} in its block's own h buffer, dots
 //      its KS values of h (float4 reads, a broadcast) with its four R
@@ -57,10 +62,8 @@
 // registers two steps ahead (the loop is unrolled by two so that no
 // register is moved while its load is in flight). The cell update uses
 // the fast intrinsics (__expf, __logf, __fdividef; tanh as
-// 1 - 2 / (exp(2|x|) + 1)) when `fast` is set: their errors (a few ulp,
-// absolute below 1e-6 in the activations) stay far inside the kernel's
-// stated tolerance; `fast` = 0 uses tanhf, expf and log1pf as the first
-// design did. chip_smoke.py times both, and every cluster size up to 8.
+// 1 - 2 / (exp(2|x|) + 1)): their errors (a few ulp, absolute below 1e-6
+// in the activations) stay far inside the kernel's stated tolerance.
 //
 // Tried and not adopted: 16 warps of half as many rows (R's 64 registers
 // a thread and the partial sums did not fit the 128 registers that 512
@@ -70,11 +73,13 @@
 // kept packed as bf16x2 and widened by a shift each step (the f32 slice
 // fits the registers, so the shift would only add instructions); a
 // staging tile for h_out (warp 0's store of U contiguous floats is already
-// one coalesced instruction); the exchange as 64-bit (step, h) stores
-// that the receiver spins on (slower than `st.async`: slstm_probe.cu).
-// chip_smoke.py's `slstm_exchange` line times the exchange alone at
-// cluster sizes 2-16 (the latency floor of a step) and its
-// `recurrent_checks` line the kernel (PERF.md §6).
+// one coalesced instruction); clusters of 7 and 8 (above); the cell on
+// tanhf, expf and log1pf as the first design (0.815 us a step); the
+// exchange as 64-bit (step, h) stores that the receiver spins on (0.725
+// us a step at cluster 6 against `st.async`'s 0.346). chip_smoke.py's
+// `slstm_exchange` line times the exchange alone at cluster sizes 2-16
+// (the latency floor of a step) and its `recurrent_checks` line the
+// kernel (PERF.md §6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,35 +101,28 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-template <bool FAST>
 struct Cell {
   float c, n, m, h;
 
   __device__ __forceinline__ void step(float pz, float pi, float pf,
                                        float po) {
     const float ft = pf + 1.0f;
-    float z, o, lsf;
-    if (FAST) {
-      const float az = fabsf(pz);
-      z = copysignf(1.0f - __fdividef(2.0f, __expf(2.0f * az) + 1.0f), pz);
-      o = __fdividef(1.0f, 1.0f + __expf(-po));
-      lsf = fminf(ft, 0.0f) - __logf(1.0f + __expf(-fabsf(ft)));
-    } else {
-      z = tanhf(pz);
-      o = 1.0f / (1.0f + expf(-po));
-      lsf = -(fmaxf(-ft, 0.0f) + log1pf(expf(-fabsf(ft))));
-    }
+    const float az = fabsf(pz);
+    const float z =
+        copysignf(1.0f - __fdividef(2.0f, __expf(2.0f * az) + 1.0f), pz);
+    const float o = __fdividef(1.0f, 1.0f + __expf(-po));
+    const float lsf = fminf(ft, 0.0f) - __logf(1.0f + __expf(-fabsf(ft)));
     const float m_new = fmaxf(lsf + m, pi);
-    const float ip = FAST ? __expf(pi - m_new) : expf(pi - m_new);
-    const float fp = FAST ? __expf(lsf + m - m_new) : expf(lsf + m - m_new);
+    const float ip = __expf(pi - m_new);
+    const float fp = __expf(lsf + m - m_new);
     c = fp * c + ip * z;
     n = fp * n + ip;
-    h = FAST ? __fdividef(o * c, fmaxf(n, 1e-6f)) : o * c / fmaxf(n, 1e-6f);
+    h = __fdividef(o * c, fmaxf(n, 1e-6f));
     m = m_new;
   }
 };
 
-template <typename TX, typename TR, bool FAST>
+template <typename TX, typename TR>
 __global__ void __launch_bounds__(THREADS, 1)
 slstm_kernel(const TX* __restrict__ wz, const TX* __restrict__ wi,
              const TX* __restrict__ wf, const TX* __restrict__ wo,
@@ -175,7 +173,7 @@ slstm_kernel(const TX* __restrict__ wz, const TX* __restrict__ wi,
     cx::mbar_expect_tx(bar0 + 8, bytes);   // step 0's h, into buffer 1
     cx::mbar_expect_tx(bar0, bytes);       // step 1's, into buffer 0
   }
-  Cell<FAST> cell{0.0f, 1.0f, 0.0f, 0.0f};
+  Cell cell{0.0f, 1.0f, 0.0f, 0.0f};
   const bool cell_lane = w == 0 && live;
   if (cell_lane) {
     cell.c = c0[sbase + e];
@@ -279,18 +277,14 @@ slstm_kernel(const TX* __restrict__ wz, const TX* __restrict__ wi,
 
 template <typename TX, typename TR>
 cudaError_t launch(void* const* p, int B, int T, int H, int Dh, int CL,
-                   bool fast, cudaStream_t s) {
+                   cudaStream_t s) {
   const int U = (Dh + CL - 1) / CL;
   const int KS = ((Dh + WARPS - 1) / WARPS + 3) / 4 * 4;
   const size_t smem = 16 + WARPS * 32 * 16 + 2 * (size_t)WARPS * KS * 4;
-  auto run = [&](auto kernel) {
-    return cx::launch_clustered(
-        kernel, CL, B * H, THREADS, smem, s, p[0], p[1], p[2], p[3], p[4],
-        p[5], p[6], p[7], p[8], p[9], p[10], p[11], p[12], p[13], p[14],
-        p[15], p[16], T, H, Dh, U, KS);
-  };
-  return fast ? run(slstm_kernel<TX, TR, true>)
-              : run(slstm_kernel<TX, TR, false>);
+  return cx::launch_clustered(
+      slstm_kernel<TX, TR>, CL, B * H, THREADS, smem, s, p[0], p[1], p[2],
+      p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10], p[11], p[12], p[13],
+      p[14], p[15], p[16], T, H, Dh, U, KS);
 }
 
 }  // namespace
@@ -298,33 +292,32 @@ cudaError_t launch(void* const* p, int B, int T, int H, int Dh, int CL,
 // wz, wi, wf, wo: (B, T, H*Dh) in the wx type; rz, ri, rf, ro: (H, Dh, Dh)
 // in the R type; h0, c0, n0, m0: (B, H, Dh) f32; hout (B, T, H*Dh) f32 and
 // h1, c1, n1, m1 (B, H, Dh) f32 out. dtypes = 2 * wx code + R code (0 f32,
-// 1 bf16). cluster: blocks per (b, head), 1..16 with ceil(Dh / cluster)
-// <= 32. fast: the cell update on the fast intrinsics.
+// 1 bf16). cluster: blocks per (b, head), ceil(Dh / 32) (the portable
+// cluster sizes hold every Dh <= 256).
 extern "C" int slstm_launch(
     const void* wz, const void* wi, const void* wf, const void* wo,
     const void* rz, const void* ri, const void* rf, const void* ro,
     const void* h0, const void* c0, const void* n0, const void* m0,
     void* hout, void* h1, void* c1, void* n1, void* m1, int B, int T, int H,
-    int Dh, int dtypes, int cluster, int fast, void* stream) {
+    int Dh, int dtypes, int cluster, void* stream) {
   if (B <= 0 || T <= 0) return 0;
   if (H <= 0 || Dh <= 0 || Dh > WARPS * KS_MAX || (int64_t)B * H > 65535 ||
-      cluster < 1 || cluster > 16 || (Dh + cluster - 1) / cluster > MAX_UNITS)
+      cluster != (Dh + MAX_UNITS - 1) / MAX_UNITS)
     return (int)cudaErrorInvalidValue;
   void* const p[17] = {(void*)wz, (void*)wi, (void*)wf, (void*)wo,
                        (void*)rz, (void*)ri, (void*)rf, (void*)ro,
                        (void*)h0, (void*)c0, (void*)n0, (void*)m0,
                        hout, h1, c1, n1, m1};
   cudaStream_t s = (cudaStream_t)stream;
-  const bool f = fast != 0;
   switch (dtypes) {
-    case 0: return (int)launch<float, float>(p, B, T, H, Dh, cluster, f, s);
+    case 0: return (int)launch<float, float>(p, B, T, H, Dh, cluster, s);
     case 1:
-      return (int)launch<float, __nv_bfloat16>(p, B, T, H, Dh, cluster, f, s);
+      return (int)launch<float, __nv_bfloat16>(p, B, T, H, Dh, cluster, s);
     case 2:
-      return (int)launch<__nv_bfloat16, float>(p, B, T, H, Dh, cluster, f, s);
+      return (int)launch<__nv_bfloat16, float>(p, B, T, H, Dh, cluster, s);
     case 3:
       return (int)launch<__nv_bfloat16, __nv_bfloat16>(p, B, T, H, Dh,
-                                                        cluster, f, s);
+                                                        cluster, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -16,11 +16,7 @@
 //   variant 2: variant 1 plus the sLSTM cell update on each unit's
 //              thread (tanh, sigmoid, log-sigmoid, two exps, a division),
 //              its inputs taken from the received h so that it sits on
-//              the chain;
-//   variant 3: one-way without a barrier object — each h travels as one
-//              64-bit DSMEM store of (step, value), and a block's threads
-//              spin on their own buffer until every entry carries the
-//              step, then meet at one block barrier (as B8's step does).
+//              the chain.
 //
 // Each step of variants 1-2 depends on the previous step's values from
 // every rank, as in B8. The cluster size is a launch argument (2 .. 16;
@@ -42,33 +38,6 @@ __device__ __forceinline__ void st_cluster(uint32_t remote, float v) {
                :: "r"(remote), "r"(__float_as_uint(v)) : "memory");
 }
 
-// A 64-bit word carrying a step number and a value: one aligned 64-bit
-// store is single-copy atomic, so a reader that sees the step sees the
-// value stored with it.
-__device__ __forceinline__ uint64_t tag_pack(int step, float v) {
-  return ((uint64_t)(uint32_t)step << 32) | __float_as_uint(v);
-}
-__device__ __forceinline__ float tag_value(uint64_t w) {
-  return __uint_as_float((uint32_t)w);
-}
-
-__device__ __forceinline__ void st_cluster_b64(uint32_t remote, uint64_t v) {
-  asm volatile("st.relaxed.cluster.shared::cluster.b64 [%0], %1;"
-               :: "r"(remote), "l"(v) : "memory");
-}
-
-// Spins until the word at `p` (this block's shared memory, written by
-// peers) carries step `step`.
-__device__ __forceinline__ void tag_wait(const uint64_t* p, int step) {
-  const uint32_t a = cx::smem_addr(p);
-  for (;;) {
-    uint64_t w;
-    asm volatile("ld.relaxed.cluster.shared::cta.b64 %0, [%1];"
-                 : "=l"(w) : "r"(a) : "memory");
-    if ((int)(w >> 32) == step) return;
-  }
-}
-
 __device__ __forceinline__ float log_sigmoid(float x) {
   return -(fmaxf(-x, 0.0f) + log1pf(expf(-fabsf(x))));
 }
@@ -79,7 +48,6 @@ slstm_probe_kernel(float* __restrict__ out, int T, int Dh, int U) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);     // 2 mbarriers
   float* hbuf = reinterpret_cast<float*>(smem + 16);      // [2][Dh]
-  uint64_t* tbuf = reinterpret_cast<uint64_t*>(smem + 16);   // variant 3
   const uint32_t rank = cx::cluster_rank();
   const uint32_t CL = cx::cluster_size();
   const int tid = threadIdx.x;
@@ -89,11 +57,7 @@ slstm_probe_kernel(float* __restrict__ out, int T, int Dh, int U) {
   const uint32_t h0 = cx::smem_addr(hbuf);
   const uint32_t bytes = (uint32_t)Dh * 4;
 
-  if (VARIANT == 3)
-    for (int k = tid; k < 2 * Dh; k += blockDim.x)
-      tbuf[k] = tag_pack(k < Dh ? 0 : -1, 0.01f * k);
-  else
-    for (int k = tid; k < 2 * Dh; k += blockDim.x) hbuf[k] = 0.01f * k;
+  for (int k = tid; k < 2 * Dh; k += blockDim.x) hbuf[k] = 0.01f * k;
   if (tid == 0) {
     cx::mbar_init(bar0, 1);
     cx::mbar_init(bar0 + 8, 1);
@@ -107,18 +71,12 @@ slstm_probe_kernel(float* __restrict__ out, int T, int Dh, int U) {
   uint32_t parity = 0;   // bit b: the phase parity to wait for on barrier b
   for (int t = 0; t < T; ++t) {
     const int cur = t & 1;
-    float x;
-    if (VARIANT == 3) {
-      for (int k = tid; k < Dh; k += blockDim.x)
-        tag_wait(tbuf + cur * Dh + k, t);
-      __syncthreads();
-      x = live ? tag_value(tbuf[cur * Dh + (e + 1) % Dh]) : 0.0f;
-    } else if (VARIANT != 0 && t > 0) {
+    if (VARIANT != 0 && t > 0) {
       cx::mbar_wait(bar0 + 8 * cur, (parity >> cur) & 1);
       parity ^= 1u << cur;
       if (tid == 0) cx::mbar_expect_tx(bar0 + 8 * cur, bytes);
     }
-    if (VARIANT != 3) x = live ? hbuf[cur * Dh + (e + 1) % Dh] : 0.0f;
+    const float x = live ? hbuf[cur * Dh + (e + 1) % Dh] : 0.0f;
     if (VARIANT == 2) {
       const float z = tanhf(x);
       const float o = 1.0f / (1.0f + expf(x));
@@ -139,13 +97,6 @@ slstm_probe_kernel(float* __restrict__ out, int T, int Dh, int U) {
         for (uint32_t q = 0; q < CL; ++q)
           st_cluster(cx::map_rank(h0 + 4 * ((cur ^ 1) * Dh + e), q), h);
       cx::cluster_sync();
-    } else if (VARIANT == 3) {
-      if (live && t + 1 < T) {
-        const uint64_t pk = tag_pack(t + 1, h);
-        const uint32_t dst = h0 + 8 * ((cur ^ 1) * Dh + e);
-        for (uint32_t q = 0; q < CL; ++q)
-          st_cluster_b64(cx::map_rank(dst, q), pk);
-      }
     } else if (live && t + 1 < T) {
       const uint32_t dst = h0 + 4 * ((cur ^ 1) * Dh + e);
       const uint32_t bar = bar0 + 8 * (cur ^ 1);
@@ -162,12 +113,12 @@ slstm_probe_kernel(float* __restrict__ out, int T, int Dh, int U) {
 extern "C" int slstm_probe_launch(int variant, int cluster, int BH, int Dh,
                                   int T, void* out, void* stream) {
   if (cluster < 1 || cluster > 16 || BH <= 0 || Dh <= 0 || T <= 0 ||
-      variant < 0 || variant > 3)
+      variant < 0 || variant > 2)
     return (int)cudaErrorInvalidValue;
   const int U = (Dh + cluster - 1) / cluster;
   const int threads = (U + 31) / 32 * 32;
   if (threads > 1024) return (int)cudaErrorInvalidValue;
-  const size_t smem = 16 + 2 * (size_t)Dh * sizeof(uint64_t);
+  const size_t smem = 16 + 2 * (size_t)Dh * sizeof(float);
   cudaStream_t s = (cudaStream_t)stream;
   float* o = (float*)out;
   switch (variant) {
@@ -177,11 +128,8 @@ extern "C" int slstm_probe_launch(int variant, int cluster, int BH, int Dh,
     case 1:
       return (int)cx::launch_clustered(slstm_probe_kernel<1>, cluster, BH,
                                        threads, smem, s, o, T, Dh, U);
-    case 2:
-      return (int)cx::launch_clustered(slstm_probe_kernel<2>, cluster, BH,
-                                       threads, smem, s, o, T, Dh, U);
     default:
-      return (int)cx::launch_clustered(slstm_probe_kernel<3>, cluster, BH,
+      return (int)cx::launch_clustered(slstm_probe_kernel<2>, cluster, BH,
                                        threads, smem, s, o, T, Dh, U);
   }
 }

@@ -600,15 +600,13 @@ slstm_scan_plain.calls = 0
 
 #: Most units a block of the B8 kernel takes (one per lane of a warp).
 SLSTM_MAX_UNITS = 32
-#: Largest thread-block cluster B8 launches (above 8 with the non-portable
-#: cluster attribute).
-SLSTM_MAX_CLUSTER = 16
 
 
 def slstm_cluster(head_dim: int) -> int:
     """Blocks per (batch row, head) of B8: the fewest that keep a block at
-    <= `SLSTM_MAX_UNITS` units (6 at xlstm-125m's Dh 192). Fewer ranks mean
-    fewer stores a step and a faster exchange (the probe, PERF.md §6)."""
+    <= `SLSTM_MAX_UNITS` units (6 at xlstm-125m's Dh 192, at most 8).
+    Fewer ranks mean fewer stores a step and a faster exchange; the
+    measurements behind the choice are in `csrc/slstm.cu`'s note."""
     return -(-head_dim // SLSTM_MAX_UNITS)
 
 
@@ -654,30 +652,22 @@ def _slstm_args(name, wx, r, state):
     return wxs, rs, st, B, T, H, Dh, code
 
 
-def slstm_scan_cuda(wx, r, state, *, cluster: int | None = None,
-                    fast: bool = True):
+def slstm_scan_cuda(wx, r, state):
     """Launch the B8 kernel on CUDA tensors, same arguments and results as
     `slstm_scan_plain`: the four wx contiguous (B, T, H*Dh) in one dtype
     of `KERNEL_DTYPES`, the four r contiguous (H, Dh, Dh) in one dtype of
-    `KERNEL_DTYPES`, state f32; Dh <= 256. `cluster`: blocks per (batch
-    row, head), default `slstm_cluster(Dh)`, at least that and at most
-    `SLSTM_MAX_CLUSTER`; `fast`: the cell update on the fast intrinsics
-    (False: tanhf, expf, log1pf). On the current stream, not
-    synchronised."""
+    `KERNEL_DTYPES`, state f32; Dh <= 256. One cluster of
+    `slstm_cluster(Dh)` blocks per (batch row, head). On the current
+    stream, not synchronised."""
     wxs, rs, st, B, T, H, Dh, code = _slstm_args("slstm_scan_cuda", wx, r,
                                                  state)
-    least = slstm_cluster(Dh)
-    cluster = least if cluster is None else cluster
-    if not least <= cluster <= SLSTM_MAX_CLUSTER:
-        raise ValueError(f"cluster={cluster} outside {least}.."
-                         f"{SLSTM_MAX_CLUSTER} for Dh={Dh}")
     h = torch.empty((B, T, H * Dh), dtype=torch.float32,
                     device=wxs[0].device)
     out = [torch.empty_like(t) for t in st]
     with torch.cuda.device(h.device):
-        err = _slstm_fn("slstm", 7)(
+        err = _slstm_fn("slstm", 6)(
             *(t.data_ptr() for t in (*wxs, *rs, *st, h, *out)),
-            B, T, H, Dh, code, cluster, int(fast),
+            B, T, H, Dh, code, slstm_cluster(Dh),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "slstm")
     build.count(slstm_scan_cuda)

@@ -215,8 +215,8 @@ def test_slstm_cluster_choice():
     assert [txlstm.slstm_cluster(Dh) for Dh in (1, 20, 32, 33, 192, 256)] \
         == [1, 1, 1, 2, 6, 8]
     assert txlstm.SLSTM_MAX_HEAD_DIM == 256
-    assert txlstm.slstm_cluster(txlstm.SLSTM_MAX_HEAD_DIM) \
-        <= txlstm.SLSTM_MAX_CLUSTER
+    # Every head size the wrapper takes fits a portable cluster (<= 8).
+    assert txlstm.slstm_cluster(txlstm.SLSTM_MAX_HEAD_DIM) == 8
 
 
 def _slstm_args(B=1, T=3, H=2, Dh=8, dtype=torch.float32,
@@ -228,21 +228,40 @@ def _slstm_args(B=1, T=3, H=2, Dh=8, dtype=torch.float32,
     return wx, r, st
 
 
-@pytest.mark.parametrize("case,kw,call,match", [
-    ("float16 wx", {"dtype": torch.float16}, {}, "one dtype"),
-    ("float16 r", {"rdtype": torch.float16}, {}, "one dtype"),
-    ("Dh past 256", {"Dh": 257, "H": 1, "T": 1}, {}, "head size 257"),
-    ("cluster below the least", {"Dh": 192, "H": 1, "T": 1},
-     {"cluster": 5}, "cluster=5"),
-    ("cluster past 16", {}, {"cluster": 17}, "cluster=17"),
-    ("too many clusters", {"B": 65536, "H": 1, "T": 1, "Dh": 2}, {},
+def _r_of_another_shape(wx, r, st):
+    r["z"] = _fake(torch.zeros(r["z"].shape[0], 8, 9))
+
+
+def _state_of_another_shape(wx, r, st):
+    st["c"] = _fake(torch.zeros(1, 2, 9))
+
+
+@pytest.mark.parametrize("case,kw,edit,match", [
+    ("float16 wx", {"dtype": torch.float16}, None, "one dtype"),
+    ("float16 r", {"rdtype": torch.float16}, None, "one dtype"),
+    ("Dh past 256", {"Dh": 257, "H": 1, "T": 1}, None, "head size 257"),
+    ("r of another shape", {}, _r_of_another_shape, "wx must be"),
+    ("state of another shape", {}, _state_of_another_shape,
+     "state tensors must be"),
+    ("too many clusters", {"B": 65536, "H": 1, "T": 1, "Dh": 2}, None,
      "65,535"),
 ])
-def test_slstm_wrapper_raises_on_what_it_does_not_take(case, kw, call,
+def test_slstm_wrapper_raises_on_what_it_does_not_take(case, kw, edit,
                                                         match):
     wx, r, st = _slstm_args(**kw)
+    if edit:
+        edit(wx, r, st)
     with pytest.raises(ValueError, match=match):
-        txlstm.slstm_scan_cuda(wx, r, st, **call)
+        txlstm.slstm_scan_cuda(wx, r, st)
+
+
+@pytest.mark.parametrize("option", ["cluster", "fast"])
+def test_slstm_wrapper_takes_no_launch_options(option):
+    """The cluster size and the cell's functions are fixed by the kernel's
+    note, not chosen by the caller."""
+    wx, r, st = _slstm_args()
+    with pytest.raises(TypeError, match=option):
+        txlstm.slstm_scan_cuda(wx, r, st, **{option: 1})
 
 
 def test_slstm_first_design_raises_on_cpu_tensors():
@@ -323,21 +342,19 @@ def launches(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("Dh,cluster,fast,want", [
-    (192, None, True, 6), (192, 8, True, 8), (20, None, False, 1),
-    (256, None, True, 8)])
-def test_slstm_wrapper_launch_shape(launches, Dh, cluster, fast, want):
+@pytest.mark.parametrize("Dh,want", [(192, 6), (33, 2), (20, 1), (256, 8)])
+def test_slstm_wrapper_launch_shape(launches, Dh, want):
     B, T, H = 2, 5, 2
     wx, r, st = _slstm_args(B=B, T=T, H=H, Dh=Dh, dtype=torch.bfloat16)
     before = txlstm.slstm_scan_cuda.launches
-    h, out = txlstm.slstm_scan_cuda(wx, r, st, cluster=cluster, fast=fast)
+    h, out = txlstm.slstm_scan_cuda(wx, r, st)
     assert txlstm.slstm_scan_cuda.launches == before + 1
     assert h.shape == (B, T, H * Dh) and h.dtype == torch.float32
     assert all(out[key].shape == (B, H, Dh) for key in "hcnm")
     ((lib, name, args),) = launches
     assert (lib, name) == ("slstm", "slstm")
-    # B, T, H, Dh, dtype code (bf16 wx, f32 r: 2), cluster, fast, stream.
-    assert args[17:] == (B, T, H, Dh, 2, want, int(fast), 7)
+    # B, T, H, Dh, dtype code (bf16 wx, f32 r: 2), cluster, stream.
+    assert args[17:] == (B, T, H, Dh, 2, want, 7)
 
 
 def test_mlstm_whole_launches_the_three_passes_on_one_scratch(launches):
