@@ -24,8 +24,8 @@ kernels B6 (RG-LRU scan), B7 (chunkwise mLSTM: three chunk-parallel
 passes, each held against its own plain version) and B8 (sLSTM, a
 thread-block cluster per head, R in registers, a one-way h exchange)
 against their plain versions at the main paths' shapes and at ragged
-edges, with B7's and B8's first designs (on no route) held and timed in
-turns beside them (`recurrent_checks`), the MoE family —
+edges, B6 also at the long-memory recipe (`recurrent_checks`), the MoE
+family —
 qwen2-moe-a2.7b whole: a 32,768-token prefill, 4 x 256 decode steps with
 the tokens capacity drops, and one full-width MoE layer each of
 qwen2-moe-a2.7b and mixtral-8x22b in f32 against the CPU (`lm_moe`) —
@@ -1314,6 +1314,12 @@ REC_TOL = 1e-4
 # f32 operations per (b, t, d) of B6's gates and step (two sigmoids, exp,
 # sqrt, max and the products; a transcendental counts one).
 RGLRU_OPS_PER_ELEM = 16
+# Special-function (MUFU) operations per (b, t, d) of B6's gates: an
+# exponential and a reciprocal for each sigmoid, the exponential of a,
+# the square root.
+RGLRU_SFU_PER_ELEM = 6
+# MUFU results per SM per clock on Hopper (4 per SM sub-partition).
+SFU_PER_SM_CLOCK = 16
 # f32 operations per (b, head, step, unit) of B8's cell update beside the
 # 8 Dh recurrent-product operations.
 SLSTM_CELL_OPS = 24
@@ -1345,31 +1351,80 @@ def bound_of(ops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def rglru_check(name, B, T, D, dtype, seed, with_h0=False, reps=0):
-    """B6 against `rglru_scan_plain` on random dense outputs, x and
-    Lambda in the Griffin init's range; timed when `reps` > 0."""
+def sfu_floor_ms(n_ops):
+    """(ms, facts): the least time the card's special-function units take
+    for `n_ops` MUFU operations — 16 results per SM per clock (Hopper's
+    four SFU quads per SM), at the SM count torch reports and the
+    highest SM clock nvidia-smi gives."""
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    per_s = sms * SFU_PER_SM_CLOCK * mhz * 1e6
+    return n_ops / per_s * 1e3, {"sms": sms, "max_sm_mhz": mhz,
+                                 "mufu_per_s": per_s}
+
+
+def rglru_inputs(B, T, D, dtype, seed, with_h0=False, lam_dtype=None,
+                 wa_shift=0.0):
+    """Random dense outputs wa, wx and x (N(0, 1), wa shifted by
+    `wa_shift`), Lambda in the Griffin init's range in `lam_dtype` (x's
+    by default) and, `with_h0`, an incoming h. `wa_shift` = -8 is the
+    long-memory recipe: r = sigmoid(wa) ~ 3e-4, a ~ 0.998 — the product of
+    a over 64 steps ~ 0.8, Griffin's intended a in [0.9, 0.999] — where
+    the unshifted recipe (a ~ 0.04) forgets the carry within a few steps."""
     g = torch.Generator(device=DEV).manual_seed(seed)
     wa, wx, x = (torch.randn(B, T, D, device=DEV, generator=g).to(dtype)
                  for _ in range(3))
-    lam = (0.01 + 0.49 * torch.rand(D, device=DEV, generator=g)).to(dtype)
+    if wa_shift:
+        wa = (wa.float() + wa_shift).to(dtype)
+    lam = (0.01 + 0.49 * torch.rand(D, device=DEV, generator=g)).to(
+        lam_dtype or dtype)
     h0 = torch.randn(B, D, device=DEV, generator=g) if with_h0 else None
+    return wa, wx, x, lam, h0
+
+
+def rglru_check(name, B, T, D, dtype, seed, with_h0=False, reps=0,
+                lam_dtype=None, wa_shift=0.0):
+    """B6 against `rglru_scan_plain` on `rglru_inputs`; when `reps` > 0
+    timed, with the device ms of each kernel and memset of one call by
+    name (`device_trace`), the SFU floor beside the bound, and each tile
+    the kernel is built for timed in turns."""
+    wa, wx, x, lam, h0 = rglru_inputs(B, T, D, dtype, seed, with_h0,
+                                      lam_dtype, wa_shift)
     out = rglru_mod.rglru_scan_cuda(wa, wx, x, lam, h0)
     torch.cuda.synchronize()
     plain_ms, ref = time_host(
         lambda: rglru_mod.rglru_scan_plain(wa, wx, x, lam, h0))
     err, ok = rec_errs(out, ref)
     rec = {"shape": name, "B": B, "T": T, "D": D,
-           "dtype": str(dtype).split(".")[-1], "h0": with_h0,
-           "chunks": -(-T // rglru_mod.KERNEL_CHUNK),
+           "dtype": str(dtype).split(".")[-1],
+           "lam_dtype": str(lam.dtype).split(".")[-1], "h0": with_h0,
+           "wa_shift": wa_shift,
+           "tile": [rglru_mod.KERNEL_CHUNK, rglru_mod.KERNEL_CHANNELS,
+                    rglru_mod.KERNEL_WARPS],
            "max_abs_err": err, "within_tolerance": ok, "plain_ms": plain_ms}
     if reps:
         es = x.element_size()
         nbytes = 4 * B * T * D * es + D * lam.element_size() \
             + B * D * 4 * (2 if with_h0 else 1)
         bound, by = bound_of(B * T * D * RGLRU_OPS_PER_ELEM, nbytes)
-        rec.update(ms=time_cuda(
-            lambda: rglru_mod.rglru_scan_cuda(wa, wx, x, lam, h0), reps),
-            bound_ms=bound, bound_by=by)
+
+        def call():
+            return rglru_mod.rglru_scan_cuda(wa, wx, x, lam, h0)
+        sfu_ms, sfu = sfu_floor_ms(B * T * D * RGLRU_SFU_PER_ELEM)
+        rec.update(ms=time_cuda(call, reps), bound_ms=bound, bound_by=by,
+                   sfu_floor_ms=sfu_ms, sfu=sfu,
+                   device_by_name=device_trace(call).get("top",
+                                                         "not measured"))
+        # Each tile the kernel is built for, in turns (a b .. b a).
+        tiles = rglru_mod.KERNEL_TILES
+        order = list(tiles) + list(tiles)[::-1]
+        ms = [time_cuda(lambda: rglru_mod._launch(wa, wx, x, lam, h0, tl),
+                        reps) for tl in order]
+        rec["tile_ms"] = {"x".join(map(str, tl)): [
+            m for t2, m in zip(order, ms) if t2 == tl] for tl in tiles}
     if not ok:
         raise AssertionError(f"B6 != plain: {rec}")
     return rec
@@ -1417,8 +1472,8 @@ def mlstm_inputs(B, H, T, D, seed, with_state=False, extreme=0,
 
 
 def mlstm_bounds(B, H, T, D, L):
-    """(ms, what binds) of B7 whole (the first design's figure: f32 FMA
-    operations, q, k, v, gates, h and the state once) and of each pass
+    """(ms, what binds) of B7 whole (f32 FMA operations, q, k, v, gates,
+    h and the state once) and of each pass
     (its own inputs read once, its outputs — the D^2 + D + 2 values of a
     chunk's state — written once)."""
     nc = T // L
@@ -1440,23 +1495,20 @@ def mlstm_bounds(B, H, T, D, L):
 
 def mlstm_check(name, B, H, T, D, chunk, seed, with_state=False,
                 extreme=0, reps=0):
-    """B7 on the card: the whole (the three pass kernels) and the first
-    design against `mlstm_chunk_scan_plain`, and each pass kernel against
-    its plain version fed by the plain versions of the passes before it.
-    With `reps`, the designs timed in turns (first, passes, passes,
-    first) and each pass alone."""
+    """B7 on the card: the whole (the three pass kernels) against
+    `mlstm_chunk_scan_plain`, and each pass kernel against its plain
+    version fed by the plain versions of the passes before it. With
+    `reps`, the whole and each pass alone timed."""
     q, k, v, it, ft, state = mlstm_inputs(B, H, T, D, seed, with_state,
                                           extreme)
     args = (q, k, v, it, ft, state, chunk)
     keys = ("C", "n", "m")
     h, st = xlstm_mod.mlstm_chunk_scan_cuda(*args)
-    hf, stf = xlstm_mod.mlstm_chunk_scan_first_cuda(*args)
     torch.cuda.synchronize()
     plain_ms, (hr, sr) = time_host(
         lambda: xlstm_mod.mlstm_chunk_scan_plain(*args))
     refs = [hr, *(sr[k_] for k_ in keys)]
     err, ok = rec_errs([h, *(st[k_] for k_ in keys)], refs)
-    ferr, fok = rec_errs([hf, *(stf[k_] for k_ in keys)], refs)
 
     def parts(work, scal, m_col):
         return [work[..., :D, :D], work[..., D, :D], scal[..., m_col]]
@@ -1480,20 +1532,14 @@ def mlstm_check(name, B, H, T, D, chunk, seed, with_state=False,
     rec = {"shape": name, "B": B, "H": H, "T": T, "D": D, "chunk": chunk,
            "state_in": with_state, "extreme_gates": bool(extreme),
            "max_abs_err": err, "within_tolerance": ok, "plain_ms": plain_ms,
-           "first_max_abs_err": ferr, "first_within_tolerance": fok,
            "scratch_bytes": xlstm_mod.mlstm_work_bytes(B, H, T, D, chunk),
            "passes": {key: {"plain_ms": p[0], "max_abs_err": p[1],
                             "within_tolerance": p[2]}
                       for key, p in passes.items()}}
     if reps:
         bounds = mlstm_bounds(B, H, T, D, chunk)
-        turns = [time_cuda(lambda: fn(*args), reps) for fn in (
-            xlstm_mod.mlstm_chunk_scan_first_cuda,
-            xlstm_mod.mlstm_chunk_scan_cuda,
-            xlstm_mod.mlstm_chunk_scan_cuda,
-            xlstm_mod.mlstm_chunk_scan_first_cuda)]
-        rec.update(ms=(turns[1] + turns[2]) / 2,
-                   first_ms=(turns[0] + turns[3]) / 2, ms_turns=turns,
+        rec.update(ms=time_cuda(
+            lambda: xlstm_mod.mlstm_chunk_scan_cuda(*args), reps),
                    bound_ms=bounds["whole"][0],
                    bound_by=bounds["whole"][1])
         wt, stt = wp.clone(), sp.clone()
@@ -1510,22 +1556,21 @@ def mlstm_check(name, B, H, T, D, chunk, seed, with_state=False,
             passes_rec.update(ms=time_cuda(fn, reps),
                               bound_ms=bounds[key][0],
                               bound_by=bounds[key][1])
-    if not (ok and fok and all(p[2] for p in passes.values())):
+    if not (ok and all(p[2] for p in passes.values())):
         raise AssertionError(f"B7 != plain: {rec}")
     return rec
 
 
 def mlstm_f64_witness(name, B, H, T, D, chunk, seed):
-    """B7 and its first design at the extreme gates' ill-conditioned
-    recipe (`mlstm_inputs(..., spike=15, shared_qk=False)`, a carried
-    state), where f32 in any summation order may stray from the exact
-    answer by more than `REC_TOL`: both designs and the f32 plain version
-    held against `mlstm_chunk_scan_plain` in f64 on the same inputs, so
-    that the record shows which side strays. Gate (stated before its
-    first card run), per output: a design's distance from the f64 result
-    <= the f32 plain version's distance from it + REC_TOL x max |f64|.
-    Whether a design also lies within REC_TOL x max |f64| outright is
-    recorded beside."""
+    """B7 at the extreme gates' ill-conditioned recipe
+    (`mlstm_inputs(..., spike=15, shared_qk=False)`, a carried state),
+    where f32 in any summation order may stray from the exact answer by
+    more than `REC_TOL`: the kernel and the f32 plain version held against
+    `mlstm_chunk_scan_plain` in f64 on the same inputs, so that the record
+    shows which side strays. Gate (stated before its first card run), per
+    output: the kernel's distance from the f64 result <= the f32 plain
+    version's distance from it + REC_TOL x max |f64|. Whether the kernel
+    also lies within REC_TOL x max |f64| outright is recorded beside."""
     q, k, v, it, ft, state = mlstm_inputs(B, H, T, D, seed, True, chunk,
                                           spike=15.0, shared_qk=False)
     args = (q, k, v, it, ft, state, chunk)
@@ -1537,8 +1582,7 @@ def mlstm_f64_witness(name, B, H, T, D, chunk, seed):
         *(x.double() for x in args[:5]),
         {k_: x.double() for k_, x in state.items()}, chunk))
     plain = outs(xlstm_mod.mlstm_chunk_scan_plain(*args))
-    designs = {"new": outs(xlstm_mod.mlstm_chunk_scan_cuda(*args)),
-               "first": outs(xlstm_mod.mlstm_chunk_scan_first_cuda(*args))}
+    designs = {"new": outs(xlstm_mod.mlstm_chunk_scan_cuda(*args))}
     torch.cuda.synchronize()
 
     def dist(a, b):
@@ -1575,12 +1619,10 @@ def witness_summary(witness):
     return {
         "seeds": len(witness),
         "max_vs_f64": max(w["new"]["vs_f64"][0] for w in witness),
-        "max_first_vs_f64": max(w["first"]["vs_f64"][0] for w in witness),
         "max_plain_f32_vs_f64": max(w["plain_f32_vs_f64"][0]
                                     for w in witness),
         "beyond_tol": {
             "new": beyond(lambda w: w["new"]["vs_f64"][0]),
-            "first": beyond(lambda w: w["first"]["vs_f64"][0]),
             "plain_f32": beyond(lambda w: w["plain_f32_vs_f64"][0])},
         "new_nearer_than_plain_f32": sum(
             w["new"]["vs_f64"][0] < w["plain_f32_vs_f64"][0]
@@ -1607,23 +1649,19 @@ def slstm_inputs(B, T, H, Dh, dtype, seed, with_state=False):
 
 
 def slstm_check(name, B, T, H, Dh, dtype, seed, with_state=False, reps=0):
-    """B8 and its first design against `slstm_scan_plain`; with `reps`
-    both timed in turns (first, new, new, first)."""
+    """B8 against `slstm_scan_plain`; timed with `reps`."""
     wx, r, state = slstm_inputs(B, T, H, Dh, dtype, seed, with_state)
     keys = ("h", "c", "n", "m")
     h, st = xlstm_mod.slstm_scan_cuda(wx, r, state)
-    hf, stf = xlstm_mod.slstm_scan_first_cuda(wx, r, state)
     torch.cuda.synchronize()
     plain_ms, (hr, sr) = time_host(
         lambda: xlstm_mod.slstm_scan_plain(wx, r, state))
     refs = [hr, *(sr[k_] for k_ in keys)]
     err, ok = rec_errs([h, *(st[k_] for k_ in keys)], refs)
-    ferr, fok = rec_errs([hf, *(stf[k_] for k_ in keys)], refs)
     rec = {"shape": name, "B": B, "T": T, "H": H, "Dh": Dh,
            "dtype": str(dtype).split(".")[-1], "state_in": with_state,
            "cluster": xlstm_mod.slstm_cluster(Dh),
-           "max_abs_err": err, "within_tolerance": ok, "plain_ms": plain_ms,
-           "first_max_abs_err": ferr, "first_within_tolerance": fok}
+           "max_abs_err": err, "within_tolerance": ok, "plain_ms": plain_ms}
     if reps:
         d = H * Dh
         es = wx["z"].element_size()
@@ -1631,14 +1669,10 @@ def slstm_check(name, B, T, H, Dh, dtype, seed, with_state=False, reps=0):
         nbytes = 4 * B * T * d * es + 4 * H * Dh * Dh * r["z"].element_size() \
             + B * T * d * 4 + 8 * B * d * 4
         bound, by = bound_of(ops, nbytes)
-        turns = [time_cuda(lambda: fn(wx, r, state), reps) for fn in (
-            xlstm_mod.slstm_scan_first_cuda, xlstm_mod.slstm_scan_cuda,
-            xlstm_mod.slstm_scan_cuda, xlstm_mod.slstm_scan_first_cuda)]
-        ms, first_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
-        rec.update(ms=ms, first_ms=first_ms, ms_turns=turns, bound_ms=bound,
-                   bound_by=by, us_per_step=ms * 1e3 / T,
-                   first_us_per_step=first_ms * 1e3 / T)
-    if not (ok and fok):
+        ms = time_cuda(lambda: xlstm_mod.slstm_scan_cuda(wx, r, state), reps)
+        rec.update(ms=ms, bound_ms=bound, bound_by=by,
+                   us_per_step=ms * 1e3 / T)
+    if not ok:
         raise AssertionError(f"B8 != plain: {rec}")
     return rec
 
@@ -1700,27 +1734,37 @@ def recurrent_checks(quick):
     """B6, B7 and B8 against their plain versions on the card, each at
     the main path's shape (recurrentgemma-9b's and xlstm-125m's prefill of
     one 32,768-token sequence; --quick 4,096), timed there, and at ragged
-    edges: B6 at T = 1,000 (not a multiple of its 64-step chunk) with an
-    incoming h, f32 and bf16; B7 with chunk 40 (not its 64-row tile) and
+    edges: B6 at T = 1,000 (not a multiple of its tile) with an incoming
+    h, f32 and bf16, bf16 x with an f32 Lambda, D = 1,003 (no 16-byte
+    rows), and the long-memory recipe (a ~ 0.998) at the main shape
+    (timed) and at B 4 x T 1,000 with h0 in f32; B7 with chunk 40 (not
+    its 64-row tile) and
     a carried state, the ragged T = 200 = 5 chunks of 40, D 16 at chunk
     16, B 2 at 3 chunks, and the extreme gates that switch M_c between the
     carried m and G_c (and, at their ill-conditioned first recipe and 16
-    seeds, both designs and the f32 plain version against an f64 plain
-    result: `mlstm_f64_witness`); B8 at T = 37 with a state, at Dh = 20 (not a
-    multiple of its cluster ranks), at T = 1 (decode) in bf16, at the
-    largest head size the wrapper takes (256) and at B 64 x 4 heads (more
-    clusters than the SMs hold at once). B7's and B8's first designs are
-    held at every shape and timed in turns with the new ones."""
+    seeds, the kernel and the f32 plain version against an f64 plain
+    result: `mlstm_f64_witness`); B8 at T = 37 with a state, at Dh = 20
+    (not a multiple of its cluster ranks), at T = 1 (decode) in bf16, at
+    the largest head size the wrapper takes (256) and at B 64 x 4 heads
+    (more clusters than the SMs hold at once)."""
     T = 4096 if quick else 32768
     reps = 3 if quick else 5
     rg = get_config("recurrentgemma-9b")
     xl = get_config("xlstm-125m")
-    b6 = [rglru_check("main", 1, T, rg.d_model, torch.bfloat16, 21,
-                      reps=reps),
-          rglru_check("ragged_f32", 2, 1000, rg.d_model, torch.float32, 22,
+    d = rg.d_model
+    b6 = [rglru_check("main", 1, T, d, torch.bfloat16, 21, reps=reps),
+          rglru_check("ragged_f32", 2, 1000, d, torch.float32, 22,
                       with_h0=True),
-          rglru_check("ragged_bf16", 2, 1000, rg.d_model, torch.bfloat16, 23,
-                      with_h0=True)]
+          rglru_check("ragged_bf16", 2, 1000, d, torch.bfloat16, 23,
+                      with_h0=True),
+          rglru_check("long_memory_main", 1, T, d, torch.bfloat16, 35,
+                      reps=reps, wa_shift=-8.0),
+          rglru_check("long_memory_b4_f32_h0", 4, 1000, d, torch.float32,
+                      36, with_h0=True, wa_shift=-8.0),
+          rglru_check("bf16_x_f32_lam", 2, 1000, d, torch.bfloat16, 37,
+                      with_h0=True, lam_dtype=torch.float32),
+          rglru_check("d1003_f32", 3, 77, 1003, torch.float32, 38,
+                      with_h0=True, wa_shift=-8.0)]
     H, D = xl.n_heads, xl.head_dim
     b7 = [mlstm_check("main", 1, H, T, D, 64, 24, reps=reps),
           mlstm_check("chunk40_state", 2, H, 200, D, 40, 25,
@@ -2059,7 +2103,9 @@ def lm_recurrent_phase(args, paths):
     4)."""
     torch.cuda.reset_peak_memory_stats()
     rg = recurrent_model(args, "recurrentgemma-9b", 8, paths, "_rg",
-                         {"rglru_scan": ("rglru",), "flash_tc": ("local",)})
+                         {"rglru_scan": ("rglru",), "flash_tc": ("local",)},
+                         {"rglru_scan": "rglru_scan_kernel",
+                          "flash_tc": "flash_tc_kernel"})
     xl = recurrent_model(args, "xlstm-125m", 4, paths, "_xl",
                          {"mlstm_chunk_states": ("mlstm",),
                           "mlstm_state_scan": ("mlstm",),
@@ -2119,9 +2165,7 @@ COUNTERS = {
     "mlstm_chunk_states": xlstm_mod.mlstm_chunk_states_cuda,
     "mlstm_state_scan": xlstm_mod.mlstm_state_scan_cuda,
     "mlstm_chunk_outputs": xlstm_mod.mlstm_chunk_outputs_cuda,
-    "mlstm_chunk_first": xlstm_mod.mlstm_chunk_scan_first_cuda,
     "slstm": xlstm_mod.slstm_scan_cuda,
-    "slstm_first": xlstm_mod.slstm_scan_first_cuda,
 }
 PLAIN = {
     "plain_banded": banded.banded_align_batch,
@@ -3284,22 +3328,28 @@ def main():
                 if k_ in main_rec),
             ragged_shapes=[r["shape"] for r in recs[1:]], **extra)
     b6 = rec_checks["rglru_scan"]
+    rg_prefill = lm_rec["recurrentgemma"]["prefill"]
     kernels.append(rec_entry(
         "rglru_scan", "rglru_scan.cu", "src/repro/models/rglru.py:51", b6,
         max_abs_err=max(r["max_abs_err"] for r in b6),
         within_tolerance=all(r["within_tolerance"] for r in b6),
         ms=b6[0]["ms"], plain_ms=b6[0]["plain_ms"],
-        bound_ms=b6[0]["bound_ms"], bound_by=b6[0]["bound_by"]))
-    # B7: one entry per pass kernel; the whole (three launches) and the
-    # first design, timed in turns, beside the first pass.
+        bound_ms=b6[0]["bound_ms"], bound_by=b6[0]["bound_by"],
+        sfu_floor_ms=b6[0]["sfu_floor_ms"], tile=b6[0]["tile"],
+        tile_ms=b6[0]["tile_ms"],
+        device_by_name=b6[0]["device_by_name"],
+        long_memory_ms=b6[3]["ms"],
+        launches_per_recurrentgemma_prefill=rg_prefill["launches"][
+            "rglru_scan"],
+        recurrentgemma_prefill_trace=rg_prefill["trace"].get(
+            "by_kernel", "not measured")))
+    # B7: one entry per pass kernel; the whole (three launches) beside the
+    # first pass.
     b7 = rec_checks["mlstm_chunk"]
     main7 = b7[0]
     whole7 = {key: main7[key] for key in (
-        "ms", "first_ms", "ms_turns", "plain_ms", "bound_ms", "bound_by",
-        "scratch_bytes")}
+        "ms", "plain_ms", "bound_ms", "bound_by", "scratch_bytes")}
     whole7.update(max_abs_err=max(r["max_abs_err"] for r in b7),
-                  first_max_abs_err=max(r["first_max_abs_err"] for r in b7),
-                  first_launches=tot("mlstm_chunk_first"),
                   f64_witness_h=witness_summary(
                       rec_checks["mlstm_f64_witness"]))
     for i, key in enumerate(("mlstm_chunk_states", "mlstm_state_scan",
@@ -3324,18 +3374,10 @@ def main():
         latency_floor_ms=probe["floor_us_per_step"] * main8["T"] / 1e3,
         latency_floor_us_per_step=probe["floor_us_per_step"],
         us_per_step=main8["us_per_step"], cluster=main8["cluster"],
-        first_ms=main8["first_ms"], ms_turns=main8["ms_turns"],
-        first_us_per_step=main8["first_us_per_step"],
-        first_max_abs_err=max(r["first_max_abs_err"] for r in b8),
-        first_launches=tot("slstm_first"), decode_ms=dec8["ms"],
-        decode_first_ms=dec8["first_ms"], decode_ms_turns=dec8["ms_turns"],
-        decode_bound_ms=dec8["bound_ms"],
+        decode_ms=dec8["ms"], decode_bound_ms=dec8["bound_ms"],
         decode_bound_by=dec8["bound_by"]))
     for k in kernels[-5:]:
         assert k["launches"] > 0 and k["within_tolerance"], k
-    # The first designs are on no route: no main path launched them.
-    assert tot("mlstm_chunk_first") == 0 and tot("slstm_first") == 0, \
-        (tot("mlstm_chunk_first"), tot("slstm_first"))
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("total", {"seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -18,6 +18,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 
 #: name -> source file. One shared library per source; every header
@@ -37,10 +39,6 @@ SOURCES = {
     "mlstm_chunk": _PKG / "models" / "csrc" / "mlstm_chunk.cu",
     "slstm": _PKG / "models" / "csrc" / "slstm.cu",
     "slstm_probe": _PKG / "models" / "csrc" / "slstm_probe.cu",
-    # B7's and B8's first designs, on no route: timed beside their
-    # redesigns by chip_smoke.py only.
-    "mlstm_chunk_first": _PKG / "models" / "csrc" / "mlstm_chunk_first.cu",
-    "slstm_first": _PKG / "models" / "csrc" / "slstm_first.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -63,6 +61,18 @@ def count(fn, attr: str = "launches", **keyed) -> None:
         setattr(fn, attr, getattr(fn, attr) + 1)
         for name, key in keyed.items():
             getattr(fn, name)[key] += 1
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise RuntimeError if autograd would record a call of the kernel
+    wrapper `name`: grad mode is on and one of `tensors` requires grad.
+    The language-model kernels have no backward yet, and their outputs
+    would silently carry no gradient to their inputs."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, but this kernel has no "
+            f"backward yet; call it under torch.no_grad()")
 
 
 def build_dir() -> Path:

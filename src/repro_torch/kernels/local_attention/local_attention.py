@@ -180,6 +180,7 @@ def _prepare(q, k, v, window, dtypes, head_dims, name):
     if not q.is_cuda:
         raise ValueError(f"{name} takes CUDA tensors; the plain version "
                          f"flash_attention_plain runs anywhere")
+    build.refuse_grad(name, q, k, v)
     # Contiguous rows on 16-byte boundaries: the kernels load 16 bytes of
     # a row at a time (TMA requires it of its base address).
     q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0

@@ -9,23 +9,81 @@
 //
 // over (B, T, D), f32 arithmetic whatever the input type.
 //
-// Design. recurrentgemma-9b runs B 1 x D 4,096: one thread per channel
-// looping over all of T would keep 4,096 threads busy, far too few to
-// stream from HBM. So T is cut into chunks of L steps and the scan runs in
-// three passes, one thread per (b, chunk, d), neighbouring threads on
-// neighbouring channels (coalesced):
-//   1. reduce: each chunk's (prod a, h from 0) pair, computed in order;
-//   2. carry:  one thread per (b, d) walks the chunks' pairs from h0 and
-//              writes the h each chunk starts from (nc = T / L steps);
-//   3. fix-up: each chunk rescans its steps from its start h, writing y;
-//              the last chunk writes h_last (so h_last == y[:, -1]).
-// The gates are recomputed in pass 3 rather than stored: reading the
-// three inputs twice costs less than writing and reading a, b in f32.
-//
 // What bounds it on an H100: bytes. The least traffic is each input read
-// once and y written once (8 bytes per (b, t, d) in bf16, 16 in f32); this
-// design reads the inputs twice (14 / 28 bytes). The pairs of the carry
-// pass are 12 bytes per (b, chunk, d), 1/64 of that at L = 64.
+// once and y written once, 8 bytes per (b, t, d) in bf16 (16 in f32):
+// 0.32 ms at recurrentgemma-9b's prefill (1 x 32,768 x 4,096) at 3.35
+// TB/s. Next come the special-function units: six MUFU operations per
+// element (an exponential and a reciprocal per sigmoid, the exponential of
+// a, the square root), about 0.19 ms at 16 a clock on 132 SMs.
+//
+// Design: one launch, a single pass with decoupled look-back. A block
+// owns a tile of L = W x R steps by C = 32 V channels of one batch row
+// (W warps; `rglru.py` launches 96 x 128 x 8, see below): lane l of
+// warp w holds channels [V l, V (l + 1)) of the tile — 8 or 16 bytes of a
+// bf16 row in one load, so a warp reads 256 or 512 contiguous bytes — and
+// rows [w R, (w + 1) R). A block
+//
+//   1. takes its tile from an atomic counter, in the order (t-tile, b,
+//      channel tile), so every tile it may wait for took its number
+//      earlier and is resident or done: no block waits on one that is
+//      not scheduled. While the counter answers, it asks L2 for the rows
+//      of tile blockIdx.x: blocks start about in index order, so that
+//      tile's owner, whichever block it is, starts about now (a hint;
+//      correctness never rests on it);
+//   2. loads its R rows (all in flight at once), computes (a, b) once,
+//      keeps them in shared memory for step 5, and scans them from 0:
+//      each warp's segment maps h -> P h + H;
+//   3. composes the W segments in shared memory: each warp's exclusive
+//      prefix and the tile's aggregate (A, H);
+//   4. publishes the aggregate with the flag AGG (tile 0 of a row, which
+//      knows its h0, publishes its inclusive h at once), then looks back:
+//      warp 0 reads the flags of the 32 tiles before it, and the nearest
+//      INC behind a run of AGGs ends the walk; the block composes those
+//      tiles' aggregates onto that tile's inclusive h (a window of 32
+//      AGGs without an INC is composed and the walk goes on). It
+//      publishes its own inclusive h (flag INC);
+//   5. runs each warp's R steps on from its incoming h — h = a h + b, the
+//      plain recurrence — and writes y; the tile holding step T - 1
+//      writes h_last from the same f32 value that y rounds.
+//
+// Ordering. The block stores its aggregate or inclusive values at L2
+// (`st.cg`); a block barrier; then thread 0 stores the flag with
+// `st.release.gpu`, which is cumulative over the stores the barrier
+// ordered before it (the pattern of CUTLASS's semaphore). A reader's warp
+// 0 loads flags with `ld.acquire.gpu`; a block barrier; then the block
+// loads the values with `ld.cg` (L2, never a stale L1 line). So a flag
+// seen as AGG or INC orders every value it covers before the read, and no
+// value is torn: each tile writes its aggregate once and its inclusive
+// value once, and never changes either. Flags and the counter are zeroed
+// by a memset on the stream before every launch, so no launch reads
+// another's flags.
+//
+// What sets the time: each tile's chain of latencies — the counter, the
+// loads, the gates, the barriers, the look-back's round trips to L2 — so
+// what helps is more elements a tile, more tiles resident an SM, and
+// loads that find their rows already in L2. Trial builds on the way here
+// ran slower: (a, b) in registers (one block an SM at 32 x 256), smaller
+// tiles at three blocks an SM, persistent blocks that prefetch their next
+// tile, and a hint of the tile a block's SM takes a wave later. The tiles
+// built, L x C x W: 64 x 128 x 8, 64 x 128 x 16, 96 x 128 x 8 (launched:
+// two blocks, 16 warps, an SM), 128 x 128 x 16 and 64 x 256 x 16;
+// chip_smoke.py times each at the main shape in turns (`tile_ms` of the
+// `recurrent_checks` line; PERF.md has the times).
+//
+// Ragged edges: steps past T are (a, b) = (1, 0); channels past D read
+// 0 (a = 1, b = 0) and are not written; rows of B are independent chains.
+// Without 16-byte alignment (D % 8 != 0 or an offset pointer) the loads
+// and stores go one element at a time.
+//
+// The gates use the fast intrinsics (__expf, __fdividef, sqrt.approx):
+// their errors, a few ulp, stay far inside the kernel's tolerance (1e-4
+// of the largest |y|, chip_smoke.py). softplus(lam) is computed once per
+// thread and channel with the precise functions.
+//
+// Scratch (`rglru_scan_scratch_bytes`): per tile an aggregate (2 f32) and
+// an inclusive h (1 f32) per channel and one flag: 12 bytes per (tile,
+// channel), 0.125 bytes per element at L = 96 against the 8 of bf16
+// input and output.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -33,152 +91,457 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int AGG = 1, INC = 2;
 
-__device__ __forceinline__ float load(const float* p, int64_t i) {
-  return p[i];
+// V values of one row as loaded, in 32-bit words: f32 one to a word, bf16
+// two (unpacked when the gates are computed, so that the loads of all R
+// rows are in flight in as few registers as they take).
+template <typename TX, int V>
+struct Raw {
+  static constexpr int WORDS = V * (int)sizeof(TX) / 4;
+  uint32_t w[WORDS];
+};
+
+__device__ __forceinline__ float unpack_one(const uint32_t* w, int j,
+                                            float) {
+  return __uint_as_float(w[j]);
 }
-__device__ __forceinline__ float load(const __nv_bfloat16* p, int64_t i) {
-  return __bfloat162float(p[i]);
+__device__ __forceinline__ float unpack_one(const uint32_t* w, int j,
+                                            __nv_bfloat16) {
+  const uint32_t u = w[j >> 1];
+  return __uint_as_float(j & 1 ? u & 0xffff0000u : u << 16);
 }
-__device__ __forceinline__ void store(float* p, int64_t i, float v) {
+template <typename TX, int V>
+__device__ __forceinline__ float unpack(const Raw<TX, V>& r, int j) {
+  return unpack_one(r.w, j, TX());
+}
+
+__device__ __forceinline__ uint32_t bits(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ uint32_t bits(__nv_bfloat16 v) {
+  return __bfloat16_as_ushort(v);
+}
+
+// The V values at p + i (channels [c, c + V) of a row); `n` of them exist
+// (n <= 0: none, read as 0). VEC: rows on 16-byte boundaries and D % 8 ==
+// 0, so n >= V or n <= 0 and one or two vector loads take the V values.
+template <bool VEC, typename TX, int V>
+__device__ __forceinline__ Raw<TX, V> load_raw(const TX* p, int64_t i,
+                                               int n) {
+  Raw<TX, V> o;
+  constexpr int W = Raw<TX, V>::WORDS;
+  if (VEC && n > 0) {
+    const uint32_t* q = reinterpret_cast<const uint32_t*>(p + i);
+    if constexpr (W % 4 == 0) {
+#pragma unroll
+      for (int k = 0; k < W / 4; ++k) {
+        const uint4 u = __ldcs(reinterpret_cast<const uint4*>(q) + k);
+        o.w[4 * k] = u.x; o.w[4 * k + 1] = u.y;
+        o.w[4 * k + 2] = u.z; o.w[4 * k + 3] = u.w;
+      }
+    } else {
+      static_assert(W == 2, "V of 4 bf16 or 8 / 4 of either type");
+      const uint2 u = __ldcs(reinterpret_cast<const uint2*>(q));
+      o.w[0] = u.x; o.w[1] = u.y;
+    }
+  } else {
+    constexpr int E = 4 / (int)sizeof(TX);  // elements a word
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      uint32_t w = 0;
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if (!VEC && k * E + e < n)
+          w |= bits(p[i + k * E + e]) << (32 / E * e);
+      o.w[k] = w;
+    }
+  }
+  return o;
+}
+
+__device__ __forceinline__ void store1(float* p, int64_t i, float v) {
   p[i] = v;
 }
-__device__ __forceinline__ void store(__nv_bfloat16* p, int64_t i, float v) {
+__device__ __forceinline__ void store1(__nv_bfloat16* p, int64_t i, float v) {
   p[i] = __float2bfloat16(v);
 }
 
-__device__ __forceinline__ float sigmoid(float v) {
-  return 1.0f / (1.0f + expf(-v));
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// -8 * softplus(lam): the exponent's factor, once per channel.
-__device__ __forceinline__ float neg_c_softplus(float lam) {
-  return -8.0f * (fmaxf(lam, 0.0f) + log1pf(expf(-fabsf(lam))));
-}
-
-template <typename TX>
-__device__ __forceinline__ void gate(const TX* wa, const TX* wx, const TX* x,
-                                     int64_t i, float k, float& a, float& b) {
-  const float r = sigmoid(load(wa, i));
-  const float ig = sigmoid(load(wx, i));
-  a = expf(k * r);
-  b = sqrtf(fmaxf(1.0f - a * a, 1e-9f)) * (ig * load(x, i));
-}
-
-template <typename TX, typename TL>
-__global__ void __launch_bounds__(THREADS)
-reduce_kernel(const TX* __restrict__ wa, const TX* __restrict__ wx,
-              const TX* __restrict__ x, const TL* __restrict__ lam,
-              float* __restrict__ prod_a, float* __restrict__ h_loc, int T,
-              int D, int L, int nc) {
-  const int d = blockIdx.x * THREADS + threadIdx.x;
-  const int c = blockIdx.y, b = blockIdx.z;
-  if (d >= D) return;
-  const float k = neg_c_softplus(load(lam, d));
-  const int t1 = min(T, (c + 1) * L);
-  float A = 1.0f, H = 0.0f;
-  for (int t = c * L; t < t1; ++t) {
-    float a, bb;
-    gate(wa, wx, x, ((int64_t)b * T + t) * D + d, k, a, bb);
-    A *= a;
-    H = a * H + bb;
-  }
-  const int64_t o = ((int64_t)b * nc + c) * D + d;
-  prod_a[o] = A;
-  h_loc[o] = H;
-}
-
-__global__ void __launch_bounds__(THREADS)
-carry_kernel(const float* __restrict__ prod_a, const float* __restrict__ h_loc,
-             const float* __restrict__ h0, float* __restrict__ h_in, int D,
-             int nc) {
-  const int d = blockIdx.x * THREADS + threadIdx.x;
-  const int b = blockIdx.y;
-  if (d >= D) return;
-  float h = h0 ? h0[(int64_t)b * D + d] : 0.0f;
-  for (int c = 0; c < nc; ++c) {
-    const int64_t o = ((int64_t)b * nc + c) * D + d;
-    h_in[o] = h;
-    h = prod_a[o] * h + h_loc[o];
+// y for channels [c, c + V) of a row: vector stores under VEC, else one
+// element at a time for the n that exist.
+template <bool VEC, int V>
+__device__ __forceinline__ void store_row(float* p, int64_t i, int n,
+                                          const float* v) {
+  if (VEC) {
+    if (n > 0) {
+#pragma unroll
+      for (int k = 0; k < V / 4; ++k)
+        __stcs(reinterpret_cast<float4*>(p + i) + k,
+               make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2],
+                           v[4 * k + 3]));
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      if (j < n) store1(p, i + j, v[j]);
   }
 }
 
-template <typename TX, typename TL>
-__global__ void __launch_bounds__(THREADS)
-fixup_kernel(const TX* __restrict__ wa, const TX* __restrict__ wx,
-             const TX* __restrict__ x, const TL* __restrict__ lam,
-             const float* __restrict__ h_in, TX* __restrict__ y,
-             float* __restrict__ h_last, int T, int D, int L, int nc) {
-  const int d = blockIdx.x * THREADS + threadIdx.x;
-  const int c = blockIdx.y, b = blockIdx.z;
-  if (d >= D) return;
-  const float k = neg_c_softplus(load(lam, d));
-  const int t1 = min(T, (c + 1) * L);
-  float h = h_in[((int64_t)b * nc + c) * D + d];
-  for (int t = c * L; t < t1; ++t) {
-    const int64_t i = ((int64_t)b * T + t) * D + d;
-    float a, bb;
-    gate(wa, wx, x, i, k, a, bb);
-    h = a * h + bb;
-    store(y, i, h);
+template <bool VEC, int V>
+__device__ __forceinline__ void store_row(__nv_bfloat16* p, int64_t i, int n,
+                                          const float* v) {
+  if (VEC) {
+    if (n > 0) {
+      if constexpr (V == 8) {
+        __stcs(reinterpret_cast<uint4*>(p + i),
+               make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]),
+                          pack2(v[4], v[5]), pack2(v[6], v[7])));
+      } else {
+        __stcs(reinterpret_cast<uint2*>(p + i),
+               make_uint2(pack2(v[0], v[1]), pack2(v[2], v[3])));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      if (j < n) store1(p, i + j, v[j]);
   }
-  if (c == nc - 1) h_last[(int64_t)b * D + d] = h;
 }
 
-template <typename TX, typename TL>
+__device__ __forceinline__ float load_lam(const float* p, int i) {
+  return p[i];
+}
+__device__ __forceinline__ float load_lam(const __nv_bfloat16* p, int i) {
+  return __bfloat162float(p[i]);
+}
+
+__device__ __forceinline__ float fast_sigmoid(float v) {
+  return __fdividef(1.0f, 1.0f + __expf(-v));
+}
+
+__device__ __forceinline__ float fast_sqrt(float v) {
+  float r;
+  asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// A map h -> A h + H.
+struct Map {
+  float A, H;
+};
+
+// One tile of L = WARPS x R steps by C = 32 V channels (module note). The
+// (a, b) of its elements wait in dynamic shared memory for step 5.
+template <typename TX, typename TL, int WARPS, int R, int V, int MINB,
+          bool VEC>
+__global__ void __launch_bounds__(WARPS * 32, MINB)
+rglru_scan_kernel(const TX* __restrict__ wa, const TX* __restrict__ wx,
+                  const TX* __restrict__ x, const TL* __restrict__ lam,
+                  const float* __restrict__ h0, TX* __restrict__ y,
+                  float* __restrict__ h_last, float2* agg, float* inc,
+                  int* flags, int* counter, int B, int T, int D, int nDC) {
+  constexpr int L = WARPS * R, C = 32 * V;
+  static_assert(WARPS * 32 >= C, "one thread per channel of the tile");
+  extern __shared__ float2 ab[];    // [R][WARPS][C]: (a, b) of each element
+  __shared__ float2 seg[WARPS][C];  // segment maps, then exclusive prefixes
+  __shared__ float s_hin[C];        // the tile's incoming h per channel
+  __shared__ int s_tile, s_n, s_done;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) s_tile = atomicAdd(counter, 1);
+  {
+    // While the counter answers: the rows of tile blockIdx.x to L2. Blocks
+    // start about in index order, so that tile's owner, whichever block
+    // it is, starts about now; a hint only, correctness never rests on it.
+    constexpr int LANES_A_LINE = 128 / (V * (int)sizeof(TX));
+    const int id = blockIdx.x;
+    const int pb = (id / nDC) % B;
+    const int pt0 = id / nDC / B * L + warp * R;
+    const int pc0 = id % nDC * C + lane * V;
+    if (lane % LANES_A_LINE == 0 && pc0 < D) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (pt0 + r < T) {
+          const int64_t i = ((int64_t)pb * T + pt0 + r) * D + pc0;
+          asm volatile("prefetch.global.L2 [%0];" :: "l"(wa + i));
+          asm volatile("prefetch.global.L2 [%0];" :: "l"(wx + i));
+          asm volatile("prefetch.global.L2 [%0];" :: "l"(x + i));
+        }
+      }
+    }
+  }
+  __syncthreads();
+  const int tile = s_tile;
+  const int dc = tile % nDC;
+  const int b = (tile / nDC) % B;
+  const int tt = tile / nDC / B;
+  const int c0 = dc * C + lane * V;  // this thread's first channel
+  const int nch = D - c0;            // how many of its V exist
+  const int t0 = tt * L + warp * R;  // its first step
+
+  // 2. Loads, gates, and the warp's segment scanned from 0.
+  Raw<TX, V> ra[R], rx[R], rv[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int t = t0 + r;
+    const int n = t < T ? nch : 0;
+    const int64_t i = ((int64_t)b * T + t) * D + c0;
+    ra[r] = load_raw<VEC, TX, V>(wa, i, n);
+    rx[r] = load_raw<VEC, TX, V>(wx, i, n);
+    rv[r] = load_raw<VEC, TX, V>(x, i, n);
+  }
+  float k[V];  // -8 softplus(lam); 0 past D, so that a = 1 and b = 0 there
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const float l = j < nch ? load_lam(lam, c0 + j) : 0.0f;
+    k[j] = j < nch ? -8.0f * (fmaxf(l, 0.0f) + log1pf(expf(-fabsf(l))))
+                   : 0.0f;
+  }
+  float P[V], H[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    P[j] = 1.0f;
+    H[j] = 0.0f;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const bool live = t0 + r < T;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      float a = __expf(k[j] * fast_sigmoid(unpack(ra[r], j)));
+      const float g = fast_sigmoid(unpack(rx[r], j)) * unpack(rv[r], j);
+      float bb = fast_sqrt(fmaxf(1.0f - a * a, 1e-9f)) * g;
+      a = live ? a : 1.0f;
+      bb = live ? bb : 0.0f;
+      ab[(r * WARPS + warp) * C + j * 32 + lane] = make_float2(a, bb);
+      H[j] = fmaf(a, H[j], bb);
+      P[j] *= a;
+    }
+  }
+  // Slot s = j * 32 + lane of a tile holds channel dc * C + lane * V + j.
+#pragma unroll
+  for (int j = 0; j < V; ++j) seg[warp][j * 32 + lane] = make_float2(P[j], H[j]);
+  __syncthreads();
+
+  // 3. Each warp's exclusive prefix and the tile's aggregate, per slot.
+  const int s = tid;
+  const bool slot = s < C;
+  Map tot = {1.0f, 0.0f};
+  if (slot) {
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float2 m = seg[w][s];
+      seg[w][s] = make_float2(tot.A, tot.H);
+      tot.H = fmaf(m.x, tot.H, m.y);
+      tot.A *= m.x;
+    }
+  }
+
+  // 4. Publish, look back, publish the inclusive h. Tile id = (tt * B +
+  // b) * nDC + dc, so the t-tiles of one chain are `stride` apart.
+  const int64_t row = (int64_t)b * nDC + dc;
+  const int64_t stride = (int64_t)B * nDC;
+  float hin = 0.0f;
+  if (tt == 0) {
+    const int ch = dc * C + (s & 31) * V + (s >> 5);
+    if (slot && h0 && ch < D) hin = h0[(int64_t)b * D + ch];
+  } else {
+    if (slot) __stcg(agg + (int64_t)tile * C + s, make_float2(tot.A, tot.H));
+    __syncthreads();
+    if (tid == 0) st_release(flags + tile, AGG);
+    Map acc = {1.0f, 0.0f};  // the tiles between the nearest INC and this
+    int hi = tt - 1;         // nearest t-tile not yet composed
+    for (;;) {
+      if (warp == 0) {
+        const int j = hi - lane;
+        const int* f = flags + (row + (int64_t)j * stride);
+        int n, done;
+        for (;;) {
+          const int st = j >= 0 ? ld_acquire(f) : 0;
+          const unsigned incs = __ballot_sync(~0u, j >= 0 && st == INC);
+          const unsigned none = __ballot_sync(~0u, j >= 0 && st == 0);
+          if (incs) {
+            const int first = __ffs(incs) - 1;
+            if (!(none & ((1u << first) - 1u))) {
+              n = first;
+              done = 1;
+              break;
+            }
+          } else if (!none) {
+            n = 32;  // 32 AGGs and no INC (hi >= 32: tile 0 is never AGG)
+            done = 0;
+            break;
+          }
+          __nanosleep(32);
+        }
+        if (lane == 0) {
+          s_n = n;
+          s_done = done;
+        }
+      }
+      __syncthreads();
+      const int n = s_n, done = s_done;
+      if (slot) {
+        for (int q0 = 0; q0 < n; q0 += 8) {
+          float2 g[8];
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            g[q] = q0 + q < n
+                       ? __ldcg(agg + (row + (int64_t)(hi - q0 - q) * stride) * C + s)
+                       : make_float2(1.0f, 0.0f);
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            acc.H = fmaf(acc.A, g[q].y, acc.H);
+            acc.A *= g[q].x;
+          }
+        }
+        if (done)
+          hin = fmaf(acc.A,
+                     __ldcg(inc + (row + (int64_t)(hi - n) * stride) * C + s),
+                     acc.H);
+      }
+      if (done) break;
+      hi -= n;
+      __syncthreads();  // every thread has read s_n before warp 0 rewrites it
+    }
+  }
+  if (slot) {
+    s_hin[s] = hin;
+    __stcg(inc + (int64_t)tile * C + s, fmaf(tot.A, hin, tot.H));
+  }
+  __syncthreads();
+  if (tid == 0) st_release(flags + tile, INC);
+
+  // 5. Each warp's steps from its incoming h; y and h_last.
+  float h[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int sj = j * 32 + lane;
+    const float2 e = seg[warp][sj];
+    h[j] = fmaf(e.x, s_hin[sj], e.y);
+  }
+  const int last = T - 1 - t0;  // row of step T - 1 in this thread, if any
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float2 e = ab[(r * WARPS + warp) * C + j * 32 + lane];
+      h[j] = fmaf(e.x, h[j], e.y);
+    }
+    const int t = t0 + r;
+    if (t < T) store_row<VEC, V>(y, ((int64_t)b * T + t) * D + c0, nch, h);
+    if (r == last) {
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if (j < nch) h_last[(int64_t)b * D + c0 + j] = h[j];
+    }
+  }
+}
+
+template <typename TX, typename TL, int WARPS, int R, int V, int MINB>
 cudaError_t launch(const void* wa, const void* wx, const void* x,
                    const void* lam, const float* h0, void* y, float* h_last,
-                   float* scratch, int B, int T, int D, int L,
+                   void* scratch, int B, int T, int D, bool vec,
                    cudaStream_t s) {
-  const int nc = (T + L - 1) / L;
-  const int64_t plane = (int64_t)B * nc * D;
-  float* prod_a = scratch;
-  float* h_loc = scratch + plane;
-  float* h_in = scratch + 2 * plane;
-  const dim3 grid((D + THREADS - 1) / THREADS, nc, B);
-  reduce_kernel<TX, TL><<<grid, THREADS, 0, s>>>(
-      (const TX*)wa, (const TX*)wx, (const TX*)x, (const TL*)lam, prod_a,
-      h_loc, T, D, L, nc);
-  cudaError_t err = cudaGetLastError();
+  constexpr int L = WARPS * R, C = 32 * V;
+  constexpr size_t smem = (size_t)L * C * sizeof(float2);
+  const int nT = (T + L - 1) / L, nDC = (D + C - 1) / C;
+  const int64_t ntiles = (int64_t)B * nT * nDC;
+  float2* agg = (float2*)scratch;
+  float* inc = (float*)(agg + ntiles * C);
+  int* flags = (int*)(inc + ntiles * C);
+  cudaError_t err =
+      cudaMemsetAsync(flags, 0, (ntiles + 1) * sizeof(int), s);
   if (err != cudaSuccess) return err;
-  carry_kernel<<<dim3((D + THREADS - 1) / THREADS, B), THREADS, 0, s>>>(
-      prod_a, h_loc, h0, h_in, D, nc);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  fixup_kernel<TX, TL><<<grid, THREADS, 0, s>>>(
-      (const TX*)wa, (const TX*)wx, (const TX*)x, (const TL*)lam, h_in,
-      (TX*)y, h_last, T, D, L, nc);
+  auto kernel = vec ? rglru_scan_kernel<TX, TL, WARPS, R, V, MINB, true>
+                    : rglru_scan_kernel<TX, TL, WARPS, R, V, MINB, false>;
+  // Static and dynamic shared memory together may pass the default 48 KB.
+  if ((err = cudaFuncSetAttribute(kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+    return err;
+  kernel<<<(unsigned)ntiles, WARPS * 32, smem, s>>>(
+      (const TX*)wa, (const TX*)wx, (const TX*)x, (const TL*)lam, h0,
+      (TX*)y, h_last, agg, inc, flags, flags + ntiles, B, T, D, nDC);
   return cudaGetLastError();
 }
 
+// The tiles built: (L steps, C channels, W warps) -> (rows a warp, channels
+// a lane, blocks an SM the registers are capped for).
+template <typename TX, typename TL>
+cudaError_t launch_tile(const void* wa, const void* wx, const void* x,
+                        const void* lam, const float* h0, void* y,
+                        float* h_last, void* scratch, int B, int T, int D,
+                        int L, int C, int W, bool vec, cudaStream_t s) {
+#define RGLRU_TILE(L_, C_, W_, M_)                                          \
+  if (L == L_ && C == C_ && W == W_)                                       \
+    return launch<TX, TL, W_, L_ / W_, C_ / 32, M_>(                       \
+        wa, wx, x, lam, h0, y, h_last, scratch, B, T, D, vec, s);
+  RGLRU_TILE(64, 128, 8, 3)
+  RGLRU_TILE(64, 128, 16, 2)
+  RGLRU_TILE(96, 128, 8, 2)
+  RGLRU_TILE(128, 128, 16, 1)
+  RGLRU_TILE(64, 256, 16, 1)
+#undef RGLRU_TILE
+  return cudaErrorInvalidValue;
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
 }  // namespace
 
+// Bytes of scratch a launch with tiles of L steps by C channels needs.
+extern "C" int64_t rglru_scan_scratch_bytes(int B, int T, int D, int L,
+                                            int C) {
+  const int64_t ntiles =
+      (int64_t)B * ((T + L - 1) / L) * ((D + C - 1) / C);
+  return ntiles * ((int64_t)C * 12 + 4) + 4;
+}
+
 // dtype codes: 0 float32, 1 bfloat16 (x_dtype for wa / wx / x / y, lam_dtype
-// for lam). h0 may be null (zeros). scratch: 3 x B x ceil(T / L) x D f32.
+// for lam). h0 may be null (zeros). (L, C, W): a tile `launch_tile` builds.
+// scratch: `rglru_scan_scratch_bytes(B, T, D, L, C)` bytes, any contents.
 extern "C" int rglru_scan_launch(const void* wa, const void* wx,
                                  const void* x, const void* lam,
                                  const void* h0, void* y, void* h_last,
                                  void* scratch, int B, int T, int D, int L,
-                                 int x_dtype, int lam_dtype, void* stream) {
+                                 int C, int W, int x_dtype, int lam_dtype,
+                                 void* stream) {
   if (B <= 0 || T <= 0 || D <= 0) return 0;
-  if (L <= 0 || B > 65535 || (T + L - 1) / L > 65535)
+  if (L <= 0 || C <= 0 ||
+      (int64_t)B * ((T + L - 1) / L) * ((D + C - 1) / C) >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* h = (const float*)h0;
   float* hl = (float*)h_last;
-  float* sc = (float*)scratch;
+  const bool vec = D % 8 == 0 && aligned16(wa) && aligned16(wx) &&
+                   aligned16(x) && aligned16(y);
   if (x_dtype == 0 && lam_dtype == 0)
-    return (int)launch<float, float>(wa, wx, x, lam, h, y, hl, sc, B, T, D,
-                                     L, s);
+    return (int)launch_tile<float, float>(wa, wx, x, lam, h, y, hl, scratch,
+                                          B, T, D, L, C, W, vec, s);
   if (x_dtype == 0 && lam_dtype == 1)
-    return (int)launch<float, __nv_bfloat16>(wa, wx, x, lam, h, y, hl, sc, B,
-                                             T, D, L, s);
+    return (int)launch_tile<float, __nv_bfloat16>(
+        wa, wx, x, lam, h, y, hl, scratch, B, T, D, L, C, W, vec, s);
   if (x_dtype == 1 && lam_dtype == 0)
-    return (int)launch<__nv_bfloat16, float>(wa, wx, x, lam, h, y, hl, sc, B,
-                                             T, D, L, s);
+    return (int)launch_tile<__nv_bfloat16, float>(
+        wa, wx, x, lam, h, y, hl, scratch, B, T, D, L, C, W, vec, s);
   if (x_dtype == 1 && lam_dtype == 1)
-    return (int)launch<__nv_bfloat16, __nv_bfloat16>(wa, wx, x, lam, h, y, hl,
-                                                     sc, B, T, D, L, s);
+    return (int)launch_tile<__nv_bfloat16, __nv_bfloat16>(
+        wa, wx, x, lam, h, y, hl, scratch, B, T, D, L, C, W, vec, s);
   return (int)cudaErrorInvalidValue;
 }

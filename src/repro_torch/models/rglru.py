@@ -11,9 +11,11 @@ The port of the JAX package's `models/rglru.py`. The reference scans
 (a, b) pairs with `jax.lax.associative_scan`; here the two dense products
 stay on cuBLAS and everything after them — the gates and the scan over T
 — is one wrapper, `rglru_scan`: on CUDA tensors the hand-written kernel
-(``csrc/rglru_scan.cu``, T cut into chunks scanned in parallel, then a
-carry pass and a fix-up pass), on CPU tensors its plain version
-`rglru_scan_plain` (`_gates`, then a loop over T). Decode is the
+(``csrc/rglru_scan.cu``: one pass over tiles of `KERNEL_CHUNK` steps by
+`KERNEL_CHANNELS` channels, each tile's incoming h found by a decoupled
+look-back over the tiles before it), on CPU tensors its plain version
+`rglru_scan_plain`
+(`_gates`, then a loop over T). Decode is the
 single-step update with h carried in the layer cache (`rglru_step`,
 plain tensor ops: one step, no loop).
 
@@ -35,8 +37,15 @@ _C = 8.0
 #: dtype -> the kernel's type code (activations; Lambda may differ).
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: Time steps one thread of the kernel scans before the carry pass.
-KERNEL_CHUNK = 64
+#: Time steps, channels and warps of one tile of the kernel.
+KERNEL_CHUNK = 96
+KERNEL_CHANNELS = 128
+KERNEL_WARPS = 8
+#: The (steps, channels, warps) tiles the kernel is built for;
+#: chip_smoke.py times each at the main shape (the kernel's note has the
+#: times).
+KERNEL_TILES = ((64, 128, 8), (64, 128, 16), (96, 128, 8), (128, 128, 16),
+                (64, 256, 16))
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -91,11 +100,14 @@ rglru_scan_plain.calls = 0
 
 
 def _lib():
-    fn = build.load("rglru_scan").rglru_scan_launch
+    lib = build.load("rglru_scan")
+    fn, size = lib.rglru_scan_launch, lib.rglru_scan_scratch_bytes
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 8 + [_I] * 6 + [_P]
+        fn.argtypes = [_P] * 8 + [_I] * 8 + [_P]
         fn.restype = _I
-    return fn
+        size.argtypes = [_I] * 5
+        size.restype = ctypes.c_int64
+    return fn, size
 
 
 def rglru_scan_cuda(wa, wx, x, lam, h0=None):
@@ -128,21 +140,33 @@ def rglru_scan_cuda(wa, wx, x, lam, h0=None):
         raise ValueError("all tensors must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("rglru_scan_cuda takes contiguous tensors")
+    build.refuse_grad("rglru_scan_cuda", *tensors)
+    y, h_last = _launch(wa, wx, x, lam, h0,
+                        (KERNEL_CHUNK, KERNEL_CHANNELS, KERNEL_WARPS))
+    build.count(rglru_scan_cuda)
+    return y, h_last
+
+
+def _launch(wa, wx, x, lam, h0, tile):
+    """One launch of the kernel with tiles of `tile` = (steps, channels,
+    warps), one of `KERNEL_TILES`, on checked tensors; its scratch
+    (look-back values and flags, the flags zeroed by the launch) allocated
+    here."""
+    B, T, D = x.shape
     y = torch.empty_like(x)
     h_last = torch.empty((B, D), dtype=torch.float32, device=x.device)
-    nc = -(-T // KERNEL_CHUNK)
-    scratch = torch.empty((3, B, nc, D), dtype=torch.float32, device=x.device)
+    fn, size = _lib()
+    scratch = torch.empty(size(B, T, D, *tile[:2]), dtype=torch.uint8,
+                          device=x.device)
     with torch.cuda.device(x.device):
-        err = _lib()(wa.data_ptr(), wx.data_ptr(), x.data_ptr(),
-                     lam.data_ptr(), h0.data_ptr() if h0 is not None else None,
-                     y.data_ptr(), h_last.data_ptr(), scratch.data_ptr(),
-                     B, T, D, KERNEL_CHUNK, KERNEL_DTYPES[x.dtype],
-                     KERNEL_DTYPES[lam.dtype],
-                     torch.cuda.current_stream().cuda_stream)
+        err = fn(wa.data_ptr(), wx.data_ptr(), x.data_ptr(), lam.data_ptr(),
+                 h0.data_ptr() if h0 is not None else None, y.data_ptr(),
+                 h_last.data_ptr(), scratch.data_ptr(), B, T, D, *tile,
+                 KERNEL_DTYPES[x.dtype], KERNEL_DTYPES[lam.dtype],
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error "
                            f"{err}")
-    build.count(rglru_scan_cuda)
     return y, h_last
 
 

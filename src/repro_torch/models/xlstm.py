@@ -30,10 +30,7 @@ On CUDA tensors the whole step loop is the hand-written kernel B8
 (``csrc/slstm.cu``: one thread-block cluster per (batch row, head), R in
 registers, h handed one way between the blocks each step), on CPU tensors
 its plain version `slstm_scan_plain` (the reference's step). Both serve
-prefill and the one-token decode step. The first designs of B7 and B8
-(``csrc/mlstm_chunk_first.cu``, ``csrc/slstm_first.cu``) are on no route:
-`mlstm_chunk_scan_first_cuda` and `slstm_scan_first_cuda` exist only to
-be timed beside the new ones.
+prefill and the one-token decode step.
 """
 
 from __future__ import annotations
@@ -68,6 +65,7 @@ def _check_cuda(name, *tensors):
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: all tensors must be on one device")
+    build.refuse_grad(name, *tensors)
 
 
 def _raise_on(err, name):
@@ -369,9 +367,9 @@ def _check_mlstm_inputs(name, tensors, it, ft, chunk):
     return B, H, T, D
 
 
-def _check_work(work, scal, B, H, T, D, chunk):
+def _check_work(name, work, scal, B, H, T, D, chunk):
     wshape, sshape = mlstm_work_shapes(B, H, T, D, chunk)
-    _check_cuda("B7 scratch", work, scal)
+    _check_cuda(name, work, scal)
     if tuple(work.shape) != wshape or tuple(scal.shape) != sshape \
             or work.dtype != torch.float32 or scal.dtype != torch.float32 \
             or not (work.is_contiguous() and scal.is_contiguous()):
@@ -408,7 +406,7 @@ def mlstm_state_scan_cuda(work, scal, state):
     current stream, not synchronised."""
     B, H, nc, D1, _ = work.shape
     D = D1 - 1
-    _check_work(work, scal, B, H, nc, D, 1)
+    _check_work("mlstm_state_scan_cuda", work, scal, B, H, nc, D, 1)
     C0, n0, m0 = (state[key].float().contiguous() for key in ("C", "n", "m"))
     _check_cuda("mlstm_state_scan_cuda", work, C0, n0, m0)
     if C0.shape != (B, H, D, D) or n0.shape != (B, H, D) \
@@ -435,7 +433,7 @@ def mlstm_chunk_outputs_cuda(q, k, v, it, ft, work, scal, chunk: int):
     synchronised."""
     B, H, T, D = _check_mlstm_inputs("mlstm_chunk_outputs_cuda", (q, k, v),
                                      it, ft, chunk)
-    _check_work(work, scal, B, H, T, D, chunk)
+    _check_work("mlstm_chunk_outputs_cuda", work, scal, B, H, T, D, chunk)
     h = torch.empty((B, T, H * D), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = _mlstm_fn("mlstm_chunk_outputs_launch", (8, 11))(
@@ -466,44 +464,6 @@ def mlstm_chunk_scan_cuda(q, k, v, it, ft, state, chunk: int):
     state = mlstm_state_scan_cuda(work, scal, state)
     return mlstm_chunk_outputs_cuda(q, k, v, it, ft, work, scal,
                                     chunk), state
-
-
-def _mlstm_first_lib():
-    fn = build.load("mlstm_chunk_first").mlstm_chunk_first_launch
-    if fn.argtypes is None:
-        fn.argtypes = [_P] * 12 + [_I] * 11 + [_P]
-        fn.restype = _I
-    return fn
-
-
-def mlstm_chunk_scan_first_cuda(q, k, v, it, ft, state, chunk: int):
-    """B7's first design (`csrc/mlstm_chunk_first.cu`: one block per (b,
-    head, 32 v columns) walking every chunk), on no route: kept to be
-    timed beside the passes. Arguments and results as
-    `mlstm_chunk_scan_cuda`."""
-    B, H, T, D = _check_mlstm_inputs("mlstm_chunk_scan_first_cuda",
-                                     (q, k, v), it, ft, chunk)
-    C0, n0, m0 = (state[key].float().contiguous() for key in ("C", "n", "m"))
-    _check_cuda("mlstm_chunk_scan_first_cuda", C0, n0, m0)
-    if C0.shape != (B, H, D, D) or n0.shape != (B, H, D) \
-            or m0.shape != (B, H):
-        raise ValueError("state must be C (B,H,D,D), n (B,H,D), m (B,H)")
-    h = torch.empty((B, T, H * D), dtype=torch.float32, device=q.device)
-    C1, n1, m1 = torch.empty_like(C0), torch.empty_like(n0), \
-        torch.empty_like(m0)
-    with torch.cuda.device(q.device):
-        err = _mlstm_first_lib()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), it.data_ptr(),
-            ft.data_ptr(), C0.data_ptr(), n0.data_ptr(), m0.data_ptr(),
-            h.data_ptr(), C1.data_ptr(), n1.data_ptr(), m1.data_ptr(),
-            B, H, T, D, chunk, *q.stride()[:3], *it.stride(),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "mlstm_chunk_first")
-    build.count(mlstm_chunk_scan_first_cuda)
-    return h, {"C": C1, "n": n1, "m": m1}
-
-
-mlstm_chunk_scan_first_cuda.launches = 0
 
 
 def mlstm_chunk_scan(q, k, v, it, ft, state, chunk: int):
@@ -676,28 +636,6 @@ def slstm_scan_cuda(wx, r, state):
 
 #: Kernel launches since the count was last set to 0.
 slstm_scan_cuda.launches = 0
-
-
-def slstm_scan_first_cuda(wx, r, state):
-    """B8's first design (`csrc/slstm_first.cu`: a cluster of 8 blocks
-    per (b, head), one cluster barrier a step), on no route: kept to be
-    timed beside the new design. Arguments and results as
-    `slstm_scan_cuda`."""
-    wxs, rs, st, B, T, H, Dh, code = _slstm_args("slstm_scan_first_cuda",
-                                                 wx, r, state)
-    h = torch.empty((B, T, H * Dh), dtype=torch.float32,
-                    device=wxs[0].device)
-    out = [torch.empty_like(t) for t in st]
-    with torch.cuda.device(h.device):
-        err = _slstm_fn("slstm_first", 5)(
-            *(t.data_ptr() for t in (*wxs, *rs, *st, h, *out)),
-            B, T, H, Dh, code, torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "slstm_first")
-    build.count(slstm_scan_first_cuda)
-    return h, dict(zip(("h", "c", "n", "m"), out))
-
-
-slstm_scan_first_cuda.launches = 0
 
 
 def slstm_scan(wx, r, state):

@@ -33,23 +33,12 @@ from repro.models import xlstm as jxlstm
 from repro_torch.models import layers as tlayers
 from repro_torch.models import xlstm as txlstm
 from repro_torch.models.interop import params_from_jax
+from torch_parity import fake_cuda as _fake
 
 TOL = 1e-5
 
 _j_chunkwise = jax.jit(jxlstm.mlstm_chunkwise, static_argnums=(2, 3),
                        static_argnames=("chunk",))
-
-
-class _FakeCuda(torch.Tensor):
-    """A CPU tensor that says it lives on a card."""
-
-    @property
-    def is_cuda(self):
-        return True
-
-
-def _fake(t):
-    return t.as_subclass(_FakeCuda)
 
 
 def _np(x):
@@ -264,14 +253,6 @@ def test_slstm_wrapper_takes_no_launch_options(option):
         txlstm.slstm_scan_cuda(wx, r, st, **{option: 1})
 
 
-def test_slstm_first_design_raises_on_cpu_tensors():
-    w, rr = torch.zeros(1, 2, 16), torch.zeros(2, 8, 8)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        txlstm.slstm_scan_first_cuda({g: w for g in "zifo"},
-                                     {g: rr for g in "zifo"},
-                                     txlstm.slstm_state_init(1, 2, 8))
-
-
 def _mlstm_args(B=1, H=2, T=32, D=16, dtype=torch.float32):
     qkv = [_fake(torch.zeros(B, T, H, D, dtype=dtype).transpose(1, 2))
            for _ in range(3)]
@@ -287,7 +268,7 @@ def _mlstm_args(B=1, H=2, T=32, D=16, dtype=torch.float32):
     ("D past 256", {"D": 257, "T": 16}, 16, "head size 257"),
     ("float64", {"dtype": torch.float64}, 16, "float32"),
 ])
-@pytest.mark.parametrize("wrapper", ["states", "outputs", "whole", "first"])
+@pytest.mark.parametrize("wrapper", ["states", "outputs", "whole"])
 def test_mlstm_wrappers_raise_on_what_they_do_not_take(case, kw, chunk,
                                                        match, wrapper):
     q, k, v, it, ft, st = _mlstm_args(**kw)
@@ -299,10 +280,8 @@ def test_mlstm_wrappers_raise_on_what_they_do_not_take(case, kw, chunk,
                           txlstm.mlstm_work_shapes(1, 2, 32, 16, 16))
             txlstm.mlstm_chunk_outputs_cuda(q, k, v, it, ft, work, scal,
                                             chunk)
-        elif wrapper == "whole":
-            txlstm.mlstm_chunk_scan_cuda(q, k, v, it, ft, st, chunk)
         else:
-            txlstm.mlstm_chunk_scan_first_cuda(q, k, v, it, ft, st, chunk)
+            txlstm.mlstm_chunk_scan_cuda(q, k, v, it, ft, st, chunk)
 
 
 def test_mlstm_passes_refuse_a_cpu_scratch_or_a_wrong_one():

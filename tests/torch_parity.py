@@ -5,6 +5,7 @@ rules. Not a test module."""
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro.core.scoring import MINIMAP2 as JAX_SC
 from repro_torch.core.interop import scoring_from_fields
@@ -16,6 +17,20 @@ SCALAR_KEYS = ("score", "final_lo", "best_score", "best_i", "best_j",
                "status")
 
 _BASES = np.arange(4, dtype=np.int8)
+
+
+class FakeCuda(torch.Tensor):
+    """A CPU tensor that says it lives on a card: the CUDA wrappers'
+    checks run on it, with their launches replaced by recorders."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def fake_cuda(t):
+    """`t` as a `FakeCuda` view (its requires_grad kept)."""
+    return t.as_subclass(FakeCuda)
 
 
 def mutate(rng, ref, sub=0.05, ins=0.03, dele=0.03):
