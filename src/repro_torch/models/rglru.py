@@ -14,8 +14,7 @@ stay on cuBLAS and everything after them — the gates and the scan over T
 (``csrc/rglru_scan.cu``: one pass over tiles of `KERNEL_CHUNK` steps by
 `KERNEL_CHANNELS` channels, each tile's incoming h found by a decoupled
 look-back over the tiles before it), on CPU tensors its plain version
-`rglru_scan_plain`
-(`_gates`, then a loop over T). Decode is the
+`rglru_scan_plain` (`_gates`, then a loop over T). Decode is the
 single-step update with h carried in the layer cache (`rglru_step`,
 plain tensor ops: one step, no loop).
 
