@@ -1388,9 +1388,7 @@ def rglru_inputs(B, T, D, dtype, seed, with_h0=False, lam_dtype=None,
 def rglru_check(name, B, T, D, dtype, seed, with_h0=False, reps=0,
                 lam_dtype=None, wa_shift=0.0):
     """B6 against `rglru_scan_plain` on `rglru_inputs`; when `reps` > 0
-    timed, with the device ms of each kernel and memset of one call by
-    name (`device_trace`), the SFU floor beside the bound, and each tile
-    the kernel is built for timed in turns."""
+    timed, with the SFU floor beside the bound."""
     wa, wx, x, lam, h0 = rglru_inputs(B, T, D, dtype, seed, with_h0,
                                       lam_dtype, wa_shift)
     out = rglru_mod.rglru_scan_cuda(wa, wx, x, lam, h0)
@@ -1411,23 +1409,75 @@ def rglru_check(name, B, T, D, dtype, seed, with_h0=False, reps=0,
             + B * D * 4 * (2 if with_h0 else 1)
         bound, by = bound_of(B * T * D * RGLRU_OPS_PER_ELEM, nbytes)
 
-        def call():
-            return rglru_mod.rglru_scan_cuda(wa, wx, x, lam, h0)
         sfu_ms, sfu = sfu_floor_ms(B * T * D * RGLRU_SFU_PER_ELEM)
-        rec.update(ms=time_cuda(call, reps), bound_ms=bound, bound_by=by,
-                   sfu_floor_ms=sfu_ms, sfu=sfu,
-                   device_by_name=device_trace(call).get("top",
-                                                         "not measured"))
-        # Each tile the kernel is built for, in turns (a b .. b a).
-        tiles = rglru_mod.KERNEL_TILES
-        order = list(tiles) + list(tiles)[::-1]
-        ms = [time_cuda(lambda: rglru_mod._launch(wa, wx, x, lam, h0, tl),
-                        reps) for tl in order]
-        rec["tile_ms"] = {"x".join(map(str, tl)): [
-            m for t2, m in zip(order, ms) if t2 == tl] for tl in tiles}
+        rec.update(ms=time_cuda(
+            lambda: rglru_mod.rglru_scan_cuda(wa, wx, x, lam, h0), reps),
+            bound_ms=bound, bound_by=by, sfu_floor_ms=sfu_ms, sfu=sfu)
     if not ok:
         raise AssertionError(f"B6 != plain: {rec}")
     return rec
+
+
+def sm_clock_sampler():
+    """A background `nvidia-smi` that samples the SM clock (MHz) and the
+    board's power draw (W) every 20 ms; `stop()` ends it and returns the
+    (MHz, W) samples."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "20"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    time.sleep(0.5)  # nvidia-smi's own start-up
+
+    def stop():
+        proc.terminate()
+        out, _ = proc.communicate(timeout=10)
+        return [tuple(float(v) for v in line.split(","))
+                for line in out.splitlines() if line.count(",") == 1]
+    return stop
+
+
+def rglru_in_context(B, T, D, seed, rounds):
+    """B6 at recurrentgemma-9b's prefill shape timed per call in two
+    settings, with the SM clock and power sampled during each: alone,
+    calls back to back; and as in the prefill, each call right after the
+    two dense products that make its wa and wx (bf16 GEMMs of (B T, D) by
+    (D, D), their outputs its inputs). CUDA events around each B6 call
+    (its memset and kernel); the median over `rounds` calls."""
+    wa, wx, x, lam, _ = rglru_inputs(B, T, D, torch.bfloat16, seed)
+    g = torch.Generator(device=DEV).manual_seed(seed + 1)
+    w_a, w_x = ((torch.randn(D, D, device=DEV, generator=g) / D ** 0.5)
+                .to(torch.bfloat16) for _ in range(2))
+    xs = x.view(B * T, D)
+
+    def run(between_gemms):
+        ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+              for _ in range(rounds)]
+        a_in, x_in = wa, wx
+        torch.cuda.synchronize()
+        stop = sm_clock_sampler()
+        try:
+            torch.cuda._sleep(int(200 * 2e6))  # ~0.2 s: the host runs ahead
+            for e0, e1 in ev:
+                if between_gemms:
+                    a_in = (xs @ w_a).view(B, T, D)
+                    x_in = (xs @ w_x).view(B, T, D)
+                e0.record()
+                rglru_mod.rglru_scan_cuda(a_in, x_in, x, lam)
+                e1.record()
+            torch.cuda.synchronize()
+        finally:
+            samples = stop()
+        ms = sorted(e0.elapsed_time(e1) for e0, e1 in ev)
+        mhz = sorted(m for m, _ in samples)
+        watts = sorted(w for _, w in samples)
+        return {"ms_median": ms[len(ms) // 2], "ms_min": ms[0],
+                "ms_max": ms[-1], "samples": len(samples),
+                "sm_mhz_median": mhz[len(mhz) // 2] if mhz else None,
+                "sm_mhz_min": mhz[0] if mhz else None,
+                "power_w_median": watts[len(watts) // 2] if watts else None}
+    alone = run(False)
+    return {"rounds": rounds, "alone": alone,
+            "between_gemms": run(True), "alone_again": run(False)}
 
 
 def mlstm_inputs(B, H, T, D, seed, with_state=False, extreme=0,
@@ -1788,8 +1838,10 @@ def recurrent_checks(quick):
                       with_state=True),
           slstm_check("decode_bf16", 4, 1, H, Dh, torch.bfloat16, 30,
                       with_state=True, reps=20)]
-    return {"rglru_scan": b6, "mlstm_chunk": b7,
-            "mlstm_f64_witness": witness, "slstm": b8}
+    return {"rglru_scan": b6,
+            "rglru_in_context": rglru_in_context(1, T, d, 21,
+                                                 100 if quick else 400),
+            "mlstm_chunk": b7, "mlstm_f64_witness": witness, "slstm": b8}
 
 
 # ---------------------------------------------------------------------------
@@ -3336,9 +3388,8 @@ def main():
         ms=b6[0]["ms"], plain_ms=b6[0]["plain_ms"],
         bound_ms=b6[0]["bound_ms"], bound_by=b6[0]["bound_by"],
         sfu_floor_ms=b6[0]["sfu_floor_ms"], tile=b6[0]["tile"],
-        tile_ms=b6[0]["tile_ms"],
-        device_by_name=b6[0]["device_by_name"],
         long_memory_ms=b6[3]["ms"],
+        in_context=rec_checks["rglru_in_context"],
         launches_per_recurrentgemma_prefill=rg_prefill["launches"][
             "rglru_scan"],
         recurrentgemma_prefill_trace=rg_prefill["trace"].get(

@@ -17,11 +17,11 @@
 // a, the square root), about 0.19 ms at 16 a clock on 132 SMs.
 //
 // Design: one launch, a single pass with decoupled look-back. A block
-// owns a tile of L = W x R steps by C = 32 V channels of one batch row
-// (W warps; `rglru.py` launches 96 x 128 x 8, see below): lane l of
-// warp w holds channels [V l, V (l + 1)) of the tile — 8 or 16 bytes of a
-// bf16 row in one load, so a warp reads 256 or 512 contiguous bytes — and
-// rows [w R, (w + 1) R). A block
+// owns a tile of L = W x R = 96 steps by C = 32 V = 128 channels of one
+// batch row (W = 8 warps of R = 12 steps, V = 4; the TILE_ constants, see
+// below for why): lane l of warp w holds channels [V l, V (l + 1)) of the
+// tile — 8 bytes of a bf16 row (16 of f32) in one load, so a warp reads
+// 256 contiguous bytes — and rows [w R, (w + 1) R). A block
 //
 //   1. takes its tile from an atomic counter, in the order (t-tile, b,
 //      channel tile), so every tile it may wait for took its number
@@ -65,11 +65,11 @@
 // ran slower: (a, b) in registers (one block an SM at 32 x 256), smaller
 // tiles at three blocks an SM, persistent blocks that prefetch their next
 // tile, and a hint of the tile a block's SM takes a wave later. The tiles
-// built, L x C x W, and their times at the main shape in turns
-// (chip_smoke.py's `tile_ms`, NVIDIA H100 80GB HBM3 at 700 W): 64 x 128 x
-// 8, 0.562 ms; 64 x 128 x 16, 0.553; 96 x 128 x 8, 0.537 (launched: two
-// blocks, 16 warps, an SM); 128 x 128 x 16 (one block an SM), 0.584; 64 x
-// 256 x 16 (16-byte loads, one block an SM), 0.625.
+// tried, L x C x W, each built beside the others and timed at the main
+// shape in turns by chip_smoke.py (NVIDIA H100 80GB HBM3 at 700 W): 64 x
+// 128 x 8, 0.562 ms; 64 x 128 x 16, 0.553; 96 x 128 x 8, 0.537 (the one
+// kept: two blocks, 16 warps, an SM); 128 x 128 x 16 (one block an SM),
+// 0.584; 64 x 256 x 16 (16-byte bf16 loads, one block an SM), 0.625.
 //
 // Ragged edges: steps past T are (a, b) = (1, 0); channels past D read
 // 0 (a = 1, b = 0) and are not written; rows of B are independent chains.
@@ -93,6 +93,11 @@
 namespace {
 
 constexpr int AGG = 1, INC = 2;
+
+// The tile launched (module note): 8 warps of 12 steps, 4 channels a lane,
+// two blocks an SM.
+constexpr int TILE_WARPS = 8, TILE_R = 12, TILE_V = 4, TILE_MINB = 2;
+constexpr int TILE_L = TILE_WARPS * TILE_R, TILE_C = 32 * TILE_V;
 
 // V values of one row as loaded, in 32-bit words: f32 one to a word, bf16
 // two (unpacked when the gates are computed, so that the loads of all R
@@ -124,7 +129,7 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat16 v) {
 
 // The V values at p + i (channels [c, c + V) of a row); `n` of them exist
 // (n <= 0: none, read as 0). VEC: rows on 16-byte boundaries and D % 8 ==
-// 0, so n >= V or n <= 0 and one or two vector loads take the V values.
+// 0, so n >= V or n <= 0 and one vector load takes the V values.
 template <bool VEC, typename TX, int V>
 __device__ __forceinline__ Raw<TX, V> load_raw(const TX* p, int64_t i,
                                                int n) {
@@ -140,7 +145,7 @@ __device__ __forceinline__ Raw<TX, V> load_raw(const TX* p, int64_t i,
         o.w[4 * k + 2] = u.z; o.w[4 * k + 3] = u.w;
       }
     } else {
-      static_assert(W == 2, "V of 4 bf16 or 8 / 4 of either type");
+      static_assert(W == 2, "4 f32 in one 16-byte load, 4 bf16 in 8");
       const uint2 u = __ldcs(reinterpret_cast<const uint2*>(q));
       o.w[0] = u.x; o.w[1] = u.y;
     }
@@ -195,16 +200,10 @@ template <bool VEC, int V>
 __device__ __forceinline__ void store_row(__nv_bfloat16* p, int64_t i, int n,
                                           const float* v) {
   if (VEC) {
-    if (n > 0) {
-      if constexpr (V == 8) {
-        __stcs(reinterpret_cast<uint4*>(p + i),
-               make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]),
-                          pack2(v[4], v[5]), pack2(v[6], v[7])));
-      } else {
-        __stcs(reinterpret_cast<uint2*>(p + i),
-               make_uint2(pack2(v[0], v[1]), pack2(v[2], v[3])));
-      }
-    }
+    static_assert(V == 4, "4 bf16, one 8-byte store");
+    if (n > 0)
+      __stcs(reinterpret_cast<uint2*>(p + i),
+             make_uint2(pack2(v[0], v[1]), pack2(v[2], v[3])));
   } else {
 #pragma unroll
     for (int j = 0; j < V; ++j)
@@ -248,15 +247,15 @@ struct Map {
 
 // One tile of L = WARPS x R steps by C = 32 V channels (module note). The
 // (a, b) of its elements wait in dynamic shared memory for step 5.
-template <typename TX, typename TL, int WARPS, int R, int V, int MINB,
-          bool VEC>
-__global__ void __launch_bounds__(WARPS * 32, MINB)
+template <typename TX, typename TL, bool VEC>
+__global__ void __launch_bounds__(TILE_WARPS * 32, TILE_MINB)
 rglru_scan_kernel(const TX* __restrict__ wa, const TX* __restrict__ wx,
                   const TX* __restrict__ x, const TL* __restrict__ lam,
                   const float* __restrict__ h0, TX* __restrict__ y,
                   float* __restrict__ h_last, float2* agg, float* inc,
                   int* flags, int* counter, int B, int T, int D, int nDC) {
-  constexpr int L = WARPS * R, C = 32 * V;
+  constexpr int WARPS = TILE_WARPS, R = TILE_R, V = TILE_V, L = TILE_L,
+                C = TILE_C;
   static_assert(WARPS * 32 >= C, "one thread per channel of the tile");
   extern __shared__ float2 ab[];    // [R][WARPS][C]: (a, b) of each element
   __shared__ float2 seg[WARPS][C];  // segment maps, then exclusive prefixes
@@ -454,95 +453,74 @@ rglru_scan_kernel(const TX* __restrict__ wa, const TX* __restrict__ wx,
   }
 }
 
-template <typename TX, typename TL, int WARPS, int R, int V, int MINB>
+// The number of tiles of a (B, T, D) launch.
+int64_t tiles(int B, int T, int D) {
+  return (int64_t)B * ((T + TILE_L - 1) / TILE_L) *
+         ((D + TILE_C - 1) / TILE_C);
+}
+
+template <typename TX, typename TL>
 cudaError_t launch(const void* wa, const void* wx, const void* x,
                    const void* lam, const float* h0, void* y, float* h_last,
                    void* scratch, int B, int T, int D, bool vec,
                    cudaStream_t s) {
-  constexpr int L = WARPS * R, C = 32 * V;
-  constexpr size_t smem = (size_t)L * C * sizeof(float2);
-  const int nT = (T + L - 1) / L, nDC = (D + C - 1) / C;
-  const int64_t ntiles = (int64_t)B * nT * nDC;
+  constexpr size_t smem = (size_t)TILE_L * TILE_C * sizeof(float2);
+  const int64_t ntiles = tiles(B, T, D);
   float2* agg = (float2*)scratch;
-  float* inc = (float*)(agg + ntiles * C);
-  int* flags = (int*)(inc + ntiles * C);
+  float* inc = (float*)(agg + ntiles * TILE_C);
+  int* flags = (int*)(inc + ntiles * TILE_C);
   cudaError_t err =
       cudaMemsetAsync(flags, 0, (ntiles + 1) * sizeof(int), s);
   if (err != cudaSuccess) return err;
-  auto kernel = vec ? rglru_scan_kernel<TX, TL, WARPS, R, V, MINB, true>
-                    : rglru_scan_kernel<TX, TL, WARPS, R, V, MINB, false>;
+  auto kernel = vec ? rglru_scan_kernel<TX, TL, true>
+                    : rglru_scan_kernel<TX, TL, false>;
   // Static and dynamic shared memory together may pass the default 48 KB.
   if ((err = cudaFuncSetAttribute(kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem)) != cudaSuccess)
     return err;
-  kernel<<<(unsigned)ntiles, WARPS * 32, smem, s>>>(
+  kernel<<<(unsigned)ntiles, TILE_WARPS * 32, smem, s>>>(
       (const TX*)wa, (const TX*)wx, (const TX*)x, (const TL*)lam, h0,
-      (TX*)y, h_last, agg, inc, flags, flags + ntiles, B, T, D, nDC);
+      (TX*)y, h_last, agg, inc, flags, flags + ntiles, B, T, D,
+      (D + TILE_C - 1) / TILE_C);
   return cudaGetLastError();
-}
-
-// The tiles built: (L steps, C channels, W warps) -> (rows a warp, channels
-// a lane, blocks an SM the registers are capped for).
-template <typename TX, typename TL>
-cudaError_t launch_tile(const void* wa, const void* wx, const void* x,
-                        const void* lam, const float* h0, void* y,
-                        float* h_last, void* scratch, int B, int T, int D,
-                        int L, int C, int W, bool vec, cudaStream_t s) {
-#define RGLRU_TILE(L_, C_, W_, M_)                                          \
-  if (L == L_ && C == C_ && W == W_)                                       \
-    return launch<TX, TL, W_, L_ / W_, C_ / 32, M_>(                       \
-        wa, wx, x, lam, h0, y, h_last, scratch, B, T, D, vec, s);
-  RGLRU_TILE(64, 128, 8, 3)
-  RGLRU_TILE(64, 128, 16, 2)
-  RGLRU_TILE(96, 128, 8, 2)
-  RGLRU_TILE(128, 128, 16, 1)
-  RGLRU_TILE(64, 256, 16, 1)
-#undef RGLRU_TILE
-  return cudaErrorInvalidValue;
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
 }  // namespace
 
-// Bytes of scratch a launch with tiles of L steps by C channels needs.
-extern "C" int64_t rglru_scan_scratch_bytes(int B, int T, int D, int L,
-                                            int C) {
-  const int64_t ntiles =
-      (int64_t)B * ((T + L - 1) / L) * ((D + C - 1) / C);
-  return ntiles * ((int64_t)C * 12 + 4) + 4;
+// Bytes of scratch a (B, T, D) launch needs.
+extern "C" int64_t rglru_scan_scratch_bytes(int B, int T, int D) {
+  return tiles(B, T, D) * ((int64_t)TILE_C * 12 + 4) + 4;
 }
 
 // dtype codes: 0 float32, 1 bfloat16 (x_dtype for wa / wx / x / y, lam_dtype
-// for lam). h0 may be null (zeros). (L, C, W): a tile `launch_tile` builds.
-// scratch: `rglru_scan_scratch_bytes(B, T, D, L, C)` bytes, any contents.
+// for lam). h0 may be null (zeros). scratch: `rglru_scan_scratch_bytes(B,
+// T, D)` bytes, any contents.
 extern "C" int rglru_scan_launch(const void* wa, const void* wx,
                                  const void* x, const void* lam,
                                  const void* h0, void* y, void* h_last,
-                                 void* scratch, int B, int T, int D, int L,
-                                 int C, int W, int x_dtype, int lam_dtype,
-                                 void* stream) {
+                                 void* scratch, int B, int T, int D,
+                                 int x_dtype, int lam_dtype, void* stream) {
   if (B <= 0 || T <= 0 || D <= 0) return 0;
-  if (L <= 0 || C <= 0 ||
-      (int64_t)B * ((T + L - 1) / L) * ((D + C - 1) / C) >= (1ll << 31))
-    return (int)cudaErrorInvalidValue;
+  if (tiles(B, T, D) >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float* h = (const float*)h0;
   float* hl = (float*)h_last;
   const bool vec = D % 8 == 0 && aligned16(wa) && aligned16(wx) &&
                    aligned16(x) && aligned16(y);
   if (x_dtype == 0 && lam_dtype == 0)
-    return (int)launch_tile<float, float>(wa, wx, x, lam, h, y, hl, scratch,
-                                          B, T, D, L, C, W, vec, s);
+    return (int)launch<float, float>(
+        wa, wx, x, lam, h, y, hl, scratch, B, T, D, vec, s);
   if (x_dtype == 0 && lam_dtype == 1)
-    return (int)launch_tile<float, __nv_bfloat16>(
-        wa, wx, x, lam, h, y, hl, scratch, B, T, D, L, C, W, vec, s);
+    return (int)launch<float, __nv_bfloat16>(
+        wa, wx, x, lam, h, y, hl, scratch, B, T, D, vec, s);
   if (x_dtype == 1 && lam_dtype == 0)
-    return (int)launch_tile<__nv_bfloat16, float>(
-        wa, wx, x, lam, h, y, hl, scratch, B, T, D, L, C, W, vec, s);
+    return (int)launch<__nv_bfloat16, float>(
+        wa, wx, x, lam, h, y, hl, scratch, B, T, D, vec, s);
   if (x_dtype == 1 && lam_dtype == 1)
-    return (int)launch_tile<__nv_bfloat16, __nv_bfloat16>(
-        wa, wx, x, lam, h, y, hl, scratch, B, T, D, L, C, W, vec, s);
+    return (int)launch<__nv_bfloat16, __nv_bfloat16>(
+        wa, wx, x, lam, h, y, hl, scratch, B, T, D, vec, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -36,15 +36,11 @@ _C = 8.0
 #: dtype -> the kernel's type code (activations; Lambda may differ).
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: Time steps, channels and warps of one tile of the kernel.
+#: Time steps, channels and warps of one tile of the kernel (its TILE_
+#: constants; the kernel's note says why this tile).
 KERNEL_CHUNK = 96
 KERNEL_CHANNELS = 128
 KERNEL_WARPS = 8
-#: The (steps, channels, warps) tiles the kernel is built for;
-#: chip_smoke.py times each at the main shape (the kernel's note has the
-#: times).
-KERNEL_TILES = ((64, 128, 8), (64, 128, 16), (96, 128, 8), (128, 128, 16),
-                (64, 256, 16))
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -102,9 +98,9 @@ def _lib():
     lib = build.load("rglru_scan")
     fn, size = lib.rglru_scan_launch, lib.rglru_scan_scratch_bytes
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 8 + [_I] * 8 + [_P]
+        fn.argtypes = [_P] * 8 + [_I] * 5 + [_P]
         fn.restype = _I
-        size.argtypes = [_I] * 5
+        size.argtypes = [_I] * 3
         size.restype = ctypes.c_int64
     return fn, size
 
@@ -140,32 +136,21 @@ def rglru_scan_cuda(wa, wx, x, lam, h0=None):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("rglru_scan_cuda takes contiguous tensors")
     build.refuse_grad("rglru_scan_cuda", *tensors)
-    y, h_last = _launch(wa, wx, x, lam, h0,
-                        (KERNEL_CHUNK, KERNEL_CHANNELS, KERNEL_WARPS))
-    build.count(rglru_scan_cuda)
-    return y, h_last
-
-
-def _launch(wa, wx, x, lam, h0, tile):
-    """One launch of the kernel with tiles of `tile` = (steps, channels,
-    warps), one of `KERNEL_TILES`, on checked tensors; its scratch
-    (look-back values and flags, the flags zeroed by the launch) allocated
-    here."""
-    B, T, D = x.shape
     y = torch.empty_like(x)
     h_last = torch.empty((B, D), dtype=torch.float32, device=x.device)
     fn, size = _lib()
-    scratch = torch.empty(size(B, T, D, *tile[:2]), dtype=torch.uint8,
-                          device=x.device)
+    # The look-back's values and flags; the launch zeroes the flags.
+    scratch = torch.empty(size(B, T, D), dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         err = fn(wa.data_ptr(), wx.data_ptr(), x.data_ptr(), lam.data_ptr(),
                  h0.data_ptr() if h0 is not None else None, y.data_ptr(),
-                 h_last.data_ptr(), scratch.data_ptr(), B, T, D, *tile,
+                 h_last.data_ptr(), scratch.data_ptr(), B, T, D,
                  KERNEL_DTYPES[x.dtype], KERNEL_DTYPES[lam.dtype],
                  torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error "
                            f"{err}")
+    build.count(rglru_scan_cuda)
     return y, h_last
 
 

@@ -39,7 +39,7 @@ def launches(monkeypatch):
 
     monkeypatch.setattr(la, "_lib", lambda lib, fn, n: recorder(fn))
     monkeypatch.setattr(trglru, "_lib", lambda: (
-        recorder("rglru_scan_launch"), lambda B, T, D, L, C: 16))
+        recorder("rglru_scan_launch"), lambda B, T, D: 16))
     monkeypatch.setattr(txlstm, "_mlstm_fn",
                         lambda name, nargs: recorder(name))
     monkeypatch.setattr(txlstm, "_slstm_fn",

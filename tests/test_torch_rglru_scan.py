@@ -222,7 +222,7 @@ def launches(monkeypatch):
 
     monkeypatch.setattr(trglru, "_lib", lambda: (
         record,
-        lambda B, T, D, L, C: calls.append(("size", B, T, D, L, C)) or 64))
+        lambda B, T, D: calls.append(("size", B, T, D)) or 64))
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -242,10 +242,8 @@ def test_one_call_is_one_launch(launches, dtype, lam_dtype):
     assert y.shape == (B, T, D) and y.dtype == dtype
     assert h_last.shape == (B, D) and h_last.dtype == torch.float32
     (size, launch) = launches
-    tile = (trglru.KERNEL_CHUNK, trglru.KERNEL_CHANNELS, trglru.KERNEL_WARPS)
-    assert size == ("size", B, T, D, *tile[:2])
-    assert tile in trglru.KERNEL_TILES
-    # B, T, D, the tile, dtype codes, stream; h0 null when not given.
-    assert launch[8:] == (B, T, D, *tile, trglru.KERNEL_DTYPES[dtype],
+    assert size == ("size", B, T, D)
+    # B, T, D, dtype codes, stream; h0 null when not given.
+    assert launch[8:] == (B, T, D, trglru.KERNEL_DTYPES[dtype],
                           trglru.KERNEL_DTYPES[lam_dtype], 7)
     assert (launch[4] is None) == (args[4] is None)

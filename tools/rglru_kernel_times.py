@@ -1,0 +1,112 @@
+#!/usr/bin/env python
+"""Time the RG-LRU scan kernel (B6) of a checkout of this repository, and
+split its device time by kernel.
+
+Usage: python tools/rglru_kernel_times.py [--checkout DIR] [--reps N]
+
+Imports ``repro_torch.models.rglru`` from ``DIR/src`` (this repository by
+default), so that two designs can be timed on one card in one run: unpack
+an older commit with ``git archive <commit> | tar -x -C _parent`` and pass
+``--checkout _parent``. The kernel is built from that checkout's sources
+into its own ``build/``. At recurrentgemma-9b's prefill shape (1 x 32,768
+x 4,096, bf16; inputs as chip_smoke.py's `rglru_inputs` makes them, seed
+21) it prints one JSON line:
+
+- ``ms``: the mean time of one `rglru_scan_cuda` call over ``--reps``
+  calls back to back (CUDA events, behind a sleep kernel so that the host
+  runs ahead);
+- ``by_kernel``: for each kernel and memset of the call, its device ms per
+  call, summed over the ``--reps`` calls of one torch.profiler window;
+- ``bound_ms``: each input read once and y written once at 3.35 TB/s;
+- ``sfu_floor_ms``: six special-function operations per element at 16 an
+  SM a clock, at the SM count torch reports and the highest SM clock
+  nvidia-smi gives.
+
+Exits 1 when the profiler saw no device event, and with no CUDA device.
+Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12
+SFU_PER_SM_CLOCK = 16
+SFU_PER_ELEM = 6
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--checkout", default=str(Path(__file__).parents[1]))
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(args.checkout).resolve() / "src"))
+    from repro_torch.models import rglru
+
+    B, T, D, dev = 1, 32768, 4096, torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(21)
+    wa, wx, x = (torch.randn(B, T, D, device=dev, generator=g)
+                 .to(torch.bfloat16) for _ in range(3))
+    lam = (0.01 + 0.49 * torch.rand(D, device=dev, generator=g)).to(
+        torch.bfloat16)
+
+    def call():
+        return rglru.rglru_scan_cuda(wa, wx, x, lam)
+
+    with torch.no_grad():
+        call()                                  # build and warm
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(100 * 2e6))       # ~0.1 s
+        t0.record()
+        for _ in range(args.reps):
+            call()
+        t1.record()
+        torch.cuda.synchronize()
+        ms = t0.elapsed_time(t1) / args.reps
+
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(args.reps):
+                call()
+            torch.cuda.synchronize()
+    by_kernel: dict = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            by_kernel[evt.name[:60]] = by_kernel.get(evt.name[:60], 0.0) \
+                + evt.time_range.elapsed_us() / 1e3 / args.reps
+    if not by_kernel:
+        print("the profiler saw no device event", file=sys.stderr)
+        return 1
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    n = B * T * D
+    nbytes = 4 * n * x.element_size() + D * lam.element_size() + B * D * 4
+    print(json.dumps({
+        "checkout": args.checkout, "shape": [B, T, D], "dtype": "bfloat16",
+        "reps": args.reps, "ms": ms, "by_kernel": by_kernel,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "sfu_floor_ms": n * SFU_PER_ELEM / (sms * SFU_PER_SM_CLOCK * mhz
+                                            * 1e6) * 1e3,
+        "sms": sms, "max_sm_mhz": mhz,
+        "device": torch.cuda.get_device_name(0)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
