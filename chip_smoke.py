@@ -11,12 +11,23 @@ of its warp body (B <= 128) and block body; the banded flash attention B5
 kernel for f32 and bf16 at D 16/80, and the FMA kernel that no route
 takes any more — within f32 / one-bf16-ulp tolerances over a matrix and
 at the main path's shapes, timed beside SDPA and the bounds, with each
-new kernel's registers and spills), then drives the language-model
-serving path — gemma3-27b at
+new kernel's registers and spills), B5-bwd (`csrc/flash_tc_bwd.cu`,
+the backward of the tc route: its forward's log-sum-exp and the dq, dk,
+dv of three mma.sync kernels) against `flash_attention_bwd_plain` over
+D x window x GQA group x ragged T and at two shapes, timed beside plain,
+SDPA's backward and the bound (`flash_bwd_checks`), then drives the
+language-model serving path — gemma3-27b at
 full width, 14 of its 62 layers, random bf16 weights from `--seed`: one
 32,768-token prefill, 4 x 1,152 tokens decoded through the KV caches and
 held against prefill logits, and an f32 check of the kernel path against
-naive attention and of decode against prefill — then B8's per-step
+naive attention and of decode against prefill — then trains
+qwen3-0.6b whole (28 layers, full width, random f32 weights from
+`--seed`, AdamW, bf16 compute): three `make_train_step` steps on one
+batch of 8 x 4,096 tokens in two microbatches, B5 and B5-bwd launches as
+the remat scheme implies, ms a step, tokens/s, device busy share and ms
+by kernel, peak memory, model-FLOP share; the loss and every gradient of
+a 4-layer cut on the B5 route against naive attention; one compressed
+(int8 error-feedback) step at a one-pod mesh (`lm_train`) — then B8's per-step
 exchange alone (`slstm_exchange`: the probe `models/csrc/slstm_probe.cu`
 at B8's grid, cluster barrier against one-way `st.async` at cluster
 sizes 2-16; its fastest exchange is B8's latency floor), the recurrent
@@ -107,7 +118,9 @@ from repro_torch.kernels.banded_dp.banded_dp import (  # noqa: E402
 from repro_torch.kernels.banded_dp.persistent import (  # noqa: E402
     pack_groups, persistent_align_cuda, persistent_align_plain)
 from repro_torch.core.backends import cuda as cuda_backend  # noqa: E402
+from repro_torch.kernels.local_attention import local_attention as la_mod  # noqa: E402
 from repro_torch.kernels.local_attention.local_attention import (  # noqa: E402
+    flash_attention_bwd_plain, flash_attention_bwd_tc_cuda,
     flash_attention_cuda, flash_attention_fma_cuda, flash_attention_plain,
     flash_attention_tc_cuda, flash_attention_tf32x3_cuda, kernel_route)
 from repro_torch.launch import map as map_launcher  # noqa: E402
@@ -127,7 +140,13 @@ from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import rglru as rglru_mod  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.models.model import tree_map  # noqa: E402
-from repro_torch.train import make_prefill_step, make_serve_step  # noqa: E402
+from repro_torch.optim import adamw_init  # noqa: E402
+from repro_torch.optim.grad_compress import init_error_buffer  # noqa: E402
+from repro_torch.train import (init_train_state, make_prefill_step,  # noqa: E402
+                               make_serve_step, make_train_step)
+from repro_torch.train import train_step as train_mod  # noqa: E402
+from repro_torch.train.compressed import make_compressed_train_step  # noqa: E402
+from repro_torch.train.train_step import split_microbatches  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 
@@ -1046,6 +1065,206 @@ def flash_f32_shapes(reps):
 
 
 # ---------------------------------------------------------------------------
+# B5-bwd (csrc/flash_tc_bwd.cu) vs its plain version.
+# ---------------------------------------------------------------------------
+
+#: B5-bwd vs plain (stated before the kernel's first card run, never
+#: loosened): for each of dq, dk, dv, max |kernel - plain| <= 2^-6 * max
+#: |plain| and relative L2 <= 2^-7, the plain version computing in f32 from
+#: the same bf16 inputs (the kernel feeds P and dS to the tensor cores as
+#: one bf16 each and rounds its outputs to bf16). The forward's lse within
+#: 2^-14 * (1 + |plain lse|) of the plain lse.
+#: One exception, added after the first card run: at W = 1 every query has
+#: one live key, its softmax is constant and the exact dq and dk are 0;
+#: kernel and plain version both return f32 rounding there (dP - delta,
+#: two sums of the same products in other orders), so a tolerance relative
+#: to the plain dq or dk compares noise with noise. There dq and dk are
+#: held to the exact 0: max |kernel| <= 2^-6 * max |plain dv| (the scale of
+#: the rows' one nonzero gradient); dv keeps the rule above.
+BWD_MAX_TOL = 2 ** -6
+BWD_L2_TOL = 2 ** -7
+LSE_TOL = 2 ** -14
+#: FLOP per live (query, key) pair of the backward: five products of 2*D
+#: (S = QK^T, dP = dO V^T, dV += P^T dO, dK += dS^T Q, dQ += dS K).
+BWD_FLOP_PER_PAIR_PER_D = 10
+
+
+def bwd_errs(got, want, W=None):
+    """{name: max |got - want|, its share of max |want|, rel L2} and
+    whether all are within the tolerance (at W = 1, dq and dk against the
+    exact 0, their share of max |plain dv|)."""
+    errs, ok = {}, True
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if W == 1 and name != "dv":
+            mx = float(g.float().abs().max())
+            share = mx / max(float(want[2].float().abs().max()), 1e-30)
+            errs[name] = {"max_abs": mx, "share_of_max_dv": share,
+                          "plain_max_abs": float(w.float().abs().max()),
+                          "exact": 0.0}
+            ok = ok and share <= BWD_MAX_TOL
+            continue
+        d = (g.float() - w.float())
+        peak = float(w.float().abs().max())
+        mx = float(d.abs().max())
+        l2 = float(d.norm() / w.float().norm().clamp_min(1e-30))
+        errs[name] = {"max_abs_err": mx, "max_share": mx / max(peak, 1e-30),
+                      "rel_l2": l2}
+        ok = ok and mx <= BWD_MAX_TOL * peak and l2 <= BWD_L2_TOL
+    return errs, ok
+
+
+def flash_bwd_case(q, k, v, dout, W):
+    """B5's tc forward with its lse and B5-bwd, against the plain forward
+    (`return_lse=True`) and `flash_attention_bwd_plain`, all on the card
+    from the same bf16 inputs. Returns (kernel grads, plain grads, lse
+    error, lse within tolerance)."""
+    out_k, lse_k = la_mod._tc_forward(q, k, v, W, True)
+    got = flash_attention_bwd_tc_cuda(q, k, v, out_k, lse_k, dout, window=W)
+    T = q.shape[2]
+    blk = 128 if T % 128 == 0 else T
+    out_p, lse_p = flash_attention_plain(q, k, v, window=W, block_q=blk,
+                                         block_k=blk, return_lse=True)
+    want = flash_attention_bwd_plain(q, k, v, out_p, lse_p, dout, window=W)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(lse_p)
+    assert torch.equal(fin, torch.isfinite(lse_k)), "lse: inf rows differ"
+    d = (lse_k - lse_p.float())[fin].abs()
+    lse_err = float(d.max()) if d.numel() else 0.0
+    lse_ok = bool((d <= LSE_TOL * (1 + lse_p.float()[fin].abs())).all())
+    return got, want, lse_err, lse_ok
+
+
+def flash_bwd_matrix(quick):
+    """bf16 x D {64, 128, 256} x W {full, 1, 1,024, 40 (< a 64-row tile)}
+    x G {1, 2, 8}, T ragged (not a multiple of 64) from 647 to 2,100:
+    every case within the tolerance. Returns (cases, worst errors)."""
+    gen = torch.Generator(device=DEV).manual_seed(19)
+    grid = list(itertools.product((64, 128, 256), (None, 1, 1024, 40),
+                                  (1, 2, 8)))
+    if quick:
+        grid = grid[::3]
+    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0, "rel_l2": 0.0, "lse": 0.0,
+             "w1_exact_zero": 0.0}
+    for i, (D, W, group) in enumerate(grid):
+        T = (647, 1100, 1500, 2100)[i % 4]
+        B, Hkv = (2, 8 // group) if group > 1 else (1, 4)
+        if D == 256 and group == 8:
+            B, Hkv = 1, 1               # paligemma's heads: 8 q over 1 kv
+        q, k, v, dout = (torch.randn(B, h, T, D, device=DEV,
+                                     generator=gen).bfloat16()
+                         for h in (Hkv * group, Hkv, Hkv, Hkv * group))
+        got, want, lse_err, lse_ok = flash_bwd_case(q, k, v, dout, W)
+        errs, ok = bwd_errs(got, want, W)
+        if not (ok and lse_ok):
+            raise AssertionError(
+                f"B5-bwd != plain beyond tolerance: D={D} W={W} G={group} "
+                f"T={T} {errs} lse {lse_err}")
+        for name, e in errs.items():
+            if "exact" in e:
+                worst["w1_exact_zero"] = max(worst["w1_exact_zero"],
+                                             e["share_of_max_dv"])
+                continue
+            worst[name] = max(worst[name], e["max_share"])
+            worst["rel_l2"] = max(worst["rel_l2"], e["rel_l2"])
+        worst["lse"] = max(worst["lse"], lse_err)
+    return len(grid), worst
+
+
+def flash_bwd_bound(q, k, W):
+    """Least time of the backward on these inputs: 10*D FLOP per live pair
+    at the dense bf16 peak, against q, k, v, o, dO (bf16) and lse (f32)
+    read once and dq, dk, dv written once."""
+    B, Hq, T, D = q.shape
+    ops = BWD_FLOP_PER_PAIR_PER_D * D * flash_live_pairs(B, Hq, T, W)
+    nbytes = 2 * (2 * q.numel() * q.element_size()
+                  + 2 * k.numel() * k.element_size()) \
+        + q.numel() * q.element_size() + 4 * B * Hq * T
+    t_ops, t_bytes = ops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def sdpa_bwd_time(q, k, v, dout, W, reps):
+    """The backward of one `F.scaled_dot_product_attention` call on the same
+    inputs, timed as a yardstick (never used by the port): the band as a
+    boolean mask where a backend takes it, else causal (no band) and said
+    so. Returns (ms, what) or ("not measured", reasons)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    T = q.shape[2]
+    kws = [("causal", dict(is_causal=True))]
+    if W is not None and W < T:
+        pos = torch.arange(T, device=DEV)
+        kws = [("band mask", dict(attn_mask=(pos[None, :] <= pos[:, None])
+                                  & (pos[None, :] > pos[:, None] - W))),
+               ("causal, no band", dict(is_causal=True))]
+    reasons = []
+    for label, kw in kws:
+        for backend in (SDPBackend.FLASH_ATTENTION,
+                        SDPBackend.CUDNN_ATTENTION,
+                        SDPBackend.EFFICIENT_ATTENTION):
+            g = q.shape[1] // k.shape[1]
+            qq, kk, vv = (x.detach().clone().requires_grad_()
+                          for x in (q, k.repeat_interleave(g, dim=1),
+                                    v.repeat_interleave(g, dim=1)))
+            try:
+                with sdpa_kernel([backend]):
+                    out = F.scaled_dot_product_attention(qq, kk, vv, **kw)
+
+                    def call():
+                        return torch.autograd.grad(out, (qq, kk, vv), dout,
+                                                   retain_graph=True)
+                    ms = time_cuda(call, reps)
+                return ms, f"{backend.name}, {label}, kv expanded"
+            except RuntimeError as e:
+                reasons.append(f"{backend.name}/{label}: {str(e)[:80]}")
+    return "not measured", "; ".join(reasons)
+
+
+def flash_bwd_shapes(reps):
+    """B5-bwd at qwen3-0.6b's training shape (4 x 16 q / 8 kv heads x
+    4,096, D 128, causal) and at gemma3-27b's local layer (1 x 32 / 16 x
+    32,768, W 1,024): held against plain, timed beside plain, SDPA's
+    backward and the bound."""
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    recs = []
+    for name, (B, Hq, Hkv, T, W) in (("qwen3_train_causal",
+                                      (4, 16, 8, 4096, None)),
+                                     ("gemma3_local_w1024",
+                                      (1, 32, 16, 32768, 1024))):
+        q, k, v, dout = (torch.randn(B, h, T, 128, device=DEV,
+                                     generator=gen).bfloat16()
+                         for h in (Hq, Hkv, Hkv, Hq))
+        got, want, lse_err, lse_ok = flash_bwd_case(q, k, v, dout, W)
+        errs, ok = bwd_errs(got, want)
+        del got, want
+        if not (ok and lse_ok):
+            raise AssertionError(f"B5-bwd != plain at {name}: {errs} "
+                                 f"lse {lse_err}")
+        out, lse = la_mod._tc_forward(q, k, v, W, True)
+        plain_ms, _ = time_host(lambda: flash_attention_bwd_plain(
+            q, k, v, out, lse, dout, window=W))
+        ms = time_cuda(lambda: flash_attention_bwd_tc_cuda(
+            q, k, v, out, lse, dout, window=W), reps)
+        fwd_ms = time_cuda(lambda: la_mod._tc_forward(q, k, v, W, True),
+                           reps)
+        lib_ms, lib = sdpa_bwd_time(q, k, v, dout, W, reps)
+        bound, by = flash_bwd_bound(q, k, W)
+        pairs = flash_live_pairs(B, Hq, T, W)
+        recs.append({"shape": name, "q": list(q.shape), "kv": list(k.shape),
+                     "window": W, "live_pairs": pairs, "ms": ms,
+                     "fwd_with_lse_ms": fwd_ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "library": lib,
+                     "bound_ms": bound, "bound_by": by,
+                     "tflop_per_s": BWD_FLOP_PER_PAIR_PER_D * 128 * pairs
+                     / ms / 1e9, "bound_share": bound / ms, "errs": errs,
+                     "lse_err": lse_err, "within_tolerance": ok and lse_ok})
+        del q, k, v, dout, out, lse
+        torch.cuda.empty_cache()
+    return recs
+
+
+# ---------------------------------------------------------------------------
 # The language-model serving path: gemma3-27b at full width.
 # ---------------------------------------------------------------------------
 
@@ -1297,6 +1516,183 @@ def lm_phase(args, paths):
     if not tf["within_tolerance"]:
         raise AssertionError(f"f32 decode != prefill: {tf}")
     rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Training: qwen3-0.6b whole, through make_train_step.
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen3-0.6b"
+#: Labels of the train step's trace: B5 and B5-bwd by kernel, then the
+#: library's kernels by the part of the name they share (cuBLAS GEMMs are
+#: named nvjet / xmma / cutlass; PyTorch's elementwise and reduction
+#: kernels by their templates).
+TRAIN_KERNELS = {"flash_tc": "flash_tc_kernel",
+                 "flash_tc_bwd_dkdv": "flash_bwd_dkdv_kernel",
+                 "flash_tc_bwd_dq": "flash_bwd_dq_kernel",
+                 "flash_tc_bwd_delta": "flash_bwd_delta_kernel",
+                 "gemm_nvjet": "nvjet", "gemm_xmma": "xmma",
+                 "gemm_cutlass": "cutlass", "elementwise": "elementwise",
+                 "reduce": "reduce_kernel", "copies": "Memcpy"}
+TRAIN_B, TRAIN_T, TRAIN_NM, TRAIN_STEPS = 8, 4096, 2, 3
+#: Card gradient check (stated before its first card run): the loss on the
+#: B5 route within 2^-7 relative of `attn_impl="naive"`'s, each leaf's
+#: gradient within relative L2 2^-5 (bf16 compute on both sides, which
+#: round at other places inside attention: 16 bf16 unit roundoffs).
+GRAD_LOSS_TOL = 2 ** -7
+GRAD_LEAF_TOL = 2 ** -5
+
+
+def b5_launches_per_step(cfg, nm):
+    """B5 launches one train step implies: per microbatch, each attention
+    layer of a period runs its forward twice (the forward, then again when
+    the backward replays its checkpointed period; the nested per-block
+    checkpoint replays inside that replay, adding no third run), a
+    remainder layer (no checkpoint) once; the backward once per layer."""
+    attn = ("attn", "local", "moe", "moe_swa")
+    in_periods = cfg.n_periods * sum(k in attn for k in cfg.pattern)
+    rem = sum(k in attn for k in cfg.remainder)
+    return {"flash_tc": nm * ((2 if cfg.remat else 1) * in_periods + rem),
+            "flash_tc_bwd": nm * (in_periods + rem)}
+
+
+def model_flop(cfg, params, B, T):
+    """Model FLOP of one train step (no recompute counted): 6 per
+    parameter of every product and token (the tied table counted once, as
+    the readout's product; norm scales excluded), plus attention's 12*D
+    per live (query, key) pair and q head (4*D forward, 8*D backward)."""
+    def prod_params(tree, path=""):
+        if isinstance(tree, dict):
+            return sum(prod_params(v, f"{path}/{k}") for k, v in tree.items())
+        return 0 if "norm" in path or path.endswith(("/ln1", "/ln2")) \
+            else tree.numel()
+    dense = 6 * prod_params(params) * B * T
+    attn = 12 * cfg.head_dim * cfg.n_layers * flash_live_pairs(
+        B, cfg.n_heads, T, None)
+    return dense + attn
+
+
+def train_grad_check(cfg, seed):
+    """qwen3-0.6b at full width cut to 4 layers, 2 x 1,024 tokens, bf16
+    compute, f32 params: the loss and every leaf's gradient with attention
+    on B5 (`flash_tc` + B5-bwd) against `attn_impl="naive"`."""
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    params = init_params(cfg4, seed, torch.float32, device=DEV)
+    toks = lm_tokens(cfg4, 2, 1025, seed + 5)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    res = {}
+    for impl in ("chunked", "naive"):
+        c = dataclasses.replace(cfg4, attn_impl=impl)
+        before = counts()
+        res[impl] = train_mod.value_and_grad(params, c, batch,
+                                              torch.bfloat16)
+        got = {key: val - before[key] for key, val in counts().items()}
+        if impl == "chunked":
+            assert got["flash_tc"] > 0 and got["flash_tc_bwd"] > 0, got
+        else:
+            assert got["flash_tc"] == 0 and got["flash_tc_bwd"] == 0, got
+    (l_k, g_k), (l_n, g_n) = res["chunked"], res["naive"]
+    loss_rel = float((l_k - l_n).abs() / l_n.abs())
+    leaf = {}
+    for path, a, b in zip(tree_paths(g_n), tree_leaves(g_k),
+                          tree_leaves(g_n)):
+        leaf[path] = float((a - b).norm() / b.norm().clamp_min(1e-30))
+    ok = loss_rel <= GRAD_LOSS_TOL and max(leaf.values()) <= GRAD_LEAF_TOL
+    rec = {"n_layers": 4, "batch": 2, "tokens": 1024,
+           "loss": float(l_k), "loss_naive": float(l_n),
+           "loss_rel_err": loss_rel, "leaf_rel_l2": leaf,
+           "leaf_rel_l2_max": max(leaf.values()),
+           "tolerance": "loss within 2^-7 relative, each leaf's gradient "
+                        "rel L2 <= 2^-5", "within_tolerance": ok}
+    if not ok:
+        raise AssertionError(f"B5 route gradients != naive: {rec}")
+    # One compressed step (int8 error feedback) at the trivial pod mesh.
+    state = {"params": params, "opt": adamw_init(params),
+             "err": init_error_buffer(params)}
+    step = make_compressed_train_step(
+        cfg4, make_debug_mesh(data=1, model=1, pod=1), peak_lr=1e-3)
+    before = counts()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    got = {key: val - before[key] for key, val in counts().items()}
+    assert bool(torch.isfinite(m["loss"])) and int(state["opt"]["step"]) \
+        == 1 and got["flash_tc_bwd"] > 0 and got["plain_flash"] == 0, \
+        (m, got)
+    rec["compressed_step"] = {"mesh": {"pod": 1, "data": 1, "model": 1},
+                              "loss": float(m["loss"]),
+                              "grad_norm": float(m["grad_norm"]),
+                              "launches": {k_: v_ for k_, v_ in got.items()
+                                           if v_}}
+    return rec
+
+
+def lm_train_phase(args, paths):
+    """qwen3-0.6b whole (28 layers, full width), f32 params and AdamW
+    moments, bf16 compute, B 8 x T 4,096 in two microbatches, three
+    `make_train_step` steps on one batch (the JAX package's
+    test_train_step_reduces_and_stays_finite at full size): finite
+    losses, the second <= 1.2 x the first, opt.step == 3, B5 launches as
+    the remat scheme implies and none of the f32 routes. Step 2 is timed
+    on the host clock, step 3 traced."""
+    cfg = get_config(TRAIN_ARCH)
+    B, T, nm = (2, 1024, 2) if args.quick else (TRAIN_B, TRAIN_T, TRAIN_NM)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, args.seed, torch.float32,
+                             device=DEV).tree()
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    toks = lm_tokens(cfg, B, T + 1, args.seed + 3)
+    batch = split_microbatches({"tokens": toks[:, :-1],
+                                "labels": toks[:, 1:]}, nm)
+    step = make_train_step(cfg, num_microbatches=nm, peak_lr=1e-3,
+                           compute_dtype=torch.bfloat16)
+    losses, wall = [], []
+    trace = None
+    with paths.path("lm_train"):
+        for i in range(TRAIN_STEPS):
+            if i == TRAIN_STEPS - 1:
+                trace = device_trace(
+                    lambda: losses.append(step(state, batch)[1]),
+                    kernels=TRAIN_KERNELS, wall_ms=wall[-1])
+                continue
+            ms, (_, m) = time_host(lambda: step(state, batch))
+            wall.append(ms)
+            losses.append(m)
+    got = paths.paths["lm_train"]
+    want = {k_: TRAIN_STEPS * v_ for k_, v_ in
+            b5_launches_per_step(cfg, nm).items()}
+    loss = [float(m["loss"]) for m in losses]
+    assert all(np.isfinite(loss)), loss
+    assert loss[1] <= 1.2 * loss[0], loss
+    assert int(state["opt"]["step"]) == TRAIN_STEPS
+    assert got["flash_tc"] == want["flash_tc"] \
+        and got["flash_tc_bwd"] == want["flash_tc_bwd"], (got, want)
+    assert got["flash_tf32x3"] == 0 and got["flash_fma"] == 0, got
+    step_ms = wall[-1]
+    flop = model_flop(cfg, state["params"], B, T)
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+           "batch": B, "tokens": T, "num_microbatches": nm,
+           "dtypes": {"params": "float32", "moments": "float32",
+                      "compute": "bfloat16"},
+           "losses": loss, "grad_norms": [float(m["grad_norm"])
+                                          for m in losses],
+           "lrs": [float(m["lr"]) for m in losses],
+           "opt_step": int(state["opt"]["step"]),
+           "first_step_ms": wall[0], "ms_per_step": step_ms,
+           "tokens_per_s": B * T / (step_ms / 1e3),
+           "model_flop_per_step": flop,
+           "model_flop": "6 x product params x tokens + 12 x D x live "
+                         "(query, key) pairs x q heads x layers",
+           "train_mfu": flop / (step_ms / 1e3) / BF16_FLOP_PER_S,
+           "launches": got, "launches_expected": want,
+           "trace": trace,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del state, batch
+    torch.cuda.empty_cache()
+    emit("lm_progress", {"lm_train": {k_: v_ for k_, v_ in rec.items()
+                                      if k_ != "trace"}})
+    rec["grad_check"] = train_grad_check(cfg, args.seed)
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -2182,6 +2578,15 @@ def tree_leaves(tree):
         yield tree
 
 
+def tree_paths(tree, path=""):
+    """The "/"-joined key path of each leaf, in `tree_leaves` order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_paths(v, f"{path}/{k}")
+    else:
+        yield path
+
+
 # ---------------------------------------------------------------------------
 # Main-path checks.
 # ---------------------------------------------------------------------------
@@ -2211,6 +2616,7 @@ COUNTERS = {
     "persistent": persistent_align_cuda,
     "chain": chain_mod.chain_padded_cuda,
     "flash_tc": flash_attention_tc_cuda,
+    "flash_tc_bwd": flash_attention_bwd_tc_cuda,
     "flash_tf32x3": flash_attention_tf32x3_cuda,
     "flash_fma": flash_attention_fma_cuda,
     "rglru_scan": rglru_mod.rglru_scan_cuda,
@@ -2224,6 +2630,7 @@ PLAIN = {
     "plain_traceback": tbd.decode_packed_tb_plain,
     "plain_chain": chain_mod.chain_padded_plain,
     "plain_flash": flash_attention_plain,
+    "plain_flash_bwd": flash_attention_bwd_plain,
     "plain_rglru": rglru_mod.rglru_scan_plain,
     "plain_mlstm": xlstm_mod.mlstm_chunk_scan_plain,
     "plain_mlstm_states": xlstm_mod.mlstm_chunk_states_plain,
@@ -2321,19 +2728,21 @@ def timed_align(engine, reads, refs, mode, label):
     return out, rec
 
 
-def device_trace(fn, kernels=None):
+def device_trace(fn, kernels=None, wall_ms=None):
     """Time `fn` on the host clock (second call), then run it again under
     torch.profiler and sum the device time of every kernel and copy by
     name: the device's busy share of the untraced wall time, and where
     it went (tracing slows the host, so the traced wall time is given
     apart). `kernels` {label: part of a kernel's name}: the count and
     device ms of the trace's kernels whose name holds that part
-    (`by_kernel`). Returns "not measured" in place of the numbers when
-    the trace holds no device event."""
+    (`by_kernel`). Given `wall_ms` (an untraced call the caller timed),
+    `fn` runs once, traced. Returns "not measured" in place of the numbers
+    when the trace holds no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()                            # warm: pinned buffers, allocator
-    wall_ms, _ = time_host(fn)
+    if wall_ms is None:
+        fn()                        # warm: pinned buffers, allocator
+        wall_ms, _ = time_host(fn)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         traced_ms, _ = time_host(fn)
@@ -2893,9 +3302,32 @@ def main():
                      "kernel test bound); bf16: one bf16 ulp of the value "
                      "(or 2e-5 if larger) — both round an f32 result"})
     t0 = time.perf_counter()
+    bwd_cases, bwd_worst = flash_bwd_matrix(args.quick)
+    bwd_shapes = flash_bwd_shapes(3 if args.quick else 8)
+    bwd_ptxas = ptxas_facts(built["logs"].get("flash_tc_bwd", ""),
+                            "flash_bwd_", r"(dkdv|dq|delta)_kernelILi(\d+)E")
+    if "flash_tc_bwd" in built["built"]:
+        assert bwd_ptxas and all(
+            f["spill_stores"] == 0 and f["spill_loads"] == 0
+            for f in bwd_ptxas.values()), bwd_ptxas
+    emit("flash_bwd_checks", {
+        "seconds": time.perf_counter() - t0, "cases": bwd_cases,
+        "worst": bwd_worst, "shapes": bwd_shapes,
+        "flash_tc_bwd_ptxas": bwd_ptxas
+        or "not measured (library not rebuilt)",
+        "tolerance": "each of dq, dk, dv: max |kernel - plain| <= 2^-6 x "
+                     "max |plain| and rel L2 <= 2^-7 (plain in f32 from the "
+                     "same bf16 inputs); lse within 2^-14 x (1 + |plain|); "
+                     "at W = 1 dq and dk against their exact 0: max |kernel| "
+                     "<= 2^-6 x max |plain dv|"})
+    t0 = time.perf_counter()
     lm = lm_phase(args, paths)
     lm["seconds"] = time.perf_counter() - t0
     emit("lm", lm)
+    t0 = time.perf_counter()
+    lm_train = lm_train_phase(args, paths)
+    lm_train["seconds"] = time.perf_counter() - t0
+    emit("lm_train", lm_train)
 
     # ---- 2b. B6-B8 vs their plain versions; the MoE and recurrent
     # model families ----
@@ -3365,7 +3797,29 @@ def main():
                        fma_bf16_32k_ms=glob["fma_ms"],
                        fma_bf16_32k_local_ms=loc["fma_ms"])
     assert tot("flash_fma") == 0, "a main path launched the FMA kernel"
-    for k in kernels[-2:]:
+    qwen3_bwd, local_bwd = bwd_shapes
+    kernels.append(dict(
+        b5, name="flash_tc_bwd",
+        source="src/repro_torch/kernels/local_attention/csrc/"
+               "flash_tc_bwd.cu",
+        tolerance="dq, dk, dv each: max |err| <= 2^-6 x max |plain|, rel "
+                  "L2 <= 2^-7",
+        launches=tot("flash_tc_bwd"),
+        max_abs_err=max(e["max_abs_err"] for r in bwd_shapes
+                        for e in r["errs"].values()),
+        worst_max_share=max(bwd_worst[x] for x in ("dq", "dk", "dv")),
+        worst_rel_l2=bwd_worst["rel_l2"],
+        within_tolerance=all(r["within_tolerance"] for r in bwd_shapes),
+        ms=qwen3_bwd["ms"], plain_ms=qwen3_bwd["plain_ms"],
+        bound_ms=qwen3_bwd["bound_ms"], bound_by=qwen3_bwd["bound_by"],
+        library_ms=lib_ms(qwen3_bwd), library=qwen3_bwd["library"],
+        shape=qwen3_bwd["shape"], tflop_per_s=qwen3_bwd["tflop_per_s"],
+        local_ms=local_bwd["ms"], local_plain_ms=local_bwd["plain_ms"],
+        local_bound_ms=local_bwd["bound_ms"],
+        local_library_ms=local_bwd["library_ms"],
+        local_library=local_bwd["library"],
+        train_trace=lm_train["trace"].get("by_kernel", "not measured")))
+    for k in kernels[-3:]:
         assert k["launches"] > 0 and k["within_tolerance"], k
     rec_common = dict(common, tolerance=f"{REC_TOL} x max |plain| per f32 "
                       f"output; one bf16 ulp more for bf16")

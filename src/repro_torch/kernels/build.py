@@ -33,6 +33,8 @@ SOURCES = {
     / "local_attention.cu",
     "flash_tc": _PKG / "kernels" / "local_attention" / "csrc"
     / "flash_tc.cu",
+    "flash_tc_bwd": _PKG / "kernels" / "local_attention" / "csrc"
+    / "flash_tc_bwd.cu",
     "flash_tf32x3": _PKG / "kernels" / "local_attention" / "csrc"
     / "flash_tf32x3.cu",
     "rglru_scan": _PKG / "models" / "csrc" / "rglru_scan.cu",
@@ -63,13 +65,20 @@ def count(fn, attr: str = "launches", **keyed) -> None:
             getattr(fn, name)[key] += 1
 
 
+def records_grad(*tensors) -> bool:
+    """Whether autograd would record an operation on `tensors`: grad mode
+    is on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
 def refuse_grad(name: str, *tensors) -> None:
     """Raise RuntimeError if autograd would record a call of the kernel
     wrapper `name`: grad mode is on and one of `tensors` requires grad.
-    The language-model kernels have no backward yet, and their outputs
-    would silently carry no gradient to their inputs."""
-    if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+    The kernels that call it (B5's split-TF32 and FMA routes, B6-B8) have
+    no backward yet, and their outputs would silently carry no gradient
+    to their inputs."""
+    if records_grad(*tensors):
         raise RuntimeError(
             f"{name}: an input requires grad, but this kernel has no "
             f"backward yet; call it under torch.no_grad()")

@@ -50,6 +50,13 @@
 //     6*D FLOP per live pair instead of 4*D; the bound counts 4*D.
 //   * the normaliser l is summed from the f32 p; O / l in f32, rounded to
 //     bf16 and written once.
+//   * optionally (a second instantiation, launched when the caller passes a
+//     non-null `lse`, i.e. under autograd) the per-row log-sum-exp of the
+//     scaled scores in natural-log units, lse = (m + log2 l) ln 2 with m
+//     the running max in log2 units, so that P = exp(s * scale - lse) for
+//     the backward (csrc/flash_tc_bwd.cu); a row with l = 0 (only at
+//     W = 0) gets +inf, for which every P of the backward is exactly 0.
+//     Without it the kernel is the prefill's, unchanged.
 //
 // Later work (ROADMAP): overlap of one warpgroup's softmax with its own
 // next QK^T (two score buffers), a persistent grid, and a single-bf16-P
@@ -377,13 +384,13 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
-                __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int Tlen,
-                int W, float sl2) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int Hq, int Hkv, int Tlen, int W, float sl2) {
   using C = TcTile<D>;
   constexpr int BQ = C::BQ, BK = C::BK, NCH = C::NCH;
   constexpr int Q_BYTES = C::Q_BYTES, KV_BYTES = C::KV_BYTES;
@@ -581,6 +588,16 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         *reinterpret_cast<uint32_t*>(out + (long long)row_b * D + 8 * j) =
             pack_bf16(acc[4 * j + 2] / den_b, acc[4 * j + 3] / den_b);
     }
+    if constexpr (LSE) {
+      if (lane % 4 == 0) {
+        constexpr float LN2 = 0.6931471805599453f;
+        float* out_lse = lse + (long long)bh * Tlen;
+        if (row_a < Tlen)
+          out_lse[row_a] = l_a == 0.f ? INFINITY : (m_a + log2f(l_a)) * LN2;
+        if (row_b < Tlen)
+          out_lse[row_b] = l_b == 0.f ? INFINITY : (m_b + log2f(l_b)) * LN2;
+      }
+    }
   }
 }
 
@@ -627,9 +644,10 @@ bool make_map(CUtensorMap* map, const void* ptr, int D, int T, int BH,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, bool LSE>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Hq, int Hkv, int T, int W, cudaStream_t stream) {
+                   float* lse, int B, int Hq, int Hkv, int T, int W,
+                   cudaStream_t stream) {
   using C = TcTile<D>;
   const int nq = (T + C::BQ - 1) / C::BQ;
   if (nq > 65535) return cudaErrorInvalidValue;
@@ -639,14 +657,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       !make_map(&tm_v, v, D, T, B * Hkv, C::BK))
     return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_tc_kernel<D, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::SMEM);
   if (e != cudaSuccess) return e;
   const float sl2 = (float)(1.4426950408889634 / sqrt((double)D));
   const dim3 grid(B * Hq, nq);
-  flash_tc_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(
-      tm_q, tm_k, tm_v, (__nv_bfloat16*)o, Hq, Hkv, T, W, sl2);
+  flash_tc_kernel<D, LSE><<<grid, THREADS, C::SMEM, stream>>>(
+      tm_q, tm_k, tm_v, (__nv_bfloat16*)o, lse, Hq, Hkv, T, W, sl2);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
+                     float* lse, int B, int Hq, int Hkv, int T, int W,
+                     cudaStream_t s) {
+  return lse == nullptr ? launch<D, false>(q, k, v, o, lse, B, Hq, Hkv, T, W, s)
+                        : launch<D, true>(q, k, v, o, lse, B, Hq, Hkv, T, W, s);
 }
 
 }  // namespace
@@ -654,19 +680,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // Launches the tensor-core banded flash attention on `stream`: bf16 q
 // (B, Hq, T, D), k and v (B, Hkv, T, D), o like q, all contiguous with
 // 16-byte aligned bases, D in {64, 128, 256}; W is the window (T for full
-// causal). Returns the CUDA error code of the launch (0 = success).
-// Allocates nothing and does not synchronise.
+// causal). `lse`, if not null, is f32 (B, Hq, T) and receives each row's
+// log-sum-exp of the scaled scores (natural log). Returns the CUDA error
+// code of the launch (0 = success). Allocates nothing and does not
+// synchronise.
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
-                                         const void* v, void* o, int B,
-                                         int Hq, int Hkv, int T, int D, int W,
-                                         void* stream) {
+                                         const void* v, void* o, void* lse,
+                                         int B, int Hq, int Hkv, int T, int D,
+                                         int W, void* stream) {
   if (B <= 0 || T <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  float* l = (float*)lse;
   switch (D) {
-    case 64: return (int)launch<64>(q, k, v, o, B, Hq, Hkv, T, W, s);
-    case 128: return (int)launch<128>(q, k, v, o, B, Hq, Hkv, T, W, s);
-    case 256: return (int)launch<256>(q, k, v, o, B, Hq, Hkv, T, W, s);
+    case 64: return (int)launch_d<64>(q, k, v, o, l, B, Hq, Hkv, T, W, s);
+    case 128: return (int)launch_d<128>(q, k, v, o, l, B, Hq, Hkv, T, W, s);
+    case 256: return (int)launch_d<256>(q, k, v, o, l, B, Hq, Hkv, T, W, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

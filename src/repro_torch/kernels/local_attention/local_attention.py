@@ -23,6 +23,14 @@ grid's sequential kv axis becomes a loop over the kv block offsets,
 vectorised over every (batch, head, query block) — and runs on any
 device; `ops.flash_attention` picks between it and the kernels by where
 the tensors live.
+
+The backward (B5-bwd): `FlashAttention`, a `torch.autograd.Function`,
+runs the tc route's forward with its per-row log-sum-exp and
+`csrc/flash_tc_bwd.cu` (`flash_attention_bwd_tc_cuda`) on CUDA tensors,
+and `flash_attention_plain(return_lse=True)` with
+`flash_attention_bwd_plain` on CPU tensors. `flash_attention_tc_cuda`
+goes through it whenever autograd would record the call; the split-TF32
+and FMA kernels have no backward and raise there (`build.refuse_grad`).
 """
 
 from __future__ import annotations
@@ -77,16 +85,25 @@ def check_inputs(q, k, v, *, window=None, block_q=128, block_k=128):
     return Hq // Hkv, block_q, block_k, W
 
 
+def _plain_dtype(q):
+    """The plain versions compute in f32, or in f64 for f64 inputs (the
+    gradient checks)."""
+    return torch.float64 if q.dtype == torch.float64 else torch.float32
+
+
 def flash_attention_plain(q, k, v, *, window=None, block_q=128,
-                          block_k=128):
+                          block_k=128, return_lse=False):
     """The blocked online-softmax pass of the TPU kernel in PyTorch.
 
     For each kv block offset `ki` (the TPU grid's sequential axis), every
     query block attends to kv block ``last - (n_kv_blocks - 1) + ki``,
     where ``last`` holds the block's final query; blocks below 0 or wholly
     behind the window are masked whole, which leaves (m, l, acc) exactly
-    as they were (alpha = 1, p = 0) — the kernel's skip. f32 math on the
-    upcast inputs, q scaled after the upcast; output in q's dtype.
+    as they were (alpha = 1, p = 0) — the kernel's skip. f32 math (f64 for
+    f64 inputs) on the upcast inputs, q scaled after the upcast; output in
+    q's dtype. With `return_lse`, also each row's log-sum-exp of the
+    scaled scores, (B, Hq, T) in the compute dtype: m + log l, +inf where
+    no key is live (l = 0, only at W = 0).
     """
     build.count(flash_attention_plain, "calls")
     group, bq, bk, W = check_inputs(q, k, v, window=window, block_q=block_q,
@@ -97,19 +114,21 @@ def flash_attention_plain(q, k, v, *, window=None, block_q=128,
     n_kv = min((bq - 1) // bk + -(-max(W - 1, 0) // bk) + 1, nkb)
     scale = 1.0 / math.sqrt(D)
     dev = q.device
+    ct = _plain_dtype(q)
 
     # Rows of one (b, kv head, query block): the group's heads, g-major.
-    qf = (q.float() * scale).reshape(B, Hkv, group, nq, bq, D) \
+    qf = (q.to(ct) * scale).reshape(B, Hkv, group, nq, bq, D) \
         .permute(0, 1, 3, 2, 4, 5).reshape(B, Hkv, nq, group * bq, D)
-    kf = k.float().reshape(B, Hkv, nkb, bk, D)
-    vf = v.float().reshape(B, Hkv, nkb, bk, D)
+    kf = k.to(ct).reshape(B, Hkv, nkb, bk, D)
+    vf = v.to(ct).reshape(B, Hkv, nkb, bk, D)
 
     qi = torch.arange(nq, device=dev)
     q_pos = (qi[:, None] * bq + torch.arange(bq, device=dev)).repeat(1, group)
     last_kv = (qi * bq + bq - 1) // bk
-    m = torch.full((B, Hkv, nq, group * bq, 1), NEG_INF, device=dev)
+    m = torch.full((B, Hkv, nq, group * bq, 1), NEG_INF, dtype=ct,
+                   device=dev)
     l = torch.zeros_like(m)
-    acc = torch.zeros((B, Hkv, nq, group * bq, D), device=dev)
+    acc = torch.zeros((B, Hkv, nq, group * bq, D), dtype=ct, device=dev)
     for ki in range(n_kv):
         kv_blk = last_kv - (n_kv - 1) + ki
         below = (kv_blk * bk + bk - 1) < (qi * bq - W + 1)
@@ -127,21 +146,79 @@ def flash_attention_plain(q, k, v, *, window=None, block_q=128,
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         acc = acc * alpha + p @ vf[:, :, idx]
         m = m_cur
+    lse = torch.where(l == 0.0, math.inf, m + torch.log(l))
     l = torch.where(l == 0.0, 1.0, l)
     out = (acc / l).reshape(B, Hkv, nq, group, bq, D) \
-        .permute(0, 1, 3, 2, 4, 5).reshape(B, Hq, T, D)
-    return out.to(q.dtype)
+        .permute(0, 1, 3, 2, 4, 5).reshape(B, Hq, T, D).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, lse.reshape(B, Hkv, nq, group, bq).permute(0, 1, 3, 2, 4) \
+        .reshape(B, Hq, T)
 
 
 #: Calls of the plain version since the count was last set to 0.
 flash_attention_plain.calls = 0
 
 
-def _lib(name, fn_name, n_int):
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, window=None,
+                              block_k=128):
+    """The backward of the banded flash attention in PyTorch, with the
+    recomputation of B5-bwd: for each block of `block_k` keys, the
+    queries that meet its band ``[k_lo, k_hi + W - 1]``, P = exp(s *
+    scale - lse) (0 where masked), dV = P^T dO, dP = dO V^T, dS = P (dP -
+    delta) with delta = rowsum(dO * O) from `out` as the forward returned
+    it, dQ = scale dS K and dK = scale dS^T Q, dK and dV summed over each
+    kv head's group. `lse` (B, Hq, T) as `flash_attention_plain(...,
+    return_lse=True)` or the tc kernel gives it. f32 math (f64 for f64
+    inputs); returns (dq, dk, dv) in the dtypes of q, k, v. Any T."""
+    build.count(flash_attention_bwd_plain, "calls")
+    group, _, _, W = check_inputs(q, k, v, window=window, block_q=q.shape[2],
+                                  block_k=q.shape[2])
+    B, Hq, T, D = q.shape
+    Hkv = k.shape[1]
+    ct = _plain_dtype(q)
+    scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    qf = q.to(ct).reshape(B, Hkv, group, T, D)
+    dof = dout.to(ct).reshape(B, Hkv, group, T, D)
+    kf, vf = k.to(ct), v.to(ct)
+    lsef = lse.to(ct).reshape(B, Hkv, group, T, 1)
+    delta = (dof * out.to(ct).reshape(B, Hkv, group, T, D)).sum(
+        -1, keepdim=True)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for k_lo in range(0, T if W > 0 else 0, block_k):
+        k_hi = min(k_lo + block_k, T)
+        q_hi = min(k_hi - 1 + W - 1, T - 1) + 1
+        qs, dos = qf[:, :, :, k_lo:q_hi], dof[:, :, :, k_lo:q_hi]
+        kc, vc = kf[:, :, k_lo:k_hi], vf[:, :, k_lo:k_hi]
+        qpos = torch.arange(k_lo, q_hi, device=dev)[:, None]
+        kpos = torch.arange(k_lo, k_hi, device=dev)[None, :]
+        live = (kpos <= qpos) & (kpos > qpos - W)
+        s = torch.einsum("bkgqd,bkcd->bkgqc", qs, kc) * scale
+        p = torch.where(live, torch.exp(torch.where(
+            live, s - lsef[:, :, :, k_lo:q_hi], 0.0)), 0.0)
+        dv[:, :, k_lo:k_hi] = torch.einsum("bkgqc,bkgqd->bkcd", p, dos)
+        dp = torch.einsum("bkgqd,bkcd->bkgqc", dos, vc)
+        ds = p * (dp - delta[:, :, :, k_lo:q_hi])
+        dk[:, :, k_lo:k_hi] = torch.einsum("bkgqc,bkgqd->bkcd", ds,
+                                           qs) * scale
+        dq[:, :, :, k_lo:q_hi] += torch.einsum("bkgqc,bkcd->bkgqd", ds,
+                                               kc) * scale
+    return (dq.reshape(B, Hq, T, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+#: Calls of the plain backward since the count was last set to 0.
+flash_attention_bwd_plain.calls = 0
+
+
+def _lib(name, fn_name, n_int, n_ptr=4):
     lib = build.load(name)
     fn = getattr(lib, fn_name)
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 4 + [_I] * n_int + [_P]
+        fn.argtypes = [_P] * n_ptr + [_I] * n_int + [_P]
         fn.restype = _I
     return fn
 
@@ -161,8 +238,16 @@ def kernel_route(dtype, D):
         else "tf32x3"
 
 
+def _contiguous(*ts):
+    """Contiguous rows on 16-byte boundaries: the kernels load 16 bytes of
+    a row at a time (TMA requires it of its base address)."""
+    return tuple(t if t.is_contiguous() and t.data_ptr() % 16 == 0
+                 else t.clone(memory_format=torch.contiguous_format)
+                 for t in ts)
+
+
 def _prepare(q, k, v, window, dtypes, head_dims, name):
-    """Shared checks of both kernel wrappers. Returns (q, k, v) contiguous
+    """Shared checks of the kernel wrappers. Returns (q, k, v) contiguous
     on 16-byte boundaries, W clipped to [0, T], and the sizes."""
     _, _, _, W = check_inputs(q, k, v, window=window, block_q=q.shape[2],
                               block_k=q.shape[2])
@@ -180,26 +265,42 @@ def _prepare(q, k, v, window, dtypes, head_dims, name):
     if not q.is_cuda:
         raise ValueError(f"{name} takes CUDA tensors; the plain version "
                          f"flash_attention_plain runs anywhere")
-    build.refuse_grad(name, q, k, v)
-    # Contiguous rows on 16-byte boundaries: the kernels load 16 bytes of
-    # a row at a time (TMA requires it of its base address).
-    q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
-               else t.clone(memory_format=torch.contiguous_format)
-               for t in (q, k, v))
-    return q, k, v, max(min(W, T), 0), (B, Hq, k.shape[1], T, D)
+    return (*_contiguous(q, k, v), max(min(W, T), 0),
+            (B, Hq, k.shape[1], T, D))
+
+
+def _call(fn, ptrs, ints, what):
+    """One launch of a C entry point on the current stream of the device
+    of `ptrs[0]`; raises on a CUDA error."""
+    with torch.cuda.device(ptrs[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(t.data_ptr() if t is not None else None for t in ptrs),
+                 *ints, stream)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
 def _launch(fn, q, k, v, sizes, W, extra, what):
     out = torch.empty_like(q)
     if q.numel():
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), *sizes, W, *extra, stream)
-        if err != 0:
-            raise RuntimeError(f"{what} kernel launch failed: CUDA error "
-                               f"{err}")
+        _call(fn, (q, k, v, out), (*sizes, W, *extra), what)
     return out
+
+
+def _tc_forward(q, k, v, window, with_lse):
+    """One launch of `csrc/flash_tc.cu`: (out, lse or None)."""
+    q, k, v, W, sizes = _prepare(q, k, v, window, (torch.bfloat16,),
+                                 TC_HEAD_DIMS, "flash_attention_tc_cuda")
+    if sizes[3] > 65535 * 128:
+        raise ValueError(f"T={sizes[3]} > 65,535 query tiles of 128")
+    out = torch.empty_like(q)
+    lse = torch.empty(sizes[:2] + sizes[3:4], dtype=torch.float32,
+                      device=q.device) if with_lse else None
+    if q.numel():
+        _call(_lib("flash_tc", "flash_attention_tc_launch", 6, n_ptr=5),
+              (q, k, v, out, lse), (*sizes, W), "flash_tc")
+        build.count(flash_attention_tc_cuda)
+    return out, lse
 
 
 def flash_attention_tc_cuda(q, k, v, *, window=None):
@@ -207,16 +308,83 @@ def flash_attention_tc_cuda(q, k, v, *, window=None):
     exact-split P.V) on CUDA tensors: bf16 q (B, Hq, T, D), k/v (B, Hkv,
     T, D), D in `TC_HEAD_DIMS`, any T up to 65,535 query tiles of 128.
     Returns (B, Hq, T, D) bf16 on PyTorch's current stream, without
-    synchronising. Raises on anything the kernel does not take."""
+    synchronising. Where autograd would record the call, it goes through
+    `FlashAttention` (the forward with its log-sum-exp, B5-bwd behind it).
+    Raises on anything the kernel does not take."""
+    if build.records_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, window)
+    return _tc_forward(q, k, v, window, False)[0]
+
+
+def flash_attention_bwd_tc_cuda(q, k, v, out, lse, dout, *, window=None):
+    """Launch B5-bwd (`csrc/flash_tc_bwd.cu`: three kernels — delta =
+    rowsum(dO * O), dK/dV one block per (b, kv head, key tile), dQ one
+    block per (b, q head, query tile); mma.sync, bf16 operands, f32
+    accumulation) on CUDA tensors: q, k, v as `flash_attention_tc_cuda`
+    takes them, `out` the forward's output and `dout` its gradient (bf16,
+    like q), `lse` (B, Hq, T) f32 from the forward kernel. Returns (dq, dk,
+    dv) bf16 on PyTorch's current stream, without synchronising. Raises on
+    anything the kernels do not take."""
+    name = "flash_attention_bwd_tc_cuda"
     q, k, v, W, sizes = _prepare(q, k, v, window, (torch.bfloat16,),
-                                 TC_HEAD_DIMS, "flash_attention_tc_cuda")
-    if sizes[3] > 65535 * 128:
-        raise ValueError(f"T={sizes[3]} > 65,535 query tiles of 128")
-    out = _launch(_lib("flash_tc", "flash_attention_tc_launch", 6), q, k, v,
-                  sizes, W, (), "flash_tc")
+                                 TC_HEAD_DIMS, name)
+    B, Hq, Hkv, T, D = sizes
+    if out.shape != q.shape or dout.shape != q.shape \
+            or out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError(f"{name}: out and dout must be like q "
+                         f"{tuple(q.shape)} {q.dtype}; got out "
+                         f"{tuple(out.shape)} {out.dtype}, dout "
+                         f"{tuple(dout.shape)} {dout.dtype}")
+    if lse.shape != (B, Hq, T) or lse.dtype != torch.float32:
+        raise ValueError(f"{name}: lse must be ({B}, {Hq}, {T}) float32; "
+                         f"got {tuple(lse.shape)} {lse.dtype}")
+    if not (out.device == dout.device == lse.device == q.device):
+        raise ValueError(f"{name}: out, lse and dout must lie on q's device")
+    if T > 65535 * 64:
+        raise ValueError(f"T={T} > 65,535 tiles of 64")
+    out, dout, lse = _contiguous(out, dout, lse)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel():
-        build.count(flash_attention_tc_cuda)
-    return out
+        delta = torch.empty((B, Hq, T), dtype=torch.float32,
+                            device=q.device)
+        _call(_lib("flash_tc_bwd", "flash_attention_bwd_tc_launch", 6,
+                   n_ptr=10),
+              (q, k, v, out, lse, dout, dq, dk, dv, delta), (*sizes, W),
+              "flash_tc_bwd")
+        build.count(flash_attention_bwd_tc_cuda)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The banded flash attention with its backward: on CUDA tensors the
+    tc route's forward with the per-row log-sum-exp and B5-bwd, on CPU
+    tensors `flash_attention_plain(return_lse=True)` and
+    `flash_attention_bwd_plain`. Everything the backward reads is saved
+    through `ctx.save_for_backward` (q, k, v, out, lse), so a
+    non-reentrant checkpoint may run the forward again. `apply(q, k, v,
+    window=None, block_q=128, block_k=128)`; the blocks tile the plain
+    forward only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window=None, block_q=128, block_k=128):
+        if q.is_cuda:
+            out, lse = _tc_forward(q, k, v, window, True)
+        else:
+            out, lse = flash_attention_plain(q, k, v, window=window,
+                                             block_q=block_q,
+                                             block_k=block_k,
+                                             return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd_tc_cuda if q.is_cuda \
+            else flash_attention_bwd_plain
+        dq, dk, dv = bwd(q, k, v, out, lse, dout, window=ctx.window)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_tf32x3_cuda(q, k, v, *, window=None):
@@ -229,6 +397,7 @@ def flash_attention_tf32x3_cuda(q, k, v, *, window=None):
     take."""
     head_dims = TF32X3_BF16_HEAD_DIMS if q.dtype == torch.bfloat16 \
         else KERNEL_HEAD_DIMS
+    build.refuse_grad("flash_attention_tf32x3_cuda", q, k, v)
     q, k, v, W, sizes = _prepare(q, k, v, window, KERNEL_DTYPES, head_dims,
                                  "flash_attention_tf32x3_cuda")
     out = _launch(_lib("flash_tf32x3", "flash_attention_tf32x3_launch", 7),
@@ -247,6 +416,7 @@ def flash_attention_fma_cuda(q, k, v, *, window=None):
     synchronising. Raises on anything the kernel does not take. No route
     leads here any more: `flash_attention_tf32x3_cuda` computes the same
     function on the tensor cores."""
+    build.refuse_grad("flash_attention_fma_cuda", q, k, v)
     q, k, v, W, sizes = _prepare(q, k, v, window, KERNEL_DTYPES,
                                  KERNEL_HEAD_DIMS,
                                  "flash_attention_fma_cuda")
@@ -262,7 +432,9 @@ def flash_attention_cuda(q, k, v, *, window=None):
     bf16 at D in `TC_HEAD_DIMS` launches `flash_attention_tc_cuda`, the
     rest of `KERNEL_DTYPES` x `KERNEL_HEAD_DIMS`
     `flash_attention_tf32x3_cuda`. Returns (B, Hq, T, D) in q's dtype;
-    raises on anything neither kernel takes (a CPU tensor included)."""
+    raises on anything neither kernel takes (a CPU tensor included). The
+    tc route is differentiable (B5-bwd); under autograd the tf32x3 route
+    raises."""
     route = kernel_route(q.dtype, q.shape[-1])
     kernel = flash_attention_tc_cuda if route == "tc" \
         else flash_attention_tf32x3_cuda
@@ -272,8 +444,10 @@ def flash_attention_cuda(q, k, v, *, window=None):
     return out
 
 
-#: Kernel launches since the count was last set to 0.
+#: Kernel launches since the count was last set to 0 (B5-bwd: one a call
+#: of its wrapper, which launches its three kernels).
 flash_attention_tc_cuda.launches = 0
+flash_attention_bwd_tc_cuda.launches = 0
 flash_attention_tf32x3_cuda.launches = 0
 flash_attention_fma_cuda.launches = 0
 #: Launches of either kernel made through the route.

@@ -2,12 +2,16 @@
 
 The choice is made by where the tensors live and by nothing else: CPU
 tensors take the plain version, CUDA tensors launch the kernel or raise.
+Both are differentiable where a backward exists: on the CPU through
+`FlashAttention` (the plain forward with its log-sum-exp and the plain
+backward), on CUDA through the tc route's `FlashAttention` (B5-bwd); the
+split-TF32 route raises under autograd.
 """
 
 from __future__ import annotations
 
 from repro_torch.kernels.local_attention.local_attention import (
-    check_inputs, flash_attention_cuda, flash_attention_plain)
+    FlashAttention, check_inputs, flash_attention_cuda)
 
 
 def flash_attention(q, k, v, *, window=None, block_q=128, block_k=128):
@@ -19,6 +23,5 @@ def flash_attention(q, k, v, *, window=None, block_q=128, block_k=128):
     tiles by its own sizes."""
     check_inputs(q, k, v, window=window, block_q=block_q, block_k=block_k)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, window=window, block_q=block_q,
-                                     block_k=block_k)
+        return FlashAttention.apply(q, k, v, window, block_q, block_k)
     return flash_attention_cuda(q, k, v, window=window)

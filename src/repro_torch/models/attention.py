@@ -12,7 +12,10 @@ On CUDA tensors "chunked" launches the hand-written kernel B5
 {64, 128, 256}, `flash_tf32x3.cu` for the rest of f32 / bf16 at the built
 head sizes) at any sequence length, straight through
 `flash_attention_cuda`, which raises for a (dtype, head size) no kernel
-is built for. "pallas" keeps the reference wrapper's block rule
+is built for. Under autograd both CUDA routes ("chunked" and "pallas")
+reach B5's `FlashAttention` on the tc route (the forward with its
+log-sum-exp, then B5-bwd, `csrc/flash_tc_bwd.cu`); the tf32x3 route has
+no backward and raises. "pallas" keeps the reference wrapper's block rule
 (`ops.flash_attention`: T must divide the blocks clipped to T) on every
 device. On CPU tensors each impl keeps its reference meaning, and
 "pallas" takes the kernels' plain version.

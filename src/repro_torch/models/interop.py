@@ -5,7 +5,8 @@ in a decode cache, its `KVCache` named tuples). `params_from_jax` takes
 such a tree with numpy leaves — neither package imports the other — and
 gives the port's tree: the same keys, the same layouts (dense weights
 stay ``(in, out)``, period stacks keep their leading dimension), so the
-carry is a copy.
+carry is a copy. A train-state tree ({"params", "opt": {"m", "v",
+"step"}} and the compressed step's "err") carries the same way.
 """
 
 from __future__ import annotations

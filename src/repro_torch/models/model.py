@@ -21,7 +21,10 @@ API:
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.batch import check_device
 from repro_torch.models import blocks, layers
@@ -127,17 +130,44 @@ def _period(tree, i):
     return tree_map(lambda a: a[i], tree)
 
 
+def _remat(fn):
+    """`fn` under a non-reentrant activation checkpoint: its forward saves
+    only its inputs and runs again in the backward."""
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+def _apply_period(pp, x, *, cfg, positions, rope, remat_blocks):
+    for pos, kind in enumerate(cfg.pattern):
+        fn = functools.partial(blocks.block_apply, cfg=cfg, kind=kind,
+                               positions=positions, rope=rope)
+        if remat_blocks:
+            # Nested remat, as the reference's: the period's checkpoint
+            # replays the whole period in the backward; a checkpoint per
+            # block bounds the live set of that replay to one block.
+            fn = _remat(fn)
+        x = fn(pp[f"pos{pos}"], x=x)
+    return x
+
+
 def model_hidden(params, cfg, batch, *, compute_dtype=torch.float32):
-    """Forward pass up to the final norm -> hidden states (B, T, d)."""
+    """Forward pass up to the final norm -> hidden states (B, T, d).
+
+    With `cfg.remat` and grad mode on, each period runs under an
+    activation checkpoint with a nested checkpoint per block
+    (`torch.utils.checkpoint`, non-reentrant), as the reference's
+    `jax.checkpoint`s; the values are the same either way."""
     x, positions = _inputs_to_x(params, cfg, batch, compute_dtype)
     # One RoPE table for every layer.
     rope = layers.rope_tables(positions[:, None, :], cfg.head_dim,
                               cfg.rope_theta, dtype=compute_dtype)
+    remat = cfg.remat and torch.is_grad_enabled()
+    period_fn = functools.partial(_apply_period, cfg=cfg,
+                                  positions=positions, rope=rope,
+                                  remat_blocks=remat)
+    if remat:
+        period_fn = _remat(period_fn)
     for i in range(cfg.n_periods):
-        pp = _period(params["periods"], i)
-        for pos, kind in enumerate(cfg.pattern):
-            x = blocks.block_apply(pp[f"pos{pos}"], cfg, kind, x, positions,
-                                   rope=rope)
+        x = period_fn(_period(params["periods"], i), x)
     for ridx, kind in enumerate(cfg.remainder):
         x = blocks.block_apply(params[f"rem{ridx}"], cfg, kind, x, positions,
                                rope=rope)

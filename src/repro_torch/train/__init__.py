@@ -1,1 +1,3 @@
-from repro_torch.train.train_step import (make_prefill_step, make_serve_step)
+from repro_torch.train.train_step import (loss_fn, make_serve_step,
+                                          make_train_step, make_prefill_step,
+                                          TrainState, init_train_state)

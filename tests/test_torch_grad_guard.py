@@ -1,12 +1,16 @@
-"""The language-model kernels' CUDA wrappers refuse to run where autograd
-would record them: B5 (`flash_attention_{tc,tf32x3,fma}_cuda`), B6
-(`rglru_scan_cuda`), B7's three passes and the whole
-(`mlstm_chunk_{states,outputs,scan}_cuda`, `mlstm_state_scan_cuda`) and B8
-(`slstm_scan_cuda`). None has a backward yet, so an output computed from
-an input that requires grad would silently carry no gradient; each
-wrapper raises instead, naming itself, and launches nothing. Under
-`torch.no_grad()`, or when no input requires grad, the same call gets
-past the check and reaches its launch.
+"""The language-model kernels' CUDA wrappers where autograd would record
+them. B5's tc route (`flash_attention_tc_cuda`) has a backward (B5-bwd):
+there it goes through `FlashAttention`, records a backward, reaches the
+forward's entry point (with its log-sum-exp) and, on `.backward()`, the
+backward's. The others refuse: B5's split-TF32 and FMA routes
+(`flash_attention_{tf32x3,fma}_cuda`), B6 (`rglru_scan_cuda`), B7's three
+passes and the whole (`mlstm_chunk_{states,outputs,scan}_cuda`,
+`mlstm_state_scan_cuda`) and B8 (`slstm_scan_cuda`). None of these has a
+backward yet, so an output computed from an input that requires grad
+would silently carry no gradient; each wrapper raises instead, naming
+itself, and launches nothing. Under `torch.no_grad()`, or when no input
+requires grad, every call gets past the check and reaches its launch
+(the tc route's without the log-sum-exp).
 
 The inputs are CPU tensors that say they live on a card (`fake_cuda`),
 with every kernel entry point replaced by a recorder and the card's
@@ -37,7 +41,7 @@ def launches(monkeypatch):
             return 0
         return record
 
-    monkeypatch.setattr(la, "_lib", lambda lib, fn, n: recorder(fn))
+    monkeypatch.setattr(la, "_lib", lambda lib, fn, *n, **kw: recorder(fn))
     monkeypatch.setattr(trglru, "_lib", lambda: (
         recorder("rglru_scan_launch"), lambda B, T, D: 16))
     monkeypatch.setattr(txlstm, "_mlstm_fn",
@@ -144,10 +148,27 @@ WRAPPERS = {
 }
 
 
+#: Wrappers with a backward: the launches a call under autograd makes, and
+#: those its `.backward()` adds.
+HAS_BACKWARD = {"flash_attention_tc_cuda": (
+    ["flash_attention_tc_launch"], ["flash_attention_bwd_tc_launch"])}
+
+
 @pytest.mark.parametrize("name", list(WRAPPERS))
 def test_wrapper_raises_on_an_input_that_requires_grad(launches, name):
+    """Each wrapper without a backward raises; the tc route (B5-bwd)
+    records a backward instead and reaches both entry points."""
     call, _ = WRAPPERS[name]
     assert torch.is_grad_enabled()
+    if name in HAS_BACKWARD:
+        fwd, bwd = HAS_BACKWARD[name]
+        out = call(True)
+        assert out.requires_grad
+        assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+        assert launches == fwd
+        out.backward(torch.ones_like(out))
+        assert launches == fwd + bwd
+        return
     with pytest.raises(RuntimeError, match=f"{name}: .*no backward"):
         call(True)
     assert launches == []
