@@ -26,8 +26,9 @@ the tensors live.
 
 The backward (B5-bwd): `FlashAttention`, a `torch.autograd.Function`,
 runs the tc route's forward with its per-row log-sum-exp and
-`csrc/flash_tc_bwd.cu` (`flash_attention_bwd_tc_cuda`) on CUDA tensors,
-and `flash_attention_plain(return_lse=True)` with
+`csrc/flash_tc_bwd.cu` (`flash_attention_bwd_tc_cuda`: one wgmma kernel
+per (b, kv head, key tile) that also reduces dQ into an f32 scratch) on
+CUDA tensors, and `flash_attention_plain(return_lse=True)` with
 `flash_attention_bwd_plain` on CPU tensors. `flash_attention_tc_cuda`
 goes through it whenever autograd would record the call; the split-TF32
 and FMA kernels have no backward and raise there (`build.refuse_grad`).
@@ -53,6 +54,10 @@ KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Head sizes the wgmma kernel takes, bf16 only.
 TC_HEAD_DIMS = (64, 128, 256)
+
+#: B5-bwd's per-row vectors (lse * log2(e), delta) are padded to a multiple
+#: of this many rows, one streamed query tile.
+BWD_ROW_PAD = 64
 
 #: Head sizes the split-TF32 kernel takes in bf16 (in f32: every size of
 #: `KERNEL_HEAD_DIMS`).
@@ -317,14 +322,17 @@ def flash_attention_tc_cuda(q, k, v, *, window=None):
 
 
 def flash_attention_bwd_tc_cuda(q, k, v, out, lse, dout, *, window=None):
-    """Launch B5-bwd (`csrc/flash_tc_bwd.cu`: three kernels — delta =
-    rowsum(dO * O), dK/dV one block per (b, kv head, key tile), dQ one
-    block per (b, q head, query tile); mma.sync, bf16 operands, f32
-    accumulation) on CUDA tensors: q, k, v as `flash_attention_tc_cuda`
-    takes them, `out` the forward's output and `dout` its gradient (bf16,
-    like q), `lse` (B, Hq, T) f32 from the forward kernel. Returns (dq, dk,
-    dv) bf16 on PyTorch's current stream, without synchronising. Raises on
-    anything the kernels do not take."""
+    """Launch B5-bwd (`csrc/flash_tc_bwd.cu`) on CUDA tensors: a pre-pass
+    (delta = rowsum(dO * O) and lse * log2(e), per row padded to
+    `BWD_ROW_PAD`; it also zeroes an f32 scratch `dq_acc`), one wgmma
+    kernel per (b, kv head, 128-key tile; 64 at D 256) that sums dK, dV
+    over the group and adds each tile's dQ into `dq_acc`, and a cast dq =
+    bf16(scale * dq_acc). bf16 operands, f32 accumulation. q, k,
+    v as `flash_attention_tc_cuda` takes them, `out` the forward's output
+    and `dout` its gradient (bf16, like q), `lse` (B, Hq, T) f32 from the
+    forward kernel. Returns (dq, dk, dv) bf16 on PyTorch's current stream,
+    without synchronising; dq's f32 sums come in an order that varies from
+    call to call. Raises on anything the kernels do not take."""
     name = "flash_attention_bwd_tc_cuda"
     q, k, v, W, sizes = _prepare(q, k, v, window, (torch.bfloat16,),
                                  TC_HEAD_DIMS, name)
@@ -345,12 +353,15 @@ def flash_attention_bwd_tc_cuda(q, k, v, out, lse, dout, *, window=None):
     out, dout, lse = _contiguous(out, dout, lse)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel():
-        delta = torch.empty((B, Hq, T), dtype=torch.float32,
-                            device=q.device)
+        t_pad = -(-T // BWD_ROW_PAD) * BWD_ROW_PAD
+        rowvec = torch.empty((2, B * Hq, t_pad), dtype=torch.float32,
+                             device=q.device)
+        dq_acc = torch.empty((B, Hq, T, D), dtype=torch.float32,
+                             device=q.device)
         _call(_lib("flash_tc_bwd", "flash_attention_bwd_tc_launch", 6,
-                   n_ptr=10),
-              (q, k, v, out, lse, dout, dq, dk, dv, delta), (*sizes, W),
-              "flash_tc_bwd")
+                   n_ptr=11),
+              (q, k, v, out, lse, dout, dq, dk, dv, rowvec, dq_acc),
+              (*sizes, W), "flash_tc_bwd")
         build.count(flash_attention_bwd_tc_cuda)
     return dq, dk, dv
 
@@ -445,7 +456,8 @@ def flash_attention_cuda(q, k, v, *, window=None):
 
 
 #: Kernel launches since the count was last set to 0 (B5-bwd: one a call
-#: of its wrapper, which launches its three kernels).
+#: of its wrapper, which launches its three kernels: the pre-pass, the
+#: wgmma kernel and the dq cast).
 flash_attention_tc_cuda.launches = 0
 flash_attention_bwd_tc_cuda.launches = 0
 flash_attention_tf32x3_cuda.launches = 0
