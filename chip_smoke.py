@@ -4,8 +4,10 @@
     python3 chip_smoke.py [--seed S] [--quick]
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version on the card (`torch.equal`,
-tolerance 0, for the integer DP kernels — B1 over bands across the edges
+each against its plain PyTorch version on the same inputs (`torch.equal`,
+tolerance 0, for the integer DP kernels, whose plain versions run on the
+CPU for the case matrices and the largest slices — B1 over bands across
+the edges
 of its warp body (B <= 128) and block body; the banded flash attention B5
 — a wgmma kernel for bf16 at D 64/128/256, a split-TF32 tensor-core
 kernel for f32 and bf16 at D 16/80, and the FMA kernel that no route
@@ -31,7 +33,12 @@ batch of 8 x 4,096 tokens in two microbatches, B5 and B5-bwd launches as
 the remat scheme implies, ms a step, tokens/s, device busy share and ms
 by kernel, peak memory, model-FLOP share; the loss and every gradient of
 a 4-layer cut on the B5 route against naive attention; one compressed
-(int8 error-feedback) step at a one-pod mesh (`lm_train`) — then B8's per-step
+(int8 error-feedback) step at a one-pod mesh (`lm_train`) — then trains
+xlstm-125m whole the same way (12 layers: 6 mLSTM on B7 and B7-bwd, 6
+sLSTM on B8 and B8-bwd; launches as the remat scheme implies, no plain
+version), with a 4-layer cut's loss and gradients in f32 on the card
+against the CPU's plain versions and one compressed step
+(`lm_train_xlstm`) — then B8's per-step
 exchange alone (`slstm_exchange`: the probe `models/csrc/slstm_probe.cu`
 at B8's grid, cluster barrier against one-way `st.async` at cluster
 sizes 2-16; its fastest exchange is B8's latency floor), the recurrent
@@ -39,7 +46,11 @@ kernels B6 (RG-LRU scan), B7 (chunkwise mLSTM: three chunk-parallel
 passes, each held against its own plain version) and B8 (sLSTM, a
 thread-block cluster per head, R in registers, a one-way h exchange)
 against their plain versions at the main paths' shapes and at ragged
-edges, B6 also at the long-memory recipe (`recurrent_checks`), the MoE
+edges, B6 also at the long-memory recipe (`recurrent_checks`), their
+backwards B7-bwd (`models/csrc/mlstm_chunk_bwd.cu`, three passes, each
+against its own plain version) and B8-bwd (`models/csrc/slstm_bwd.cu`)
+against the plain backwards at xlstm's training shape and ragged edges,
+with registers and spills (`recurrent_bwd_checks`), the MoE
 family —
 qwen2-moe-a2.7b whole: a 32,768-token prefill, 4 x 256 decode steps with
 the tokens capacity drops, and one full-width MoE layer each of
@@ -265,24 +276,34 @@ def max_abs_diff(a: dict, b: dict) -> int:
     return worst
 
 
+def on_cpu(tensors):
+    """CPU copies of a dict or sequence of tensors. The case matrices run
+    the plain versions there: they step through the sweep in Python, a
+    few dozen small ops a step, which cost less on the CPU than launches
+    on the card, and integer DP is bit-exact on either."""
+    if isinstance(tensors, dict):
+        return {key: val.cpu() for key, val in tensors.items()}
+    return [t.cpu() for t in tensors]
+
+
 def check_case(q, r, n, m, ref=None, **kw):
-    """Wavefront kernel vs plain on one case; with traceback also the
-    walker kernel vs its plain version on the kernel's planes. `ref`, a
-    plain run with traceback of the same case, serves a case without it
-    (the six stats do not depend on collect_tb). Returns (max_abs_err
-    wavefront, max_abs_err walker or None)."""
+    """Wavefront kernel vs plain (on the CPU) on one case; with traceback
+    also the walker kernel vs its plain version on the kernel's planes.
+    `ref`, a plain run with traceback of the same case, serves a case
+    without it (the six stats do not depend on collect_tb). Returns
+    (max_abs_err wavefront, max_abs_err walker or None)."""
     ker = banded_align_cuda(q, r, n, m, sc=MINIMAP2, **kw)
     torch.cuda.synchronize()
     if ref is None:
-        ref = banded.banded_align_batch(q, r, n, m, sc=MINIMAP2, **kw)
-        torch.cuda.synchronize()
+        ref = banded.banded_align_batch(*on_cpu((q, r, n, m)), sc=MINIMAP2,
+                                        **kw)
     err = assert_equal({k: ref[k] for k in ker}, ker, f"wavefront {kw}")
     if not kw["collect_tb"]:
         return err, None
     band, mode = kw["band"], kw["mode"]
-    dp = tbd.device_decode_result(ker, n, m, band=band, mode=mode,
+    dp = tbd.device_decode_result(on_cpu(ker), *on_cpu((n, m)), band=band,
+                                  mode=mode,
                                   walker=tbd.decode_packed_tb_plain)
-    torch.cuda.synchronize()
     keys = ("cig_ops", "cig_runs", "cig_len")
     dk = tbd.device_decode_result(ker, n, m, band=band, mode=mode,
                                   walker=tbd.decode_packed_tb_cuda)
@@ -317,6 +338,9 @@ def walker_bound(path_steps, N, T):
 
 
 def assert_equal(ref: dict, ker: dict, what: str) -> int:
+    """Every tensor of `ref` equal to `ker`'s (brought to ref's device);
+    returns the largest absolute difference."""
+    ker = {key: ker[key].to(ref[key].device) for key in ref}
     err = max_abs_diff(ref, ker)
     for key in ref:
         if not torch.equal(ref[key], ker[key]):
@@ -324,25 +348,41 @@ def assert_equal(ref: dict, ker: dict, what: str) -> int:
     return err
 
 
-def shape_timing(name, spec, q, r, n, m, reps):
+#: Rows of each group that the plain versions recompute, on the CPU, at
+#: the slices where the whole group took them tens of seconds on the card
+#: (the plain versions step through the sweep in Python, a few dozen
+#: small ops a step whatever the rows, and an op on 8 rows costs less on
+#: the CPU than a launch on the card). The DP and the walkers are
+#: row-independent integer work: the kernels' rows of the same launch are
+#: held against them, bit for bit.
+PLAIN_ROWS = 8
+
+
+def shape_timing(name, spec, q, r, n, m, reps, plain_rows=None):
     """Both kernels at one main-path slice: held against their plain
     versions, and timed (kernel: CUDA events over `reps` launches; plain:
-    host clock around one synchronised call). The wavefront's block body,
+    host clock around one synchronised call; with `plain_rows`, the plain
+    versions run on the CPU on the first `plain_rows` rows only and those
+    rows of the kernels' launch are held against them). The wavefront's
+    block body,
     which the main paths run only above band 128, is held and timed here
     too (`block_body=True`), by the same method, so that the two bodies
     compare like for like."""
     qd, rd, nd, md = (torch.from_numpy(a).to(DEV) for a in (q, r, n, m))
     N = q.shape[0]
+    rows = slice(0, plain_rows or N)
     kw = dict(sc=MINIMAP2, band=spec.band, adaptive=True, collect_tb=True,
               mode="global", t_max=spec.t_max)
     out = banded_align_cuda(qd, rd, nd, md, **kw)
     torch.cuda.synchronize()
-    wf_plain_ms, ref = time_host(
-        lambda: banded.banded_align_batch(qd, rd, nd, md, **kw))
-    wf_err = assert_equal(ref, out, f"wavefront at {name}")
+    pdev = "cpu" if plain_rows else DEV
+    wf_plain_ms, ref = time_host(lambda: banded.banded_align_batch(
+        *(x[rows].to(pdev) for x in (qd, rd, nd, md)), **kw))
+    wf_err = assert_equal(ref, {k: v[rows].to(pdev) for k, v in out.items()},
+                          f"wavefront at {name}")
     blk = banded_align_cuda(qd, rd, nd, md, block_body=True, **kw)
     torch.cuda.synchronize()
-    wf_err = max(wf_err, assert_equal(ref, blk, f"block body at {name}"))
+    wf_err = max(wf_err, assert_equal(out, blk, f"block body at {name}"))
     del blk
     wf_ms = time_cuda(lambda: banded_align_cuda(qd, rd, nd, md, **kw), reps)
     block_ms = time_cuda(lambda: banded_align_cuda(
@@ -353,8 +393,9 @@ def shape_timing(name, spec, q, r, n, m, reps):
     rle = tbd.decode_packed_tb_cuda(tb, los, nd, md, band=spec.band)
     torch.cuda.synchronize()
     wk_plain_ms, rle_ref = time_host(lambda: tbd.decode_packed_tb_plain(
-        tb, los, nd, md, band=spec.band))
-    wk_err = assert_equal(dict(zip(keys, rle_ref)), dict(zip(keys, rle)),
+        *(x[rows].to(pdev) for x in (tb, los, nd, md)), band=spec.band))
+    wk_err = assert_equal(dict(zip(keys, rle_ref)),
+                          dict(zip(keys, (x[rows].to(pdev) for x in rle))),
                           f"walker at {name}")
     wk_ms = time_cuda(lambda: tbd.decode_packed_tb_cuda(
         tb, los, nd, md, band=spec.band), reps)
@@ -364,7 +405,8 @@ def shape_timing(name, spec, q, r, n, m, reps):
                                       spec.t_max, spec.band, True)
     wk_bound, wk_by = walker_bound(path_steps, N, spec.t_max)
     base = {"shape": name, "pairs": N, "q_len": spec.q_len,
-            "r_len": spec.r_len, "band": spec.band, "t_max": spec.t_max}
+            "r_len": spec.r_len, "band": spec.band, "t_max": spec.t_max,
+            "plain_rows": plain_rows or N, "plain_device": str(pdev)}
     return (
         dict(base, ms=wf_ms, plain_ms=wf_plain_ms, bound_ms=wf_bound,
              bound_by=wf_by, max_abs_err=wf_err,
@@ -401,11 +443,13 @@ def kernel_matrix(reads, refs, quick):
     """modes x adaptive x cell_dtype x xdrop x odd/even band x collect_tb
     on `matrix_inputs`; then `EDGE_BANDS` x modes x adaptive x xdrop x
     collect_tb, the wavefront alone (every output, `tb` and `los` whole).
-    In both, one plain run with traceback serves the two kernel runs,
+    The plain versions run on the CPU (`on_cpu`). In both, one plain run
+    with traceback serves the two kernel runs,
     since the six stats do not depend on collect_tb. Each case asserts
     the body its band runs."""
     spec, q, r, n, m = matrix_inputs(reads, refs)
     qd, rd, nd, md = (torch.from_numpy(a).to(DEV) for a in (q, r, n, m))
+    host = [torch.from_numpy(a) for a in (q, r, n, m)]
     grid = list(itertools.product(
         ("global", "semiglobal"), (True, False), ("int32", "narrow"),
         (None, 25), (spec.band, spec.band + 1)))
@@ -417,8 +461,8 @@ def kernel_matrix(reads, refs, quick):
     for mode, adaptive, cell_dtype, xdrop, band in grid:
         kw = dict(band=band, adaptive=adaptive, mode=mode, t_max=spec.t_max,
                   cell_dtype=cell_dtype, xdrop=xdrop)
-        ref = banded.banded_align_batch(qd, rd, nd, md, sc=MINIMAP2,
-                                        collect_tb=True, **kw)
+        ref = banded.banded_align_batch(*host, sc=MINIMAP2, collect_tb=True,
+                                        **kw)
         for collect_tb in (True, False):
             before = banded_align_cuda.bodies[kernel_body(band)]
             err, werr = check_case(qd, rd, nd, md, ref=ref,
@@ -436,8 +480,8 @@ def kernel_matrix(reads, refs, quick):
     for band, mode, adaptive, xdrop in edge[::7] if quick else edge:
         kw = dict(band=band, adaptive=adaptive, mode=mode, t_max=spec.t_max,
                   xdrop=xdrop)
-        ref = banded.banded_align_batch(qd, rd, nd, md, sc=MINIMAP2,
-                                        collect_tb=True, **kw)
+        ref = banded.banded_align_batch(*host, sc=MINIMAP2, collect_tb=True,
+                                        **kw)
         for collect_tb in (True, False):
             before = banded_align_cuda.bodies[kernel_body(band)]
             ker = banded_align_cuda(qd, rd, nd, md, sc=MINIMAP2,
@@ -491,8 +535,8 @@ def check_persistent(groups, **kw):
     (max_abs_err persistent, max_abs_err walker or None,
     retired, {body: launches})."""
     table, (q, r, n, m) = on_card(groups)
-    ref = persistent_align_plain(table, q, r, n, m, sc=MINIMAP2, **kw)
-    torch.cuda.synchronize()
+    ref = persistent_align_plain(table, *on_cpu((q, r, n, m)), sc=MINIMAP2,
+                                 **kw)
     err, bodies = 0, collections.Counter()
     for block in (False, True):
         body = kernel_body(table.band_max, block)
@@ -506,7 +550,7 @@ def check_persistent(groups, **kw):
     retired = int((ker["status"] != 0).sum())
     if not kw["collect_tb"]:
         return err, None, retired, bodies
-    dp = walk_table(ker, table, n, m, kw["mode"],
+    dp = walk_table(on_cpu(ker), table, *on_cpu((n, m)), kw["mode"],
                     tbd.decode_packed_tb_table_plain)
     dk = walk_table(ker, table, n, m, kw["mode"],
                     tbd.decode_packed_tb_table_cuda)
@@ -585,30 +629,68 @@ def persistent_bound(table, n, m):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def table_head(table, keep):
+    """`table` with each group cut to its first `keep` rows (its spans
+    keep their offsets into the flat buffers, which is all the plain
+    versions read)."""
+    return dataclasses.replace(table, spans=tuple(
+        dataclasses.replace(sp, rows=min(keep, sp.rows))
+        for sp in table.spans))
+
+
+def table_head_rows(out, table, keep, keys):
+    """A persistent launch's results for the first `keep` rows of each
+    group, laid out as the plain versions lay out `table_head(table,
+    keep)`'s: per-row keys by merged row, the flat planes ("tb", "los")
+    by each group's offsets."""
+    res = {}
+    for key in keys:
+        parts = []
+        for sp in table.spans:
+            k_ = min(keep, sp.rows)
+            if key == "tb":
+                w = sp.steps * sp.tb_width
+                parts.append(out[key][sp.tb0:sp.tb0 + k_ * w])
+            elif key == "los":
+                parts.append(out[key][sp.los0:sp.los0 + k_ * (sp.steps + 1)])
+            else:
+                parts.append(out[key][sp.row0:sp.row0 + k_])
+        res[key] = torch.cat(parts)
+    return res
+
+
 def persistent_timing(name, table, q, r, n, m, reps, mode="global",
-                      xdrop=None, plain=True):
+                      xdrop=None, plain=True, plain_rows=None):
     """The persistent kernel and the table walker on one request on the
     card: held against their plain versions and timed by `time_cuda`, the
     kernel's two bodies in turns (warp, block, block, warp). With `plain`
     False (the whole ragged request, too large for the plain versions'
     time), the kernel is held against its block body, which the other
     cases hold against plain, and the table walker by the main paths'
-    gate `TABLE_WALKER_GATE`."""
+    gate `TABLE_WALKER_GATE`. With `plain_rows`, the plain versions run on
+    the CPU on the first `plain_rows` rows of each group (`table_head`)
+    and those rows of the kernels' launch are held against them; the
+    block body against the whole warp-body launch."""
     kw = dict(sc=MINIMAP2, adaptive=True, collect_tb=True, mode=mode,
               xdrop=xdrop)
     body = kernel_body(table.band_max)
     out = persistent_align_cuda(table, q, r, n, m, **kw)
     blk = persistent_align_cuda(table, q, r, n, m, block_body=True, **kw)
     torch.cuda.synchronize()
+    sub = table_head(table, plain_rows) if plain_rows else table
+    pdev = "cpu" if plain_rows else DEV
     if plain:
-        plain_ms, ref = time_host(
-            lambda: persistent_align_plain(table, q, r, n, m, **kw))
-        err = assert_equal(ref, out, f"persistent ({body}) at {name}")
+        plain_ms, ref = time_host(lambda: persistent_align_plain(
+            sub, *(x.to(pdev) for x in (q, r, n, m)), **kw))
+        got = table_head_rows(out, table, plain_rows, ref) if plain_rows \
+            else out
+        got = {key: val.to(pdev) for key, val in got.items()}
+        err = assert_equal(ref, got, f"persistent ({body}) at {name}")
     else:
-        plain_ms, ref = "not measured (held against the block body)", out
+        plain_ms = "not measured (held against the block body)"
         err = 0
-    err = max(err, assert_equal(ref, blk, f"persistent (block) at {name}"))
-    del blk, ref
+    err = max(err, assert_equal(out, blk, f"persistent (block) at {name}"))
+    del blk
 
     def align(block):
         return lambda: persistent_align_cuda(table, q, r, n, m,
@@ -624,9 +706,14 @@ def persistent_timing(name, table, q, r, n, m, reps, mode="global",
     torch.cuda.synchronize()
     if plain:
         wk_plain_ms, rle_ref = time_host(
-            lambda: tbd.decode_packed_tb_table_plain(table, tb, los, si, sj))
-        wk_err = assert_equal(dict(zip(keys, rle_ref)),
-                              dict(zip(keys, rle)), f"table walker at {name}")
+            lambda: tbd.decode_packed_tb_table_plain(
+                sub, *(x.to(pdev) for x in (tb, los, si, sj))))
+        got = dict(zip(keys, rle))
+        if plain_rows:
+            got = table_head_rows(got, table, plain_rows, keys)
+        got = {key: val.to(pdev) for key, val in got.items()}
+        wk_err = assert_equal(dict(zip(keys, rle_ref)), got,
+                              f"table walker at {name}")
     else:
         wk_plain_ms, wk_err = "not measured", 0
     wk_ms = time_cuda(lambda: tbd.decode_packed_tb_table_cuda(
@@ -638,6 +725,8 @@ def persistent_timing(name, table, q, r, n, m, reps, mode="global",
     wk_bound, wk_by = walker_bound(path_steps, table.num_rows,
                                    table.steps_max)
     base = {"shape": name, "rows": table.num_rows, "mode": mode,
+            "plain_rows_per_group": plain_rows or "all",
+            "plain_device": str(pdev),
             "table_shape": [table.steps_max, table.num_rows],
             "groups": [[s.rows, s.band, s.steps] for s in table.spans]}
     return (dict(base, body=body, ms=ms, ms_again=ms2, block_ms=block_ms,
@@ -1561,17 +1650,30 @@ GRAD_LOSS_TOL = 2 ** -7
 GRAD_LEAF_TOL = 2 ** -5
 
 
-def b5_launches_per_step(cfg, nm):
-    """B5 launches one train step implies: per microbatch, each attention
-    layer of a period runs its forward twice (the forward, then again when
-    the backward replays its checkpointed period; the nested per-block
-    checkpoint replays inside that replay, adding no third run), a
-    remainder layer (no checkpoint) once; the backward once per layer."""
-    attn = ("attn", "local", "moe", "moe_swa")
-    in_periods = cfg.n_periods * sum(k in attn for k in cfg.pattern)
-    rem = sum(k in attn for k in cfg.remainder)
-    return {"flash_tc": nm * ((2 if cfg.remat else 1) * in_periods + rem),
-            "flash_tc_bwd": nm * (in_periods + rem)}
+#: The block kinds whose mixer is B5.
+ATTN_KINDS = ("attn", "local", "moe", "moe_swa")
+
+
+def launches_per_step(cfg, nm, kinds, fwd, bwd):
+    """Launches one train step implies of the kernels that each layer of
+    `kinds` launches once forward (`fwd`) and once backward (`bwd`). Per
+    microbatch, with remat: the forward runs every block once; the
+    backward replays each checkpointed period only until it has
+    recomputed what the period's checkpoint saved (the inputs of its
+    blocks' own checkpoints: PyTorch's non-reentrant checkpoint stops
+    early), so every block of a period but the last runs again there; and
+    each block's own checkpoint replays its block once more before its
+    backward. So a block runs its forward three times, or twice as the
+    last (or only) block of its period; a remainder layer (no checkpoint)
+    once; the backward once per layer."""
+    k = len(cfg.pattern)
+    runs = [(3 if i < k - 1 else 2) if cfg.remat else 1 for i in range(k)]
+    f = nm * (cfg.n_periods * sum(n_ for kind, n_ in zip(cfg.pattern, runs)
+                                  if kind in kinds)
+              + sum(kind in kinds for kind in cfg.remainder))
+    b = nm * (cfg.n_periods * sum(kind in kinds for kind in cfg.pattern)
+              + sum(kind in kinds for kind in cfg.remainder))
+    return {**{key: f for key in fwd}, **{key: b for key in bwd}}
 
 
 def model_flop(cfg, params, B, T):
@@ -1676,8 +1778,8 @@ def lm_train_phase(args, paths):
             wall.append(ms)
             losses.append(m)
     got = paths.paths["lm_train"]
-    want = {k_: TRAIN_STEPS * v_ for k_, v_ in
-            b5_launches_per_step(cfg, nm).items()}
+    want = {k_: TRAIN_STEPS * v_ for k_, v_ in launches_per_step(
+        cfg, nm, ATTN_KINDS, ("flash_tc",), ("flash_tc_bwd",)).items()}
     loss = [float(m["loss"]) for m in losses]
     assert all(np.isfinite(loss)), loss
     assert loss[1] <= 1.2 * loss[0], loss
@@ -1738,10 +1840,11 @@ SFU_PER_SM_CLOCK = 16
 SLSTM_CELL_OPS = 24
 
 
-def rec_err(out, ref):
-    """(max |out - ref|, within `REC_TOL`)."""
+def rec_err(out, ref, rel=REC_TOL):
+    """(max |out - ref|, within `rel` x max |ref| (`REC_TOL` by default);
+    a bf16 output one bf16 ulp of the value more)."""
     d = (out.float() - ref.float()).abs()
-    tol = REC_TOL * float(ref.float().abs().max())
+    tol = rel * float(ref.float().abs().max())
     if ref.dtype == torch.bfloat16:
         r = ref.float().abs()
         ok = bool((d <= torch.exp2(torch.floor(torch.log2(
@@ -1751,8 +1854,8 @@ def rec_err(out, ref):
     return float(d.max()), ok
 
 
-def rec_errs(outs, refs):
-    errs = [rec_err(a, b) for a, b in zip(outs, refs)]
+def rec_errs(outs, refs, rel=REC_TOL):
+    errs = [rec_err(a, b, rel) for a, b in zip(outs, refs)]
     return max(e for e, _ in errs), all(ok for _, ok in errs)
 
 
@@ -2258,6 +2361,388 @@ def recurrent_checks(quick):
 
 
 # ---------------------------------------------------------------------------
+# The recurrent backwards (B7-bwd, B8-bwd) vs their plain versions.
+# ---------------------------------------------------------------------------
+
+#: Kernel vs plain backward for B7-bwd and B8-bwd (stated before their
+#: first card run): both sides compute in f32 from the same forward
+#: record, the kernels summing in other orders (B7-bwd's staged products
+#: and float atomics, B8-bwd's split partial sums), so each gradient
+#: tensor may differ by 1e-3 of the largest |plain value| of that tensor;
+#: a bf16 output by one bf16 ulp of the value more.
+BWD_REC_TOL = 1e-3
+# f32 operations per (b, head, step, unit) of B8-bwd's cell beside the
+# 8 Dh recurrent-product operations.
+SLSTM_BWD_CELL_OPS = 60
+#: The kernels' names in -Xptxas -v output and in a profiler trace.
+B7_BWD_PASSES = ("mlstm_bwd_outputs", "mlstm_bwd_scan", "mlstm_bwd_inputs")
+
+
+def mlstm_bwd_bounds(B, H, T, D, L):
+    """(ms, what binds) of B7-bwd whole and of each pass: f32 FMA
+    operations (the intra-chunk products over the causal triangle only),
+    each pass's inputs read once and outputs written once (a chunk state
+    counted as its D^2 + D values)."""
+    nc = T // L
+    st = 4 * B * H * nc * (D * D + D)
+    rows = 4 * B * T * H * D
+    gates = 4 * B * H * T
+    p1 = bound_of(B * H * nc * (4 * L * D * D + 6 * L * D),
+                  3 * rows + 3 * gates + 2 * st)
+    p2 = bound_of(B * H * nc * (4 * (D * D + D) + 6),
+                  3 * st + 4 * 4 * B * H * nc + 4 * B * H * (D * D + D))
+    p3 = bound_of(B * H * nc * (6 * L * D * D + 5 * L * (L + 1) * D
+                                + 10 * L * D),
+                  8 * rows + 5 * gates + 2 * st)
+    whole = bound_of(B * H * nc * (
+        10 * L * D * D + 5 * L * (L + 1) * D + 16 * L * D
+        + 4 * (D * D + D)),
+        8 * rows + 5 * gates + st + 4 * B * H * (D * D + D + 1))
+    return {"whole": whole, "mlstm_bwd_outputs": p1, "mlstm_bwd_scan": p2,
+            "mlstm_bwd_inputs": p3}
+
+
+def mlstm_bwd_check(name, B, H, T, D, chunk, seed, with_state=False,
+                    extreme=0, reps=0):
+    """B7-bwd on the card: the whole (three pass kernels) against
+    `mlstm_chunk_scan_bwd_plain`, and each pass kernel against its plain
+    version fed by the plain versions of the passes before it, from one
+    forward of the kernels (with each row's dot). `with_state`: a random
+    carried state and random final-state gradients (the gauge term).
+    Counts the rows on each branch of the denominator. With `reps`, the
+    whole and each pass timed, and the plain whole on the host clock."""
+    q, k, v, it, ft, state = mlstm_inputs(B, H, T, D, seed, with_state,
+                                          extreme)
+    g = torch.Generator(device=DEV).manual_seed(seed + 1000)
+    work, scal = xlstm_mod.mlstm_chunk_states_cuda(k, v, it, ft, chunk)
+    s1 = xlstm_mod.mlstm_state_scan_cuda(work, scal, state)
+    h, dot = xlstm_mod.mlstm_chunk_outputs_cuda(q, k, v, it, ft, work, scal,
+                                                chunk, with_dot=True)
+    dh = torch.randn(B, T, H * D, device=DEV, generator=g)
+    fin = (None, None, None)
+    if with_state:
+        fin = (torch.randn(B, H, D, D, device=DEV, generator=g),
+               torch.randn(B, H, D, device=DEV, generator=g),
+               torch.randn(B, H, device=DEV, generator=g))
+    args = (q, k, v, it, ft, h, dot, work, scal, s1["C"], s1["n"], dh, *fin,
+            chunk)
+    got = xlstm_mod.mlstm_chunk_scan_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    plain_ms, ref = time_host(
+        lambda: xlstm_mod.mlstm_chunk_scan_bwd_plain(*args))
+    err, ok = rec_errs(got, ref, BWD_REC_TOL)
+    *_, on_dot = xlstm_mod._bwd_rows(dot, it, ft, scal, chunk)
+    gauge = xlstm_mod.mlstm_gauge(*fin, s1["C"], s1["n"])
+    passes = {}
+    ms1, (wp, sp) = time_host(lambda: xlstm_mod.mlstm_bwd_outputs_plain(
+        q, dh, h, dot, it, ft, work, scal, chunk))
+    wk, sk = xlstm_mod.mlstm_bwd_outputs_cuda(q, dh, h, dot, it, ft, work,
+                                              scal, chunk)
+    passes["mlstm_bwd_outputs"] = (ms1, *rec_errs(
+        [wk, sk[..., 0]], [wp, sp[..., 0]], BWD_REC_TOL))
+    wk, sk = wp.clone(), sp.clone()
+    ms2, cp = time_host(lambda: xlstm_mod.mlstm_bwd_scan_plain(
+        wp, sp, work, scal, fin[0], fin[1], gauge))
+    ck = xlstm_mod.mlstm_bwd_scan_cuda(wk, sk, work, scal, fin[0], fin[1],
+                                       gauge)
+    passes["mlstm_bwd_scan"] = (ms2, *rec_errs(
+        [wk, sk[..., 1], sk[..., 2], *ck], [wp, sp[..., 1], sp[..., 2], *cp],
+        BWD_REC_TOL))
+    ms3, ip = time_host(lambda: xlstm_mod.mlstm_bwd_inputs_plain(
+        q, k, v, it, ft, dh, h, dot, work, scal, wp, sp, fin[2], chunk))
+    ik = xlstm_mod.mlstm_bwd_inputs_cuda(q, k, v, it, ft, dh, h, dot, work,
+                                         scal, wp, sp, fin[2], chunk)
+    passes["mlstm_bwd_inputs"] = (ms3, *rec_errs(ik, ip, BWD_REC_TOL))
+    rec = {"shape": name, "B": B, "H": H, "T": T, "D": D, "chunk": chunk,
+           "state_in": with_state, "extreme_gates": bool(extreme),
+           "rows_on_dot_branch": int(on_dot.sum()),
+           "rows_on_floor_branch": int((~on_dot).sum()),
+           "max_abs_err": err, "within_tolerance": ok, "plain_ms": plain_ms,
+           "scratch_bytes": xlstm_mod.mlstm_work_bytes(B, H, T, D, chunk),
+           "passes": {key: {"plain_ms": p[0], "max_abs_err": p[1],
+                            "within_tolerance": p[2]}
+                      for key, p in passes.items()}}
+    if reps:
+        bounds = mlstm_bwd_bounds(B, H, T, D, chunk)
+        rec.update(ms=time_cuda(
+            lambda: xlstm_mod.mlstm_chunk_scan_bwd_cuda(*args), reps),
+            bound_ms=bounds["whole"][0], bound_by=bounds["whole"][1],
+            forward_ms=time_cuda(lambda: xlstm_mod.mlstm_chunk_scan_cuda(
+                q, k, v, it, ft, state, chunk), reps))
+        wt, st_ = wp.clone(), sp.clone()
+        for key, fn in (
+                ("mlstm_bwd_outputs",
+                 lambda: xlstm_mod.mlstm_bwd_outputs_cuda(
+                     q, dh, h, dot, it, ft, work, scal, chunk)),
+                ("mlstm_bwd_scan",
+                 lambda: xlstm_mod.mlstm_bwd_scan_cuda(
+                     wt, st_, work, scal, None, None, None)),
+                ("mlstm_bwd_inputs",
+                 lambda: xlstm_mod.mlstm_bwd_inputs_cuda(
+                     q, k, v, it, ft, dh, h, dot, work, scal, wp, sp, None,
+                     chunk))):
+            rec["passes"][key].update(ms=time_cuda(fn, reps),
+                                      bound_ms=bounds[key][0],
+                                      bound_by=bounds[key][1])
+    if not (ok and all(p[2] for p in passes.values())):
+        raise AssertionError(f"B7-bwd != plain: {rec}")
+    if extreme and not (rec["rows_on_dot_branch"]
+                        and rec["rows_on_floor_branch"]):
+        raise AssertionError(f"B7-bwd: one denominator branch unused: {rec}")
+    return rec
+
+
+def slstm_bwd_check(name, B, T, H, Dh, dtype, seed, with_state=False,
+                    reps=0, floor_us=None):
+    """B8-bwd against `slstm_scan_bwd_plain` on the record of one forward
+    of the kernel; `with_state`: a random initial state and random
+    final-state gradients. With `reps` timed (kernel and dR's product;
+    µs a step beside the exchange floor `floor_us`)."""
+    wx, r, state = slstm_inputs(B, T, H, Dh, dtype, seed, with_state)
+    g = torch.Generator(device=DEV).manual_seed(seed + 1000)
+    h, _, saved = xlstm_mod.slstm_scan_cuda(wx, r, state, with_saved=True)
+    dh = torch.randn(B, T, H * Dh, device=DEV, generator=g)
+    fin = [None] * 4
+    if with_state:
+        fin = [torch.randn(B, H, Dh, device=DEV, generator=g)
+               for _ in range(4)]
+    rs = [r[gn] for gn in "zifo"]
+    args = (rs, state["h"], state["c"], state["n"], state["m"], h, saved,
+            dh, *fin)
+    got = xlstm_mod.slstm_scan_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    plain_ms, ref = time_host(lambda: xlstm_mod.slstm_scan_bwd_plain(*args))
+
+    def flat(out):
+        delta, dR, *rest = out
+        return [delta, *dR, *rest]
+    err, ok = rec_errs(flat(got), flat(ref), BWD_REC_TOL)
+    rec = {"shape": name, "B": B, "T": T, "H": H, "Dh": Dh,
+           "dtype": str(dtype).split(".")[-1], "state_in": with_state,
+           "cluster": xlstm_mod.slstm_cluster(Dh),
+           "max_abs_err": err, "within_tolerance": ok, "plain_ms": plain_ms}
+    if reps:
+        d = H * Dh
+        ops = B * T * H * Dh * (16 * Dh + SLSTM_BWD_CELL_OPS)
+        nbytes = B * T * d * 4 * (xlstm_mod.SLSTM_SAVED + 1 + 4 + 1) \
+            + 4 * H * Dh * Dh * r["z"].element_size() * 2 + 8 * B * d * 4
+        bound, by = bound_of(ops, nbytes)
+        ms = time_cuda(lambda: xlstm_mod.slstm_scan_bwd_cuda(*args), reps)
+        rec.update(ms=ms, bound_ms=bound, bound_by=by,
+                   us_per_step=ms * 1e3 / T,
+                   max_active_clusters=xlstm_mod.slstm_bwd_max_clusters(Dh),
+                   clusters=B * H,
+                   forward_saved_ms=time_cuda(
+                       lambda: xlstm_mod.slstm_scan_cuda(
+                           wx, r, state, with_saved=True), reps),
+                   forward_ms=time_cuda(
+                       lambda: xlstm_mod.slstm_scan_cuda(wx, r, state), reps))
+        if floor_us is not None:
+            rec.update(exchange_floor_us_per_step=floor_us,
+                       us_per_step_over_floor=rec["us_per_step"] / floor_us)
+    if not ok:
+        raise AssertionError(f"B8-bwd != plain: {rec}")
+    return rec
+
+
+def recurrent_bwd_checks(quick, built, floor_us):
+    """B7-bwd and B8-bwd against their plain backwards on the card: at
+    xlstm-125m's training shape (B 4 x H 4 x T 4,096, D 192, chunk 64;
+    sLSTM bf16 wx and R; --quick T 1,024), timed there, and at ragged
+    edges: B7-bwd at chunk 40 with a carried state (T = 200, five chunks
+    of 40), D 16 at chunk 16, and the extreme gates of `mlstm_check` (both
+    denominator branches counted); B8-bwd at T 37 in f32 with a state, at
+    Dh 20 and at Dh 256. With each kernel's registers and spills."""
+    xl = get_config("xlstm-125m")
+    H, D = xl.n_heads, xl.head_dim
+    T = 1024 if quick else TRAIN_T
+    B = TRAIN_B // TRAIN_NM
+    reps = 3 if quick else 5
+    b7 = [mlstm_bwd_check("train", B, H, T, D, 64, 41, reps=reps),
+          mlstm_bwd_check("chunk40_state", 2, H, 200, D, 40, 42,
+                          with_state=True),
+          mlstm_bwd_check("d16_chunk16", 2, 3, 48, 16, 16, 43,
+                          with_state=True),
+          mlstm_bwd_check("extreme_gates", 2, H, 1024, D, 64, 44,
+                          with_state=True, extreme=64)]
+    Dh = xl.d_model // xl.n_heads
+    b8 = [slstm_bwd_check("train", B, T, H, Dh, torch.bfloat16, 45,
+                          reps=reps, floor_us=floor_us),
+          slstm_bwd_check("ragged_f32_state", 2, 37, H, Dh, torch.float32,
+                          46, with_state=True),
+          slstm_bwd_check("dh20", 2, 16, 3, 20, torch.float32, 47,
+                          with_state=True),
+          slstm_bwd_check("dh256", 1, 64, 2, xlstm_mod.SLSTM_MAX_HEAD_DIM,
+                          torch.float32, 48, with_state=True)]
+    logs = built["logs"]
+    ptxas = {
+        "mlstm_chunk_bwd": ptxas_facts(
+            logs.get("mlstm_chunk_bwd", ""), "mlstm_bwd_",
+            r"(outputs|scan|inputs)_kernel(?:ILi(\d+)E|E)"),
+        "slstm_bwd": ptxas_facts(logs.get("slstm_bwd", ""),
+                                 "slstm_bwd_kernel",
+                                 r"I(f|13__nv_bfloat16)E")}
+    return {"mlstm_chunk_bwd": b7, "slstm_bwd": b8,
+            "ptxas": {k_: v_ or "not measured (library not rebuilt)"
+                      for k_, v_ in ptxas.items()}}
+
+
+# ---------------------------------------------------------------------------
+# Training: xlstm-125m whole, through make_train_step (B7, B8 and their
+# backwards).
+# ---------------------------------------------------------------------------
+
+XL_TRAIN_ARCH = "xlstm-125m"
+#: Labels of the xlstm train step's trace: B7 and B7-bwd by pass, B8 and
+#: B8-bwd, then the library's kernels as in `TRAIN_KERNELS`.
+XL_TRAIN_KERNELS = {
+    **{key: f"{key}_kernel" for key in (
+        "mlstm_chunk_states", "mlstm_state_scan", "mlstm_chunk_outputs",
+        *B7_BWD_PASSES, "slstm", "slstm_bwd")},
+    **{k_: v_ for k_, v_ in TRAIN_KERNELS.items()
+       if not k_.startswith("flash")}}
+#: The kernels one layer of each recurrent kind launches forward and
+#: backward.
+XL_KERNELS = {"mlstm": (("mlstm_chunk_states", "mlstm_state_scan",
+                         "mlstm_chunk_outputs"), B7_BWD_PASSES),
+              "slstm": (("slstm",), ("slstm_bwd",))}
+#: Card gradient check of xlstm-125m (stated before its first card run):
+#: f32 compute on both sides, the card's kernels against the CPU's plain
+#: versions and plain backwards: the loss within 1e-4 relative, each
+#: leaf's gradient within relative L2 1e-3.
+XL_GRAD_LOSS_TOL = 1e-4
+XL_GRAD_LEAF_TOL = 1e-3
+
+
+def xlstm_grad_check(cfg, seed):
+    """xlstm-125m at full width cut to 4 layers, 2 x 512 tokens, f32 params
+    and compute (TF32 off): the loss and every leaf's gradient on the card
+    (B7, B8 and their backwards) against the same params and batch on the
+    CPU (the plain versions and plain backwards); then one compressed
+    (int8 error-feedback) step at the trivial pod mesh."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    params = init_params(cfg4, seed, torch.float32, device=DEV)
+    toks = lm_tokens(cfg4, 2, 513, seed + 5)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    before = counts()
+    card_ms, (l_k, g_k) = time_host(lambda: train_mod.value_and_grad(
+        params, cfg4, batch, torch.float32))
+    got = {key: val - before[key] for key, val in counts().items()}
+    assert all(got[key] > 0 for fwd, bwd in XL_KERNELS.values()
+               for key in (*fwd, *bwd)), got
+    pc = tree_map(lambda t: t.detach().cpu(), params)
+    t0 = time.perf_counter()
+    l_c, g_c = train_mod.value_and_grad(
+        pc, cfg4, {key: val.cpu() for key, val in batch.items()},
+        torch.float32)
+    cpu_s = time.perf_counter() - t0
+    loss_rel = float((l_k.cpu() - l_c).abs() / l_c.abs())
+    leaf = {}
+    for path, a, b in zip(tree_paths(g_c), tree_leaves(g_k),
+                          tree_leaves(g_c)):
+        leaf[path] = float((a.cpu() - b).norm()
+                           / b.norm().clamp_min(1e-30))
+    ok = loss_rel <= XL_GRAD_LOSS_TOL and max(leaf.values()) \
+        <= XL_GRAD_LEAF_TOL
+    rec = {"n_layers": 4, "batch": 2, "tokens": 512, "compute": "float32",
+           "loss": float(l_k), "loss_cpu": float(l_c),
+           "loss_rel_err": loss_rel, "leaf_rel_l2": leaf,
+           "leaf_rel_l2_max": max(leaf.values()), "card_ms": card_ms,
+           "cpu_seconds": cpu_s,
+           "launches": {k_: v_ for k_, v_ in got.items() if v_},
+           "tolerance": "loss within 1e-4 relative, each leaf's gradient "
+                        "rel L2 <= 1e-3 (f32 on both sides, TF32 off)",
+           "within_tolerance": ok}
+    if not ok:
+        raise AssertionError(f"xlstm card gradients != CPU: {rec}")
+    del g_k, g_c, pc
+    state = {"params": params, "opt": adamw_init(params),
+             "err": init_error_buffer(params)}
+    step = make_compressed_train_step(
+        cfg4, make_debug_mesh(data=1, model=1, pod=1), peak_lr=1e-3)
+    before = counts()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    got = {key: val - before[key] for key, val in counts().items()}
+    assert bool(torch.isfinite(m["loss"])) and int(state["opt"]["step"]) \
+        == 1 and got["slstm_bwd"] > 0 and got["mlstm_bwd_inputs"] > 0 \
+        and got["plain_slstm_bwd"] == 0 \
+        and got["plain_mlstm_bwd_inputs"] == 0, (m, got)
+    rec["compressed_step"] = {"mesh": {"pod": 1, "data": 1, "model": 1},
+                              "loss": float(m["loss"]),
+                              "grad_norm": float(m["grad_norm"]),
+                              "launches": {k_: v_ for k_, v_ in got.items()
+                                           if v_}}
+    return rec
+
+
+def lm_train_xlstm_phase(args, paths):
+    """xlstm-125m whole (12 layers: 6 mLSTM, 6 sLSTM, full width), f32
+    params and AdamW moments, bf16 compute, B 8 x T 4,096 in two
+    microbatches, three `make_train_step` steps on one batch: finite
+    losses, the second <= 1.2 x the first, opt.step == 3, the B7, B7-bwd,
+    B8 and B8-bwd launches the remat scheme implies and no plain version.
+    Step 2 is timed on the host clock, step 3 traced. Then the card
+    gradient check (`xlstm_grad_check`)."""
+    cfg = get_config(XL_TRAIN_ARCH)
+    B, T, nm = (2, 1024, 2) if args.quick else (TRAIN_B, TRAIN_T, TRAIN_NM)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, args.seed, torch.float32,
+                             device=DEV).tree()
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    toks = lm_tokens(cfg, B, T + 1, args.seed + 13)
+    batch = split_microbatches({"tokens": toks[:, :-1],
+                                "labels": toks[:, 1:]}, nm)
+    step = make_train_step(cfg, num_microbatches=nm, peak_lr=1e-3,
+                           compute_dtype=torch.bfloat16)
+    losses, wall = [], []
+    trace = None
+    with paths.path("lm_train_xlstm"):
+        for i in range(TRAIN_STEPS):
+            if i == TRAIN_STEPS - 1:
+                trace = device_trace(
+                    lambda: losses.append(step(state, batch)[1]),
+                    kernels=XL_TRAIN_KERNELS, wall_ms=wall[-1])
+                continue
+            ms, (_, m) = time_host(lambda: step(state, batch))
+            wall.append(ms)
+            losses.append(m)
+    got = paths.paths["lm_train_xlstm"]
+    want = {}
+    for kind, (fwd, bwd) in XL_KERNELS.items():
+        per_step = launches_per_step(cfg, nm, (kind,), fwd, bwd)
+        want.update({k_: TRAIN_STEPS * v_ for k_, v_ in per_step.items()})
+    loss = [float(m["loss"]) for m in losses]
+    assert all(np.isfinite(loss)), loss
+    assert loss[1] <= 1.2 * loss[0], loss
+    assert int(state["opt"]["step"]) == TRAIN_STEPS
+    assert all(got[k_] == v_ for k_, v_ in want.items()), (got, want)
+    step_ms = wall[-1]
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+           "batch": B, "tokens": T, "num_microbatches": nm,
+           "dtypes": {"params": "float32", "moments": "float32",
+                      "compute": "bfloat16"},
+           "losses": loss, "grad_norms": [float(m["grad_norm"])
+                                          for m in losses],
+           "lrs": [float(m["lr"]) for m in losses],
+           "opt_step": int(state["opt"]["step"]),
+           "first_step_ms": wall[0], "ms_per_step": step_ms,
+           "tokens_per_s": B * T / (step_ms / 1e3),
+           "launches": got, "launches_expected": want,
+           "trace": trace,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del state, batch
+    torch.cuda.empty_cache()
+    emit("lm_progress", {"lm_train_xlstm": {k_: v_ for k_, v_ in rec.items()
+                                            if k_ != "trace"}})
+    rec["grad_check"] = xlstm_grad_check(cfg, args.seed)
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # The MoE and recurrent model families.
 # ---------------------------------------------------------------------------
 
@@ -2641,6 +3126,10 @@ COUNTERS = {
     "mlstm_state_scan": xlstm_mod.mlstm_state_scan_cuda,
     "mlstm_chunk_outputs": xlstm_mod.mlstm_chunk_outputs_cuda,
     "slstm": xlstm_mod.slstm_scan_cuda,
+    "mlstm_bwd_outputs": xlstm_mod.mlstm_bwd_outputs_cuda,
+    "mlstm_bwd_scan": xlstm_mod.mlstm_bwd_scan_cuda,
+    "mlstm_bwd_inputs": xlstm_mod.mlstm_bwd_inputs_cuda,
+    "slstm_bwd": xlstm_mod.slstm_scan_bwd_cuda,
 }
 PLAIN = {
     "plain_banded": banded.banded_align_batch,
@@ -2654,6 +3143,10 @@ PLAIN = {
     "plain_mlstm_scan": xlstm_mod.mlstm_state_scan_plain,
     "plain_mlstm_outputs": xlstm_mod.mlstm_chunk_outputs_plain,
     "plain_slstm": xlstm_mod.slstm_scan_plain,
+    "plain_mlstm_bwd_outputs": xlstm_mod.mlstm_bwd_outputs_plain,
+    "plain_mlstm_bwd_scan": xlstm_mod.mlstm_bwd_scan_plain,
+    "plain_mlstm_bwd_inputs": xlstm_mod.mlstm_bwd_inputs_plain,
+    "plain_slstm_bwd": xlstm_mod.slstm_scan_bwd_plain,
 }
 
 
@@ -3348,6 +3841,10 @@ def main():
     lm_train = lm_train_phase(args, paths)
     lm_train["seconds"] = time.perf_counter() - t0
     emit("lm_train", lm_train)
+    t0 = time.perf_counter()
+    lm_train_xl = lm_train_xlstm_phase(args, paths)
+    lm_train_xl["seconds"] = time.perf_counter() - t0
+    emit("lm_train_xlstm", lm_train_xl)
 
     # ---- 2b. B6-B8 vs their plain versions; the MoE and recurrent
     # model families ----
@@ -3362,6 +3859,14 @@ def main():
         tolerance=f"f32 outputs: max |kernel - plain| <= {REC_TOL} x max "
                   f"|plain| of that output; bf16 outputs: one bf16 ulp of "
                   f"the value more"))
+    t0 = time.perf_counter()
+    rec_bwd = recurrent_bwd_checks(args.quick, built,
+                                   probe["floor_us_per_step"])
+    emit("recurrent_bwd_checks", dict(
+        rec_bwd, seconds=time.perf_counter() - t0,
+        tolerance=f"each gradient tensor: max |kernel - plain| <= "
+                  f"{BWD_REC_TOL} x max |plain| of that tensor (f32 on both "
+                  f"sides); bf16 outputs one bf16 ulp more"))
     t0 = time.perf_counter()
     lm_moe = lm_moe_phase(args, paths)
     lm_moe["seconds"] = time.perf_counter() - t0
@@ -3402,13 +3907,17 @@ def main():
     # below stay as they were.
     bp300 = bulk_pairs(genome, 64, 300, "illumina",
                        np.random.default_rng(args.seed + 7))
-    shapes = [("short_4096", short, 4096, 20), ("short_64", short, 64, 20),
-              ("bp300_64", bp300, 64, 20), ("mid_64", mid, 64, 5),
-              ("long_64", long_, 64, 3)]
+    # The plain versions take PLAIN_ROWS rows of the mid and long slices
+    # (each took them 9-56 s on all 64 rows).
+    shapes = [("short_4096", short, 4096, 20, None),
+              ("short_64", short, 64, 20, None),
+              ("bp300_64", bp300, 64, 20, None),
+              ("mid_64", mid, 64, 5, PLAIN_ROWS),
+              ("long_64", long_, 64, 3, PLAIN_ROWS)]
     wf_shapes, wk_shapes = [], []
-    for name, (reads, refs), cap, reps in shapes:
+    for name, (reads, refs), cap, reps, p_rows in shapes:
         spec, q, r, n, m = padded_group(reads[:cap], refs[:cap], cap)
-        wf, wk = shape_timing(name, spec, q, r, n, m, reps)
+        wf, wk = shape_timing(name, spec, q, r, n, m, reps, p_rows)
         wf_shapes.append(wf)
         wk_shapes.append(wk)
         worst_wf = max(worst_wf, wf["max_abs_err"])
@@ -3418,11 +3927,13 @@ def main():
                                                              args.quick)
     mix = [a[:64] + b[:64] + c[:8] for a, b, c in zip(short, mid, long_)]
     p_recs, pt_recs = [], []
-    for name, (reads, refs), reps in (
-            ("short_64", [x[:64] for x in short], 20),
-            ("mid_64", [x[:64] for x in mid], 5), ("mix_64_64_8", mix, 3)):
+    for name, (reads, refs), reps, p_rows in (
+            ("short_64", [x[:64] for x in short], 20, None),
+            ("mid_64", [x[:64] for x in mid], 5, PLAIN_ROWS),
+            ("mix_64_64_8", mix, 3, PLAIN_ROWS)):
         table, (q, r, n, m) = on_card(persistent_groups(reads, refs))
-        p_rec, pt_rec = persistent_timing(name, table, q, r, n, m, reps)
+        p_rec, pt_rec = persistent_timing(name, table, q, r, n, m, reps,
+                                          plain_rows=p_rows)
         p_recs.append(p_rec)
         pt_recs.append(pt_rec)
         worst_p = max(worst_p, p_rec["max_abs_err"])
@@ -3904,6 +4415,58 @@ def main():
         decode_ms=dec8["ms"], decode_bound_ms=dec8["bound_ms"],
         decode_bound_by=dec8["bound_by"]))
     for k in kernels[-5:]:
+        assert k["launches"] > 0 and k["within_tolerance"], k
+    # B7-bwd: one entry per pass kernel, the whole (three launches) beside
+    # the first pass; B8-bwd. Their launches come from lm_train_xlstm.
+    bwd_common = dict(common, tolerance=f"{BWD_REC_TOL} x max |plain| per "
+                      f"gradient tensor (f32)")
+    xl_trace = lm_train_xl["trace"].get("by_kernel", "not measured")
+
+    def shape_of(rec, keys):
+        return rec["shape"] + ": " + ", ".join(f"{k_}={rec[k_]}"
+                                               for k_ in keys)
+    b7b = rec_bwd["mlstm_chunk_bwd"]
+    main7b = b7b[0]
+    whole7b = {key: main7b[key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "forward_ms",
+        "scratch_bytes")}
+    whole7b.update(max_abs_err=max(r["max_abs_err"] for r in b7b),
+                   rows_on_floor_branch={r["shape"]: r["rows_on_floor_branch"]
+                                         for r in b7b},
+                   ptxas=rec_bwd["ptxas"]["mlstm_chunk_bwd"],
+                   train_trace=xl_trace)
+    for i, key in enumerate(B7_BWD_PASSES):
+        pr = main7b["passes"][key]
+        kernels.append(dict(
+            bwd_common, name=key,
+            source="src/repro_torch/models/csrc/mlstm_chunk_bwd.cu",
+            replaces="src/repro/models/xlstm.py:168", launches=tot(key),
+            max_abs_err=max(r["passes"][key]["max_abs_err"] for r in b7b),
+            within_tolerance=all(r["passes"][key]["within_tolerance"]
+                                 and r["within_tolerance"] for r in b7b),
+            ms=pr["ms"], plain_ms=pr["plain_ms"], bound_ms=pr["bound_ms"],
+            bound_by=pr["bound_by"],
+            shape=shape_of(main7b, ("B", "H", "T", "D", "chunk")),
+            ragged_shapes=[r["shape"] for r in b7b[1:]],
+            **({"b7_bwd_whole": whole7b} if i == 0 else {})))
+    b8b = rec_bwd["slstm_bwd"]
+    main8b = b8b[0]
+    kernels.append(dict(
+        bwd_common, name="slstm_bwd",
+        source="src/repro_torch/models/csrc/slstm_bwd.cu",
+        replaces="src/repro/models/xlstm.py:233", launches=tot("slstm_bwd"),
+        max_abs_err=max(r["max_abs_err"] for r in b8b),
+        within_tolerance=all(r["within_tolerance"] for r in b8b),
+        ms=main8b["ms"], plain_ms=main8b["plain_ms"],
+        bound_ms=main8b["bound_ms"], bound_by=main8b["bound_by"],
+        shape=shape_of(main8b, ("B", "T", "H", "Dh", "dtype")),
+        ragged_shapes=[r["shape"] for r in b8b[1:]],
+        **{key: main8b[key] for key in (
+            "us_per_step", "exchange_floor_us_per_step",
+            "us_per_step_over_floor", "max_active_clusters", "clusters",
+            "forward_ms", "forward_saved_ms", "cluster")},
+        ptxas=rec_bwd["ptxas"]["slstm_bwd"], train_trace=xl_trace))
+    for k in kernels[-4:]:
         assert k["launches"] > 0 and k["within_tolerance"], k
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("total", {"seconds": time.perf_counter() - t_start})

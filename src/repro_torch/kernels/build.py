@@ -39,7 +39,9 @@ SOURCES = {
     / "flash_tf32x3.cu",
     "rglru_scan": _PKG / "models" / "csrc" / "rglru_scan.cu",
     "mlstm_chunk": _PKG / "models" / "csrc" / "mlstm_chunk.cu",
+    "mlstm_chunk_bwd": _PKG / "models" / "csrc" / "mlstm_chunk_bwd.cu",
     "slstm": _PKG / "models" / "csrc" / "slstm.cu",
+    "slstm_bwd": _PKG / "models" / "csrc" / "slstm_bwd.cu",
     "slstm_probe": _PKG / "models" / "csrc" / "slstm_probe.cu",
 }
 
@@ -75,9 +77,10 @@ def records_grad(*tensors) -> bool:
 def refuse_grad(name: str, *tensors) -> None:
     """Raise RuntimeError if autograd would record a call of the kernel
     wrapper `name`: grad mode is on and one of `tensors` requires grad.
-    The kernels that call it (B5's split-TF32 and FMA routes, B6-B8) have
-    no backward yet, and their outputs would silently carry no gradient
-    to their inputs."""
+    The wrappers that call it have no backward: B5's split-TF32 and FMA
+    routes, B6, and B7's three pass kernels launched on their own (the
+    whole of B7 and B8 go through their autograd Functions instead). Their
+    outputs would silently carry no gradient to their inputs."""
     if records_grad(*tensors):
         raise RuntimeError(
             f"{name}: an input requires grad, but this kernel has no "

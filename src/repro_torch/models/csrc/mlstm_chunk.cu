@@ -51,6 +51,12 @@
 // the stride keeps float4 alignment). The gate scans (cumsum, cummax over
 // L <= 64) run in warp 0, two steps a lane, by shuffles.
 //
+// For training, `mlstm_chunk_outputs_dot_launch` also writes each row's
+// dot_r (B, H, T), from which B7-bwd (mlstm_chunk_bwd.cu) recomputes the
+// denominator and the branch that won it; `mlstm_chunk_outputs_launch`
+// is the serving paths' launch as before. The tile helpers are shared
+// with B7-bwd through mlstm_tiles.cuh.
+//
 // What bounds it on an H100: operations, on the FMA units (the split-TF32
 // tensor-core form of flash_tf32x3.cu is not used; see PERF.md). Per
 // chunk and (b, head): 2 L D^2 FLOP in pass 1, 2 L^2 D + L^2 D + 2 L D^2
@@ -60,106 +66,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "mlstm_tiles.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int LMAX = 64;
-constexpr int LP = LMAX + 4;   // row stride of the transposed tiles
+using namespace mt;
+
 constexpr int CROWS = 32;      // rows of C per cp.async slice in pass 3
-constexpr unsigned FULL = 0xffffffffu;
-
-// Scan of one chunk's gates in warp 0: b = cumsum(f~), w = i~ - b and
-// g = cummax(w), two steps a lane (-inf past L).
-struct GateScan {
-  float b0, b1, w0, w1, g0, g1;
-};
-
-__device__ __forceinline__ GateScan gate_scan(const float* iv,
-                                              const float* fv, int L,
-                                              int lane) {
-  const int s0 = 2 * lane, s1 = 2 * lane + 1;
-  const bool ok0 = s0 < L, ok1 = s1 < L;
-  const float f0 = ok0 ? fv[s0] : 0.0f, f1 = ok1 ? fv[s1] : 0.0f;
-  float x = f0 + f1;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float y = __shfl_up_sync(FULL, x, off);
-    if (lane >= off) x += y;
-  }
-  float excl = __shfl_up_sync(FULL, x, 1);
-  if (lane == 0) excl = 0.0f;
-  GateScan r;
-  r.b0 = excl + f0;
-  r.b1 = excl + (f0 + f1);
-  r.w0 = ok0 ? iv[s0] - r.b0 : -INFINITY;
-  r.w1 = ok1 ? iv[s1] - r.b1 : -INFINITY;
-  const float mx1 = fmaxf(r.w0, r.w1);
-  float mx = mx1;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float y = __shfl_up_sync(FULL, mx, off);
-    if (lane >= off) mx = fmaxf(mx, y);
-  }
-  float mexcl = __shfl_up_sync(FULL, mx, 1);
-  if (lane == 0) mexcl = -INFINITY;
-  r.g0 = fmaxf(mexcl, r.w0);
-  r.g1 = fmaxf(mexcl, mx1);
-  return r;
-}
-
-// acc[i][4 j + jj] += sum_{kk in [k0, k1)} A[kk][r0 + i] B[kk][c0 + 64 j +
-// jj]: a 64-row tile (this thread's 4 rows) times 64 NJ columns (this
-// thread's 4 NJ), both operands float4 from shared memory.
-template <int NJ>
-__device__ __forceinline__ void tile_mma(float (&acc)[4][4 * NJ],
-                                         const float* A, int lda,
-                                         const float* B, int ldb, int k0,
-                                         int k1, int r0, int c0) {
-#pragma unroll 4
-  for (int kk = k0; kk < k1; ++kk) {
-    const float4 a = *reinterpret_cast<const float4*>(A + kk * lda + r0);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float4 bq =
-          *reinterpret_cast<const float4*>(B + kk * ldb + c0 + 64 * j);
-      const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          acc[i][4 * j + jj] = fmaf(av[i], bv[jj], acc[i][4 * j + jj]);
-    }
-  }
-}
-
-template <int NJ>
-__device__ __forceinline__ void zero(float (&acc)[4][4 * NJ]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4 * NJ; ++j) acc[i][j] = 0.0f;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
-               :: "r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
-}
-
-// Strides of q, k, v (element (b, h, t, d) at b qs_b + h qs_h + t qs_t + d)
-// and of the gates (b gs_b + h gs_h + t gs_t).
-struct Strides {
-  int64_t qs_b, qs_h, qs_t, gs_b, gs_h, gs_t;
-};
 
 // ---- pass 1: chunk states --------------------------------------------
 
@@ -315,7 +230,7 @@ mlstm_state_scan_kernel(float* __restrict__ work, float* __restrict__ scal,
 
 // ---- pass 3: chunk outputs --------------------------------------------
 
-template <int NJ>
+template <int NJ, bool DOT>
 __global__ void __launch_bounds__(THREADS)
 mlstm_chunk_outputs_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
@@ -324,7 +239,8 @@ mlstm_chunk_outputs_kernel(const float* __restrict__ q,
                            const float* __restrict__ fg,
                            const float* __restrict__ work,
                            const float* __restrict__ scal,
-                           float* __restrict__ hout, int H, int T, int D,
+                           float* __restrict__ hout,
+                           float* __restrict__ dot_out, int H, int T, int D,
                            int L, Strides st) {
   constexpr int DP = 64 * NJ;
   extern __shared__ __align__(16) float smem[];
@@ -462,6 +378,7 @@ mlstm_chunk_outputs_kernel(const float* __restrict__ q,
     if (r >= L) break;
     const float dot = scale[r] * qn[r] + rowsum[r];
     const float den = fmaxf(fabsf(dot), expf(-(bvec[r] + Mvec[r])));
+    if (DOT && tc == 0) dot_out[(int64_t)bh * T + t0 + r] = dot;
     float* out = hout + ((int64_t)b * T + t0 + r) * HD + (int64_t)h * D;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
@@ -488,10 +405,6 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-bool shape_ok(int B, int H, int T, int D, int L) {
-  return L > 0 && L <= LMAX && T % L == 0 && D > 0 && D <= 256 && H > 0 &&
-         (int64_t)B * H <= 65535;
-}
 
 }  // namespace
 
@@ -546,15 +459,15 @@ extern "C" int mlstm_state_scan_launch(void* work, void* scal, const void* C0,
   return (int)cudaGetLastError();
 }
 
-// Pass 3. q, k, v, it, ft as pass 1 (q with k's strides); work / scal as
-// pass 2 left them; h (B, T, H*D) f32 out.
-extern "C" int mlstm_chunk_outputs_launch(
-    const void* q, const void* k, const void* v, const void* it,
-    const void* ft, const void* work, const void* scal, void* h, int B,
-    int H, int T, int D, int L, int qs_b, int qs_h, int qs_t, int gs_b,
-    int gs_h, int gs_t, void* stream) {
-  if (B <= 0 || T <= 0) return 0;
-  if (!shape_ok(B, H, T, D, L)) return (int)cudaErrorInvalidValue;
+namespace {
+
+cudaError_t outputs(const void* q, const void* k, const void* v,
+                    const void* it, const void* ft, const void* work,
+                    const void* scal, void* h, void* dot, int B, int H,
+                    int T, int D, int L, int qs_b, int qs_h, int qs_t,
+                    int gs_b, int gs_h, int gs_t, void* stream) {
+  if (B <= 0 || T <= 0) return cudaSuccess;
+  if (!shape_ok(B, H, T, D, L)) return cudaErrorInvalidValue;
   const int NJ = (D + 63) / 64;
   const Strides st{qs_b, qs_h, qs_t, gs_b, gs_h, gs_t};
   const dim3 grid(T / L, B * H);
@@ -567,13 +480,46 @@ extern "C" int mlstm_chunk_outputs_launch(
       kernel<<<grid, THREADS, bytes, s>>>(
           (const float*)q, (const float*)k, (const float*)v,
           (const float*)it, (const float*)ft, (const float*)work,
-          (const float*)scal, (float*)h, H, T, D, L, st);
+          (const float*)scal, (float*)h, (float*)dot, H, T, D, L, st);
   };
-  switch (NJ) {
-    case 1: run(mlstm_chunk_outputs_kernel<1>); break;
-    case 2: run(mlstm_chunk_outputs_kernel<2>); break;
-    case 3: run(mlstm_chunk_outputs_kernel<3>); break;
-    default: run(mlstm_chunk_outputs_kernel<4>); break;
-  }
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+  // dot is a template parameter, so that the serving launch compiles to
+  // the kernel it was before dot existed.
+  auto pick = [&](auto with_dot) {
+    constexpr bool D_ = decltype(with_dot)::value;
+    switch (NJ) {
+      case 1: run(mlstm_chunk_outputs_kernel<1, D_>); break;
+      case 2: run(mlstm_chunk_outputs_kernel<2, D_>); break;
+      case 3: run(mlstm_chunk_outputs_kernel<3, D_>); break;
+      default: run(mlstm_chunk_outputs_kernel<4, D_>); break;
+    }
+  };
+  if (dot)
+    pick(std::true_type{});
+  else
+    pick(std::false_type{});
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+}  // namespace
+
+// Pass 3. q, k, v, it, ft as pass 1 (q with k's strides); work / scal as
+// pass 2 left them; h (B, T, H*D) f32 out.
+extern "C" int mlstm_chunk_outputs_launch(
+    const void* q, const void* k, const void* v, const void* it,
+    const void* ft, const void* work, const void* scal, void* h, int B,
+    int H, int T, int D, int L, int qs_b, int qs_h, int qs_t, int gs_b,
+    int gs_h, int gs_t, void* stream) {
+  return (int)outputs(q, k, v, it, ft, work, scal, h, nullptr, B, H, T, D,
+                      L, qs_b, qs_h, qs_t, gs_b, gs_h, gs_t, stream);
+}
+
+// Pass 3 for training: the same, also writing each row's normaliser
+// dot_r = n_r . q_r (B, H, T) f32, which B7-bwd reads.
+extern "C" int mlstm_chunk_outputs_dot_launch(
+    const void* q, const void* k, const void* v, const void* it,
+    const void* ft, const void* work, const void* scal, void* h, void* dot,
+    int B, int H, int T, int D, int L, int qs_b, int qs_h, int qs_t,
+    int gs_b, int gs_h, int gs_t, void* stream) {
+  return (int)outputs(q, k, v, it, ft, work, scal, h, dot, B, H, T, D, L,
+                      qs_b, qs_h, qs_t, gs_b, gs_h, gs_t, stream);
 }

@@ -65,6 +65,11 @@
 // 1 - 2 / (exp(2|x|) + 1)): their errors (a few ulp, absolute below 1e-6
 // in the activations) stay far inside the kernel's stated tolerance.
 //
+// For training, `slstm_saved_launch` also writes, per step, what B8-bwd
+// (slstm_bwd.cu) reads: the four pre-activations and the new c, n, m, 7
+// floats a unit from warp 0's cell lanes. `slstm_launch` passes a null
+// record and is the serving paths' launch as before.
+//
 // Tried and not adopted: 16 warps of half as many rows (R's 64 registers
 // a thread and the partial sums did not fit the 128 registers that 512
 // threads may each hold, and spilled to local memory); a wx ring in
@@ -122,7 +127,7 @@ struct Cell {
   }
 };
 
-template <typename TX, typename TR>
+template <typename TX, typename TR, bool SAVE>
 __global__ void __launch_bounds__(THREADS, 1)
 slstm_kernel(const TX* __restrict__ wz, const TX* __restrict__ wi,
              const TX* __restrict__ wf, const TX* __restrict__ wo,
@@ -132,7 +137,8 @@ slstm_kernel(const TX* __restrict__ wz, const TX* __restrict__ wi,
              const float* __restrict__ n0, const float* __restrict__ m0,
              float* __restrict__ hout, float* __restrict__ h1,
              float* __restrict__ c1, float* __restrict__ n1,
-             float* __restrict__ m1, int T, int H, int Dh, int U, int KS) {
+             float* __restrict__ m1, float* __restrict__ saved, int T, int H,
+             int Dh, int U, int KS) {
   extern __shared__ __align__(16) unsigned char smem[];
   float4* part = reinterpret_cast<float4*>(smem + 16);   // [WARPS][32]
   float* hbuf = reinterpret_cast<float*>(smem + 16 + WARPS * 32 * 16);
@@ -241,8 +247,19 @@ slstm_kernel(const TX* __restrict__ wz, const TX* __restrict__ wi,
         p[i].w += p[i + s].w;
       }
     if (live) {
-      cell.step(to_f32(wx[0]) + p[0].x, to_f32(wx[1]) + p[0].y,
-                to_f32(wx[2]) + p[0].z, to_f32(wx[3]) + p[0].w);
+      const float pre[4] = {to_f32(wx[0]) + p[0].x, to_f32(wx[1]) + p[0].y,
+                            to_f32(wx[2]) + p[0].z, to_f32(wx[3]) + p[0].w};
+      cell.step(pre[0], pre[1], pre[2], pre[3]);
+      if (SAVE) {
+        // B8-bwd's record of this step: the pre-activations, then the
+        // new c, n, m (SLSTM_SAVED rows of D).
+        float* rec = saved + ((int64_t)b * T + t) * 7 * D + col;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) rec[g * D] = pre[g];
+        rec[4 * D] = cell.c;
+        rec[5 * D] = cell.n;
+        rec[6 * D] = cell.m;
+      }
       if (t + 1 < T) {
         const uint32_t dst = hb0 + 4 * ((cur ^ 1) * HP + e);
         const uint32_t bar = bar0 + 8 * (cur ^ 1);
@@ -276,15 +293,44 @@ slstm_kernel(const TX* __restrict__ wz, const TX* __restrict__ wi,
 }
 
 template <typename TX, typename TR>
-cudaError_t launch(void* const* p, int B, int T, int H, int Dh, int CL,
-                   cudaStream_t s) {
+cudaError_t launch(void* const* p, float* saved, int B, int T, int H, int Dh,
+                   int CL, cudaStream_t s) {
   const int U = (Dh + CL - 1) / CL;
   const int KS = ((Dh + WARPS - 1) / WARPS + 3) / 4 * 4;
   const size_t smem = 16 + WARPS * 32 * 16 + 2 * (size_t)WARPS * KS * 4;
-  return cx::launch_clustered(
-      slstm_kernel<TX, TR>, CL, B * H, THREADS, smem, s, p[0], p[1], p[2],
-      p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10], p[11], p[12], p[13],
-      p[14], p[15], p[16], T, H, Dh, U, KS);
+  // The record is a template parameter, so that the serving launch
+  // compiles to the kernel it was before the record existed.
+  auto run = [&](auto kernel) {
+    return cx::launch_clustered(
+        kernel, CL, B * H, THREADS, smem, s, p[0], p[1], p[2], p[3], p[4],
+        p[5], p[6], p[7], p[8], p[9], p[10], p[11], p[12], p[13], p[14],
+        p[15], p[16], saved, T, H, Dh, U, KS);
+  };
+  return saved ? run(slstm_kernel<TX, TR, true>)
+               : run(slstm_kernel<TX, TR, false>);
+}
+
+
+cudaError_t dispatch(const void* const* in, void* saved, int B, int T,
+                     int H, int Dh, int dtypes, int cluster, void* stream) {
+  if (B <= 0 || T <= 0) return cudaSuccess;
+  if (H <= 0 || Dh <= 0 || Dh > WARPS * KS_MAX || (int64_t)B * H > 65535 ||
+      cluster != (Dh + MAX_UNITS - 1) / MAX_UNITS)
+    return cudaErrorInvalidValue;
+  void* const* p = const_cast<void* const*>(in);
+  float* sv = static_cast<float*>(saved);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dtypes) {
+    case 0: return launch<float, float>(p, sv, B, T, H, Dh, cluster, s);
+    case 1:
+      return launch<float, __nv_bfloat16>(p, sv, B, T, H, Dh, cluster, s);
+    case 2:
+      return launch<__nv_bfloat16, float>(p, sv, B, T, H, Dh, cluster, s);
+    case 3:
+      return launch<__nv_bfloat16, __nv_bfloat16>(p, sv, B, T, H, Dh,
+                                                    cluster, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -300,24 +346,21 @@ extern "C" int slstm_launch(
     const void* h0, const void* c0, const void* n0, const void* m0,
     void* hout, void* h1, void* c1, void* n1, void* m1, int B, int T, int H,
     int Dh, int dtypes, int cluster, void* stream) {
-  if (B <= 0 || T <= 0) return 0;
-  if (H <= 0 || Dh <= 0 || Dh > WARPS * KS_MAX || (int64_t)B * H > 65535 ||
-      cluster != (Dh + MAX_UNITS - 1) / MAX_UNITS)
-    return (int)cudaErrorInvalidValue;
-  void* const p[17] = {(void*)wz, (void*)wi, (void*)wf, (void*)wo,
-                       (void*)rz, (void*)ri, (void*)rf, (void*)ro,
-                       (void*)h0, (void*)c0, (void*)n0, (void*)m0,
-                       hout, h1, c1, n1, m1};
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (dtypes) {
-    case 0: return (int)launch<float, float>(p, B, T, H, Dh, cluster, s);
-    case 1:
-      return (int)launch<float, __nv_bfloat16>(p, B, T, H, Dh, cluster, s);
-    case 2:
-      return (int)launch<__nv_bfloat16, float>(p, B, T, H, Dh, cluster, s);
-    case 3:
-      return (int)launch<__nv_bfloat16, __nv_bfloat16>(p, B, T, H, Dh,
-                                                        cluster, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  const void* const p[17] = {wz, wi, wf, wo, rz, ri, rf, ro, h0, c0,
+                             n0, m0, hout, h1, c1, n1, m1};
+  return (int)dispatch(p, nullptr, B, T, H, Dh, dtypes, cluster, stream);
+}
+
+// The same, also writing the record B8-bwd reads: saved (B, T, 7, H*Dh)
+// f32, per step the four pre-activations (z, i, f before its + 1, o) and
+// the new c, n, m.
+extern "C" int slstm_saved_launch(
+    const void* wz, const void* wi, const void* wf, const void* wo,
+    const void* rz, const void* ri, const void* rf, const void* ro,
+    const void* h0, const void* c0, const void* n0, const void* m0,
+    void* hout, void* h1, void* c1, void* n1, void* m1, void* saved, int B,
+    int T, int H, int Dh, int dtypes, int cluster, void* stream) {
+  const void* const p[17] = {wz, wi, wf, wo, rz, ri, rf, ro, h0, c0,
+                             n0, m0, hout, h1, c1, n1, m1};
+  return (int)dispatch(p, saved, B, T, H, Dh, dtypes, cluster, stream);
 }

@@ -31,6 +31,15 @@ On CUDA tensors the whole step loop is the hand-written kernel B8
 registers, h handed one way between the blocks each step), on CPU tensors
 its plain version `slstm_scan_plain` (the reference's step). Both serve
 prefill and the one-token decode step.
+
+Both scans train: where autograd records a call, it goes through an
+autograd Function — `MLSTMChunkScan` (B7 keeping each row's normaliser,
+then B7-bwd, ``csrc/mlstm_chunk_bwd.cu``: three passes that mirror the
+forward's) and `SLSTMScan` (B8 writing a per-step record, then B8-bwd,
+``csrc/slstm_bwd.cu``: the cluster per head, stepping backwards, dh
+reduce-scattered one way) — on CPU tensors through the plain passes and
+the plain backwards (`mlstm_chunk_scan_bwd_plain`, `slstm_scan_bwd_plain`).
+The backwards hold the stabilisers constant (see their notes below).
 """
 
 from __future__ import annotations
@@ -257,10 +266,10 @@ def mlstm_chunk_states_plain(k, v, it, ft, chunk: int):
     a = torch.exp(w - G[..., None])
     kc = k.reshape(B, H, nc, chunk, D)
     vc = v.reshape(B, H, nc, chunk, D)
-    work = torch.zeros(wshape, dtype=torch.float32, device=k.device)
+    work = torch.zeros(wshape, dtype=k.dtype, device=k.device)
     work[..., :D, :D] = torch.einsum("bhcs,bhcsk,bhcsv->bhckv", a, kc, vc)
     work[..., D, :D] = torch.einsum("bhcs,bhcsk->bhck", a, kc)
-    scal = torch.zeros(sshape, dtype=torch.float32, device=k.device)
+    scal = torch.zeros(sshape, dtype=k.dtype, device=k.device)
     scal[..., 0] = b[..., -1]
     scal[..., 1] = G
     return work, scal
@@ -278,10 +287,10 @@ def mlstm_state_scan_plain(work, scal, state):
     build.count(mlstm_state_scan_plain, "calls")
     B, H, nc, D1, DP = work.shape
     D = D1 - 1
-    C = torch.zeros((B, H, D1, DP), dtype=torch.float32, device=work.device)
+    C = torch.zeros((B, H, D1, DP), dtype=work.dtype, device=work.device)
     C[..., :D, :D] = state["C"]
     C[..., D, :D] = state["n"]
-    m = state["m"].float().clone()
+    m = state["m"].to(work.dtype).clone()
     for c in range(nc):
         G = scal[:, :, c, 1]
         M = torch.maximum(m, G)
@@ -299,11 +308,13 @@ def mlstm_state_scan_plain(work, scal, state):
 mlstm_state_scan_plain.calls = 0
 
 
-def mlstm_chunk_outputs_plain(q, k, v, it, ft, work, scal, chunk: int):
+def mlstm_chunk_outputs_plain(q, k, v, it, ft, work, scal, chunk: int, *,
+                              with_dot: bool = False):
     """Plain PyTorch version of B7's third pass: every chunk's h from its
     q, k, v, gates and its incoming (C, n, m) in work / scal, the
     reference's chunk step (`mlstm_chunk_scan_plain`) over all chunks at
-    once. Returns h (B, T, H*D) f32."""
+    once. Returns h (B, T, H*D) f32 and, `with_dot`, each row's normaliser
+    dot_r = n_r . q_r (B, H, T) f32, what B7-bwd reads of the forward."""
     build.count(mlstm_chunk_outputs_plain, "calls")
     B, H, T, D = q.shape
     nc = T // chunk
@@ -324,14 +335,15 @@ def mlstm_chunk_outputs_plain(q, k, v, it, ft, work, scal, chunk: int):
     dot = torch.einsum("bhcrd,bhcrd->bhcr", n_r, qc)
     denom = torch.maximum(dot.abs(), torch.exp(-(b + M)))
     h = (inter + intra) / denom[..., None]
-    return h.reshape(B, H, T, D).transpose(1, 2).reshape(B, T, H * D)
+    h = h.reshape(B, H, T, D).transpose(1, 2).reshape(B, T, H * D)
+    return (h, dot.reshape(B, H, T)) if with_dot else h
 
 
 mlstm_chunk_outputs_plain.calls = 0
 
 
-def _mlstm_fn(name, nargs):
-    fn = getattr(build.load("mlstm_chunk"), name)
+def _mlstm_fn(name, nargs, lib="mlstm_chunk"):
+    fn = getattr(build.load(lib), name)
     if fn.argtypes is None:
         fn.argtypes = [_P] * nargs[0] + [_I] * nargs[1] + [_P]
         fn.restype = _I
@@ -427,23 +439,30 @@ def mlstm_state_scan_cuda(work, scal, state):
 mlstm_state_scan_cuda.launches = 0
 
 
-def mlstm_chunk_outputs_cuda(q, k, v, it, ft, work, scal, chunk: int):
+def mlstm_chunk_outputs_cuda(q, k, v, it, ft, work, scal, chunk: int, *,
+                             with_dot: bool = False):
     """Launch B7's third pass on CUDA tensors (as
-    `mlstm_chunk_outputs_plain`). On the current stream, not
-    synchronised."""
+    `mlstm_chunk_outputs_plain`; `with_dot` through the entry point that
+    also writes each row's normaliser, for B7-bwd). On the current stream,
+    not synchronised."""
     B, H, T, D = _check_mlstm_inputs("mlstm_chunk_outputs_cuda", (q, k, v),
                                      it, ft, chunk)
     _check_work("mlstm_chunk_outputs_cuda", work, scal, B, H, T, D, chunk)
     h = torch.empty((B, T, H * D), dtype=torch.float32, device=q.device)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), it.data_ptr(),
+            ft.data_ptr(), work.data_ptr(), scal.data_ptr(), h.data_ptr()]
+    name = "mlstm_chunk_outputs_launch"
+    if with_dot:
+        dot = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+        ptrs.append(dot.data_ptr())
+        name = "mlstm_chunk_outputs_dot_launch"
     with torch.cuda.device(q.device):
-        err = _mlstm_fn("mlstm_chunk_outputs_launch", (8, 11))(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), it.data_ptr(),
-            ft.data_ptr(), work.data_ptr(), scal.data_ptr(), h.data_ptr(),
-            B, H, T, D, chunk, *q.stride()[:3], *it.stride(),
+        err = _mlstm_fn(name, (len(ptrs), 11))(
+            *ptrs, B, H, T, D, chunk, *q.stride()[:3], *it.stride(),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "mlstm_chunk_outputs")
     build.count(mlstm_chunk_outputs_cuda)
-    return h
+    return (h, dot) if with_dot else h
 
 
 mlstm_chunk_outputs_cuda.launches = 0
@@ -455,8 +474,12 @@ def mlstm_chunk_scan_cuda(q, k, v, it, ft, state, chunk: int):
     scratch of `mlstm_work_bytes` bytes. q, k, v f32 (B, H, T, D) with unit
     stride along D and one set of strides for the three (the views
     `_mlstm_qkv_gates` makes qualify); it, ft f32 (B, H, T) with one set
-    of strides; state f32; 1 <= chunk <= 64 dividing T; D <= 256. On the
-    current stream, not synchronised."""
+    of strides; state f32; 1 <= chunk <= 64 dividing T; D <= 256. Where
+    autograd records the call it goes through `MLSTMChunkScan` (the passes
+    with each row's normaliser kept, and B7-bwd). On the current stream,
+    not synchronised."""
+    if build.records_grad(q, k, v, it, ft, *state.values()):
+        return _mlstm_apply(q, k, v, it, ft, state, chunk)
     _check_cuda("mlstm_chunk_scan_cuda", q, k, v, it, ft,
                 *(state[key] for key in ("C", "n", "m")))
     _check_mlstm_inputs("mlstm_chunk_scan_cuda", (q, k, v), it, ft, chunk)
@@ -466,9 +489,399 @@ def mlstm_chunk_scan_cuda(q, k, v, it, ft, state, chunk: int):
                                     chunk), state
 
 
+# ---------------------------------------------------------------------------
+# B7-bwd: the chunkwise mLSTM's backward, three passes that mirror the
+# forward's (`csrc/mlstm_chunk_bwd.cu`), each with a plain version below.
+#
+# The stabiliser carries no gradient. With the carried state read as
+# C~ = C e^m, n~ = n e^m, every row's output is h_r = X_r / max(|Y_r|,
+# e^{-b_r}), where X_r = h~_r e^{M_r} and Y_r = dot_r e^{M_r} do not
+# depend on M_r: no output depends on the value a max picks. So the
+# backward holds every max output (M_r, M_c) constant and keeps every
+# other path: the carried m' = b_last + M_c passes its gradient to the
+# chunk's f~ through b_last; the incoming m enters sigma_r = exp(m - M_r)
+# and alpha = exp(m - M_c); the denominator's branch exp(-(b_r + M_r))
+# gives b_r a gradient on the rows where it wins. The one path this drops
+# that can carry a gradient is a gradient of the final state itself:
+# shifting the state's gauge, (C, n, m) -> (C e^-d, n e^-d, m + d),
+# changes no output but moves (C1, n1, m1) unless their gradient has no
+# gauge part g = dm1 - <dC1, C1> - <dn1, n1>. That part is added back
+# through the chunks' M_c: chunk c's free derivative along M_c is g_c,
+# with g_{nc-1} = g and g_{c-1} = g_c where the carried m wins M_c =
+# max(m, G_c) (else 0), and it goes to m where m wins and to w at argmax
+# G_c where G_c does. The sum is the exact gradient; a tie of a max (of
+# measure zero) goes to m, and to the denominator's |dot| branch. In
+# training the final state has no gradient and g = 0.
+#
+# Scratch: the forward's (work, scal) with each chunk's incoming (C, n, m)
+# and each row's dot_r (B, H, T); `dwork` (laid out like work: chunk c's
+# own state gradient dC_own, dn_own from its outputs, then, after the
+# reverse scan, the gradient at chunk c's end state dC_out, dn_out) and
+# `dscal` (B, H, nc, 4): dm_own, X_c = <dC_out, C_in> + <dn_out, n_in>,
+# g_c, 0.
+# ---------------------------------------------------------------------------
+
+def _rows(x, B, H, nc, L, D):
+    """(B, T, H*D) -> (B, H, nc, L, D)."""
+    return x.reshape(B, nc * L, H, D).transpose(1, 2).reshape(B, H, nc, L, D)
+
+
+def _bwd_rows(dot, it, ft, scal, chunk):
+    """What both chunk-parallel backward passes recompute per row: b, w,
+    M_r, sigma_r, dot_r, the denominator and whether |dot_r| won it."""
+    b, w = _gate_scan(it, ft, chunk)
+    m0 = scal[..., 2]
+    M = torch.maximum(m0[..., None], torch.cummax(w, dim=-1).values)
+    sig = torch.exp(m0[..., None] - M)
+    dot = dot.reshape(b.shape)
+    floor = torch.exp(-(b + M))
+    return b, w, M, sig, dot, torch.maximum(dot.abs(), floor), \
+        dot.abs() >= floor
+
+
+def _bwd_out_side(dh, h, dot, on_dot, den, B, H, nc, L, D):
+    """dh~_r = dh_r / den_r; d den_r = -<dh~_r, h_r>, routed to dot_r
+    (times sign(dot_r)) or, on the floor branch, to b_r as <dh_r, h_r>."""
+    dht = _rows(dh, B, H, nc, L, D) / den[..., None]
+    dden = -(dht * _rows(h, B, H, nc, L, D)).sum(-1)
+    ddot = torch.where(on_dot, dden * torch.sign(dot), 0.0)
+    dbden = torch.where(on_dot, 0.0, -dden * den)
+    return dht, ddot, dbden
+
+
+def mlstm_bwd_outputs_plain(q, dh, h, dot, it, ft, work, scal, chunk: int):
+    """Plain PyTorch version of B7-bwd's first pass: per (b, head, chunk),
+    from dh, h and dot_r, the gradient of the chunk's incoming state
+    through the chunk's own outputs — dC_own = sum_r sigma_r q_r dh~_r^T
+    and dn_own = sum_r sigma_r ddot_r q_r into dwork (laid out like work,
+    zero past column D), dm_own = sum_r sigma_r dsigma_r into dscal[...,
+    0] (dscal[..., 1:] = 0). dh (B, T, H*D); h, dot as the forward left
+    them. Returns (dwork, dscal)."""
+    build.count(mlstm_bwd_outputs_plain, "calls")
+    B, H, T, D = q.shape
+    nc, L = T // chunk, chunk
+    _, _, _, sig, dot, den, on_dot = _bwd_rows(dot, it, ft, scal, chunk)
+    dht, ddot, _ = _bwd_out_side(dh, h, dot, on_dot, den, B, H, nc, L, D)
+    qc = q.reshape(B, H, nc, L, D)
+    Cin, nin = work[..., :D, :D], work[..., D, :D]
+    dsig = (dht * torch.einsum("bhcrd,bhcdv->bhcrv", qc, Cin)).sum(-1) \
+        + ddot * torch.einsum("bhcrd,bhcd->bhcr", qc, nin)
+    sq = sig[..., None] * qc
+    dwork = torch.zeros_like(work)
+    dwork[..., :D, :D] = torch.einsum("bhcrd,bhcrv->bhcdv", sq, dht)
+    dwork[..., D, :D] = torch.einsum("bhcr,bhcrd->bhcd", ddot, sq)
+    dscal = torch.zeros_like(scal)
+    dscal[..., 0] = (sig * dsig).sum(-1)
+    return dwork, dscal
+
+
+mlstm_bwd_outputs_plain.calls = 0
+
+
+def mlstm_bwd_scan_plain(dwork, dscal, work, scal, dC1, dn1, gauge):
+    """Plain PyTorch version of B7-bwd's second pass, in place like the
+    kernel: walks the chunks from the last to the first from the final
+    state's gradient (dC1, dn1; None counts as zero), dC_in(c) =
+    exp(m_c - M_c) dC_out(c) + dC_own(c), leaving dC_out(c), dn_out(c) in
+    dwork, X_c in dscal[..., 1] and the gauge gradient g_c (from `gauge`
+    (B, H) at the last chunk; None counts as zero) in dscal[..., 2].
+    Returns the initial state's (dC0, dn0)."""
+    build.count(mlstm_bwd_scan_plain, "calls")
+    B, H, nc, D1, DP = dwork.shape
+    D = D1 - 1
+    dC = torch.zeros((B, H, D1, DP), dtype=dwork.dtype, device=dwork.device)
+    if dC1 is not None:
+        dC[..., :D, :D] = dC1
+    if dn1 is not None:
+        dC[..., D, :D] = dn1
+    g = torch.zeros((B, H), dtype=dwork.dtype, device=dwork.device) \
+        if gauge is None else gauge.to(dwork.dtype).clone()
+    for c in reversed(range(nc)):
+        G, m = scal[:, :, c, 1], scal[:, :, c, 2]
+        alpha = torch.exp(m - torch.maximum(m, G))[..., None, None]
+        own = dwork[:, :, c].clone()
+        dwork[:, :, c] = dC
+        dscal[:, :, c, 1] = (dC * work[:, :, c]).sum((-2, -1))
+        dscal[:, :, c, 2] = g
+        dC = alpha * dC + own
+        g = torch.where(m >= G, g, 0.0)
+    return dC[..., :D, :D].contiguous(), dC[..., D, :D].contiguous()
+
+
+mlstm_bwd_scan_plain.calls = 0
+
+
+def mlstm_bwd_inputs_plain(q, k, v, it, ft, dh, h, dot, work, scal, dwork,
+                           dscal, dm1, chunk: int):
+    """Plain PyTorch version of B7-bwd's third pass: per (b, head, chunk),
+    dq, dk, dv from the intra-chunk products (S = q k^T recomputed, dP =
+    dh~ v^T + ddot_r) and the state terms (C_in, n_in for dq; the
+    chunk-end gradient dC_out, dn_out for dk, dv); di_s = dw_s, and df the
+    reverse cumsum of db_s = -dw_s (plus the floor branch's gradient, and
+    on the last row the next chunk's m-gradient, through b_last); and the
+    initial m's gradient. dm1 (B, H) or None. Returns (dq, dk, dv (B, H,
+    T, D), dit, dft (B, H, T), dm0 (B, H))."""
+    build.count(mlstm_bwd_inputs_plain, "calls")
+    B, H, T, D = q.shape
+    nc, L = T // chunk, chunk
+    _, w, M, sig, dot, den, on_dot = _bwd_rows(dot, it, ft, scal, chunk)
+    dht, ddot, dbden = _bwd_out_side(dh, h, dot, on_dot, den, B, H, nc, L,
+                                     D)
+    qc, kc, vc = (x.reshape(B, H, nc, L, D) for x in (q, k, v))
+    G, m0 = scal[..., 1], scal[..., 2]
+    Mc = torch.maximum(m0, G)
+    a = torch.exp(w - Mc[..., None])
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=q.device))
+    Dw = torch.where(mask, torch.exp(w[..., None, :] - M[..., :, None]), 0.0)
+    P = Dw * torch.einsum("bhcrd,bhcsd->bhcrs", qc, kc)
+    dP = torch.where(mask, torch.einsum("bhcrd,bhcsd->bhcrs", dht, vc)
+                     + ddot[..., None], 0.0)
+    dS = dP * Dw
+    dCo, dno = dwork[..., :D, :D], dwork[..., D, :D]
+    u = torch.einsum("bhcde,bhcse->bhcsd", dCo, vc) + dno[..., None, :]
+    g = dscal[..., 2]
+    mwin = m0 >= G
+    dw = (dP * P).sum(-2) + a * (u * kc).sum(-1) \
+        + torch.where(mwin, 0.0, g)[..., None] \
+        * F.one_hot(w.argmax(-1), L).to(w.dtype)
+    dv = torch.einsum("bhcrs,bhcrd->bhcsd", P, dht) \
+        + a[..., None] * torch.einsum("bhcsd,bhcdv->bhcsv", kc, dCo)
+    dk = torch.einsum("bhcrs,bhcrd->bhcsd", dS, qc) + a[..., None] * u
+    dq = torch.einsum("bhcrs,bhcsd->bhcrd", dS, kc) + sig[..., None] * (
+        torch.einsum("bhcrv,bhcdv->bhcrd", dht, work[..., :D, :D])
+        + ddot[..., None] * work[..., None, D, :D])
+    dm_in = torch.exp(m0 - Mc) * dscal[..., 1] + dscal[..., 0] \
+        + torch.where(mwin, g, 0.0)
+    last = torch.zeros_like(dm_in[..., :1]) if dm1 is None \
+        else dm1[..., None].to(dm_in.dtype)
+    db = dbden - dw
+    db[..., -1] += torch.cat([dm_in[..., 1:], last], dim=-1)
+    df = torch.flip(torch.cumsum(torch.flip(db, (-1,)), -1), (-1,))
+    return (dq.reshape(B, H, T, D), dk.reshape(B, H, T, D),
+            dv.reshape(B, H, T, D), dw.reshape(B, H, T), df.reshape(B, H, T),
+            dm_in[..., 0])
+
+
+mlstm_bwd_inputs_plain.calls = 0
+
+
+def mlstm_gauge(dC1, dn1, dm1, C1, n1):
+    """The gauge part of the final state's gradient, dm1 - <dC1, C1> -
+    <dn1, n1> (B, H), each None counting as zero; None when all three
+    are."""
+    if dC1 is None and dn1 is None and dm1 is None:
+        return None
+    g = torch.zeros_like(C1[..., 0, 0]) if dm1 is None else dm1.clone()
+    if dC1 is not None:
+        g -= (dC1 * C1).sum((-2, -1))
+    if dn1 is not None:
+        g -= (dn1 * n1).sum(-1)
+    return g
+
+
+def mlstm_chunk_scan_bwd_plain(q, k, v, it, ft, h, dot, work, scal, C1, n1,
+                               dh, dC1, dn1, dm1, chunk: int):
+    """B7-bwd's plain version: the three plain passes in turn. The
+    forward's q, k, v, it, ft, its outputs h and final (C1, n1), the dot
+    and (work, scal) its passes left; dh (B, T, H*D) and the final state's
+    gradients (each None or a tensor). Returns (dq, dk, dv, dit, dft, dC0,
+    dn0, dm0)."""
+    dwork, dscal = mlstm_bwd_outputs_plain(q, dh, h, dot, it, ft, work,
+                                           scal, chunk)
+    dC0, dn0 = mlstm_bwd_scan_plain(dwork, dscal, work, scal, dC1, dn1,
+                                    mlstm_gauge(dC1, dn1, dm1, C1, n1))
+    dq, dk, dv, dit, dft, dm0 = mlstm_bwd_inputs_plain(
+        q, k, v, it, ft, dh, h, dot, work, scal, dwork, dscal, dm1, chunk)
+    return dq, dk, dv, dit, dft, dC0, dn0, dm0
+
+
+def _ptr(t):
+    """A tensor's address, or 0 (a null pointer: "not given") for None."""
+    return 0 if t is None else t.data_ptr()
+
+
+def _check_bwd(name, q, dh, h, dot, it, ft, work, scal, chunk):
+    """B7-bwd's shared checks: q, it, ft, work, scal as the forward's
+    passes take them; dh, h contiguous f32 (B, T, H*D), dot (B, H, T)."""
+    B, H, T, D = _check_mlstm_inputs(name, (q,), it, ft, chunk)
+    _check_work(name, work, scal, B, H, T, D, chunk)
+    _check_cuda(name, q, dh, h, dot)
+    if dh.shape != (B, T, H * D) or h.shape != dh.shape \
+            or dot.shape != (B, H, T) \
+            or any(t.dtype != torch.float32 or not t.is_contiguous()
+                   for t in (dh, h, dot)):
+        raise ValueError(f"{name}: dh and h must be contiguous float32 "
+                         f"({B}, {T}, {H * D}) and dot ({B}, {H}, {T})")
+    return B, H, T, D
+
+
+def mlstm_bwd_outputs_cuda(q, dh, h, dot, it, ft, work, scal, chunk: int):
+    """Launch B7-bwd's first pass on CUDA tensors (as
+    `mlstm_bwd_outputs_plain`). On the current stream, not
+    synchronised."""
+    name = "mlstm_bwd_outputs_cuda"
+    B, H, T, D = _check_bwd(name, q, dh, h, dot, it, ft, work, scal, chunk)
+    dwork, dscal = torch.empty_like(work), torch.empty_like(scal)
+    with torch.cuda.device(q.device):
+        err = _mlstm_fn("mlstm_bwd_outputs_launch", (10, 11),
+                        "mlstm_chunk_bwd")(
+            q.data_ptr(), dh.data_ptr(), h.data_ptr(), dot.data_ptr(),
+            it.data_ptr(), ft.data_ptr(), work.data_ptr(), scal.data_ptr(),
+            dwork.data_ptr(), dscal.data_ptr(), B, H, T, D, chunk,
+            *q.stride()[:3], *it.stride(),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "mlstm_bwd_outputs")
+    build.count(mlstm_bwd_outputs_cuda)
+    return dwork, dscal
+
+
+mlstm_bwd_outputs_cuda.launches = 0
+
+
+def mlstm_bwd_scan_cuda(dwork, dscal, work, scal, dC1, dn1, gauge):
+    """Launch B7-bwd's second pass on CUDA tensors (as
+    `mlstm_bwd_scan_plain`: dwork and dscal rewritten in place; X_c summed
+    with float atomics, in an order that varies from call to call).
+    Returns (dC0, dn0). On the current stream, not synchronised."""
+    name = "mlstm_bwd_scan_cuda"
+    B, H, nc, D1, _ = work.shape
+    D = D1 - 1
+    _check_work(name, work, scal, B, H, nc, D, 1)
+    _check_work(name, dwork, dscal, B, H, nc, D, 1)
+    given = [t.float().contiguous() if t is not None else None
+             for t in (dC1, dn1, gauge)]
+    for t, shape in zip(given, ((B, H, D, D), (B, H, D), (B, H))):
+        if t is not None:
+            _check_cuda(name, work, t)
+            if t.shape != shape:
+                raise ValueError(f"{name}: dC1, dn1, gauge must be "
+                                 f"({B}, {H}, {D}, {D}), ({B}, {H}, {D}), "
+                                 f"({B}, {H})")
+    dC0 = torch.empty((B, H, D, D), dtype=torch.float32, device=work.device)
+    dn0 = torch.empty((B, H, D), dtype=torch.float32, device=work.device)
+    with torch.cuda.device(work.device):
+        err = _mlstm_fn("mlstm_bwd_scan_launch", (9, 4), "mlstm_chunk_bwd")(
+            dwork.data_ptr(), dscal.data_ptr(), work.data_ptr(),
+            scal.data_ptr(), *(_ptr(t) for t in given), dC0.data_ptr(),
+            dn0.data_ptr(), B, H, nc, D,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "mlstm_bwd_scan")
+    build.count(mlstm_bwd_scan_cuda)
+    return dC0, dn0
+
+
+mlstm_bwd_scan_cuda.launches = 0
+
+
+def mlstm_bwd_inputs_cuda(q, k, v, it, ft, dh, h, dot, work, scal, dwork,
+                          dscal, dm1, chunk: int):
+    """Launch B7-bwd's third pass on CUDA tensors (as
+    `mlstm_bwd_inputs_plain`); dq, dk, dv come out with q's strides, dit,
+    dft with it's. On the current stream, not synchronised."""
+    name = "mlstm_bwd_inputs_cuda"
+    B, H, T, D = _check_mlstm_inputs(name, (q, k, v), it, ft, chunk)
+    _check_bwd(name, q, dh, h, dot, it, ft, work, scal, chunk)
+    _check_work(name, dwork, dscal, B, H, T, D, chunk)
+    if dm1 is not None:
+        dm1 = dm1.float().contiguous()
+        _check_cuda(name, q, dm1)
+        if dm1.shape != (B, H):
+            raise ValueError(f"{name}: dm1 must be ({B}, {H})")
+    dq, dk, dv = (torch.empty_strided(q.shape, q.stride(),
+                                      dtype=torch.float32, device=q.device)
+                  for _ in range(3))
+    dit, dft = (torch.empty_strided(it.shape, it.stride(),
+                                    dtype=torch.float32, device=q.device)
+                for _ in range(2))
+    dm0 = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _mlstm_fn("mlstm_bwd_inputs_launch", (19, 11),
+                        "mlstm_chunk_bwd")(
+            *(t.data_ptr() for t in (q, k, v, it, ft, dh, h, dot, work, scal,
+                                     dwork, dscal)), _ptr(dm1),
+            *(t.data_ptr() for t in (dq, dk, dv, dit, dft, dm0)),
+            B, H, T, D, chunk, *q.stride()[:3], *it.stride(),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "mlstm_bwd_inputs")
+    build.count(mlstm_bwd_inputs_cuda)
+    return dq, dk, dv, dit, dft, dm0
+
+
+mlstm_bwd_inputs_cuda.launches = 0
+
+
+def mlstm_chunk_scan_bwd_cuda(q, k, v, it, ft, h, dot, work, scal, C1, n1,
+                              dh, dC1, dn1, dm1, chunk: int):
+    """B7-bwd on CUDA tensors, same arguments and results as
+    `mlstm_chunk_scan_bwd_plain`: the three pass kernels in turn, through
+    a scratch like the forward's (work, scal). On the current stream, not
+    synchronised."""
+    dh = dh.float().contiguous()
+    dwork, dscal = mlstm_bwd_outputs_cuda(q, dh, h, dot, it, ft, work, scal,
+                                          chunk)
+    dC0, dn0 = mlstm_bwd_scan_cuda(dwork, dscal, work, scal, dC1, dn1,
+                                   mlstm_gauge(dC1, dn1, dm1, C1, n1))
+    dq, dk, dv, dit, dft, dm0 = mlstm_bwd_inputs_cuda(
+        q, k, v, it, ft, dh, h, dot, work, scal, dwork, dscal, dm1, chunk)
+    return dq, dk, dv, dit, dft, dC0, dn0, dm0
+
+
+class MLSTMChunkScan(torch.autograd.Function):
+    """B7 with its backward: on CUDA tensors the three pass kernels (the
+    outputs pass keeping each row's dot_r) and B7-bwd, on CPU tensors the
+    plain passes and `mlstm_chunk_scan_bwd_plain`. Everything the backward
+    reads goes through `ctx.save_for_backward` (q, k, v, it, ft, h, dot,
+    the scratch (work, scal) with each chunk's incoming state, and the
+    final C1, n1), so a non-reentrant checkpoint may run the forward
+    again. `apply(q, k, v, it, ft, C0, n0, m0, chunk) -> (h, C1, n1,
+    m1)`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, it, ft, C0, n0, m0, chunk):
+        state = {"C": C0, "n": n0, "m": m0}
+        if q.is_cuda:
+            work, scal = mlstm_chunk_states_cuda(k, v, it, ft, chunk)
+            st = mlstm_state_scan_cuda(work, scal, state)
+            h, dot = mlstm_chunk_outputs_cuda(q, k, v, it, ft, work, scal,
+                                              chunk, with_dot=True)
+        else:
+            work, scal = mlstm_chunk_states_plain(k, v, it, ft, chunk)
+            st = mlstm_state_scan_plain(work, scal, state)
+            h, dot = mlstm_chunk_outputs_plain(q, k, v, it, ft, work, scal,
+                                               chunk, with_dot=True)
+        ctx.save_for_backward(q, k, v, it, ft, h, dot, work, scal, st["C"],
+                              st["n"])
+        ctx.chunk = chunk
+        # An output nobody differentiates keeps a None gradient (no zeros
+        # made, and no gauge term).
+        ctx.set_materialize_grads(False)
+        return h, st["C"], st["n"], st["m"]
+
+    @staticmethod
+    def backward(ctx, dh, dC1, dn1, dm1):
+        q, k, v, it, ft, h, dot, work, scal, C1, n1 = ctx.saved_tensors
+        bwd = mlstm_chunk_scan_bwd_cuda if q.is_cuda \
+            else mlstm_chunk_scan_bwd_plain
+        if dh is None:
+            dh = torch.zeros_like(h)
+        grads = bwd(q, k, v, it, ft, h, dot, work, scal, C1, n1, dh, dC1,
+                    dn1, dm1, ctx.chunk)
+        return (*grads, None)
+
+
+def _mlstm_apply(q, k, v, it, ft, state, chunk):
+    h, C1, n1, m1 = MLSTMChunkScan.apply(
+        q, k, v, it, ft, *(state[key] for key in ("C", "n", "m")), chunk)
+    return h, {"C": C1, "n": n1, "m": m1}
+
+
 def mlstm_chunk_scan(q, k, v, it, ft, state, chunk: int):
-    """The chunk loop where the tensors live: CPU tensors take
-    `mlstm_chunk_scan_plain`, CUDA tensors the kernel."""
+    """The chunk loop where the tensors live: where autograd records the
+    call, `MLSTMChunkScan` (kernels or plain passes, with their backward);
+    elsewhere CPU tensors take `mlstm_chunk_scan_plain`, CUDA tensors the
+    kernel."""
+    if build.records_grad(q, k, v, it, ft, *state.values()):
+        return _mlstm_apply(q, k, v, it, ft, state, chunk)
     if q.device.type == "cpu":
         return mlstm_chunk_scan_plain(q, k, v, it, ft, state, chunk)
     return mlstm_chunk_scan_cuda(q, k, v, it, ft, state, chunk)
@@ -516,42 +929,73 @@ def slstm_state_init(batch, n_heads, head_dim, dtype=torch.float32, *,
             "m": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def slstm_step(p, state, wx, n_heads, head_dim):
-    """wx: dict gate -> (B, H*Dh) precomputed W x_t contributions."""
-    H, Dh = n_heads, head_dim
-    h, c, n, m = state["h"], state["c"], state["n"], state["m"]
+def _wide(x):
+    """x in f32, or in f64 when it is f64 (the plain versions' f64
+    witnesses)."""
+    return x if x.dtype == torch.float64 else x.float()
 
-    def gate(name):
-        rec = torch.einsum("bhd,hde->bhe", h, p[f"r{name}"].float())
-        return wx[name].reshape(-1, H, Dh).float() + rec
 
-    z = torch.tanh(gate("z"))
-    it = gate("i")
-    ft = gate("f") + 1.0
-    o = torch.sigmoid(gate("o"))
+def _slstm_cell(pz, pi, pf, po, c, n, m):
+    """The sLSTM cell from its four pre-activations: (h, c, n, m) new."""
+    z = torch.tanh(pz)
+    it = pi
+    ft = pf + 1.0
+    o = torch.sigmoid(po)
     m_new = torch.maximum(F.logsigmoid(ft) + m, it)
     ip = torch.exp(it - m_new)
     fp = torch.exp(F.logsigmoid(ft) + m - m_new)
     c_new = fp * c + ip * z
     n_new = fp * n + ip
     h_new = o * c_new / torch.clamp(n_new, min=1e-6)
-    return {"h": h_new, "c": c_new, "n": n_new, "m": m_new}
+    return h_new, c_new, n_new, m_new
 
 
-def slstm_scan_plain(wx, r, state):
+def _slstm_pre(p, h, wx, H, Dh):
+    """The four pre-activations wx_g + h R_g (B, H, Dh)."""
+    def gate(name):
+        rec = torch.einsum("bhd,hde->bhe", h, _wide(p[f"r{name}"]))
+        return _wide(wx[name].reshape(-1, H, Dh)) + rec
+    return [gate(g) for g in _GATES]
+
+
+def slstm_step(p, state, wx, n_heads, head_dim):
+    """wx: dict gate -> (B, H*Dh) precomputed W x_t contributions."""
+    h, c, n, m = _slstm_cell(*_slstm_pre(p, state["h"], wx, n_heads,
+                                         head_dim),
+                             state["c"], state["n"], state["m"])
+    return {"h": h, "c": c, "n": n, "m": m}
+
+
+#: Rows of B8's per-step record for its backward: the four pre-activations
+#: (z, i, f before its + 1, o), then the new c, n, m.
+SLSTM_SAVED = 7
+
+
+def slstm_scan_plain(wx, r, state, *, with_saved: bool = False):
     """Plain PyTorch version of the B8 kernel: the reference's step loop.
     wx: dict gate -> (B, T, H*Dh); r: dict gate -> (H, Dh, Dh); state
-    {h, c, n, m} (B, H, Dh). Returns (h (B, T, H*Dh) f32, state)."""
+    {h, c, n, m} (B, H, Dh). Returns (h (B, T, H*Dh) f32, state) and,
+    `with_saved`, the record B8-bwd reads (B, T, `SLSTM_SAVED`, H*Dh)."""
     build.count(slstm_scan_plain, "calls")
     B, T, d = wx["z"].shape
     H, Dh = r["z"].shape[0], r["z"].shape[1]
     p = {f"r{g}": r[g] for g in _GATES}
-    state = {key: state[key].float() for key in ("h", "c", "n", "m")}
-    hs = []
+    state = {key: _wide(state[key]) for key in ("h", "c", "n", "m")}
+    hs, saved = [], []
     for t in range(T):
-        state = slstm_step(p, state, {g: wx[g][:, t] for g in _GATES}, H, Dh)
+        pre = _slstm_pre(p, state["h"], {g: wx[g][:, t] for g in _GATES},
+                         H, Dh)
+        state = dict(zip(("h", "c", "n", "m"), _slstm_cell(
+            *pre, state["c"], state["n"], state["m"])))
         hs.append(state["h"])
-    return torch.stack(hs, dim=1).reshape(B, T, d), state
+        if with_saved:
+            saved.append(torch.stack(
+                [*pre, state["c"], state["n"], state["m"]], 1)
+                .reshape(B, SLSTM_SAVED, d))
+    h = torch.stack(hs, dim=1).reshape(B, T, d)
+    if with_saved:
+        return h, state, torch.stack(saved, 1)
+    return h, state
 
 
 #: Calls of the plain version since the count was last set to 0.
@@ -570,10 +1014,11 @@ def slstm_cluster(head_dim: int) -> int:
     return -(-head_dim // SLSTM_MAX_UNITS)
 
 
-def _slstm_fn(name, nints):
-    fn = getattr(build.load(name), f"{name}_launch")
+def _slstm_fn(lib, nints, entry=None, nptrs=17):
+    """`entry` (by default `<lib>_launch`) of kernel library `lib`."""
+    fn = getattr(build.load(lib), entry or f"{lib}_launch")
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 17 + [_I] * nints + [_P]
+        fn.argtypes = [_P] * nptrs + [_I] * nints + [_P]
         fn.restype = _I
     return fn
 
@@ -612,35 +1057,259 @@ def _slstm_args(name, wx, r, state):
     return wxs, rs, st, B, T, H, Dh, code
 
 
-def slstm_scan_cuda(wx, r, state):
+def slstm_scan_cuda(wx, r, state, *, with_saved: bool = False):
     """Launch the B8 kernel on CUDA tensors, same arguments and results as
     `slstm_scan_plain`: the four wx contiguous (B, T, H*Dh) in one dtype
     of `KERNEL_DTYPES`, the four r contiguous (H, Dh, Dh) in one dtype of
     `KERNEL_DTYPES`, state f32; Dh <= 256. One cluster of
-    `slstm_cluster(Dh)` blocks per (batch row, head). On the current
-    stream, not synchronised."""
+    `slstm_cluster(Dh)` blocks per (batch row, head). `with_saved` goes
+    through the entry point that also writes the record for B8-bwd;
+    without it the launch is the serving paths' own. Where autograd
+    records the call it goes through `SLSTMScan` (the kernel with its
+    record, and B8-bwd). On the current stream, not synchronised."""
+    if build.records_grad(*wx.values(), *r.values(), *state.values()):
+        return _slstm_apply(wx, r, state)
     wxs, rs, st, B, T, H, Dh, code = _slstm_args("slstm_scan_cuda", wx, r,
                                                  state)
     h = torch.empty((B, T, H * Dh), dtype=torch.float32,
                     device=wxs[0].device)
     out = [torch.empty_like(t) for t in st]
+    ptrs = [t.data_ptr() for t in (*wxs, *rs, *st, h, *out)]
+    ints = (B, T, H, Dh, code, slstm_cluster(Dh))
+    stream = torch.cuda.current_stream().cuda_stream
     with torch.cuda.device(h.device):
-        err = _slstm_fn("slstm", 6)(
-            *(t.data_ptr() for t in (*wxs, *rs, *st, h, *out)),
-            B, T, H, Dh, code, slstm_cluster(Dh),
-            torch.cuda.current_stream().cuda_stream)
+        if with_saved:
+            saved = torch.empty((B, T, SLSTM_SAVED, H * Dh),
+                                dtype=torch.float32, device=h.device)
+            err = _slstm_fn("slstm", 6, "slstm_saved_launch", 18)(
+                *ptrs, saved.data_ptr(), *ints, stream)
+        else:
+            err = _slstm_fn("slstm", 6)(*ptrs, *ints, stream)
     _raise_on(err, "slstm")
     build.count(slstm_scan_cuda)
-    return h, dict(zip(("h", "c", "n", "m"), out))
+    state = dict(zip(("h", "c", "n", "m"), out))
+    return (h, state, saved) if with_saved else (h, state)
 
 
 #: Kernel launches since the count was last set to 0.
 slstm_scan_cuda.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# B8-bwd: the sLSTM recurrence's backward (`csrc/slstm_bwd.cu`), and its
+# plain version.
+#
+# The stabiliser carries no gradient: with c~ = c e^m, n~ = n e^m the
+# recurrence is c~_t = sigmoid(f~) c~_{t-1} + e^{i~} z, so h = o c~ / n~
+# does not depend on m (the clamp max(n, 1e-6) never binds: n_t >=
+# min(n_0, 1), since one of f', i' is 1 each step). The backward holds
+# m_t constant and keeps every other path, as B7-bwd does; the gauge part
+# of a final-state gradient, g = dm1 - dc1 c1 - dn1 n1 (per unit), is
+# added back through the maxes: g_{t-1} = g_t where log_sigmoid(f~_t) +
+# m_{t-1} wins m_t (and then it goes to that branch), else it goes to
+# i~_t and stops. Per step, from dh_t (the output's gradient plus the
+# recurrent part) and the carried dc, dn, the four pre-activation
+# gradients delta_g; then dc_{t-1} = f' dc', dn_{t-1} = f' dn' and
+# dh_{t-1}[d] = sum_g sum_e R_g[d, e] delta_g[e]. dR_g = sum_t h_{t-1}
+# delta_g^T is one batched product after the scan.
+# ---------------------------------------------------------------------------
+
+def _slstm_prev(saved, t, c0, n0, m0):
+    if t:
+        return saved[:, t - 1, 4], saved[:, t - 1, 5], saved[:, t - 1, 6]
+    return c0, n0, m0
+
+
+def slstm_scan_bwd_plain(r, h0, c0, n0, m0, h, saved, dh, dh1, dc1, dn1,
+                         dm1):
+    """Plain PyTorch version of B8-bwd: the step loop backwards in time,
+    with the kernel's arithmetic. r: the four (H, Dh, Dh); h0, c0, n0, m0
+    (B, H, Dh) the initial state; h (B, T, H*Dh) and the record `saved`
+    (B, T, 7, H*Dh) from the forward; dh (B, T, H*Dh) and the final
+    state's gradients (each None or (B, H, Dh)). Returns (delta (B, T, 4,
+    H*Dh) — the pre-activation gradients, which are dwx — dR (four (H,
+    Dh, Dh), f32), dh0, dc0, dn0, dm0)."""
+    build.count(slstm_scan_bwd_plain, "calls")
+    B, T, d = h.shape
+    H, Dh = r[0].shape[0], r[0].shape[1]
+    saved = _wide(saved)
+    dt = saved.dtype
+    R = torch.stack([_wide(x) for x in r]).to(dt)    # (4, H, Dh, Dh)
+
+    def flat(x):
+        return torch.zeros((B, d), dtype=dt, device=h.device) if x is None \
+            else x.reshape(B, d).to(dt)
+    c_init, n_init, m_init = flat(c0), flat(n0), flat(m0)
+    dc, dn, dhr = flat(dc1), flat(dn1), flat(dh1)
+    g = flat(dm1) - dc * saved[:, T - 1, 4] - dn * saved[:, T - 1, 5]
+    dm = torch.zeros_like(dc)
+    delta = torch.empty((B, T, 4, d), dtype=dt, device=h.device)
+    for t in reversed(range(T)):
+        cp, np_, mp = _slstm_prev(saved, t, c_init, n_init, m_init)
+        pz, pi, pf, po = saved[:, t, 0], saved[:, t, 1], saved[:, t, 2], \
+            saved[:, t, 3]
+        ft = pf + 1.0
+        lsf = F.logsigmoid(ft)
+        mn = torch.maximum(lsf + mp, pi)
+        ip = torch.exp(pi - mn)
+        fp = torch.exp(lsf + mp - mn)
+        z = torch.tanh(pz)
+        o = torch.sigmoid(po)
+        cn = fp * cp + ip * z
+        nn = fp * np_ + ip
+        den = torch.clamp(nn, min=1e-6)
+        dht = dh[:, t].to(dt) + dhr
+        do = dht * cn / den
+        dcn = dc + dht * o / den
+        dnn = dn - torch.where(nn >= 1e-6, dht * o * cn / (den * den), 0.0)
+        dz = dcn * ip
+        dpi = (dcn * z + dnn) * ip
+        dlsf = (dcn * cp + dnn * np_) * fp
+        dc, dn = dcn * fp, dnn * fp
+        lsf_wins = lsf + mp >= pi
+        dm = dlsf + torch.where(lsf_wins, g, 0.0)
+        dlsf = dm
+        dpi = dpi + torch.where(lsf_wins, 0.0, g)
+        g = torch.where(lsf_wins, g, 0.0)
+        dg = torch.stack([dz * (1.0 - z * z), dpi,
+                          dlsf * torch.sigmoid(-ft), do * o * (1.0 - o)], 1)
+        delta[:, t] = dg
+        dhr = torch.einsum("bghe,ghde->bhd", dg.reshape(B, 4, H, Dh),
+                           R).reshape(B, d)
+    hprev = torch.cat([_wide(h0).to(dt).reshape(B, 1, d), h[:, :-1].to(dt)],
+                      1)
+    dR = torch.einsum("bthd,btghe->ghde", hprev.reshape(B, T, H, Dh),
+                      delta.reshape(B, T, 4, H, Dh))
+    shape = (B, H, Dh)
+    return (delta, list(dR), dhr.reshape(shape), dc.reshape(shape),
+            dn.reshape(shape), dm.reshape(shape))
+
+
+slstm_scan_bwd_plain.calls = 0
+
+
+def slstm_bwd_max_clusters(head_dim: int) -> int:
+    """How many of B8-bwd's clusters (`slstm_cluster(head_dim)` blocks
+    each) the card holds at once (`cudaOccupancyMaxActiveClusters`): a
+    grid of more (b, head) clusters runs in waves, each a whole chain."""
+    fn = build.load("slstm_bwd").slstm_bwd_max_clusters
+    if fn.argtypes is None:
+        fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = _I
+    out = ctypes.c_int(0)
+    _raise_on(fn(head_dim, slstm_cluster(head_dim), ctypes.byref(out)),
+              "slstm_bwd_max_clusters")
+    return out.value
+
+
+def slstm_scan_bwd_cuda(r, h0, c0, n0, m0, h, saved, dh, dh1, dc1, dn1,
+                        dm1):
+    """B8-bwd on CUDA tensors, same arguments and results as
+    `slstm_scan_bwd_plain`: the kernel (one cluster of
+    `slstm_cluster(Dh)` blocks per (batch row, head), R's columns of a
+    block's units in registers, the partial sums of dh_{t-1} handed one
+    way between the blocks each step) writes delta and the initial
+    state's gradients; dR is one batched `torch.matmul` after it. r in
+    one dtype of `KERNEL_DTYPES`; everything else f32. On the current
+    stream, not synchronised."""
+    name = "slstm_scan_bwd_cuda"
+    B, T, d = h.shape
+    H, Dh = r[0].shape[0], r[0].shape[1]
+    given = [None if t is None else t.float().contiguous()
+             for t in (dh1, dc1, dn1, dm1)]
+    init = [t.float().contiguous() for t in (c0, n0, m0)]
+    dh = dh.float().contiguous()
+    _check_cuda(name, *r, *init, h, saved, dh,
+                *(t for t in given if t is not None))
+    if r[0].dtype not in KERNEL_DTYPES \
+            or any(t.dtype != r[0].dtype or t.shape != (H, Dh, Dh)
+                   or not t.is_contiguous() for t in r) \
+            or H * Dh != d or not 1 <= Dh <= SLSTM_MAX_HEAD_DIM \
+            or B * H > 65535 or not B * T:
+        raise ValueError(f"{name}: r must be four contiguous (H, Dh, Dh) "
+                         f"of one dtype of {list(KERNEL_DTYPES)}, Dh <= "
+                         f"{SLSTM_MAX_HEAD_DIM}, H*Dh = {d}")
+    if saved.shape != (B, T, SLSTM_SAVED, d) \
+            or saved.dtype != torch.float32 or not saved.is_contiguous() \
+            or h.dtype != torch.float32 or dh.shape != h.shape \
+            or any(t.shape != (B, H, Dh) for t in (*init, *(
+                x for x in given if x is not None))):
+        raise ValueError(f"{name}: saved must be contiguous float32 "
+                         f"({B}, {T}, {SLSTM_SAVED}, {d}), dh like h, the "
+                         f"states ({B}, {H}, {Dh})")
+    delta = torch.empty((B, T, 4, d), dtype=torch.float32, device=h.device)
+    out = [torch.empty_like(init[0]) for _ in range(4)]
+    with torch.cuda.device(h.device):
+        err = _slstm_fn("slstm_bwd", 6, None, 18)(
+            *(t.data_ptr() for t in (*r, *init, saved, dh)),
+            *(_ptr(t) for t in given),
+            *(t.data_ptr() for t in (delta, *out)),
+            B, T, H, Dh, KERNEL_DTYPES[r[0].dtype], slstm_cluster(Dh),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "slstm_bwd")
+    build.count(slstm_scan_bwd_cuda)
+    hprev = torch.cat([h0.float().reshape(B, 1, d), h[:, :-1]], 1)
+    dR = torch.matmul(hprev.reshape(B * T, H, Dh).permute(1, 2, 0),
+                      delta.reshape(B * T, 4, H, Dh).permute(2, 0, 1, 3)
+                      .reshape(H, B * T, 4 * Dh))     # (H, Dh, 4 Dh)
+    dR = [dR[:, :, g * Dh:(g + 1) * Dh] for g in range(4)]
+    return (delta, dR, *out)
+
+
+#: Kernel launches since the count was last set to 0.
+slstm_scan_bwd_cuda.launches = 0
+
+
+class SLSTMScan(torch.autograd.Function):
+    """B8 with its backward: on CUDA tensors the kernel writing its
+    per-step record and B8-bwd, on CPU tensors `slstm_scan_plain(...,
+    with_saved=True)` and `slstm_scan_bwd_plain`. Everything the backward
+    reads goes through `ctx.save_for_backward` (r, the initial state, h
+    and the record), so a non-reentrant checkpoint may run the forward
+    again. `apply(wx_z, wx_i, wx_f, wx_o, r_z, r_i, r_f, r_o, h0, c0, n0,
+    m0) -> (h, h1, c1, n1, m1)`; dwx comes back in wx's dtype, dR in
+    r's."""
+
+    @staticmethod
+    def forward(ctx, wz, wi, wf, wo, rz, ri, rf, ro, h0, c0, n0, m0):
+        wx = dict(zip(_GATES, (wz, wi, wf, wo)))
+        r = dict(zip(_GATES, (rz, ri, rf, ro)))
+        state = {"h": h0, "c": c0, "n": n0, "m": m0}
+        scan = slstm_scan_cuda if wz.is_cuda else slstm_scan_plain
+        h, st, saved = scan(wx, r, state, with_saved=True)
+        ctx.save_for_backward(rz, ri, rf, ro, h0, c0, n0, m0, h, saved)
+        ctx.wx_dtype = wz.dtype
+        ctx.set_materialize_grads(False)
+        return h, st["h"], st["c"], st["n"], st["m"]
+
+    @staticmethod
+    def backward(ctx, dh, dh1, dc1, dn1, dm1):
+        rz, ri, rf, ro, h0, c0, n0, m0, h, saved = ctx.saved_tensors
+        if dh is None:
+            dh = torch.zeros_like(h)
+        bwd = slstm_scan_bwd_cuda if rz.is_cuda else slstm_scan_bwd_plain
+        delta, dR, dh0, dc0, dn0, dm0 = bwd(
+            (rz, ri, rf, ro), h0, c0, n0, m0, h, saved, dh, dh1, dc1, dn1,
+            dm1)
+        dwx = [delta[:, :, g].to(ctx.wx_dtype) for g in range(4)]
+        dR = [x.to(rz.dtype) for x in dR]
+        return (*dwx, *dR, dh0, dc0, dn0, dm0)
+
+
+def _slstm_apply(wx, r, state):
+    h, h1, c1, n1, m1 = SLSTMScan.apply(
+        *(wx[g] for g in _GATES), *(r[g] for g in _GATES),
+        *(state[key] for key in ("h", "c", "n", "m")))
+    return h, {"h": h1, "c": c1, "n": n1, "m": m1}
+
+
 def slstm_scan(wx, r, state):
-    """The step loop where the tensors live: CPU tensors take
-    `slstm_scan_plain`, CUDA tensors the kernel."""
+    """The step loop where the tensors live: where autograd records the
+    call, `SLSTMScan` (kernel or plain version, with its backward);
+    elsewhere CPU tensors take `slstm_scan_plain`, CUDA tensors the
+    kernel."""
+    if build.records_grad(*wx.values(), *r.values(), *state.values()):
+        return _slstm_apply(wx, r, state)
     if wx["z"].device.type == "cpu":
         return slstm_scan_plain(wx, r, state)
     return slstm_scan_cuda(wx, r, state)

@@ -1,16 +1,19 @@
 """The language-model kernels' CUDA wrappers where autograd would record
-them. B5's tc route (`flash_attention_tc_cuda`) has a backward (B5-bwd):
-there it goes through `FlashAttention`, records a backward, reaches the
-forward's entry point (with its log-sum-exp) and, on `.backward()`, the
-backward's. The others refuse: B5's split-TF32 and FMA routes
-(`flash_attention_{tf32x3,fma}_cuda`), B6 (`rglru_scan_cuda`), B7's three
-passes and the whole (`mlstm_chunk_{states,outputs,scan}_cuda`,
-`mlstm_state_scan_cuda`) and B8 (`slstm_scan_cuda`). None of these has a
-backward yet, so an output computed from an input that requires grad
-would silently carry no gradient; each wrapper raises instead, naming
-itself, and launches nothing. Under `torch.no_grad()`, or when no input
-requires grad, every call gets past the check and reaches its launch
-(the tc route's without the log-sum-exp).
+them. Three have a backward: B5's tc route (`flash_attention_tc_cuda`,
+B5-bwd), B7 whole (`mlstm_chunk_scan_cuda`, B7-bwd) and B8
+(`slstm_scan_cuda`, B8-bwd). There each goes through its autograd
+Function (`FlashAttention`, `MLSTMChunkScan`, `SLSTMScan`), records a
+backward, reaches its forward's entry points (the ones that keep what the
+backward reads: the log-sum-exp, each row's mLSTM normaliser, sLSTM's
+per-step record) and, on `.backward()`, the backward's. The others
+refuse: B5's split-TF32 and FMA routes (`flash_attention_{tf32x3,fma}_cuda`),
+B6 (`rglru_scan_cuda`) and B7's three passes launched on their own
+(`mlstm_chunk_{states,outputs}_cuda`, `mlstm_state_scan_cuda`). None of
+these has a backward, so an output computed from an input that requires
+grad would silently carry no gradient; each wrapper raises instead,
+naming itself, and launches nothing. Under `torch.no_grad()`, or when no
+input requires grad, every call gets past the check and reaches its
+serving launch.
 
 The inputs are CPU tensors that say they live on a card (`fake_cuda`),
 with every kernel entry point replaced by a recorder and the card's
@@ -45,9 +48,10 @@ def launches(monkeypatch):
     monkeypatch.setattr(trglru, "_lib", lambda: (
         recorder("rglru_scan_launch"), lambda B, T, D: 16))
     monkeypatch.setattr(txlstm, "_mlstm_fn",
-                        lambda name, nargs: recorder(name))
+                        lambda name, nargs, lib=None: recorder(name))
     monkeypatch.setattr(txlstm, "_slstm_fn",
-                        lambda name, nints: recorder(name))
+                        lambda lib, nints, entry=None, nptrs=17:
+                        recorder(entry or lib))
     check = txlstm._check_cuda
     monkeypatch.setattr(txlstm, "_check_cuda", lambda name, *ts: check(
         name, *(fake_cuda(t) for t in ts)))
@@ -148,23 +152,36 @@ WRAPPERS = {
 }
 
 
-#: Wrappers with a backward: the launches a call under autograd makes, and
-#: those its `.backward()` adds.
-HAS_BACKWARD = {"flash_attention_tc_cuda": (
-    ["flash_attention_tc_launch"], ["flash_attention_bwd_tc_launch"])}
+#: Wrappers with a backward: the autograd Function a call under autograd
+#: records, the launches it makes, and those its `.backward()` adds.
+HAS_BACKWARD = {
+    "flash_attention_tc_cuda": (
+        "FlashAttention", ["flash_attention_tc_launch"],
+        ["flash_attention_bwd_tc_launch"]),
+    "mlstm_chunk_scan_cuda": (
+        "MLSTMChunkScan", ["mlstm_chunk_states_launch",
+                           "mlstm_state_scan_launch",
+                           "mlstm_chunk_outputs_dot_launch"],
+        ["mlstm_bwd_outputs_launch", "mlstm_bwd_scan_launch",
+         "mlstm_bwd_inputs_launch"]),
+    "slstm_scan_cuda": ("SLSTMScan", ["slstm_saved_launch"], ["slstm_bwd"]),
+}
 
 
 @pytest.mark.parametrize("name", list(WRAPPERS))
 def test_wrapper_raises_on_an_input_that_requires_grad(launches, name):
-    """Each wrapper without a backward raises; the tc route (B5-bwd)
-    records a backward instead and reaches both entry points."""
+    """Each wrapper without a backward raises; the tc route (B5-bwd), B7
+    whole (B7-bwd) and B8 (B8-bwd) record a backward instead and reach
+    both sets of entry points."""
     call, _ = WRAPPERS[name]
     assert torch.is_grad_enabled()
     if name in HAS_BACKWARD:
-        fwd, bwd = HAS_BACKWARD[name]
+        fn, fwd, bwd = HAS_BACKWARD[name]
         out = call(True)
+        if isinstance(out, tuple):
+            out = out[0]
         assert out.requires_grad
-        assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+        assert type(out.grad_fn).__name__ == f"{fn}Backward"
         assert launches == fwd
         out.backward(torch.ones_like(out))
         assert launches == fwd + bwd
