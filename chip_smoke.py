@@ -50,7 +50,9 @@ edges, B6 also at the long-memory recipe (`recurrent_checks`), their
 backwards B7-bwd (`models/csrc/mlstm_chunk_bwd.cu`, three passes, each
 against its own plain version) and B8-bwd (`models/csrc/slstm_bwd.cu`)
 against the plain backwards at xlstm's training shape and ragged edges,
-with registers and spills (`recurrent_bwd_checks`), the MoE
+with registers and spills, and the forwards' training launches (B7's
+outputs pass with each row's dot_r, B8 with its per-step record) against
+their plain versions on the same inputs (`recurrent_bwd_checks`), the MoE
 family —
 qwen2-moe-a2.7b whole: a 32,768-token prefill, 4 x 256 decode steps with
 the tokens capacity drops, and one full-width MoE layer each of
@@ -2382,12 +2384,15 @@ def mlstm_bwd_bounds(B, H, T, D, L):
     """(ms, what binds) of B7-bwd whole and of each pass: f32 FMA
     operations (the intra-chunk products over the causal triangle only),
     each pass's inputs read once and outputs written once (a chunk state
-    counted as its D^2 + D values)."""
+    counted as its D^2 + D values). Per chunk the function needs four
+    L x D x D products, 8 L D^2: dC_own (pass 1; the m-gradient through
+    sigma is the state's dot with it, not a product q C_in) and pass 3's
+    k dC_out, v dC_out^T, dh~ C_in^T."""
     nc = T // L
     st = 4 * B * H * nc * (D * D + D)
     rows = 4 * B * T * H * D
     gates = 4 * B * H * T
-    p1 = bound_of(B * H * nc * (4 * L * D * D + 6 * L * D),
+    p1 = bound_of(B * H * nc * (2 * L * D * D + 2 * (D * D + D) + 4 * L * D),
                   3 * rows + 3 * gates + 2 * st)
     p2 = bound_of(B * H * nc * (4 * (D * D + D) + 6),
                   3 * st + 4 * 4 * B * H * nc + 4 * B * H * (D * D + D))
@@ -2395,8 +2400,8 @@ def mlstm_bwd_bounds(B, H, T, D, L):
                                 + 10 * L * D),
                   8 * rows + 5 * gates + 2 * st)
     whole = bound_of(B * H * nc * (
-        10 * L * D * D + 5 * L * (L + 1) * D + 16 * L * D
-        + 4 * (D * D + D)),
+        8 * L * D * D + 5 * L * (L + 1) * D + 14 * L * D
+        + 6 * (D * D + D)),
         8 * rows + 5 * gates + st + 4 * B * H * (D * D + D + 1))
     return {"whole": whole, "mlstm_bwd_outputs": p1, "mlstm_bwd_scan": p2,
             "mlstm_bwd_inputs": p3}
@@ -2409,8 +2414,12 @@ def mlstm_bwd_check(name, B, H, T, D, chunk, seed, with_state=False,
     version fed by the plain versions of the passes before it, from one
     forward of the kernels (with each row's dot). `with_state`: a random
     carried state and random final-state gradients (the gauge term).
-    Counts the rows on each branch of the denominator. With `reps`, the
-    whole and each pass timed, and the plain whole on the host clock."""
+    Counts the rows on each branch of the denominator. The forward's
+    outputs pass asked for the rows' normalisers (the launch training
+    makes) is first held against `mlstm_chunk_outputs_plain(...,
+    with_dot=True)` on the same inputs: its h and dot within `REC_TOL`.
+    With `reps`, the whole and each pass timed, and the plain whole on
+    the host clock."""
     q, k, v, it, ft, state = mlstm_inputs(B, H, T, D, seed, with_state,
                                           extreme)
     g = torch.Generator(device=DEV).manual_seed(seed + 1000)
@@ -2418,6 +2427,9 @@ def mlstm_bwd_check(name, B, H, T, D, chunk, seed, with_state=False,
     s1 = xlstm_mod.mlstm_state_scan_cuda(work, scal, state)
     h, dot = xlstm_mod.mlstm_chunk_outputs_cuda(q, k, v, it, ft, work, scal,
                                                 chunk, with_dot=True)
+    torch.cuda.synchronize()
+    fwd_err, fwd_ok = rec_errs([h, dot], xlstm_mod.mlstm_chunk_outputs_plain(
+        q, k, v, it, ft, work, scal, chunk, with_dot=True))
     dh = torch.randn(B, T, H * D, device=DEV, generator=g)
     fin = (None, None, None)
     if with_state:
@@ -2457,6 +2469,8 @@ def mlstm_bwd_check(name, B, H, T, D, chunk, seed, with_state=False,
            "state_in": with_state, "extreme_gates": bool(extreme),
            "rows_on_dot_branch": int(on_dot.sum()),
            "rows_on_floor_branch": int((~on_dot).sum()),
+           "forward_with_dot": {"max_abs_err": fwd_err,
+                                "within_tolerance": fwd_ok},
            "max_abs_err": err, "within_tolerance": ok, "plain_ms": plain_ms,
            "scratch_bytes": xlstm_mod.mlstm_work_bytes(B, H, T, D, chunk),
            "passes": {key: {"plain_ms": p[0], "max_abs_err": p[1],
@@ -2484,7 +2498,7 @@ def mlstm_bwd_check(name, B, H, T, D, chunk, seed, with_state=False,
             rec["passes"][key].update(ms=time_cuda(fn, reps),
                                       bound_ms=bounds[key][0],
                                       bound_by=bounds[key][1])
-    if not (ok and all(p[2] for p in passes.values())):
+    if not (fwd_ok and ok and all(p[2] for p in passes.values())):
         raise AssertionError(f"B7-bwd != plain: {rec}")
     if extreme and not (rec["rows_on_dot_branch"]
                         and rec["rows_on_floor_branch"]):
@@ -2496,11 +2510,21 @@ def slstm_bwd_check(name, B, T, H, Dh, dtype, seed, with_state=False,
                     reps=0, floor_us=None):
     """B8-bwd against `slstm_scan_bwd_plain` on the record of one forward
     of the kernel; `with_state`: a random initial state and random
-    final-state gradients. With `reps` timed (kernel and dR's product;
-    µs a step beside the exchange floor `floor_us`)."""
+    final-state gradients. The forward asked for its record (the launch
+    training makes) is first held against `slstm_scan_plain(...,
+    with_saved=True)` on the same inputs: h, the final state and each of
+    the record's rows within `REC_TOL`. With `reps` timed (kernel and
+    dR's product; µs a step beside the exchange floor `floor_us`)."""
     wx, r, state = slstm_inputs(B, T, H, Dh, dtype, seed, with_state)
     g = torch.Generator(device=DEV).manual_seed(seed + 1000)
-    h, _, saved = xlstm_mod.slstm_scan_cuda(wx, r, state, with_saved=True)
+    h, st, saved = xlstm_mod.slstm_scan_cuda(wx, r, state, with_saved=True)
+    torch.cuda.synchronize()
+    hp, stp, savedp = xlstm_mod.slstm_scan_plain(wx, r, state,
+                                                 with_saved=True)
+    keys = ("h", "c", "n", "m")
+    fwd_err, fwd_ok = rec_errs(
+        [h, *(st[k_] for k_ in keys), *saved.unbind(2)],
+        [hp, *(stp[k_] for k_ in keys), *savedp.unbind(2)])
     dh = torch.randn(B, T, H * Dh, device=DEV, generator=g)
     fin = [None] * 4
     if with_state:
@@ -2520,6 +2544,8 @@ def slstm_bwd_check(name, B, T, H, Dh, dtype, seed, with_state=False,
     rec = {"shape": name, "B": B, "T": T, "H": H, "Dh": Dh,
            "dtype": str(dtype).split(".")[-1], "state_in": with_state,
            "cluster": xlstm_mod.slstm_cluster(Dh),
+           "forward_with_saved": {"max_abs_err": fwd_err,
+                                  "within_tolerance": fwd_ok},
            "max_abs_err": err, "within_tolerance": ok, "plain_ms": plain_ms}
     if reps:
         d = H * Dh
@@ -2540,7 +2566,7 @@ def slstm_bwd_check(name, B, T, H, Dh, dtype, seed, with_state=False,
         if floor_us is not None:
             rec.update(exchange_floor_us_per_step=floor_us,
                        us_per_step_over_floor=rec["us_per_step"] / floor_us)
-    if not ok:
+    if not (fwd_ok and ok):
         raise AssertionError(f"B8-bwd != plain: {rec}")
     return rec
 

@@ -51,10 +51,10 @@
 // the stride keeps float4 alignment). The gate scans (cumsum, cummax over
 // L <= 64) run in warp 0, two steps a lane, by shuffles.
 //
-// For training, `mlstm_chunk_outputs_dot_launch` also writes each row's
-// dot_r (B, H, T), from which B7-bwd (mlstm_chunk_bwd.cu) recomputes the
-// denominator and the branch that won it; `mlstm_chunk_outputs_launch`
-// is the serving paths' launch as before. The tile helpers are shared
+// For training, `mlstm_chunk_outputs_launch` given a `dot` also writes
+// each row's dot_r (B, H, T), from which B7-bwd (mlstm_chunk_bwd.cu)
+// recomputes the denominator and the branch that won it; with a null
+// `dot` it is the serving paths' launch as before. The tile helpers are shared
 // with B7-bwd through mlstm_tiles.cuh.
 //
 // What bounds it on an H100: operations, on the FMA units (the split-TF32
@@ -503,19 +503,9 @@ cudaError_t outputs(const void* q, const void* k, const void* v,
 }  // namespace
 
 // Pass 3. q, k, v, it, ft as pass 1 (q with k's strides); work / scal as
-// pass 2 left them; h (B, T, H*D) f32 out.
+// pass 2 left them; h (B, T, H*D) f32 out; dot: null, or each row's
+// normaliser dot_r = n_r . q_r (B, H, T) f32 out, which B7-bwd reads.
 extern "C" int mlstm_chunk_outputs_launch(
-    const void* q, const void* k, const void* v, const void* it,
-    const void* ft, const void* work, const void* scal, void* h, int B,
-    int H, int T, int D, int L, int qs_b, int qs_h, int qs_t, int gs_b,
-    int gs_h, int gs_t, void* stream) {
-  return (int)outputs(q, k, v, it, ft, work, scal, h, nullptr, B, H, T, D,
-                      L, qs_b, qs_h, qs_t, gs_b, gs_h, gs_t, stream);
-}
-
-// Pass 3 for training: the same, also writing each row's normaliser
-// dot_r = n_r . q_r (B, H, T) f32, which B7-bwd reads.
-extern "C" int mlstm_chunk_outputs_dot_launch(
     const void* q, const void* k, const void* v, const void* it,
     const void* ft, const void* work, const void* scal, void* h, void* dot,
     int B, int H, int T, int D, int L, int qs_b, int qs_h, int qs_t,

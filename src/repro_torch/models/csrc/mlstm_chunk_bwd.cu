@@ -28,7 +28,8 @@
 //      chunk): from dh, h, the forward's dot_r and the recomputed gate
 //      scan, the chunk's own gradient of its incoming state — dC_own,
 //      dn_own into `dwork` (laid out like the forward's scratch) and
-//      dm_own into `dscal` — using q C_in for dsigma;
+//      dm_own = sum_r sigma_r dsigma_r into `dscal`, as <C_in, dC_own> +
+//      <n_in, dn_own> (the same sum without a product q C_in);
 //   2. reverse inter-chunk scan (`mlstm_bwd_scan_kernel`), one thread per
 //      four elements of (C, n) of a (b, head), serial over chunks from the
 //      last: dC_in(c) = alpha_c dC_out(c) + dC_own(c), leaving dC_out(c) in
@@ -50,8 +51,8 @@
 // tensor cores, operands re-read for each product.
 //
 // What bounds it on an H100: operations, on the FMA units. Per chunk and
-// (b, head): pass 1 4 L D^2 (q C_in, dC_own); pass 3 6 L D^2 (k dC_out,
-// v dC_out^T, dh~ C_in^T) + 10 L^2 D (S, dP, P^T dh~, dS^T q, dS k); the
+// (b, head): pass 1 2 L D^2 (dC_own); pass 3 6 L D^2 (k dC_out, v
+// dC_out^T, dh~ C_in^T) + 10 L^2 D (S, dP, P^T dh~, dS^T q, dS k); the
 // scratch adds 3 x (D + 1) x DP x 4 bytes of traffic.
 
 #include <cuda_runtime.h>
@@ -140,8 +141,7 @@ mlstm_bwd_outputs_kernel(const float* __restrict__ q,
   float* sig = flo + LMAX;
   float* rden = sig + LMAX;
   float* ddot = rden + LMAX;
-  float* qn = ddot + LMAX;
-  float* dsig = qn + LMAX;
+  float* part = ddot + LMAX;        // [WARPS]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c = blockIdx.x, bh = blockIdx.y, nc = gridDim.x;
@@ -173,21 +173,17 @@ mlstm_bwd_outputs_kernel(const float* __restrict__ q,
     }
   }
   __syncthreads();
-  // Per row: <dh_r, h_r> -> ddot_r; n_in . q_r.
+  // Per row: <dh_r, h_r> -> ddot_r.
   for (int r = warp; r < L; r += WARPS) {
-    float hh = 0.0f, nq = 0.0f;
-    for (int d = lane; d < D; d += 32) {
+    float hh = 0.0f;
+    for (int d = lane; d < D; d += 32)
       hh += dh[hrow + r * HD + d] * h[hrow + r * HD + d];
-      nq += slot[(int64_t)D * DP + d] * q[off + r * st.qs_t + d];
-    }
     hh = warp_sum(hh);
-    nq = warp_sum(nq);
     if (lane == 0) {
       const float ad = fabsf(dotv[r]);
       const float den = fmaxf(ad, flo[r]);
       rden[r] = 1.0f / den;
       ddot[r] = ad >= flo[r] ? -hh / den * sgn(dotv[r]) : 0.0f;
-      qn[r] = nq;
     }
   }
   __syncthreads();
@@ -195,44 +191,10 @@ mlstm_bwd_outputs_kernel(const float* __restrict__ q,
   const int tr = 2 * warp + (lane >> 4), tc = lane & 15;
   const int r0 = 4 * tr;
   float acc[4][4 * NJ];
-  // dsigma_r = <dh~_r, q_r C_in> + ddot_r (n_in . q_r).
-  zero<NJ>(acc);
-  gemm_staged<NJ, true, false>(
-      acc, D,
-      [&](int kk, int row) {
-        return row < L ? q[off + row * st.qs_t + kk] : 0.0f;
-      },
-      [&](int kk, int col) { return slot[(int64_t)kk * DP + col]; }, sA,
-      sB, r0, 4 * tc);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + i;
-    float s = 0.0f;
-    if (r < L) {
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int col = 4 * tc + 64 * j + jj;
-          if (col < D) s += acc[i][4 * j + jj] * dh[hrow + r * HD + col];
-        }
-    }
-    s = row_sum16(s);
-    if (tc == 0 && r < L) dsig[r] = s * rden[r] + ddot[r] * qn[r];
-  }
-  __syncthreads();
-  if (warp == 0) {
-    float s = 0.0f;
-    for (int r = lane; r < L; r += 32) s += sig[r] * dsig[r];
-    s = warp_sum(s);
-    if (lane == 0) {
-      float* ds = dscal + ((int64_t)bh * nc + c) * 4;
-      ds[0] = s;
-      ds[1] = 0.0f;   // X_c: pass 2 adds into it
-      ds[2] = 0.0f;
-      ds[3] = 0.0f;
-    }
-  }
+  // dm_own = sum_r sigma_r dsigma_r, dsigma_r = <dh~_r, q_r C_in> +
+  // ddot_r (n_in . q_r), is <C_in, dC_own> + <n_in, dn_own>: a dot of the
+  // chunk state with its gradient in place of a product q C_in (K = D).
+  float xm = 0.0f;
   // dC_own = sum_r sigma_r q_r dh~_r^T, 64 rows at a time.
   for (int rb = 0; rb < D; rb += 64) {
     zero<NJ>(acc);
@@ -251,20 +213,39 @@ mlstm_bwd_outputs_kernel(const float* __restrict__ q,
       const int d = rb + r0 + i;
       if (d < D)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j)
-          *reinterpret_cast<float4*>(dslot + (int64_t)d * DP + 4 * tc +
-                                     64 * j) =
+        for (int j = 0; j < NJ; ++j) {
+          const int64_t at = (int64_t)d * DP + 4 * tc + 64 * j;
+          *reinterpret_cast<float4*>(dslot + at) =
               make_float4(acc[i][4 * j], acc[i][4 * j + 1],
                           acc[i][4 * j + 2], acc[i][4 * j + 3]);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            if (4 * tc + 64 * j + jj < D)
+              xm += acc[i][4 * j + jj] * slot[at + jj];
+        }
     }
   }
   // dn_own = sum_r sigma_r ddot_r q_r: row D.
   for (int d = tid; d < DP; d += THREADS) {
     float s = 0.0f;
-    if (d < D)
+    if (d < D) {
       for (int r = 0; r < L; ++r)
         s += sig[r] * ddot[r] * q[off + r * st.qs_t + d];
+      xm += s * slot[(int64_t)D * DP + d];
+    }
     dslot[(int64_t)D * DP + d] = s;
+  }
+  xm = warp_sum(xm);
+  if (lane == 0) part[warp] = xm;
+  __syncthreads();
+  if (tid == 0) {
+    float s = 0.0f;
+    for (int w = 0; w < WARPS; ++w) s += part[w];
+    float* ds = dscal + ((int64_t)bh * nc + c) * 4;
+    ds[0] = s;
+    ds[1] = 0.0f;   // X_c: pass 2 adds into it
+    ds[2] = 0.0f;
+    ds[3] = 0.0f;
   }
 }
 
@@ -652,7 +633,7 @@ mlstm_bwd_inputs_kernel(
 }
 
 size_t outputs_smem(int NJ) {
-  return (staging_floats(NJ) + 9 * LMAX) * 4;
+  return (staging_floats(NJ) + 7 * LMAX + WARPS) * 4;
 }
 
 size_t inputs_smem(int NJ) {

@@ -65,10 +65,10 @@
 // 1 - 2 / (exp(2|x|) + 1)): their errors (a few ulp, absolute below 1e-6
 // in the activations) stay far inside the kernel's stated tolerance.
 //
-// For training, `slstm_saved_launch` also writes, per step, what B8-bwd
-// (slstm_bwd.cu) reads: the four pre-activations and the new c, n, m, 7
-// floats a unit from warp 0's cell lanes. `slstm_launch` passes a null
-// record and is the serving paths' launch as before.
+// For training, `slstm_launch` given a `saved` record also writes, per
+// step, what B8-bwd (slstm_bwd.cu) reads: the four pre-activations and the
+// new c, n, m, 7 floats a unit from warp 0's cell lanes. With a null
+// record it is the serving paths' launch as before.
 //
 // Tried and not adopted: 16 warps of half as many rows (R's 64 registers
 // a thread and the partial sums did not fit the 128 registers that 512
@@ -337,24 +337,12 @@ cudaError_t dispatch(const void* const* in, void* saved, int B, int T,
 
 // wz, wi, wf, wo: (B, T, H*Dh) in the wx type; rz, ri, rf, ro: (H, Dh, Dh)
 // in the R type; h0, c0, n0, m0: (B, H, Dh) f32; hout (B, T, H*Dh) f32 and
-// h1, c1, n1, m1 (B, H, Dh) f32 out. dtypes = 2 * wx code + R code (0 f32,
-// 1 bf16). cluster: blocks per (b, head), ceil(Dh / 32) (the portable
-// cluster sizes hold every Dh <= 256).
+// h1, c1, n1, m1 (B, H, Dh) f32 out. saved: null, or the record B8-bwd
+// reads (B, T, 7, H*Dh) f32 out, per step the four pre-activations (z, i,
+// f before its + 1, o) and the new c, n, m. dtypes = 2 * wx code + R code
+// (0 f32, 1 bf16). cluster: blocks per (b, head), ceil(Dh / 32) (the
+// portable cluster sizes hold every Dh <= 256).
 extern "C" int slstm_launch(
-    const void* wz, const void* wi, const void* wf, const void* wo,
-    const void* rz, const void* ri, const void* rf, const void* ro,
-    const void* h0, const void* c0, const void* n0, const void* m0,
-    void* hout, void* h1, void* c1, void* n1, void* m1, int B, int T, int H,
-    int Dh, int dtypes, int cluster, void* stream) {
-  const void* const p[17] = {wz, wi, wf, wo, rz, ri, rf, ro, h0, c0,
-                             n0, m0, hout, h1, c1, n1, m1};
-  return (int)dispatch(p, nullptr, B, T, H, Dh, dtypes, cluster, stream);
-}
-
-// The same, also writing the record B8-bwd reads: saved (B, T, 7, H*Dh)
-// f32, per step the four pre-activations (z, i, f before its + 1, o) and
-// the new c, n, m.
-extern "C" int slstm_saved_launch(
     const void* wz, const void* wi, const void* wf, const void* wo,
     const void* rz, const void* ri, const void* rf, const void* ro,
     const void* h0, const void* c0, const void* n0, const void* m0,

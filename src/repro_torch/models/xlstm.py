@@ -342,6 +342,11 @@ def mlstm_chunk_outputs_plain(q, k, v, it, ft, work, scal, chunk: int, *,
 mlstm_chunk_outputs_plain.calls = 0
 
 
+def _ptr(t):
+    """A tensor's address, or 0 (a null pointer: "not given") for None."""
+    return 0 if t is None else t.data_ptr()
+
+
 def _mlstm_fn(name, nargs, lib="mlstm_chunk"):
     fn = getattr(build.load(lib), name)
     if fn.argtypes is None:
@@ -442,23 +447,19 @@ mlstm_state_scan_cuda.launches = 0
 def mlstm_chunk_outputs_cuda(q, k, v, it, ft, work, scal, chunk: int, *,
                              with_dot: bool = False):
     """Launch B7's third pass on CUDA tensors (as
-    `mlstm_chunk_outputs_plain`; `with_dot` through the entry point that
-    also writes each row's normaliser, for B7-bwd). On the current stream,
-    not synchronised."""
+    `mlstm_chunk_outputs_plain`; `with_dot` also writes each row's
+    normaliser, for B7-bwd, and without it the launch is the serving
+    paths' own). On the current stream, not synchronised."""
     B, H, T, D = _check_mlstm_inputs("mlstm_chunk_outputs_cuda", (q, k, v),
                                      it, ft, chunk)
     _check_work("mlstm_chunk_outputs_cuda", work, scal, B, H, T, D, chunk)
     h = torch.empty((B, T, H * D), dtype=torch.float32, device=q.device)
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), it.data_ptr(),
-            ft.data_ptr(), work.data_ptr(), scal.data_ptr(), h.data_ptr()]
-    name = "mlstm_chunk_outputs_launch"
-    if with_dot:
-        dot = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-        ptrs.append(dot.data_ptr())
-        name = "mlstm_chunk_outputs_dot_launch"
+    dot = torch.empty((B, H, T), dtype=torch.float32, device=q.device) \
+        if with_dot else None
     with torch.cuda.device(q.device):
-        err = _mlstm_fn(name, (len(ptrs), 11))(
-            *ptrs, B, H, T, D, chunk, *q.stride()[:3], *it.stride(),
+        err = _mlstm_fn("mlstm_chunk_outputs_launch", (9, 11))(
+            *(t.data_ptr() for t in (q, k, v, it, ft, work, scal, h)),
+            _ptr(dot), B, H, T, D, chunk, *q.stride()[:3], *it.stride(),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "mlstm_chunk_outputs")
     build.count(mlstm_chunk_outputs_cuda)
@@ -555,23 +556,23 @@ def mlstm_bwd_outputs_plain(q, dh, h, dot, it, ft, work, scal, chunk: int):
     through the chunk's own outputs — dC_own = sum_r sigma_r q_r dh~_r^T
     and dn_own = sum_r sigma_r ddot_r q_r into dwork (laid out like work,
     zero past column D), dm_own = sum_r sigma_r dsigma_r into dscal[...,
-    0] (dscal[..., 1:] = 0). dh (B, T, H*D); h, dot as the forward left
-    them. Returns (dwork, dscal)."""
+    0] (dscal[..., 1:] = 0), where dsigma_r = <dh~_r, q_r C_in> + ddot_r
+    (n_in . q_r), so that dm_own = <C_in, dC_own> + <n_in, dn_own>. dh
+    (B, T, H*D); h, dot as the forward left them. Returns (dwork,
+    dscal)."""
     build.count(mlstm_bwd_outputs_plain, "calls")
     B, H, T, D = q.shape
     nc, L = T // chunk, chunk
     _, _, _, sig, dot, den, on_dot = _bwd_rows(dot, it, ft, scal, chunk)
     dht, ddot, _ = _bwd_out_side(dh, h, dot, on_dot, den, B, H, nc, L, D)
     qc = q.reshape(B, H, nc, L, D)
-    Cin, nin = work[..., :D, :D], work[..., D, :D]
-    dsig = (dht * torch.einsum("bhcrd,bhcdv->bhcrv", qc, Cin)).sum(-1) \
-        + ddot * torch.einsum("bhcrd,bhcd->bhcr", qc, nin)
     sq = sig[..., None] * qc
     dwork = torch.zeros_like(work)
     dwork[..., :D, :D] = torch.einsum("bhcrd,bhcrv->bhcdv", sq, dht)
     dwork[..., D, :D] = torch.einsum("bhcr,bhcrd->bhcd", ddot, sq)
     dscal = torch.zeros_like(scal)
-    dscal[..., 0] = (sig * dsig).sum(-1)
+    dscal[..., 0] = (work[..., :D + 1, :D] * dwork[..., :D + 1, :D]).sum(
+        (-2, -1))
     return dwork, dscal
 
 
@@ -693,11 +694,6 @@ def mlstm_chunk_scan_bwd_plain(q, k, v, it, ft, h, dot, work, scal, C1, n1,
     dq, dk, dv, dit, dft, dm0 = mlstm_bwd_inputs_plain(
         q, k, v, it, ft, dh, h, dot, work, scal, dwork, dscal, dm1, chunk)
     return dq, dk, dv, dit, dft, dC0, dn0, dm0
-
-
-def _ptr(t):
-    """A tensor's address, or 0 (a null pointer: "not given") for None."""
-    return 0 if t is None else t.data_ptr()
 
 
 def _check_bwd(name, q, dh, h, dot, it, ft, work, scal, chunk):
@@ -1014,11 +1010,10 @@ def slstm_cluster(head_dim: int) -> int:
     return -(-head_dim // SLSTM_MAX_UNITS)
 
 
-def _slstm_fn(lib, nints, entry=None, nptrs=17):
-    """`entry` (by default `<lib>_launch`) of kernel library `lib`."""
-    fn = getattr(build.load(lib), entry or f"{lib}_launch")
+def _slstm_fn(name, nints):
+    fn = getattr(build.load(name), f"{name}_launch")
     if fn.argtypes is None:
-        fn.argtypes = [_P] * nptrs + [_I] * nints + [_P]
+        fn.argtypes = [_P] * 18 + [_I] * nints + [_P]
         fn.restype = _I
     return fn
 
@@ -1062,9 +1057,9 @@ def slstm_scan_cuda(wx, r, state, *, with_saved: bool = False):
     `slstm_scan_plain`: the four wx contiguous (B, T, H*Dh) in one dtype
     of `KERNEL_DTYPES`, the four r contiguous (H, Dh, Dh) in one dtype of
     `KERNEL_DTYPES`, state f32; Dh <= 256. One cluster of
-    `slstm_cluster(Dh)` blocks per (batch row, head). `with_saved` goes
-    through the entry point that also writes the record for B8-bwd;
-    without it the launch is the serving paths' own. Where autograd
+    `slstm_cluster(Dh)` blocks per (batch row, head). `with_saved` also
+    writes the record for B8-bwd; without it the launch is the serving
+    paths' own. Where autograd
     records the call it goes through `SLSTMScan` (the kernel with its
     record, and B8-bwd). On the current stream, not synchronised."""
     if build.records_grad(*wx.values(), *r.values(), *state.values()):
@@ -1074,17 +1069,13 @@ def slstm_scan_cuda(wx, r, state, *, with_saved: bool = False):
     h = torch.empty((B, T, H * Dh), dtype=torch.float32,
                     device=wxs[0].device)
     out = [torch.empty_like(t) for t in st]
-    ptrs = [t.data_ptr() for t in (*wxs, *rs, *st, h, *out)]
-    ints = (B, T, H, Dh, code, slstm_cluster(Dh))
-    stream = torch.cuda.current_stream().cuda_stream
+    saved = torch.empty((B, T, SLSTM_SAVED, H * Dh), dtype=torch.float32,
+                        device=h.device) if with_saved else None
     with torch.cuda.device(h.device):
-        if with_saved:
-            saved = torch.empty((B, T, SLSTM_SAVED, H * Dh),
-                                dtype=torch.float32, device=h.device)
-            err = _slstm_fn("slstm", 6, "slstm_saved_launch", 18)(
-                *ptrs, saved.data_ptr(), *ints, stream)
-        else:
-            err = _slstm_fn("slstm", 6)(*ptrs, *ints, stream)
+        err = _slstm_fn("slstm", 6)(
+            *(t.data_ptr() for t in (*wxs, *rs, *st, h, *out)), _ptr(saved),
+            B, T, H, Dh, code, slstm_cluster(Dh),
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "slstm")
     build.count(slstm_scan_cuda)
     state = dict(zip(("h", "c", "n", "m"), out))
@@ -1240,7 +1231,7 @@ def slstm_scan_bwd_cuda(r, h0, c0, n0, m0, h, saved, dh, dh1, dc1, dn1,
     delta = torch.empty((B, T, 4, d), dtype=torch.float32, device=h.device)
     out = [torch.empty_like(init[0]) for _ in range(4)]
     with torch.cuda.device(h.device):
-        err = _slstm_fn("slstm_bwd", 6, None, 18)(
+        err = _slstm_fn("slstm_bwd", 6)(
             *(t.data_ptr() for t in (*r, *init, saved, dh)),
             *(_ptr(t) for t in given),
             *(t.data_ptr() for t in (delta, *out)),

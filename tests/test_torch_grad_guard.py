@@ -3,7 +3,7 @@ them. Three have a backward: B5's tc route (`flash_attention_tc_cuda`,
 B5-bwd), B7 whole (`mlstm_chunk_scan_cuda`, B7-bwd) and B8
 (`slstm_scan_cuda`, B8-bwd). There each goes through its autograd
 Function (`FlashAttention`, `MLSTMChunkScan`, `SLSTMScan`), records a
-backward, reaches its forward's entry points (the ones that keep what the
+backward, reaches its forward's entry points (asked to keep what the
 backward reads: the log-sum-exp, each row's mLSTM normaliser, sLSTM's
 per-step record) and, on `.backward()`, the backward's. The others
 refuse: B5's split-TF32 and FMA routes (`flash_attention_{tf32x3,fma}_cuda`),
@@ -50,8 +50,7 @@ def launches(monkeypatch):
     monkeypatch.setattr(txlstm, "_mlstm_fn",
                         lambda name, nargs, lib=None: recorder(name))
     monkeypatch.setattr(txlstm, "_slstm_fn",
-                        lambda lib, nints, entry=None, nptrs=17:
-                        recorder(entry or lib))
+                        lambda name, nints: recorder(name))
     check = txlstm._check_cuda
     monkeypatch.setattr(txlstm, "_check_cuda", lambda name, *ts: check(
         name, *(fake_cuda(t) for t in ts)))
@@ -161,10 +160,10 @@ HAS_BACKWARD = {
     "mlstm_chunk_scan_cuda": (
         "MLSTMChunkScan", ["mlstm_chunk_states_launch",
                            "mlstm_state_scan_launch",
-                           "mlstm_chunk_outputs_dot_launch"],
+                           "mlstm_chunk_outputs_launch"],
         ["mlstm_bwd_outputs_launch", "mlstm_bwd_scan_launch",
          "mlstm_bwd_inputs_launch"]),
-    "slstm_scan_cuda": ("SLSTMScan", ["slstm_saved_launch"], ["slstm_bwd"]),
+    "slstm_scan_cuda": ("SLSTMScan", ["slstm"], ["slstm_bwd"]),
 }
 
 

@@ -332,8 +332,9 @@ def test_slstm_wrapper_launch_shape(launches, Dh, want):
     assert all(out[key].shape == (B, H, Dh) for key in "hcnm")
     ((lib, name, args),) = launches
     assert (lib, name) == ("slstm", "slstm")
-    # B, T, H, Dh, dtype code (bf16 wx, f32 r: 2), cluster, stream.
-    assert args[17:] == (B, T, H, Dh, 2, want, 7)
+    # No record (a null pointer), then B, T, H, Dh, dtype code (bf16 wx,
+    # f32 r: 2), cluster, stream.
+    assert args[17:] == (0, B, T, H, Dh, 2, want, 7)
 
 
 def test_mlstm_whole_launches_the_three_passes_on_one_scratch(launches):
@@ -353,9 +354,38 @@ def test_mlstm_whole_launches_the_three_passes_on_one_scratch(launches):
     assert names == ["mlstm_chunk_states_launch", "mlstm_state_scan_launch",
                      "mlstm_chunk_outputs_launch"]
     states, scan, outputs = (args for _, _, args in launches)
-    # One scratch (work, scal) from pass 1 through pass 3.
+    # One scratch (work, scal) from pass 1 through pass 3, which is not
+    # asked for the rows' normalisers (a null pointer).
     assert states[4:6] == scan[0:2] == outputs[5:7]
+    assert outputs[8] == 0
     assert states[6:11] == (B, H, T, D, chunk)
     assert scan[8:12] == (B, H, T // chunk, D)
     # q, k, v strides (b, h, t) of the (B, T, H, D) views, then the gates'.
-    assert outputs[13:19] == (T * H * D, D, H * D, T * H, 1, H)
+    assert outputs[14:20] == (T * H * D, D, H * D, T * H, 1, H)
+
+
+@pytest.mark.parametrize("kernel", ["slstm", "mlstm_chunk_outputs"])
+def test_the_record_for_the_backward_is_written_only_when_asked(launches,
+                                                                kernel):
+    """One entry point per kernel: the record B8-bwd / B7-bwd reads (sLSTM's
+    per-step record, each mLSTM row's normaliser) is a pointer to the
+    returned tensor when asked and a null pointer otherwise."""
+    for asked in (False, True):
+        launches.clear()
+        if kernel == "slstm":
+            out = txlstm.slstm_scan_cuda(*_slstm_args(B=2, T=5, Dh=8),
+                                         with_saved=asked)
+            at = 17
+        else:
+            q, k, v, it, ft, _ = _raw(81, 1, 2, 32, 16)
+            work, scal = (torch.zeros(s_) for s_ in
+                          txlstm.mlstm_work_shapes(1, 2, 32, 16, 16))
+            out = txlstm.mlstm_chunk_outputs_cuda(q, k, v, it, ft, work,
+                                                  scal, 16, with_dot=asked)
+            at = 8
+        ((_, name, args),) = launches
+        assert name == {"slstm": "slstm"}.get(kernel, f"{kernel}_launch")
+        if asked:
+            assert args[at] == out[-1].data_ptr() != 0
+        else:
+            assert args[at] == 0

@@ -15,8 +15,8 @@ W 1,024; D 128, bf16, inputs from a generator seeded 23 in that order) it
 prints one JSON line with, per shape:
 
 - ``ms``: the mean time of one `flash_attention_bwd_tc_cuda` call over
-  ``--reps`` calls back to back (CUDA events, behind a sleep kernel so that
-  the host runs ahead);
+  ``--reps`` calls back to back (`kernel_timing.time_cuda`: CUDA events,
+  behind a sleep kernel so that the host runs ahead);
 - ``by_kernel``: for each kernel and memset of the call, its device ms per
   call, summed over the ``--reps`` calls of one torch.profiler window;
 - ``fwd_with_lse_ms``: the forward kernel with its log-sum-exp, as the
@@ -34,15 +34,12 @@ Imports no JAX.
 
 from __future__ import annotations
 
-import argparse
 import json
-import os
-import subprocess
 import sys
-import time
-from pathlib import Path
 
 import torch
+
+from kernel_timing import by_kernel, card, checkout_args, time_cuda
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
@@ -56,54 +53,8 @@ def live_pairs(B, Hq, T, W):
     return B * Hq * (W * (W + 1) // 2 + (T - W) * W)
 
 
-def time_cuda(fn, reps):
-    """Mean device ms of `fn` over `reps` calls behind a sleep kernel that
-    covers twice the host's enqueue time."""
-    fn()
-    torch.cuda.synchronize()
-    h0 = time.perf_counter()
-    fn()
-    host_ms = (time.perf_counter() - h0) * 1e3
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(min(2 * host_ms * reps, 2000) * 2e6))
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
-def by_kernel(fn, reps):
-    """Device ms per call of each kernel `fn` launches, from one profiler
-    window of `reps` calls; None when the profiler saw no device event."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out: dict = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            out[evt.name[:60]] = out.get(evt.name[:60], 0.0) \
-                + evt.time_range.elapsed_us() / 1e3 / reps
-    return out or None
-
-
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--checkout", default=str(Path(__file__).parents[1]))
-    ap.add_argument("--reps", type=int, default=10)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 1
-    os.environ.pop("REPRO_TORCH_BUILD_DIR", None)
-    sys.path.insert(0, str(Path(args.checkout).resolve() / "src"))
+    args = checkout_args(__doc__, 10)
     from repro_torch.kernels.local_attention import local_attention as la
 
     dev = torch.device("cuda", 0)
@@ -147,11 +98,7 @@ def main() -> int:
             str(W): time_cuda(lambda: la.flash_attention_tc_cuda(
                 q, k, v, window=W), args.reps)
             for W in (None, 1024)}
-    rec["nvidia_smi"] = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    rec["device"] = torch.cuda.get_device_name(0)
+    rec.update(card())
     print(json.dumps(rec))
     return 0
 

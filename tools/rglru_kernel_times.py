@@ -13,8 +13,8 @@ x 4,096, bf16; inputs as chip_smoke.py's `rglru_inputs` makes them, seed
 21) it prints one JSON line:
 
 - ``ms``: the mean time of one `rglru_scan_cuda` call over ``--reps``
-  calls back to back (CUDA events, behind a sleep kernel so that the host
-  runs ahead);
+  calls back to back (`kernel_timing.time_cuda`: CUDA events, behind a
+  sleep kernel so that the host runs ahead);
 - ``by_kernel``: for each kernel and memset of the call, its device ms per
   call, summed over the ``--reps`` calls of one torch.profiler window;
 - ``bound_ms``: each input read once and y written once at 3.35 TB/s;
@@ -28,13 +28,13 @@ Imports no JAX.
 
 from __future__ import annotations
 
-import argparse
 import json
 import subprocess
 import sys
-from pathlib import Path
 
 import torch
+
+from kernel_timing import by_kernel, card, checkout_args, time_cuda
 
 HBM_BYTES_PER_S = 3.35e12
 SFU_PER_SM_CLOCK = 16
@@ -42,14 +42,7 @@ SFU_PER_ELEM = 6
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--checkout", default=str(Path(__file__).parents[1]))
-    ap.add_argument("--reps", type=int, default=20)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(Path(args.checkout).resolve() / "src"))
+    args = checkout_args(__doc__, 20)
     from repro_torch.models import rglru
 
     B, T, D, dev = 1, 32768, 4096, torch.device("cuda", 0)
@@ -63,31 +56,9 @@ def main() -> int:
         return rglru.rglru_scan_cuda(wa, wx, x, lam)
 
     with torch.no_grad():
-        call()                                  # build and warm
-        torch.cuda.synchronize()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(100 * 2e6))       # ~0.1 s
-        t0.record()
-        for _ in range(args.reps):
-            call()
-        t1.record()
-        torch.cuda.synchronize()
-        ms = t0.elapsed_time(t1) / args.reps
-
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(args.reps):
-                call()
-            torch.cuda.synchronize()
-    by_kernel: dict = {}
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
-            by_kernel[evt.name[:60]] = by_kernel.get(evt.name[:60], 0.0) \
-                + evt.time_range.elapsed_us() / 1e3 / args.reps
-    if not by_kernel:
+        ms = time_cuda(call, args.reps)
+        kernels = by_kernel(call, args.reps)
+    if kernels is None:
         print("the profiler saw no device event", file=sys.stderr)
         return 1
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -99,12 +70,11 @@ def main() -> int:
     nbytes = 4 * n * x.element_size() + D * lam.element_size() + B * D * 4
     print(json.dumps({
         "checkout": args.checkout, "shape": [B, T, D], "dtype": "bfloat16",
-        "reps": args.reps, "ms": ms, "by_kernel": by_kernel,
+        "reps": args.reps, "ms": ms, "by_kernel": kernels,
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
         "sfu_floor_ms": n * SFU_PER_ELEM / (sms * SFU_PER_SM_CLOCK * mhz
                                             * 1e6) * 1e3,
-        "sms": sms, "max_sm_mhz": mhz,
-        "device": torch.cuda.get_device_name(0)}))
+        "sms": sms, "max_sm_mhz": mhz, **card()}))
     return 0
 
 

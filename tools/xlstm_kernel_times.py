@@ -9,8 +9,9 @@ default), so that two trees can be timed on one card in one run: unpack an
 older commit with ``git archive <commit> | tar -x -C _parent`` and pass
 ``--checkout _parent``. The kernels are built from that checkout's sources
 into its own ``build/``. Prints one JSON line of mean ms per call over
-``--reps`` calls back to back (CUDA events, behind a sleep kernel so that
-the host runs ahead), with random inputs from fixed seeds:
+``--reps`` calls back to back (`kernel_timing.time_cuda`: CUDA events,
+behind a sleep kernel so that the host runs ahead), with random inputs
+from fixed seeds:
 
 - at xlstm-125m's prefill shape (1 x 4 heads x 32,768, head size 192;
   the launches a prefill makes): ``b7`` (the three passes as
@@ -19,44 +20,24 @@ the host runs ahead), with random inputs from fixed seeds:
 - at its training shape (4 x 4 x 4,096), where the checkout trains:
   ``b7_outputs_dot`` and ``b8_saved`` (the forwards keeping what their
   backwards read), ``b7_bwd`` and ``b8_bwd`` (`mlstm_chunk_scan_bwd_cuda`,
-  `slstm_scan_bwd_cuda`).
+  `slstm_scan_bwd_cuda`), and ``b7_bwd_by_kernel``, B7-bwd's device ms
+  per call by pass kernel from one profiler window.
 
 Exits 1 with no CUDA device. Imports no JAX.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import sys
-from pathlib import Path
 
 import torch
 
-
-def timed(fn, reps):
-    fn()                                    # build and warm
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(100 * 2e6))       # ~0.1 s
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+from kernel_timing import by_kernel, card, checkout_args, time_cuda
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--checkout", default=str(Path(__file__).parents[1]))
-    ap.add_argument("--reps", type=int, default=10)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(Path(args.checkout).resolve() / "src"))
+    args = checkout_args(__doc__, 10)
     from repro_torch.models import xlstm
 
     dev = torch.device("cuda", 0)
@@ -81,19 +62,18 @@ def main() -> int:
                   * D ** -0.5).to(torch.bfloat16) for gn in "zifo"}
         return wx, r, xlstm.slstm_state_init(B, H, D, device=dev)
 
-    out = {"checkout": args.checkout, "reps": args.reps,
-           "device": torch.cuda.get_device_name(0)}
+    out = {"checkout": args.checkout, "reps": args.reps, **card()}
     with torch.no_grad():
         q, k, v, it, ft, st = mlstm_inputs(1, 32768, 24)
         work, scal = xlstm.mlstm_chunk_states_cuda(k, v, it, ft, L)
         xlstm.mlstm_state_scan_cuda(work, scal, st)
-        out["b7"] = timed(lambda: xlstm.mlstm_chunk_scan_cuda(
+        out["b7"] = time_cuda(lambda: xlstm.mlstm_chunk_scan_cuda(
             q, k, v, it, ft, st, L), args.reps)
-        out["b7_outputs"] = timed(lambda: xlstm.mlstm_chunk_outputs_cuda(
+        out["b7_outputs"] = time_cuda(lambda: xlstm.mlstm_chunk_outputs_cuda(
             q, k, v, it, ft, work, scal, L), args.reps)
         del q, k, v, it, ft, work, scal
         wx, r, st8 = slstm_inputs(1, 32768, 27)
-        out["b8"] = timed(lambda: xlstm.slstm_scan_cuda(wx, r, st8),
+        out["b8"] = time_cuda(lambda: xlstm.slstm_scan_cuda(wx, r, st8),
                           args.reps)
         if hasattr(xlstm, "MLSTMChunkScan"):
             q, k, v, it, ft, st = mlstm_inputs(4, 4096, 41)
@@ -101,22 +81,26 @@ def main() -> int:
             s1 = xlstm.mlstm_state_scan_cuda(work, scal, st)
             h, dot = xlstm.mlstm_chunk_outputs_cuda(
                 q, k, v, it, ft, work, scal, L, with_dot=True)
-            out["b7_outputs_dot"] = timed(
+            out["b7_outputs_dot"] = time_cuda(
                 lambda: xlstm.mlstm_chunk_outputs_cuda(
                     q, k, v, it, ft, work, scal, L, with_dot=True),
                 args.reps)
             dh = torch.randn_like(h)
-            out["b7_bwd"] = timed(lambda: xlstm.mlstm_chunk_scan_bwd_cuda(
-                q, k, v, it, ft, h, dot, work, scal, s1["C"], s1["n"], dh,
-                None, None, None, L), args.reps)
+
+            def b7_bwd():
+                return xlstm.mlstm_chunk_scan_bwd_cuda(
+                    q, k, v, it, ft, h, dot, work, scal, s1["C"], s1["n"],
+                    dh, None, None, None, L)
+            out["b7_bwd"] = time_cuda(b7_bwd, args.reps)
+            out["b7_bwd_by_kernel"] = by_kernel(b7_bwd, args.reps)
             del q, k, v, it, ft, work, scal, h, dot, dh
             wx, r, st8 = slstm_inputs(4, 4096, 45)
             h, _, saved = xlstm.slstm_scan_cuda(wx, r, st8, with_saved=True)
-            out["b8_saved"] = timed(lambda: xlstm.slstm_scan_cuda(
+            out["b8_saved"] = time_cuda(lambda: xlstm.slstm_scan_cuda(
                 wx, r, st8, with_saved=True), args.reps)
             dh = torch.randn_like(h)
             rs = [r[gn] for gn in "zifo"]
-            out["b8_bwd"] = timed(lambda: xlstm.slstm_scan_bwd_cuda(
+            out["b8_bwd"] = time_cuda(lambda: xlstm.slstm_scan_bwd_cuda(
                 rs, st8["h"], st8["c"], st8["n"], st8["m"], h, saved, dh,
                 None, None, None, None), args.reps)
     print(json.dumps(out))
