@@ -20,7 +20,11 @@ sums dK and dV over the GQA group in registers and reduces each tile's
 dQ into f32 scratch, between a pre-pass and a cast) against
 `flash_attention_bwd_plain` over D x window x GQA group x ragged T and
 at two shapes, timed beside plain, SDPA's backward and the bound, with
-the largest |dq| difference of two calls on the same inputs
+the largest |dq| difference of two calls on the same inputs, and the
+split-TF32 route's backward (`csrc/flash_tf32x3_bwd.cu`: mma.sync on
+split tf32 operands, a block per (key tile, kv head, column chunk), dQ by
+float atomics) likewise over f32 x D {16, 64, 80, 128, 256} and bf16 x D
+{16, 80}, timed at stablelm-3b's training microbatch and an f32 shape
 (`flash_bwd_checks`), then drives the
 language-model serving path — gemma3-27b at
 full width, 14 of its 62 layers, random bf16 weights from `--seed`: one
@@ -32,13 +36,18 @@ qwen3-0.6b whole (28 layers, full width, random f32 weights from
 batch of 8 x 4,096 tokens in two microbatches, B5 and B5-bwd launches as
 the remat scheme implies, ms a step, tokens/s, device busy share and ms
 by kernel, peak memory, model-FLOP share; the loss and every gradient of
-a 4-layer cut on the B5 route against naive attention; one compressed
-(int8 error-feedback) step at a one-pod mesh (`lm_train`) — then trains
+a 4-layer cut on the B5 route against naive attention, in bf16 and in
+f32 (the split-TF32 route and its backward); one compressed (int8
+error-feedback) step at a one-pod mesh (`lm_train`) — then trains
 xlstm-125m whole the same way (12 layers: 6 mLSTM on B7 and B7-bwd, 6
 sLSTM on B8 and B8-bwd; launches as the remat scheme implies, no plain
 version), with a 4-layer cut's loss and gradients in f32 on the card
 against the CPU's plain versions and one compressed step
-(`lm_train_xlstm`) — then B8's per-step
+(`lm_train_xlstm`), recurrentgemma-9b at full width cut to 6 layers (B6
+and B6-bwd, B5 and B5-bwd at D 256; one period's loss and gradients in
+f32 on the card against the CPU: `lm_train_recurrentgemma`) and
+stablelm-3b whole (attention on the split-TF32 route and its backward at
+D 80: `lm_train_stablelm`) — then B8's per-step
 exchange alone (`slstm_exchange`: the probe `models/csrc/slstm_probe.cu`
 at B8's grid, cluster barrier against one-way `st.async` at cluster
 sizes 2-16; its fastest exchange is B8's latency floor), the recurrent
@@ -47,11 +56,13 @@ passes, each held against its own plain version) and B8 (sLSTM, a
 thread-block cluster per head, R in registers, a one-way h exchange)
 against their plain versions at the main paths' shapes and at ragged
 edges, B6 also at the long-memory recipe (`recurrent_checks`), their
-backwards B7-bwd (`models/csrc/mlstm_chunk_bwd.cu`, three passes, each
+backwards B6-bwd (`models/csrc/rglru_scan_bwd.cu`, at recurrentgemma's
+training microbatch, with an h0, ragged T and D, and a = 1), B7-bwd (`models/csrc/mlstm_chunk_bwd.cu`, three passes, each
 against its own plain version) and B8-bwd (`models/csrc/slstm_bwd.cu`)
-against the plain backwards at xlstm's training shape and ragged edges,
-with registers and spills, and the forwards' training launches (B7's
-outputs pass with each row's dot_r, B8 with its per-step record) against
+against the plain backwards at their training shapes and ragged edges,
+with registers and spills, and the forwards' training launches (B6 with
+its scratch's per-tile inclusive h, B7's outputs pass with each row's
+dot_r, B8 with its per-step record) against
 their plain versions on the same inputs (`recurrent_bwd_checks`), the MoE
 family —
 qwen2-moe-a2.7b whole: a 32,768-token prefill, 4 x 256 decode steps with
@@ -139,7 +150,8 @@ from repro_torch.kernels.local_attention import local_attention as la_mod  # noq
 from repro_torch.kernels.local_attention.local_attention import (  # noqa: E402
     flash_attention_bwd_plain, flash_attention_bwd_tc_cuda,
     flash_attention_cuda, flash_attention_fma_cuda, flash_attention_plain,
-    flash_attention_tc_cuda, flash_attention_tf32x3_cuda, kernel_route)
+    flash_attention_bwd_tf32x3_cuda, flash_attention_tc_cuda,
+    flash_attention_tf32x3_cuda, kernel_route)
 from repro_torch.launch import map as map_launcher  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
@@ -1185,10 +1197,11 @@ LSE_TOL = 2 ** -14
 BWD_FLOP_PER_PAIR_PER_D = 10
 
 
-def bwd_errs(got, want, W=None):
+def bwd_errs(got, want, W=None, max_tol=BWD_MAX_TOL, l2_tol=BWD_L2_TOL):
     """{name: max |got - want|, its share of max |want|, rel L2} and
-    whether all are within the tolerance (at W = 1, dq and dk against the
-    exact 0, their share of max |plain dv|)."""
+    whether all are within the tolerance, max |err| <= `max_tol` x max
+    |want| and rel L2 <= `l2_tol` (at W = 1, dq and dk against the exact
+    0, their share of max |plain dv| within `max_tol`)."""
     errs, ok = {}, True
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         if W == 1 and name != "dv":
@@ -1197,7 +1210,7 @@ def bwd_errs(got, want, W=None):
             errs[name] = {"max_abs": mx, "share_of_max_dv": share,
                           "plain_max_abs": float(w.float().abs().max()),
                           "exact": 0.0}
-            ok = ok and share <= BWD_MAX_TOL
+            ok = ok and share <= max_tol
             continue
         d = (g.float() - w.float())
         peak = float(w.float().abs().max())
@@ -1205,7 +1218,7 @@ def bwd_errs(got, want, W=None):
         l2 = float(d.norm() / w.float().norm().clamp_min(1e-30))
         errs[name] = {"max_abs_err": mx, "max_share": mx / max(peak, 1e-30),
                       "rel_l2": l2}
-        ok = ok and mx <= BWD_MAX_TOL * peak and l2 <= BWD_L2_TOL
+        ok = ok and mx <= max_tol * peak and l2 <= l2_tol
     return errs, ok
 
 
@@ -1367,6 +1380,162 @@ def flash_bwd_shapes(reps):
                      / ms / 1e9, "bound_share": bound / ms, "errs": errs,
                      "dq_repeat_max_abs": dq_rep,
                      "lse_err": lse_err, "within_tolerance": ok and lse_ok})
+        del q, k, v, dout, out, lse
+        torch.cuda.empty_cache()
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# The split-TF32 backward (`csrc/flash_tf32x3_bwd.cu`) vs its plain version.
+# ---------------------------------------------------------------------------
+
+#: The split-TF32 backward vs `flash_attention_bwd_plain` (stated before its
+#: first run in this script): bf16 gradients as B5-bwd's (`bwd_errs`:
+#: `BWD_MAX_TOL` x max |plain| and rel L2 `BWD_L2_TOL`, each output rounded
+#: to bf16 once); f32 gradients at f32 level, each of dq, dk, dv within
+#: `REC_TOL` (1e-4) x max |plain| and rel L2 `REC_TOL` (the same f32
+#: function, P recomputed from the forward's lse, summed in another order
+#: and with dq's sums by atomics); at W = 1 dq and dk against their exact
+#: 0 within the same share of max |plain dv|.
+def split_bwd_errs(got, want, W=None):
+    if want[0].dtype == torch.bfloat16:
+        return bwd_errs(got, want, W)
+    return bwd_errs(got, want, W, REC_TOL, REC_TOL)
+
+
+def tf32x3_bwd_case(q, k, v, dout, W):
+    """The split-TF32 forward with its lse and its backward, against the
+    plain forward (`return_lse=True`) and `flash_attention_bwd_plain`, all
+    on the card from the same inputs; the same tuple as
+    `flash_bwd_case`."""
+    out_k, lse_k = la_mod._tf32x3_forward(q, k, v, W, True)
+    got = flash_attention_bwd_tf32x3_cuda(q, k, v, out_k, lse_k, dout,
+                                          window=W)
+    dq_again = flash_attention_bwd_tf32x3_cuda(q, k, v, out_k, lse_k, dout,
+                                               window=W)[0]
+    dq_rep = float((dq_again.float() - got[0].float()).abs().max())
+    del dq_again
+    T = q.shape[2]
+    blk = 128 if T % 128 == 0 else T
+    out_p, lse_p = flash_attention_plain(q, k, v, window=W, block_q=blk,
+                                         block_k=blk, return_lse=True)
+    want = flash_attention_bwd_plain(q, k, v, out_p, lse_p, dout, window=W)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(lse_p)
+    assert torch.equal(fin, torch.isfinite(lse_k)), "lse: inf rows differ"
+    d = (lse_k - lse_p.float())[fin].abs()
+    lse_err = float(d.max()) if d.numel() else 0.0
+    lse_ok = bool((d <= LSE_TOL * (1 + lse_p.float()[fin].abs())).all())
+    return got, want, lse_err, lse_ok, dq_rep
+
+
+def tf32x3_bwd_matrix(quick):
+    """f32 x D {16, 64, 80, 128, 256} and bf16 x D {16, 80}, x W {full, 1,
+    40 (< a 64-key tile), 1,024} x G {1, 2, 8}, T ragged (not a multiple
+    of 32 or 64) from 647 to 2,100: every case within the tolerance.
+    Returns (cases, worst errors by dtype)."""
+    gen = torch.Generator(device=DEV).manual_seed(29)
+    routes = [(torch.float32, D) for D in la_mod.KERNEL_HEAD_DIMS] \
+        + [(torch.bfloat16, D) for D in la_mod.TF32X3_BF16_HEAD_DIMS]
+    grid = list(itertools.product(routes, (None, 1, 40, 1024), (1, 2, 8)))
+    if quick:
+        grid = grid[::5]
+    worst = {}
+    for i, ((dtype, D), W, group) in enumerate(grid):
+        T = (647, 1100, 1500, 2100)[i % 4]
+        B, Hkv = (2, 8 // group) if group > 1 else (1, 4)
+        q, k, v, dout = (torch.randn(B, h, T, D, device=DEV,
+                                     generator=gen).to(dtype)
+                         for h in (Hkv * group, Hkv, Hkv, Hkv * group))
+        got, want, lse_err, lse_ok, dq_rep = tf32x3_bwd_case(q, k, v, dout,
+                                                             W)
+        errs, ok = split_bwd_errs(got, want, W)
+        if not (ok and lse_ok):
+            raise AssertionError(
+                f"split-TF32 backward != plain beyond tolerance: {dtype} "
+                f"D={D} W={W} G={group} T={T} {errs} lse {lse_err}")
+        w = worst.setdefault(str(dtype).split(".")[-1], {
+            "dq": 0.0, "dk": 0.0, "dv": 0.0, "rel_l2": 0.0, "lse": 0.0,
+            "w1_exact_zero": 0.0, "dq_repeat_max_abs": 0.0,
+            "max_abs_err": 0.0})
+        w["dq_repeat_max_abs"] = max(w["dq_repeat_max_abs"], dq_rep)
+        for name, e in errs.items():
+            if "exact" in e:
+                w["w1_exact_zero"] = max(w["w1_exact_zero"],
+                                         e["share_of_max_dv"])
+                continue
+            w[name] = max(w[name], e["max_share"])
+            w["rel_l2"] = max(w["rel_l2"], e["rel_l2"])
+            w["max_abs_err"] = max(w["max_abs_err"], e["max_abs_err"])
+        w["lse"] = max(w["lse"], lse_err)
+        del q, k, v, dout, got, want
+    return len(grid), worst
+
+
+def split_bwd_bound(q, k, W):
+    """Least time of the backward on these inputs: 10*D FLOP per live pair
+    at the input type's tensor-core peak (bf16 989, TF32 494.7 TFLOP/s),
+    against q, k, v, o, dO and lse read once and dq, dk, dv written
+    once."""
+    B, Hq, T, D = q.shape
+    ops = BWD_FLOP_PER_PAIR_PER_D * D * flash_live_pairs(B, Hq, T, W)
+    nbytes = 2 * (2 * q.numel() * q.element_size()
+                  + 2 * k.numel() * k.element_size()) \
+        + q.numel() * q.element_size() + 4 * B * Hq * T
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else TF32_FLOP_PER_S
+    t_ops, t_bytes = ops / peak, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+#: The split-TF32 backward's timed shapes: stablelm-3b's training
+#: microbatch (2 x 32 heads (MHA) x 2,048, D 80, bf16, causal) and an f32
+#: one at qwen3-0.6b's heads (2 x 16 q / 8 kv x 2,048, D 128, causal).
+SPLIT_BWD_SHAPES = (("stablelm_train_d80", (2, 32, 32, 2048, 80, None,
+                                            torch.bfloat16)),
+                    ("qwen3_f32_d128", (2, 16, 8, 2048, 128, None,
+                                        torch.float32)))
+
+
+def tf32x3_bwd_shapes(reps):
+    """The split-TF32 backward at `SPLIT_BWD_SHAPES`: held against plain,
+    timed beside plain, SDPA's backward (kv expanded) and the bound, with
+    the forward's training launch (with lse) and serving launch."""
+    gen = torch.Generator(device=DEV).manual_seed(31)
+    recs = []
+    for name, (B, Hq, Hkv, T, D, W, dtype) in SPLIT_BWD_SHAPES:
+        q, k, v, dout = (torch.randn(B, h, T, D, device=DEV,
+                                     generator=gen).to(dtype)
+                         for h in (Hq, Hkv, Hkv, Hq))
+        got, want, lse_err, lse_ok, dq_rep = tf32x3_bwd_case(q, k, v, dout,
+                                                             W)
+        errs, ok = split_bwd_errs(got, want)
+        del got, want
+        if not (ok and lse_ok):
+            raise AssertionError(f"split-TF32 backward != plain at {name}: "
+                                 f"{errs} lse {lse_err}")
+        out, lse = la_mod._tf32x3_forward(q, k, v, W, True)
+        plain_ms, _ = time_host(lambda: flash_attention_bwd_plain(
+            q, k, v, out, lse, dout, window=W))
+        ms = time_cuda(lambda: flash_attention_bwd_tf32x3_cuda(
+            q, k, v, out, lse, dout, window=W), reps)
+        fwd_ms = time_cuda(lambda: la_mod._tf32x3_forward(q, k, v, W, True),
+                           reps)
+        serve_ms = time_cuda(lambda: flash_attention_tf32x3_cuda(
+            q, k, v, window=W), reps)
+        lib_ms, lib = sdpa_bwd_time(q, k, v, dout, W, reps)
+        bound, by = split_bwd_bound(q, k, W)
+        pairs = flash_live_pairs(B, Hq, T, W)
+        recs.append({"shape": name, "q": list(q.shape), "kv": list(k.shape),
+                     "dtype": str(dtype).split(".")[-1], "window": W,
+                     "live_pairs": pairs, "ms": ms, "fwd_with_lse_ms": fwd_ms,
+                     "fwd_serving_ms": serve_ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "library": lib,
+                     "bound_ms": bound, "bound_by": by,
+                     "tflop_per_s": BWD_FLOP_PER_PAIR_PER_D * D * pairs
+                     / ms / 1e9, "bound_share": bound / ms, "errs": errs,
+                     "dq_repeat_max_abs": dq_rep, "lse_err": lse_err,
+                     "within_tolerance": ok and lse_ok})
         del q, k, v, dout, out, lse
         torch.cuda.empty_cache()
     return recs
@@ -1694,11 +1863,21 @@ def model_flop(cfg, params, B, T):
     return dense + attn
 
 
-def train_grad_check(cfg, seed):
-    """qwen3-0.6b at full width cut to 4 layers, 2 x 1,024 tokens, bf16
-    compute, f32 params: the loss and every leaf's gradient with attention
-    on B5 (`flash_tc` + B5-bwd) against `attn_impl="naive"`."""
-    cfg4 = dataclasses.replace(cfg, n_layers=4)
+#: Card gradient check of the f32 route (stated before its first card
+#: run): qwen3-0.6b cut to 4 layers at f32 compute (TF32 off) on both
+#: sides, attention on the split-TF32 kernel and its backward against
+#: `attn_impl="naive"`: the loss within 1e-4 relative, each leaf's
+#: gradient within relative L2 1e-3 (the xlstm check's bounds).
+F32_GRAD_LOSS_TOL = 1e-4
+F32_GRAD_LEAF_TOL = 1e-3
+
+
+def kernel_vs_naive_grads(cfg4, seed, dtype, keys, loss_tol, leaf_tol):
+    """`cfg4`'s loss and every leaf's gradient, 2 x 1,024 tokens at
+    compute `dtype`, f32 params, with attention on B5 (the route
+    `kernel_route` picks; its forward and backward counters `keys`) against
+    `attn_impl="naive"`. Returns (the record, params, batch); raises
+    beyond the tolerances."""
     params = init_params(cfg4, seed, torch.float32, device=DEV)
     toks = lm_tokens(cfg4, 2, 1025, seed + 5)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
@@ -1706,91 +1885,118 @@ def train_grad_check(cfg, seed):
     for impl in ("chunked", "naive"):
         c = dataclasses.replace(cfg4, attn_impl=impl)
         before = counts()
-        res[impl] = train_mod.value_and_grad(params, c, batch,
-                                              torch.bfloat16)
+        res[impl] = train_mod.value_and_grad(params, c, batch, dtype)
         got = {key: val - before[key] for key, val in counts().items()}
-        if impl == "chunked":
-            assert got["flash_tc"] > 0 and got["flash_tc_bwd"] > 0, got
-        else:
-            assert got["flash_tc"] == 0 and got["flash_tc_bwd"] == 0, got
+        assert all((got[key] > 0) == (impl == "chunked") for key in keys), \
+            (impl, got)
     (l_k, g_k), (l_n, g_n) = res["chunked"], res["naive"]
     loss_rel = float((l_k - l_n).abs() / l_n.abs())
     leaf = {}
     for path, a, b in zip(tree_paths(g_n), tree_leaves(g_k),
                           tree_leaves(g_n)):
         leaf[path] = float((a - b).norm() / b.norm().clamp_min(1e-30))
-    ok = loss_rel <= GRAD_LOSS_TOL and max(leaf.values()) <= GRAD_LEAF_TOL
-    rec = {"n_layers": 4, "batch": 2, "tokens": 1024,
+    ok = loss_rel <= loss_tol and max(leaf.values()) <= leaf_tol
+    rec = {"n_layers": cfg4.n_layers, "batch": 2, "tokens": 1024,
+           "compute": str(dtype).split(".")[-1],
            "loss": float(l_k), "loss_naive": float(l_n),
            "loss_rel_err": loss_rel, "leaf_rel_l2": leaf,
            "leaf_rel_l2_max": max(leaf.values()),
-           "tolerance": "loss within 2^-7 relative, each leaf's gradient "
-                        "rel L2 <= 2^-5", "within_tolerance": ok}
+           "tolerance": f"loss within {loss_tol} relative, each leaf's "
+                        f"gradient rel L2 <= {leaf_tol}",
+           "within_tolerance": ok}
     if not ok:
         raise AssertionError(f"B5 route gradients != naive: {rec}")
-    # One compressed step (int8 error feedback) at the trivial pod mesh.
+    return rec, params, batch
+
+
+def train_grad_check(cfg, seed):
+    """qwen3-0.6b at full width cut to 4 layers, 2 x 1,024 tokens, bf16
+    compute, f32 params: the loss and every leaf's gradient with attention
+    on B5 (`flash_tc` + B5-bwd) against `attn_impl="naive"`; then one
+    compressed (int8 error-feedback) step at the trivial pod mesh."""
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    rec, params, batch = kernel_vs_naive_grads(
+        cfg4, seed, torch.bfloat16, ("flash_tc", "flash_tc_bwd"),
+        GRAD_LOSS_TOL, GRAD_LEAF_TOL)
+    rec["compressed_step"] = compressed_step(cfg4, params, batch,
+                                             ("flash_tc_bwd",),
+                                             ("plain_flash",))
+    return rec
+
+
+def f32_grad_check(cfg, seed):
+    """qwen3-0.6b at full width cut to 4 layers (D 128), f32 compute and
+    params (TF32 off), 2 x 1,024 tokens: the loss and every leaf's
+    gradient with attention on the split-TF32 route (`flash_tf32x3` and
+    its backward) against `attn_impl="naive"`."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec, _, _ = kernel_vs_naive_grads(
+        dataclasses.replace(cfg, n_layers=4), seed, torch.float32,
+        ("flash_tf32x3", "flash_tf32x3_bwd"), F32_GRAD_LOSS_TOL,
+        F32_GRAD_LEAF_TOL)
+    return rec
+
+
+def compressed_step(cfg, params, batch, used, plain):
+    """One `make_compressed_train_step` step (int8 error feedback) at the
+    trivial pod mesh: a finite loss, opt.step 1, each counter of `used`
+    launched and none of `plain` called."""
     state = {"params": params, "opt": adamw_init(params),
              "err": init_error_buffer(params)}
     step = make_compressed_train_step(
-        cfg4, make_debug_mesh(data=1, model=1, pod=1), peak_lr=1e-3)
+        cfg, make_debug_mesh(data=1, model=1, pod=1), peak_lr=1e-3)
     before = counts()
     state, m = step(state, batch)
     torch.cuda.synchronize()
     got = {key: val - before[key] for key, val in counts().items()}
-    assert bool(torch.isfinite(m["loss"])) and int(state["opt"]["step"]) \
-        == 1 and got["flash_tc_bwd"] > 0 and got["plain_flash"] == 0, \
-        (m, got)
-    rec["compressed_step"] = {"mesh": {"pod": 1, "data": 1, "model": 1},
-                              "loss": float(m["loss"]),
-                              "grad_norm": float(m["grad_norm"]),
-                              "launches": {k_: v_ for k_, v_ in got.items()
-                                           if v_}}
-    return rec
+    assert bool(torch.isfinite(m["loss"])) \
+        and int(state["opt"]["step"]) == 1 \
+        and all(got[key] > 0 for key in used) \
+        and all(got[key] == 0 for key in plain), (m, got)
+    return {"mesh": {"pod": 1, "data": 1, "model": 1},
+            "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "launches": {k_: v_ for k_, v_ in got.items() if v_}}
 
 
-def lm_train_phase(args, paths):
-    """qwen3-0.6b whole (28 layers, full width), f32 params and AdamW
-    moments, bf16 compute, B 8 x T 4,096 in two microbatches, three
-    `make_train_step` steps on one batch (the JAX package's
-    test_train_step_reduces_and_stays_finite at full size): finite
-    losses, the second <= 1.2 x the first, opt.step == 3, B5 launches as
-    the remat scheme implies and none of the f32 routes. Step 2 is timed
-    on the host clock, step 3 traced."""
-    cfg = get_config(TRAIN_ARCH)
-    B, T, nm = (2, 1024, 2) if args.quick else (TRAIN_B, TRAIN_T, TRAIN_NM)
+def train_run(args, paths, cfg, tag, B, T, nm, seed, trace_kernels,
+              want_per_step):
+    """`make_train_step` on `cfg` (f32 params and AdamW moments, bf16
+    compute), B x T tokens in `nm` microbatches, `TRAIN_STEPS` steps on
+    one batch inside the main path `tag`: finite losses, the second <=
+    1.2 x the first, opt.step == TRAIN_STEPS, and each kernel's launches
+    equal to `TRAIN_STEPS` x `want_per_step` (no plain version: the path
+    fails on one). Step 2 is timed on the host clock, step 3 traced
+    (`trace_kernels`). Returns (the record, the final state)."""
     torch.cuda.reset_peak_memory_stats()
     state = init_train_state(cfg, args.seed, torch.float32,
                              device=DEV).tree()
     n_params = sum(t.numel() for t in tree_leaves(state["params"]))
-    toks = lm_tokens(cfg, B, T + 1, args.seed + 3)
+    toks = lm_tokens(cfg, B, T + 1, args.seed + seed)
     batch = split_microbatches({"tokens": toks[:, :-1],
                                 "labels": toks[:, 1:]}, nm)
     step = make_train_step(cfg, num_microbatches=nm, peak_lr=1e-3,
                            compute_dtype=torch.bfloat16)
     losses, wall = [], []
     trace = None
-    with paths.path("lm_train"):
+    with paths.path(tag):
         for i in range(TRAIN_STEPS):
             if i == TRAIN_STEPS - 1:
                 trace = device_trace(
                     lambda: losses.append(step(state, batch)[1]),
-                    kernels=TRAIN_KERNELS, wall_ms=wall[-1])
+                    kernels=trace_kernels, wall_ms=wall[-1])
                 continue
             ms, (_, m) = time_host(lambda: step(state, batch))
             wall.append(ms)
             losses.append(m)
-    got = paths.paths["lm_train"]
-    want = {k_: TRAIN_STEPS * v_ for k_, v_ in launches_per_step(
-        cfg, nm, ATTN_KINDS, ("flash_tc",), ("flash_tc_bwd",)).items()}
+    got = paths.paths[tag]
+    want = {k_: TRAIN_STEPS * v_ for k_, v_ in want_per_step.items()}
     loss = [float(m["loss"]) for m in losses]
     assert all(np.isfinite(loss)), loss
     assert loss[1] <= 1.2 * loss[0], loss
     assert int(state["opt"]["step"]) == TRAIN_STEPS
-    assert got["flash_tc"] == want["flash_tc"] \
-        and got["flash_tc_bwd"] == want["flash_tc_bwd"], (got, want)
-    assert got["flash_tf32x3"] == 0 and got["flash_fma"] == 0, got
+    assert all(got[k_] == v_ for k_, v_ in want.items()), (got, want)
     step_ms = wall[-1]
-    flop = model_flop(cfg, state["params"], B, T)
     rec = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
            "batch": B, "tokens": T, "num_microbatches": nm,
            "dtypes": {"params": "float32", "moments": "float32",
@@ -1801,18 +2007,41 @@ def lm_train_phase(args, paths):
            "opt_step": int(state["opt"]["step"]),
            "first_step_ms": wall[0], "ms_per_step": step_ms,
            "tokens_per_s": B * T / (step_ms / 1e3),
-           "model_flop_per_step": flop,
-           "model_flop": "6 x product params x tokens + 12 x D x live "
-                         "(query, key) pairs x q heads x layers",
-           "train_mfu": flop / (step_ms / 1e3) / BF16_FLOP_PER_S,
            "launches": got, "launches_expected": want,
            "trace": trace,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-    del state, batch
+    return rec, state
+
+
+def lm_train_phase(args, paths):
+    """qwen3-0.6b whole (28 layers, full width), f32 params and AdamW
+    moments, bf16 compute, B 8 x T 4,096 in two microbatches, three
+    `make_train_step` steps on one batch (the JAX package's
+    test_train_step_reduces_and_stays_finite at full size), through
+    `train_run`: B5 launches as the remat scheme implies and none of the
+    f32 routes; the model FLOP and MFU of a step. Then the card gradient
+    check (`train_grad_check`) and the f32 one on the split-TF32 route
+    (`f32_grad_check`)."""
+    cfg = get_config(TRAIN_ARCH)
+    B, T, nm = (2, 1024, 2) if args.quick else (TRAIN_B, TRAIN_T, TRAIN_NM)
+    rec, state = train_run(args, paths, cfg, "lm_train", B, T, nm, 3,
+                           TRAIN_KERNELS, launches_per_step(
+                               cfg, nm, ATTN_KINDS, ("flash_tc",),
+                               ("flash_tc_bwd",)))
+    got = rec["launches"]
+    assert got["flash_tf32x3"] == 0 and got["flash_fma"] == 0, got
+    flop = model_flop(cfg, state["params"], B, T)
+    rec.update(model_flop_per_step=flop,
+               model_flop="6 x product params x tokens + 12 x D x live "
+                          "(query, key) pairs x q heads x layers",
+               train_mfu=flop / (rec["ms_per_step"] / 1e3) / BF16_FLOP_PER_S)
+    del state
     torch.cuda.empty_cache()
     emit("lm_progress", {"lm_train": {k_: v_ for k_, v_ in rec.items()
                                       if k_ != "trace"}})
     rec["grad_check"] = train_grad_check(cfg, args.seed)
+    torch.cuda.empty_cache()
+    rec["f32_grad_check"] = f32_grad_check(cfg, args.seed)
     torch.cuda.empty_cache()
     return rec
 
@@ -2571,9 +2800,103 @@ def slstm_bwd_check(name, B, T, H, Dh, dtype, seed, with_state=False,
     return rec
 
 
+#: f32 operations per (b, t, d) of B6-bwd: the gates and h recomputed (as
+#: `RGLRU_OPS_PER_ELEM`), the reverse step and the gate chain (about 24).
+RGLRU_BWD_OPS_PER_ELEM = 40
+#: MUFU operations per (b, t, d) of B6-bwd: the forward's six, then two
+#: sigmoids (an exponential and a reciprocal each), a square root and a
+#: reciprocal again in the chain.
+RGLRU_BWD_SFU_PER_ELEM = 12
+
+
+def rglru_saved_h(saved, B, T, D):
+    """The inclusive h of every tile in the scratch of B6's launch,
+    (n t-tiles, B, D) f32: per tile an aggregate (2 f32) and an inclusive
+    h (1 f32) per slot, slot j * 32 + lane holding channel lane * V + j of
+    the tile (`csrc/rglru_scan.cu`)."""
+    L, C = rglru_mod.KERNEL_CHUNK, rglru_mod.KERNEL_CHANNELS
+    nT, nDC = -(-T // L), -(-D // C)
+    n = nT * B * nDC * C
+    inc = saved[8 * n:12 * n].view(torch.float32)
+    return inc.view(nT, B, nDC, C // 32, 32).transpose(3, 4).reshape(
+        nT, B, nDC * C)[:, :, :D]
+
+
+def rglru_bwd_check(name, B, T, D, dtype, seed, with_h0=False, reps=0,
+                    lam_dtype=None, wa_shift=0.0, a_one=False):
+    """B6-bwd against `rglru_scan_bwd_plain` on `rglru_inputs` with random
+    dy and dh_last; `a_one`: wa = -40 everywhere (r ~ 4e-18, a = 1 in f32,
+    where the clamp passes the square root's gradient nothing). First the
+    forward's training launch (the same kernel, its scratch kept) against
+    `rglru_scan_plain`: y, h_last and each tile's inclusive h (what B6-bwd
+    reads) against the plain f32 h at the tile's last step, within
+    `REC_TOL`. The backward's dlam of a second call on the same inputs is
+    compared with the first (its f32 atomics land in varying order;
+    reported, not gated). With `reps` timed, beside the serving launch,
+    the bound and the SFU floor."""
+    wa, wx, x, lam, h0 = rglru_inputs(B, T, D, dtype, seed, with_h0,
+                                      lam_dtype, wa_shift)
+    if a_one:
+        wa = torch.full_like(wa, -40.0)
+    g = torch.Generator(device=DEV).manual_seed(seed + 1000)
+    dy = torch.randn(B, T, D, device=DEV, generator=g).to(dtype)
+    dhl = torch.randn(B, D, device=DEV, generator=g)
+    y, hl, saved = rglru_mod._forward_cuda(wa, wx, x, lam, h0)
+    torch.cuda.synchronize()
+    yp, hlp = rglru_mod.rglru_scan_plain(wa, wx, x, lam, h0)
+    hs = rglru_mod._h_sequence(*rglru_mod._gate_values(wa, wx, x, lam), h0)
+    ends = [min(t + rglru_mod.KERNEL_CHUNK, T) - 1
+            for t in range(0, T, rglru_mod.KERNEL_CHUNK)]
+    fwd_err, fwd_ok = rec_errs(
+        [y, hl, rglru_saved_h(saved, B, T, D)],
+        [yp, hlp, hs[:, ends].transpose(0, 1)])
+    del hs
+    args = (wa, wx, x, lam, h0, saved, dy, dhl)
+    got = rglru_mod.rglru_scan_bwd_cuda(*args)
+    dlam_again = rglru_mod.rglru_scan_bwd_cuda(*args)[3]
+    torch.cuda.synchronize()
+    dlam_rep = float((dlam_again.float() - got[3].float()).abs().max())
+    plain_ms, ref = time_host(lambda: rglru_mod.rglru_scan_bwd_plain(
+        wa, wx, x, lam, h0, dy, dhl))
+    names = ("dwa", "dwx", "dx", "dlam", "dh0")
+    errs = {n_: rec_err(a, b) for n_, a, b in zip(names, got, ref)
+            if b is not None}
+    ok = all(e[1] for e in errs.values())
+    rec = {"shape": name, "B": B, "T": T, "D": D,
+           "dtype": str(dtype).split(".")[-1],
+           "lam_dtype": str(lam.dtype).split(".")[-1], "h0": with_h0,
+           "wa_shift": wa_shift, "a_one": a_one,
+           "forward_with_saved": {"max_abs_err": fwd_err,
+                                  "within_tolerance": fwd_ok},
+           "errs": {n_: e[0] for n_, e in errs.items()},
+           "max_abs_err": max(e[0] for e in errs.values()),
+           "dlam_repeat_max_abs": dlam_rep,
+           "within_tolerance": fwd_ok and ok, "plain_ms": plain_ms}
+    if reps:
+        es, n = x.element_size(), B * T * D
+        ntiles = -(-T // rglru_mod.KERNEL_CHUNK) * B \
+            * -(-D // rglru_mod.KERNEL_CHANNELS)
+        nbytes = 7 * n * es + 4 * ntiles * rglru_mod.KERNEL_CHANNELS \
+            + 2 * D * lam.element_size() + B * D * 4 * (3 if with_h0 else 1)
+        bound, by = bound_of(n * RGLRU_BWD_OPS_PER_ELEM, nbytes)
+        sfu_ms, _ = sfu_floor_ms(n * RGLRU_BWD_SFU_PER_ELEM)
+        rec.update(
+            ms=time_cuda(lambda: rglru_mod.rglru_scan_bwd_cuda(*args), reps),
+            bound_ms=bound, bound_by=by, bound_bytes=nbytes,
+            sfu_floor_ms=sfu_ms,
+            forward_ms=time_cuda(
+                lambda: rglru_mod.rglru_scan_cuda(wa, wx, x, lam, h0), reps))
+    if not rec["within_tolerance"]:
+        raise AssertionError(f"B6-bwd != plain: {rec}")
+    return rec
+
+
 def recurrent_bwd_checks(quick, built, floor_us):
-    """B7-bwd and B8-bwd against their plain backwards on the card: at
-    xlstm-125m's training shape (B 4 x H 4 x T 4,096, D 192, chunk 64;
+    """B6-bwd, B7-bwd and B8-bwd against their plain backwards on the card.
+    B6-bwd at recurrentgemma-9b's training microbatch (2 x 4,096 x 4,096
+    bf16; --quick T 1,024), timed there, f32 with an h0, ragged T
+    (1,000), D 1,003, the long-memory recipe and a = 1 exactly. B7-bwd and
+    B8-bwd at xlstm-125m's training shape (B 4 x H 4 x T 4,096, D 192, chunk 64;
     sLSTM bf16 wx and R; --quick T 1,024), timed there, and at ragged
     edges: B7-bwd at chunk 40 with a carried state (T = 200, five chunks
     of 40), D 16 at chunk 16, and the extreme gates of `mlstm_check` (both
@@ -2600,15 +2923,32 @@ def recurrent_bwd_checks(quick, built, floor_us):
                           with_state=True),
           slstm_bwd_check("dh256", 1, 64, 2, xlstm_mod.SLSTM_MAX_HEAD_DIM,
                           torch.float32, 48, with_state=True)]
+    rg = get_config("recurrentgemma-9b")
+    b6 = [rglru_bwd_check("train", RG_TRAIN_B // RG_TRAIN_NM, T, rg.d_model,
+                          torch.bfloat16, 51, reps=reps),
+          rglru_bwd_check("f32_h0", 2, 1024, 512, torch.float32, 52,
+                          with_h0=True),
+          rglru_bwd_check("ragged_t1000", 1, 1000, 256, torch.bfloat16, 53,
+                          with_h0=True, lam_dtype=torch.float32),
+          rglru_bwd_check("d1003", 2, 200, 1003, torch.float32, 54,
+                          with_h0=True, lam_dtype=torch.bfloat16),
+          rglru_bwd_check("long_memory", 1, 2048, 1024, torch.bfloat16, 55,
+                          wa_shift=-8.0),
+          rglru_bwd_check("a_one", 2, 300, 256, torch.float32, 56,
+                          with_h0=True, a_one=True)]
     logs = built["logs"]
     ptxas = {
+        "rglru_scan_bwd": ptxas_facts(logs.get("rglru_scan_bwd", ""),
+                                      "rglru_scan_bwd_kernel",
+                                      r"I(f|13__nv_bfloat16)(f|13__nv_bfl"
+                                      r"oat16)Lb([01])E"),
         "mlstm_chunk_bwd": ptxas_facts(
             logs.get("mlstm_chunk_bwd", ""), "mlstm_bwd_",
             r"(outputs|scan|inputs)_kernel(?:ILi(\d+)E|E)"),
         "slstm_bwd": ptxas_facts(logs.get("slstm_bwd", ""),
                                  "slstm_bwd_kernel",
                                  r"I(f|13__nv_bfloat16)E")}
-    return {"mlstm_chunk_bwd": b7, "slstm_bwd": b8,
+    return {"rglru_scan_bwd": b6, "mlstm_chunk_bwd": b7, "slstm_bwd": b8,
             "ptxas": {k_: v_ or "not measured (library not rebuilt)"
                       for k_, v_ in ptxas.items()}}
 
@@ -2646,22 +2986,98 @@ def xlstm_grad_check(cfg, seed):
     (B7, B8 and their backwards) against the same params and batch on the
     CPU (the plain versions and plain backwards); then one compressed
     (int8 error-feedback) step at the trivial pod mesh."""
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    rec, params, batch = card_vs_cpu_grads(
+        cfg4, seed, 2, 512, XL_GRAD_LOSS_TOL, XL_GRAD_LEAF_TOL,
+        [key for fwd, bwd in XL_KERNELS.values() for key in (*fwd, *bwd)])
+    rec["compressed_step"] = compressed_step(
+        cfg4, params, batch, ("slstm_bwd", "mlstm_bwd_inputs"),
+        ("plain_slstm_bwd", "plain_mlstm_bwd_inputs"))
+    return rec
+
+
+def lm_train_xlstm_phase(args, paths):
+    """xlstm-125m whole (12 layers: 6 mLSTM, 6 sLSTM, full width), f32
+    params and AdamW moments, bf16 compute, B 8 x T 4,096 in two
+    microbatches, three `make_train_step` steps on one batch through
+    `train_run`: the B7, B7-bwd, B8 and B8-bwd launches the remat scheme
+    implies and no plain version. Then the card gradient check
+    (`xlstm_grad_check`)."""
+    cfg = get_config(XL_TRAIN_ARCH)
+    B, T, nm = (2, 1024, 2) if args.quick else (TRAIN_B, TRAIN_T, TRAIN_NM)
+    want = {}
+    for kind, (fwd, bwd) in XL_KERNELS.items():
+        want.update(launches_per_step(cfg, nm, (kind,), fwd, bwd))
+    rec, state = train_run(args, paths, cfg, "lm_train_xlstm", B, T, nm, 13,
+                           XL_TRAIN_KERNELS, want)
+    del state
+    torch.cuda.empty_cache()
+    emit("lm_progress", {"lm_train_xlstm": {k_: v_ for k_, v_ in rec.items()
+                                            if k_ != "trace"}})
+    rec["grad_check"] = xlstm_grad_check(cfg, args.seed)
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Training: recurrentgemma-9b at full width cut to 6 layers (B6 and B6-bwd,
+# B5 and B5-bwd at D 256), and stablelm-3b whole (the split-TF32 route and
+# its backward at D 80).
+# ---------------------------------------------------------------------------
+
+RG_TRAIN_ARCH = "recurrentgemma-9b"
+#: Two periods of (rglru, rglru, local): 6 layers of 38, full width.
+RG_TRAIN_LAYERS = 6
+RG_TRAIN_B, RG_TRAIN_T, RG_TRAIN_NM = 4, 4096, 2
+#: Labels of the recurrentgemma train step's trace.
+#: (B5-bwd at D 256 runs its split kernel.)
+RG_TRAIN_KERNELS = {"rglru_scan": "rglru_scan_kernel",
+                    "rglru_scan_bwd": "rglru_scan_bwd_kernel",
+                    "flash_tc_bwd_wgmma_split":
+                        "flash_bwd_wgmma_split_kernel",
+                    **TRAIN_KERNELS}
+#: The kernels one layer of each kind launches forward and backward.
+RG_KERNELS = {"rglru": (("rglru_scan",), ("rglru_scan_bwd",)),
+              "local": (("flash_tc",), ("flash_tc_bwd",))}
+#: Card gradient check of recurrentgemma-9b (stated before its first card
+#: run): f32 compute on both sides, the card's kernels (B6 and B6-bwd; B5's
+#: split-TF32 route and its backward at D 256) against the CPU's plain
+#: versions and plain backwards: the loss within 1e-4 relative, each
+#: leaf's gradient within relative L2 1e-3 (the xlstm check's bounds).
+RG_GRAD_LOSS_TOL = 1e-4
+RG_GRAD_LEAF_TOL = 1e-3
+
+SL_TRAIN_ARCH = "stablelm-3b"
+SL_TRAIN_B, SL_TRAIN_T, SL_TRAIN_NM = 4, 2048, 2
+#: Labels of the stablelm train step's trace.
+SL_TRAIN_KERNELS = {
+    "flash_tf32x3": "flash_tf32x3_kernel",
+    "flash_tf32x3_bwd": "flash_tf32x3_bwd_kernel",
+    "flash_tf32x3_bwd_prep": "flash_tf32x3_bwd_prep_kernel",
+    "flash_tf32x3_bwd_cast": "flash_tf32x3_bwd_cast_kernel",
+    **{k_: v_ for k_, v_ in TRAIN_KERNELS.items()
+       if not k_.startswith("flash")}}
+
+
+def card_vs_cpu_grads(cfg, seed, B, T, loss_tol, leaf_tol, kernels):
+    """`cfg`'s loss and every leaf's gradient at f32 compute (TF32 off) on
+    the card, against the same params and batch on the CPU (the plain
+    versions and plain backwards); every kernel of `kernels` launched.
+    Returns (the record, params, batch); raises beyond the tolerances."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg4 = dataclasses.replace(cfg, n_layers=4)
-    params = init_params(cfg4, seed, torch.float32, device=DEV)
-    toks = lm_tokens(cfg4, 2, 513, seed + 5)
+    params = init_params(cfg, seed, torch.float32, device=DEV)
+    toks = lm_tokens(cfg, B, T + 1, seed + 5)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     before = counts()
     card_ms, (l_k, g_k) = time_host(lambda: train_mod.value_and_grad(
-        params, cfg4, batch, torch.float32))
+        params, cfg, batch, torch.float32))
     got = {key: val - before[key] for key, val in counts().items()}
-    assert all(got[key] > 0 for fwd, bwd in XL_KERNELS.values()
-               for key in (*fwd, *bwd)), got
+    assert all(got[key] > 0 for key in kernels), got
     pc = tree_map(lambda t: t.detach().cpu(), params)
     t0 = time.perf_counter()
     l_c, g_c = train_mod.value_and_grad(
-        pc, cfg4, {key: val.cpu() for key, val in batch.items()},
+        pc, cfg, {key: val.cpu() for key, val in batch.items()},
         torch.float32)
     cpu_s = time.perf_counter() - t0
     loss_rel = float((l_k.cpu() - l_c).abs() / l_c.abs())
@@ -2670,100 +3086,70 @@ def xlstm_grad_check(cfg, seed):
                           tree_leaves(g_c)):
         leaf[path] = float((a.cpu() - b).norm()
                            / b.norm().clamp_min(1e-30))
-    ok = loss_rel <= XL_GRAD_LOSS_TOL and max(leaf.values()) \
-        <= XL_GRAD_LEAF_TOL
-    rec = {"n_layers": 4, "batch": 2, "tokens": 512, "compute": "float32",
-           "loss": float(l_k), "loss_cpu": float(l_c),
+    ok = loss_rel <= loss_tol and max(leaf.values()) <= leaf_tol
+    rec = {"n_layers": cfg.n_layers, "batch": B, "tokens": T,
+           "compute": "float32", "loss": float(l_k), "loss_cpu": float(l_c),
            "loss_rel_err": loss_rel, "leaf_rel_l2": leaf,
            "leaf_rel_l2_max": max(leaf.values()), "card_ms": card_ms,
            "cpu_seconds": cpu_s,
            "launches": {k_: v_ for k_, v_ in got.items() if v_},
-           "tolerance": "loss within 1e-4 relative, each leaf's gradient "
-                        "rel L2 <= 1e-3 (f32 on both sides, TF32 off)",
+           "tolerance": f"loss within {loss_tol} relative, each leaf's "
+                        f"gradient rel L2 <= {leaf_tol} (f32 on both "
+                        f"sides, TF32 off)",
            "within_tolerance": ok}
     if not ok:
-        raise AssertionError(f"xlstm card gradients != CPU: {rec}")
-    del g_k, g_c, pc
-    state = {"params": params, "opt": adamw_init(params),
-             "err": init_error_buffer(params)}
-    step = make_compressed_train_step(
-        cfg4, make_debug_mesh(data=1, model=1, pod=1), peak_lr=1e-3)
-    before = counts()
-    state, m = step(state, batch)
-    torch.cuda.synchronize()
-    got = {key: val - before[key] for key, val in counts().items()}
-    assert bool(torch.isfinite(m["loss"])) and int(state["opt"]["step"]) \
-        == 1 and got["slstm_bwd"] > 0 and got["mlstm_bwd_inputs"] > 0 \
-        and got["plain_slstm_bwd"] == 0 \
-        and got["plain_mlstm_bwd_inputs"] == 0, (m, got)
-    rec["compressed_step"] = {"mesh": {"pod": 1, "data": 1, "model": 1},
-                              "loss": float(m["loss"]),
-                              "grad_norm": float(m["grad_norm"]),
-                              "launches": {k_: v_ for k_, v_ in got.items()
-                                           if v_}}
+        raise AssertionError(f"{cfg.name} card gradients != CPU: {rec}")
+    return rec, params, batch
+
+
+def lm_train_recurrentgemma_phase(args, paths):
+    """recurrentgemma-9b at full width cut to 6 layers (two periods of
+    (rglru, rglru, local)), f32 params and AdamW moments, bf16 compute, B
+    4 x T 4,096 in two microbatches, three `make_train_step` steps on one
+    batch through `train_run`: the B6, B6-bwd, B5 and B5-bwd (D 256, W
+    2,048) launches the remat scheme implies and no plain version. Then
+    a 3-layer cut (one period) at 1 x 512 tokens in f32, card against CPU
+    (`card_vs_cpu_grads`)."""
+    cfg = dataclasses.replace(get_config(RG_TRAIN_ARCH),
+                              n_layers=RG_TRAIN_LAYERS)
+    B, T, nm = (2, 1024, 2) if args.quick \
+        else (RG_TRAIN_B, RG_TRAIN_T, RG_TRAIN_NM)
+    want = {}
+    for kind, (fwd, bwd) in RG_KERNELS.items():
+        want.update(launches_per_step(cfg, nm, (kind,), fwd, bwd))
+    rec, state = train_run(args, paths, cfg, "lm_train_recurrentgemma", B,
+                           T, nm, 17, RG_TRAIN_KERNELS, want)
+    del state
+    torch.cuda.empty_cache()
+    emit("lm_progress", {"lm_train_recurrentgemma": {
+        k_: v_ for k_, v_ in rec.items() if k_ != "trace"}})
+    rec["grad_check"] = card_vs_cpu_grads(
+        dataclasses.replace(cfg, n_layers=3), args.seed, 1, 512,
+        RG_GRAD_LOSS_TOL, RG_GRAD_LEAF_TOL,
+        ("rglru_scan", "rglru_scan_bwd", "flash_tf32x3",
+         "flash_tf32x3_bwd"))[0]
+    torch.cuda.empty_cache()
     return rec
 
 
-def lm_train_xlstm_phase(args, paths):
-    """xlstm-125m whole (12 layers: 6 mLSTM, 6 sLSTM, full width), f32
-    params and AdamW moments, bf16 compute, B 8 x T 4,096 in two
-    microbatches, three `make_train_step` steps on one batch: finite
-    losses, the second <= 1.2 x the first, opt.step == 3, the B7, B7-bwd,
-    B8 and B8-bwd launches the remat scheme implies and no plain version.
-    Step 2 is timed on the host clock, step 3 traced. Then the card
-    gradient check (`xlstm_grad_check`)."""
-    cfg = get_config(XL_TRAIN_ARCH)
-    B, T, nm = (2, 1024, 2) if args.quick else (TRAIN_B, TRAIN_T, TRAIN_NM)
-    torch.cuda.reset_peak_memory_stats()
-    state = init_train_state(cfg, args.seed, torch.float32,
-                             device=DEV).tree()
-    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
-    toks = lm_tokens(cfg, B, T + 1, args.seed + 13)
-    batch = split_microbatches({"tokens": toks[:, :-1],
-                                "labels": toks[:, 1:]}, nm)
-    step = make_train_step(cfg, num_microbatches=nm, peak_lr=1e-3,
-                           compute_dtype=torch.bfloat16)
-    losses, wall = [], []
-    trace = None
-    with paths.path("lm_train_xlstm"):
-        for i in range(TRAIN_STEPS):
-            if i == TRAIN_STEPS - 1:
-                trace = device_trace(
-                    lambda: losses.append(step(state, batch)[1]),
-                    kernels=XL_TRAIN_KERNELS, wall_ms=wall[-1])
-                continue
-            ms, (_, m) = time_host(lambda: step(state, batch))
-            wall.append(ms)
-            losses.append(m)
-    got = paths.paths["lm_train_xlstm"]
-    want = {}
-    for kind, (fwd, bwd) in XL_KERNELS.items():
-        per_step = launches_per_step(cfg, nm, (kind,), fwd, bwd)
-        want.update({k_: TRAIN_STEPS * v_ for k_, v_ in per_step.items()})
-    loss = [float(m["loss"]) for m in losses]
-    assert all(np.isfinite(loss)), loss
-    assert loss[1] <= 1.2 * loss[0], loss
-    assert int(state["opt"]["step"]) == TRAIN_STEPS
-    assert all(got[k_] == v_ for k_, v_ in want.items()), (got, want)
-    step_ms = wall[-1]
-    rec = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
-           "batch": B, "tokens": T, "num_microbatches": nm,
-           "dtypes": {"params": "float32", "moments": "float32",
-                      "compute": "bfloat16"},
-           "losses": loss, "grad_norms": [float(m["grad_norm"])
-                                          for m in losses],
-           "lrs": [float(m["lr"]) for m in losses],
-           "opt_step": int(state["opt"]["step"]),
-           "first_step_ms": wall[0], "ms_per_step": step_ms,
-           "tokens_per_s": B * T / (step_ms / 1e3),
-           "launches": got, "launches_expected": want,
-           "trace": trace,
-           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-    del state, batch
-    torch.cuda.empty_cache()
-    emit("lm_progress", {"lm_train_xlstm": {k_: v_ for k_, v_ in rec.items()
-                                            if k_ != "trace"}})
-    rec["grad_check"] = xlstm_grad_check(cfg, args.seed)
+def lm_train_stablelm_phase(args, paths):
+    """stablelm-3b whole (32 layers, D 80, MHA), f32 params and AdamW
+    moments, bf16 compute, B 4 x T 2,048 in two microbatches, three
+    `make_train_step` steps on one batch through `train_run`: attention on
+    the split-TF32 route (bf16 at D 80) and its backward, as many
+    launches as the remat scheme implies, no tc launch and no plain
+    version."""
+    cfg = get_config(SL_TRAIN_ARCH)
+    B, T, nm = (2, 1024, 2) if args.quick \
+        else (SL_TRAIN_B, SL_TRAIN_T, SL_TRAIN_NM)
+    rec, state = train_run(args, paths, cfg, "lm_train_stablelm", B, T, nm,
+                           19, SL_TRAIN_KERNELS, launches_per_step(
+                               cfg, nm, ATTN_KINDS, ("flash_tf32x3",),
+                               ("flash_tf32x3_bwd",)))
+    got = rec["launches"]
+    assert got["flash_tc"] == 0 and got["flash_tc_bwd"] == 0 \
+        and got["flash_fma"] == 0, got
+    del state
     torch.cuda.empty_cache()
     return rec
 
@@ -2949,9 +3335,20 @@ def lm_moe_phase(args, paths):
     rec["init_seconds"] = time.perf_counter() - t0
     T = 4096 if quick else 32768
     rec["prefill"] = model_prefill(cfg, params, T, args.seed, paths,
-                                   "lm_moe_prefill")
+                                   "lm_moe_prefill",
+                                   kernels={"flash_tc": "flash_tc_kernel"})
     got = rec["prefill"]["launches"]
     assert got["flash_tc"] == cfg.n_layers and got["flash_tf32x3"] == 0, got
+    # B5 at this prefill's shape: its traced device ms a launch beside the
+    # bound (4*D FLOP a live pair at the bf16 peak; shapes only).
+    b5 = rec["prefill"]["trace"].get("by_kernel", {}).get("flash_tc")
+    qk = [torch.empty((1, h, T, cfg.head_dim), dtype=torch.bfloat16,
+                      device="meta") for h in (cfg.n_heads, cfg.n_kv_heads)]
+    bound, by = flash_bound(*qk, None)
+    rec["prefill"]["b5"] = {
+        "q": list(qk[0].shape), "kv": list(qk[1].shape), "window": None,
+        "ms_per_launch": b5["ms"] / b5["count"] if b5 and b5["count"]
+        else "not measured", "bound_ms": bound, "bound_by": by}
     stats = collections.Counter()
     with moe_routing_count(stats):
         make_prefill_step(cfg)(params, {"tokens": lm_tokens(cfg, 1, T,
@@ -3146,8 +3543,10 @@ COUNTERS = {
     "flash_tc": flash_attention_tc_cuda,
     "flash_tc_bwd": flash_attention_bwd_tc_cuda,
     "flash_tf32x3": flash_attention_tf32x3_cuda,
+    "flash_tf32x3_bwd": flash_attention_bwd_tf32x3_cuda,
     "flash_fma": flash_attention_fma_cuda,
     "rglru_scan": rglru_mod.rglru_scan_cuda,
+    "rglru_scan_bwd": rglru_mod.rglru_scan_bwd_cuda,
     "mlstm_chunk_states": xlstm_mod.mlstm_chunk_states_cuda,
     "mlstm_state_scan": xlstm_mod.mlstm_state_scan_cuda,
     "mlstm_chunk_outputs": xlstm_mod.mlstm_chunk_outputs_cuda,
@@ -3164,6 +3563,7 @@ PLAIN = {
     "plain_flash": flash_attention_plain,
     "plain_flash_bwd": flash_attention_bwd_plain,
     "plain_rglru": rglru_mod.rglru_scan_plain,
+    "plain_rglru_bwd": rglru_mod.rglru_scan_bwd_plain,
     "plain_mlstm": xlstm_mod.mlstm_chunk_scan_plain,
     "plain_mlstm_states": xlstm_mod.mlstm_chunk_states_plain,
     "plain_mlstm_scan": xlstm_mod.mlstm_state_scan_plain,
@@ -3840,6 +4240,14 @@ def main():
     t0 = time.perf_counter()
     bwd_cases, bwd_worst = flash_bwd_matrix(args.quick)
     bwd_shapes = flash_bwd_shapes(3 if args.quick else 8)
+    t_split = time.perf_counter()
+    split_cases, split_worst = tf32x3_bwd_matrix(args.quick)
+    split_shapes = tf32x3_bwd_shapes(3 if args.quick else 8)
+    split_ptxas = ptxas_facts(built["logs"].get("flash_tf32x3_bwd", ""),
+                              "flash_tf32x3_bwd_",
+                              r"(kernel|prep_kernel)I(f|13__nv_bfloat16)"
+                              r"Li(\d+)E")
+    t_split = time.perf_counter() - t_split
     bwd_ptxas = ptxas_facts(built["logs"].get("flash_tc_bwd", ""),
                             "flash_bwd_",
                             r"(wgmma_split|wgmma|prep|dq_cast)_kernel"
@@ -3853,6 +4261,15 @@ def main():
         "worst": bwd_worst, "shapes": bwd_shapes,
         "flash_tc_bwd_ptxas": bwd_ptxas
         or "not measured (library not rebuilt)",
+        "tf32x3_bwd": {
+            "seconds": t_split, "cases": split_cases, "worst": split_worst,
+            "shapes": split_shapes, "ptxas": split_ptxas
+            or "not measured (library not rebuilt)",
+            "tolerance": "bf16: as B5-bwd's below; f32: each of dq, dk, dv "
+                         "max |kernel - plain| <= 1e-4 x max |plain| and rel "
+                         "L2 <= 1e-4 (at W = 1 dq, dk <= 1e-4 x max |plain "
+                         "dv|); lse as B5-bwd's; dq_repeat_max_abs reported, "
+                         "not gated"},
         "tolerance": "each of dq, dk, dv: max |kernel - plain| <= 2^-6 x "
                      "max |plain| and rel L2 <= 2^-7 (plain in f32 from the "
                      "same bf16 inputs); lse within 2^-14 x (1 + |plain|); "
@@ -3871,6 +4288,14 @@ def main():
     lm_train_xl = lm_train_xlstm_phase(args, paths)
     lm_train_xl["seconds"] = time.perf_counter() - t0
     emit("lm_train_xlstm", lm_train_xl)
+    t0 = time.perf_counter()
+    lm_train_rg = lm_train_recurrentgemma_phase(args, paths)
+    lm_train_rg["seconds"] = time.perf_counter() - t0
+    emit("lm_train_recurrentgemma", lm_train_rg)
+    t0 = time.perf_counter()
+    lm_train_sl = lm_train_stablelm_phase(args, paths)
+    lm_train_sl["seconds"] = time.perf_counter() - t0
+    emit("lm_train_stablelm", lm_train_sl)
 
     # ---- 2b. B6-B8 vs their plain versions; the MoE and recurrent
     # model families ----
@@ -3890,9 +4315,13 @@ def main():
                                    probe["floor_us_per_step"])
     emit("recurrent_bwd_checks", dict(
         rec_bwd, seconds=time.perf_counter() - t0,
-        tolerance=f"each gradient tensor: max |kernel - plain| <= "
-                  f"{BWD_REC_TOL} x max |plain| of that tensor (f32 on both "
-                  f"sides); bf16 outputs one bf16 ulp more"))
+        tolerance=f"B7-bwd, B8-bwd: each gradient tensor: max |kernel - "
+                  f"plain| <= {BWD_REC_TOL} x max |plain| of that tensor "
+                  f"(f32 on both sides); bf16 outputs one bf16 ulp more. "
+                  f"B6-bwd: {REC_TOL} x max |plain| per gradient tensor, "
+                  f"one bf16 ulp of the value more for a bf16 output; its "
+                  f"forward's training launch (y, h_last, each tile's "
+                  f"inclusive h) within {REC_TOL} x max |plain|"))
     t0 = time.perf_counter()
     lm_moe = lm_moe_phase(args, paths)
     lm_moe["seconds"] = time.perf_counter() - t0
@@ -4378,7 +4807,34 @@ def main():
         local_library_ms=local_bwd["library_ms"],
         local_library=local_bwd["library"],
         train_trace=lm_train["trace"].get("by_kernel", "not measured")))
-    for k in kernels[-3:]:
+    sl_bwd, f32_bwd = split_shapes
+    kernels.append(dict(
+        b5, name="flash_tf32x3_bwd",
+        source="src/repro_torch/kernels/local_attention/csrc/"
+               "flash_tf32x3_bwd.cu",
+        tolerance="bf16: dq, dk, dv each max |err| <= 2^-6 x max |plain|, "
+                  "rel L2 <= 2^-7; f32: 1e-4 x max |plain|, rel L2 1e-4",
+        launches=tot("flash_tf32x3_bwd"),
+        max_abs_err=max(max(w["max_abs_err"] for w in split_worst.values()),
+                        *(e["max_abs_err"] for r in split_shapes
+                          for e in r["errs"].values())),
+        worst=split_worst,
+        dq_repeat_max_abs=max(
+            *(w["dq_repeat_max_abs"] for w in split_worst.values()),
+            *(r["dq_repeat_max_abs"] for r in split_shapes)),
+        within_tolerance=all(r["within_tolerance"] for r in split_shapes),
+        ms=sl_bwd["ms"], plain_ms=sl_bwd["plain_ms"],
+        bound_ms=sl_bwd["bound_ms"], bound_by=sl_bwd["bound_by"],
+        library_ms=lib_ms(sl_bwd), library=sl_bwd["library"],
+        shape=sl_bwd["shape"], tflop_per_s=sl_bwd["tflop_per_s"],
+        fwd_with_lse_ms=sl_bwd["fwd_with_lse_ms"],
+        fwd_serving_ms=sl_bwd["fwd_serving_ms"],
+        f32_shape=f32_bwd["shape"], f32_ms=f32_bwd["ms"],
+        f32_plain_ms=f32_bwd["plain_ms"], f32_bound_ms=f32_bwd["bound_ms"],
+        f32_library_ms=lib_ms(f32_bwd), f32_library=f32_bwd["library"],
+        ptxas=split_ptxas or "not measured (library not rebuilt)",
+        train_trace=lm_train_sl["trace"].get("by_kernel", "not measured")))
+    for k in kernels[-4:]:
         assert k["launches"] > 0 and k["within_tolerance"], k
     rec_common = dict(common, tolerance=f"{REC_TOL} x max |plain| per f32 "
                       f"output; one bf16 ulp more for bf16")
@@ -4492,7 +4948,27 @@ def main():
             "us_per_step_over_floor", "max_active_clusters", "clusters",
             "forward_ms", "forward_saved_ms", "cluster")},
         ptxas=rec_bwd["ptxas"]["slstm_bwd"], train_trace=xl_trace))
-    for k in kernels[-4:]:
+    b6b = rec_bwd["rglru_scan_bwd"]
+    main6b = b6b[0]
+    kernels.append(dict(
+        common, name="rglru_scan_bwd",
+        source="src/repro_torch/models/csrc/rglru_scan_bwd.cu",
+        replaces="src/repro/models/rglru.py:51",
+        tolerance=f"{REC_TOL} x max |plain| per gradient tensor; one bf16 "
+                  f"ulp of the value more for bf16",
+        launches=tot("rglru_scan_bwd"),
+        max_abs_err=max(r["max_abs_err"] for r in b6b),
+        within_tolerance=all(r["within_tolerance"] for r in b6b),
+        ms=main6b["ms"], plain_ms=main6b["plain_ms"],
+        bound_ms=main6b["bound_ms"], bound_by=main6b["bound_by"],
+        library_ms=None, sfu_floor_ms=main6b["sfu_floor_ms"],
+        forward_ms=main6b["forward_ms"],
+        dlam_repeat_max_abs=max(r["dlam_repeat_max_abs"] for r in b6b),
+        shape=shape_of(main6b, ("B", "T", "D", "dtype")),
+        ragged_shapes=[r["shape"] for r in b6b[1:]],
+        ptxas=rec_bwd["ptxas"]["rglru_scan_bwd"],
+        train_trace=lm_train_rg["trace"].get("by_kernel", "not measured")))
+    for k in kernels[-5:]:
         assert k["launches"] > 0 and k["within_tolerance"], k
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("total", {"seconds": time.perf_counter() - t_start})

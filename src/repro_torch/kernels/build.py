@@ -37,7 +37,10 @@ SOURCES = {
     / "flash_tc_bwd.cu",
     "flash_tf32x3": _PKG / "kernels" / "local_attention" / "csrc"
     / "flash_tf32x3.cu",
+    "flash_tf32x3_bwd": _PKG / "kernels" / "local_attention" / "csrc"
+    / "flash_tf32x3_bwd.cu",
     "rglru_scan": _PKG / "models" / "csrc" / "rglru_scan.cu",
+    "rglru_scan_bwd": _PKG / "models" / "csrc" / "rglru_scan_bwd.cu",
     "mlstm_chunk": _PKG / "models" / "csrc" / "mlstm_chunk.cu",
     "mlstm_chunk_bwd": _PKG / "models" / "csrc" / "mlstm_chunk_bwd.cu",
     "slstm": _PKG / "models" / "csrc" / "slstm.cu",
@@ -77,10 +80,11 @@ def records_grad(*tensors) -> bool:
 def refuse_grad(name: str, *tensors) -> None:
     """Raise RuntimeError if autograd would record a call of the kernel
     wrapper `name`: grad mode is on and one of `tensors` requires grad.
-    The wrappers that call it have no backward: B5's split-TF32 and FMA
-    routes, B6, and B7's three pass kernels launched on their own (the
-    whole of B7 and B8 go through their autograd Functions instead). Their
-    outputs would silently carry no gradient to their inputs."""
+    The wrappers that call it have no backward: B5's FMA kernel (on no
+    route) and B7's three pass kernels launched on their own (the whole of
+    B7, B8, B6 and B5's two routes go through their autograd Functions
+    instead). Their outputs would silently carry no gradient to their
+    inputs."""
     if records_grad(*tensors):
         raise RuntimeError(
             f"{name}: an input requires grad, but this kernel has no "

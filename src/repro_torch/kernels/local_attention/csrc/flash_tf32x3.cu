@@ -53,6 +53,11 @@
 // planes of K and V in shared memory, made once per block for 8 warps,
 // were tried and were no faster: the products, not the splits, set the
 // pace.
+//
+// Under autograd the launch also writes each row's log-sum-exp of the
+// scaled scores (a nullable pointer; the serving launch passes none), which
+// the backward (flash_tf32x3_bwd.cu) reads. The split, the mma and the row
+// staging are shared with it (flash_tf32x3.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,9 +66,12 @@
 #include <cmath>
 #include <type_traits>
 
+#include "flash_tf32x3.cuh"
+
+using namespace tf32x3;
+
 namespace {
 
-constexpr int THREADS = 128;  // 4 warps x 16 query rows
 constexpr int BQ = 64;        // query rows per block
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -82,28 +90,6 @@ struct Cfg {
   // registers): one block's tile copy overlaps the others' products.
   static constexpr int MIN_BLOCKS = D > 128 ? 1 : 3;
 };
-
-// x rounded to tf32 (10 mantissa bits) to nearest, ties away from zero, as
-// cvt.rna.tf32.f32 rounds: half a tf32 ulp added to the magnitude bits,
-// the 13 low bits cleared. Two integer operations issue at a far higher
-// rate than cvt.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// hi = x rounded to tf32, lo = (x - hi) rounded to tf32.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // d += a * b, a split, b's two f32 values (b0, b1) split here: three
 // tensor-core passes, the small terms first; two where b is exact in tf32
@@ -143,59 +129,6 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Eight consecutive elements of a row, as f32.
-__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store8(float* p, const float (&x)[8]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(x[0], x[1], x[2], x[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(x[4], x[5], x[6], x[7]);
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// Rows [lo, lo + ROWS) of a (T, D) matrix into shared memory with row
-// stride S, times `mul`; rows past T are zero. Synchronous.
-template <int D, int ROWS, int S, typename T>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src, int lo,
-                                           int Tlen, float mul, float* dst) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
-    const int r = i / CH, c = i % CH;
-    float x[8];
-    if (lo + r < Tlen) {
-      load8(src + (long long)(lo + r) * D + c * 8, x);
-    } else {
-#pragma unroll
-      for (int u = 0; u < 8; ++u) x[u] = 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < 8; ++u) x[u] *= mul;
-    store8(dst + r * S + c * 8, x);
-  }
-}
-
 // Key and value rows [lo, lo + BK) into shared memory; rows past T are
 // zero. f32: cp.async (completes at cp_wait); bf16:
 // converted through registers.
@@ -222,8 +155,9 @@ __device__ __forceinline__ void stage_kv(const T* __restrict__ k,
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, Cfg<D>::MIN_BLOCKS)
 flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ o, int Hq,
-                    int Hkv, int Tlen, int W, float scale) {
+                    const T* __restrict__ v, T* __restrict__ o,
+                    float* __restrict__ lse, int Hq, int Hkv, int Tlen,
+                    int W, float scale) {
   using C = Cfg<D>;
   constexpr int BK = C::BK, NT = C::NT, KD = C::KD;
   constexpr int QS = C::QS, VS = C::VS;
@@ -374,6 +308,16 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
   l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
   const float den_a = l_a == 0.f ? 1.f : l_a;
   const float den_b = l_b == 0.f ? 1.f : l_b;
+  // Under autograd: each row's log-sum-exp of the scaled scores, m + log l
+  // (natural log), +inf where no key is live (l = 0).
+  if (lse && tq == 0) {
+    if (ra < Tlen)
+      lse[(long long)bh * Tlen + ra] = l_a == 0.f ? INFINITY
+                                                  : m_a + logf(l_a);
+    if (rb < Tlen)
+      lse[(long long)bh * Tlen + rb] = l_b == 0.f ? INFINITY
+                                                  : m_b + logf(l_b);
+  }
   T* out = o + q_off + 2 * tq;
 #pragma unroll
   for (int c = 0; c < KD; ++c) {
@@ -388,7 +332,7 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Hq, int Hkv, int Tlen, int W,
+                   float* lse, int B, int Hq, int Hkv, int Tlen, int W,
                    cudaStream_t stream) {
   using C = Cfg<D>;
   const int smem = C::SMEM_FLOATS * (int)sizeof(float);
@@ -399,31 +343,34 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((Tlen + BQ - 1) / BQ, B * Hq);
   const float scale = (float)(1.0 / sqrt((double)D));
   flash_tf32x3_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, Hq, Hkv, Tlen, W, scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Hq, Hkv, Tlen, W,
+      scale);
   return cudaGetLastError();
 }
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       int B, int Hq, int Hkv, int Tlen, int D, int W,
-                       cudaStream_t s) {
+                       float* lse, int B, int Hq, int Hkv, int Tlen, int D,
+                       int W, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<float, 16>(q, k, v, o, B, Hq, Hkv, Tlen, W, s);
-    case 64: return launch<float, 64>(q, k, v, o, B, Hq, Hkv, Tlen, W, s);
-    case 80: return launch<float, 80>(q, k, v, o, B, Hq, Hkv, Tlen, W, s);
-    case 128: return launch<float, 128>(q, k, v, o, B, Hq, Hkv, Tlen, W, s);
-    case 256: return launch<float, 256>(q, k, v, o, B, Hq, Hkv, Tlen, W, s);
+    case 16: return launch<float, 16>(q, k, v, o, lse, B, Hq, Hkv, Tlen, W, s);
+    case 64: return launch<float, 64>(q, k, v, o, lse, B, Hq, Hkv, Tlen, W, s);
+    case 80: return launch<float, 80>(q, k, v, o, lse, B, Hq, Hkv, Tlen, W, s);
+    case 128:
+      return launch<float, 128>(q, k, v, o, lse, B, Hq, Hkv, Tlen, W, s);
+    case 256:
+      return launch<float, 256>(q, k, v, o, lse, B, Hq, Hkv, Tlen, W, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // bf16 only at the head sizes flash_tc.cu is not built for.
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        int B, int Hq, int Hkv, int Tlen, int D, int W,
-                        cudaStream_t s) {
+                        float* lse, int B, int Hq, int Hkv, int Tlen, int D,
+                        int W, cudaStream_t s) {
   using bf = __nv_bfloat16;
   switch (D) {
-    case 16: return launch<bf, 16>(q, k, v, o, B, Hq, Hkv, Tlen, W, s);
-    case 80: return launch<bf, 80>(q, k, v, o, B, Hq, Hkv, Tlen, W, s);
+    case 16: return launch<bf, 16>(q, k, v, o, lse, B, Hq, Hkv, Tlen, W, s);
+    case 80: return launch<bf, 80>(q, k, v, o, lse, B, Hq, Hkv, Tlen, W, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -433,18 +380,23 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 // Launches the split-TF32 banded flash attention on `stream`: q (B, Hq, T,
 // D), k and v (B, Hkv, T, D), o like q, all contiguous on 16-byte
 // boundaries; dtype 0 = float32 (D in 16, 64, 80, 128, 256), 1 = bfloat16
-// (D 16 and 80). W is the window (T for full causal). Returns the CUDA
-// error code of the launch (0 = success). Allocates nothing and does not
-// synchronise.
+// (D 16 and 80). W is the window (T for full causal). lse: null (serving),
+// or (B, Hq, T) f32 that receives each row's log-sum-exp (training: the
+// backward, flash_tf32x3_bwd.cu, reads it). Returns the CUDA error code of
+// the launch (0 = success). Allocates nothing and does not synchronise.
 extern "C" int flash_attention_tf32x3_launch(const void* q, const void* k,
-                                             const void* v, void* o, int B,
-                                             int Hq, int Hkv, int T, int D,
-                                             int W, int dtype, void* stream) {
+                                             const void* v, void* o,
+                                             void* lse, int B, int Hq,
+                                             int Hkv, int T, int D, int W,
+                                             int dtype, void* stream) {
   if (B <= 0 || T <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || B * Hq > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return (int)launch_f32(q, k, v, o, B, Hq, Hkv, T, D, W, s);
-  if (dtype == 1) return (int)launch_bf16(q, k, v, o, B, Hq, Hkv, T, D, W, s);
+  float* l = (float*)lse;
+  if (dtype == 0)
+    return (int)launch_f32(q, k, v, o, l, B, Hq, Hkv, T, D, W, s);
+  if (dtype == 1)
+    return (int)launch_bf16(q, k, v, o, l, B, Hq, Hkv, T, D, W, s);
   return (int)cudaErrorInvalidValue;
 }

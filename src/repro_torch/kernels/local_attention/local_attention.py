@@ -24,14 +24,19 @@ vectorised over every (batch, head, query block) — and runs on any
 device; `ops.flash_attention` picks between it and the kernels by where
 the tensors live.
 
-The backward (B5-bwd): `FlashAttention`, a `torch.autograd.Function`,
-runs the tc route's forward with its per-row log-sum-exp and
-`csrc/flash_tc_bwd.cu` (`flash_attention_bwd_tc_cuda`: one wgmma kernel
-per (b, kv head, key tile) that also reduces dQ into an f32 scratch) on
-CUDA tensors, and `flash_attention_plain(return_lse=True)` with
-`flash_attention_bwd_plain` on CPU tensors. `flash_attention_tc_cuda`
-goes through it whenever autograd would record the call; the split-TF32
-and FMA kernels have no backward and raise there (`build.refuse_grad`).
+The backward: `FlashAttention`, a `torch.autograd.Function`, runs on CUDA
+tensors the forward of the route `kernel_route` picks, with its per-row
+log-sum-exp, and that route's backward kernel: B5-bwd
+(`csrc/flash_tc_bwd.cu`, `flash_attention_bwd_tc_cuda`: one wgmma kernel
+per (b, kv head, key tile) that also reduces dQ into an f32 scratch) for
+the tc route, `csrc/flash_tf32x3_bwd.cu`
+(`flash_attention_bwd_tf32x3_cuda`: mma.sync with split tf32 operands, one
+block per (key tile, b * kv head, column chunk), dQ by f32 atomics) for
+the split-TF32 route. On CPU tensors it runs
+`flash_attention_plain(return_lse=True)` and `flash_attention_bwd_plain`.
+`flash_attention_tc_cuda` and `flash_attention_tf32x3_cuda` go through it
+whenever autograd would record the call; the FMA kernel, on no route, has
+no backward and raises there (`build.refuse_grad`).
 """
 
 from __future__ import annotations
@@ -321,6 +326,27 @@ def flash_attention_tc_cuda(q, k, v, *, window=None):
     return _tc_forward(q, k, v, window, False)[0]
 
 
+def _bwd_operands(name, q, out, lse, dout, sizes):
+    """The backward wrappers' checks of the forward's output `out`, its
+    gradient `dout` (both like q) and `lse` ((B, Hq, T) f32); returns the
+    three contiguous on 16-byte boundaries."""
+    B, Hq, _, T, _ = sizes
+    if out.shape != q.shape or dout.shape != q.shape \
+            or out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError(f"{name}: out and dout must be like q "
+                         f"{tuple(q.shape)} {q.dtype}; got out "
+                         f"{tuple(out.shape)} {out.dtype}, dout "
+                         f"{tuple(dout.shape)} {dout.dtype}")
+    if lse.shape != (B, Hq, T) or lse.dtype != torch.float32:
+        raise ValueError(f"{name}: lse must be ({B}, {Hq}, {T}) float32; "
+                         f"got {tuple(lse.shape)} {lse.dtype}")
+    if not (out.device == dout.device == lse.device == q.device):
+        raise ValueError(f"{name}: out, lse and dout must lie on q's device")
+    if T > 65535 * 64:
+        raise ValueError(f"T={T} > 65,535 tiles of 64")
+    return _contiguous(out, dout, lse)
+
+
 def flash_attention_bwd_tc_cuda(q, k, v, out, lse, dout, *, window=None):
     """Launch B5-bwd (`csrc/flash_tc_bwd.cu`) on CUDA tensors: a pre-pass
     (delta = rowsum(dO * O) and lse * log2(e), per row padded to
@@ -337,20 +363,7 @@ def flash_attention_bwd_tc_cuda(q, k, v, out, lse, dout, *, window=None):
     q, k, v, W, sizes = _prepare(q, k, v, window, (torch.bfloat16,),
                                  TC_HEAD_DIMS, name)
     B, Hq, Hkv, T, D = sizes
-    if out.shape != q.shape or dout.shape != q.shape \
-            or out.dtype != q.dtype or dout.dtype != q.dtype:
-        raise ValueError(f"{name}: out and dout must be like q "
-                         f"{tuple(q.shape)} {q.dtype}; got out "
-                         f"{tuple(out.shape)} {out.dtype}, dout "
-                         f"{tuple(dout.shape)} {dout.dtype}")
-    if lse.shape != (B, Hq, T) or lse.dtype != torch.float32:
-        raise ValueError(f"{name}: lse must be ({B}, {Hq}, {T}) float32; "
-                         f"got {tuple(lse.shape)} {lse.dtype}")
-    if not (out.device == dout.device == lse.device == q.device):
-        raise ValueError(f"{name}: out, lse and dout must lie on q's device")
-    if T > 65535 * 64:
-        raise ValueError(f"T={T} > 65,535 tiles of 64")
-    out, dout, lse = _contiguous(out, dout, lse)
+    out, dout, lse = _bwd_operands(name, q, out, lse, dout, sizes)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel():
         t_pad = -(-T // BWD_ROW_PAD) * BWD_ROW_PAD
@@ -366,10 +379,48 @@ def flash_attention_bwd_tc_cuda(q, k, v, out, lse, dout, *, window=None):
     return dq, dk, dv
 
 
+def flash_attention_bwd_tf32x3_cuda(q, k, v, out, lse, dout, *,
+                                    window=None):
+    """Launch the split-TF32 backward (`csrc/flash_tf32x3_bwd.cu`) on CUDA
+    tensors: a pre-pass (delta = rowsum(dO * O) per row; the f32 dQ
+    accumulator zeroed), one mma.sync kernel per (64-key tile, b * kv head,
+    chunk of output columns) that sums dK, dV over the group and adds each
+    query tile's dQ into the accumulator by f32 atomics, and for bf16 a
+    cast of the accumulator. Every operand split into tf32 hi + lo as the
+    forward splits them; f32 accumulation. q, k, v as
+    `flash_attention_tf32x3_cuda` takes them, `out` the forward's output
+    and `dout` its gradient (like q), `lse` (B, Hq, T) f32 from the
+    forward kernel. Returns (dq, dk, dv) in q's dtype on PyTorch's current
+    stream, without synchronising; dq's f32 sums come in an order that
+    varies from call to call. Raises on anything the kernels do not
+    take."""
+    name = "flash_attention_bwd_tf32x3_cuda"
+    head_dims = TF32X3_BF16_HEAD_DIMS if q.dtype == torch.bfloat16 \
+        else KERNEL_HEAD_DIMS
+    q, k, v, W, sizes = _prepare(q, k, v, window, KERNEL_DTYPES, head_dims,
+                                 name)
+    out, dout, lse = _bwd_operands(name, q, out, lse, dout, sizes)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel():
+        B, Hq, _, T, D = sizes
+        delta = torch.empty((B, Hq, T), dtype=torch.float32,
+                            device=q.device)
+        dq_acc = None if q.dtype == torch.float32 else torch.empty(
+            q.shape, dtype=torch.float32, device=q.device)
+        _call(_lib("flash_tf32x3_bwd", "flash_attention_bwd_tf32x3_launch",
+                   7, n_ptr=11),
+              (q, k, v, out, lse, dout, dq, dk, dv, delta, dq_acc),
+              (*sizes, W, KERNEL_DTYPES[q.dtype]), "flash_tf32x3_bwd")
+        build.count(flash_attention_bwd_tf32x3_cuda)
+    return dq, dk, dv
+
+
 class FlashAttention(torch.autograd.Function):
     """The banded flash attention with its backward: on CUDA tensors the
-    tc route's forward with the per-row log-sum-exp and B5-bwd, on CPU
-    tensors `flash_attention_plain(return_lse=True)` and
+    forward of the route `kernel_route` picks with the per-row
+    log-sum-exp and that route's backward (B5-bwd for tc, the split-TF32
+    backward for tf32x3), on CPU tensors
+    `flash_attention_plain(return_lse=True)` and
     `flash_attention_bwd_plain`. Everything the backward reads is saved
     through `ctx.save_for_backward` (q, k, v, out, lse), so a
     non-reentrant checkpoint may run the forward again. `apply(q, k, v,
@@ -379,7 +430,9 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, window=None, block_q=128, block_k=128):
         if q.is_cuda:
-            out, lse = _tc_forward(q, k, v, window, True)
+            forward = _tc_forward if kernel_route(
+                q.dtype, q.shape[-1]) == "tc" else _tf32x3_forward
+            out, lse = forward(q, k, v, window, True)
         else:
             out, lse = flash_attention_plain(q, k, v, window=window,
                                              block_q=block_q,
@@ -392,10 +445,32 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        bwd = flash_attention_bwd_tc_cuda if q.is_cuda \
-            else flash_attention_bwd_plain
+        if not q.is_cuda:
+            bwd = flash_attention_bwd_plain
+        elif kernel_route(q.dtype, q.shape[-1]) == "tc":
+            bwd = flash_attention_bwd_tc_cuda
+        else:
+            bwd = flash_attention_bwd_tf32x3_cuda
         dq, dk, dv = bwd(q, k, v, out, lse, dout, window=ctx.window)
         return dq, dk, dv, None, None, None
+
+
+def _tf32x3_forward(q, k, v, window, with_lse):
+    """One launch of `csrc/flash_tf32x3.cu`: (out, lse or None)."""
+    head_dims = TF32X3_BF16_HEAD_DIMS if q.dtype == torch.bfloat16 \
+        else KERNEL_HEAD_DIMS
+    q, k, v, W, sizes = _prepare(q, k, v, window, KERNEL_DTYPES, head_dims,
+                                 "flash_attention_tf32x3_cuda")
+    out = torch.empty_like(q)
+    lse = torch.empty(sizes[:2] + sizes[3:4], dtype=torch.float32,
+                      device=q.device) if with_lse else None
+    if q.numel():
+        _call(_lib("flash_tf32x3", "flash_attention_tf32x3_launch", 7,
+                   n_ptr=5),
+              (q, k, v, out, lse), (*sizes, W, KERNEL_DTYPES[q.dtype]),
+              "flash_tf32x3")
+        build.count(flash_attention_tf32x3_cuda)
+    return out, lse
 
 
 def flash_attention_tf32x3_cuda(q, k, v, *, window=None):
@@ -403,20 +478,14 @@ def flash_attention_tf32x3_cuda(q, k, v, *, window=None):
     each operand as tf32 hi + lo, three passes per product; two for bf16,
     whose k and v are exact in tf32) on CUDA tensors: q (B, Hq, T, D),
     k/v (B, Hkv, T, D), f32 at D in `KERNEL_HEAD_DIMS` or bf16 at D in
-    `TF32X3_BF16_HEAD_DIMS`, any T >= 1. Returns (B, Hq, T, D) in q's dtype on PyTorch's current
-    stream, without synchronising. Raises on anything the kernel does not
-    take."""
-    head_dims = TF32X3_BF16_HEAD_DIMS if q.dtype == torch.bfloat16 \
-        else KERNEL_HEAD_DIMS
-    build.refuse_grad("flash_attention_tf32x3_cuda", q, k, v)
-    q, k, v, W, sizes = _prepare(q, k, v, window, KERNEL_DTYPES, head_dims,
-                                 "flash_attention_tf32x3_cuda")
-    out = _launch(_lib("flash_tf32x3", "flash_attention_tf32x3_launch", 7),
-                  q, k, v, sizes, W, (KERNEL_DTYPES[q.dtype],),
-                  "flash_tf32x3")
-    if q.numel():
-        build.count(flash_attention_tf32x3_cuda)
-    return out
+    `TF32X3_BF16_HEAD_DIMS`, any T >= 1. Returns (B, Hq, T, D) in q's
+    dtype on PyTorch's current stream, without synchronising. Where
+    autograd would record the call, it goes through `FlashAttention` (the
+    forward with its log-sum-exp, the split-TF32 backward behind it).
+    Raises on anything the kernel does not take."""
+    if build.records_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, window)
+    return _tf32x3_forward(q, k, v, window, False)[0]
 
 
 def flash_attention_fma_cuda(q, k, v, *, window=None):
@@ -443,9 +512,8 @@ def flash_attention_cuda(q, k, v, *, window=None):
     bf16 at D in `TC_HEAD_DIMS` launches `flash_attention_tc_cuda`, the
     rest of `KERNEL_DTYPES` x `KERNEL_HEAD_DIMS`
     `flash_attention_tf32x3_cuda`. Returns (B, Hq, T, D) in q's dtype;
-    raises on anything neither kernel takes (a CPU tensor included). The
-    tc route is differentiable (B5-bwd); under autograd the tf32x3 route
-    raises."""
+    raises on anything neither kernel takes (a CPU tensor included). Both
+    routes are differentiable (through `FlashAttention`)."""
     route = kernel_route(q.dtype, q.shape[-1])
     kernel = flash_attention_tc_cuda if route == "tc" \
         else flash_attention_tf32x3_cuda
@@ -455,12 +523,13 @@ def flash_attention_cuda(q, k, v, *, window=None):
     return out
 
 
-#: Kernel launches since the count was last set to 0 (B5-bwd: one a call
-#: of its wrapper, which launches its three kernels: the pre-pass, the
-#: wgmma kernel and the dq cast).
+#: Kernel launches since the count was last set to 0 (the backwards: one a
+#: call of the wrapper, which launches the pre-pass, the main kernel and,
+#: for B5-bwd and for bf16 on the split-TF32 route, the dq cast).
 flash_attention_tc_cuda.launches = 0
 flash_attention_bwd_tc_cuda.launches = 0
 flash_attention_tf32x3_cuda.launches = 0
+flash_attention_bwd_tf32x3_cuda.launches = 0
 flash_attention_fma_cuda.launches = 0
 #: Launches of either kernel made through the route.
 flash_attention_cuda.launches = 0

@@ -1,19 +1,20 @@
 """The language-model kernels' CUDA wrappers where autograd would record
-them. Three have a backward: B5's tc route (`flash_attention_tc_cuda`,
-B5-bwd), B7 whole (`mlstm_chunk_scan_cuda`, B7-bwd) and B8
-(`slstm_scan_cuda`, B8-bwd). There each goes through its autograd
-Function (`FlashAttention`, `MLSTMChunkScan`, `SLSTMScan`), records a
-backward, reaches its forward's entry points (asked to keep what the
-backward reads: the log-sum-exp, each row's mLSTM normaliser, sLSTM's
-per-step record) and, on `.backward()`, the backward's. The others
-refuse: B5's split-TF32 and FMA routes (`flash_attention_{tf32x3,fma}_cuda`),
-B6 (`rglru_scan_cuda`) and B7's three passes launched on their own
-(`mlstm_chunk_{states,outputs}_cuda`, `mlstm_state_scan_cuda`). None of
-these has a backward, so an output computed from an input that requires
-grad would silently carry no gradient; each wrapper raises instead,
-naming itself, and launches nothing. Under `torch.no_grad()`, or when no
-input requires grad, every call gets past the check and reaches its
-serving launch.
+them. Five have a backward: B5's two routes (`flash_attention_tc_cuda`,
+B5-bwd; `flash_attention_tf32x3_cuda`, the split-TF32 backward), B6
+(`rglru_scan_cuda`, B6-bwd), B7 whole (`mlstm_chunk_scan_cuda`, B7-bwd)
+and B8 (`slstm_scan_cuda`, B8-bwd). There each goes through its autograd
+Function (`FlashAttention`, `RGLRUScan`, `MLSTMChunkScan`, `SLSTMScan`),
+records a backward, reaches its forward's entry points (asked to keep
+what the backward reads: the log-sum-exp, B6's scratch, each row's mLSTM
+normaliser, sLSTM's per-step record) and, on `.backward()`, the
+backward's. The others refuse: B5's FMA kernel, on no route
+(`flash_attention_fma_cuda`), and B7's three passes launched on their
+own (`mlstm_chunk_{states,outputs}_cuda`, `mlstm_state_scan_cuda`). None
+of these has a backward, so an output computed from an input that
+requires grad would silently carry no gradient; each wrapper raises
+instead, naming itself, and launches nothing. Under `torch.no_grad()`, or
+when no input requires grad, every call gets past the check and reaches
+its serving launch.
 
 The inputs are CPU tensors that say they live on a card (`fake_cuda`),
 with every kernel entry point replaced by a recorder and the card's
@@ -45,8 +46,8 @@ def launches(monkeypatch):
         return record
 
     monkeypatch.setattr(la, "_lib", lambda lib, fn, *n, **kw: recorder(fn))
-    monkeypatch.setattr(trglru, "_lib", lambda: (
-        recorder("rglru_scan_launch"), lambda B, T, D: 16))
+    monkeypatch.setattr(trglru, "_lib", lambda name="rglru_scan": (
+        recorder(f"{name}_launch"), lambda B, T, D: 16))
     monkeypatch.setattr(txlstm, "_mlstm_fn",
                         lambda name, nargs, lib=None: recorder(name))
     monkeypatch.setattr(txlstm, "_slstm_fn",
@@ -157,6 +158,11 @@ HAS_BACKWARD = {
     "flash_attention_tc_cuda": (
         "FlashAttention", ["flash_attention_tc_launch"],
         ["flash_attention_bwd_tc_launch"]),
+    "flash_attention_tf32x3_cuda": (
+        "FlashAttention", ["flash_attention_tf32x3_launch"],
+        ["flash_attention_bwd_tf32x3_launch"]),
+    "rglru_scan_cuda": ("RGLRUScan", ["rglru_scan_launch"],
+                        ["rglru_scan_bwd_launch"]),
     "mlstm_chunk_scan_cuda": (
         "MLSTMChunkScan", ["mlstm_chunk_states_launch",
                            "mlstm_state_scan_launch",
@@ -169,9 +175,9 @@ HAS_BACKWARD = {
 
 @pytest.mark.parametrize("name", list(WRAPPERS))
 def test_wrapper_raises_on_an_input_that_requires_grad(launches, name):
-    """Each wrapper without a backward raises; the tc route (B5-bwd), B7
-    whole (B7-bwd) and B8 (B8-bwd) record a backward instead and reach
-    both sets of entry points."""
+    """Each wrapper without a backward raises; B5's two routes, B6, B7
+    whole and B8 record a backward instead and reach both sets of entry
+    points."""
     call, _ = WRAPPERS[name]
     assert torch.is_grad_enabled()
     if name in HAS_BACKWARD:

@@ -139,12 +139,14 @@ def test_train_step_reduces_and_stays_finite(arch):
 
 #: (arch, config changes, compute dtype): a dense arch with T = 32 above
 #: attn_chunk = 16 (the chunked loop, two chunks), the MoE and both
-#: recurrent families at f32; the dense arch again at bf16.
+#: recurrent families at f32; the dense arch again at bf16, and
+#: stablelm-3b (MHA; its head size, 80, is reduced to 16) at bf16.
 PARITY = [("qwen3-0.6b", dict(attn_chunk=16), "float32"),
           ("qwen2-moe-a2.7b", {}, "float32"),
           ("recurrentgemma-9b", {}, "float32"),
           ("xlstm-125m", {}, "float32"),
-          ("qwen3-0.6b", dict(attn_chunk=16), "bfloat16")]
+          ("qwen3-0.6b", dict(attn_chunk=16), "bfloat16"),
+          ("stablelm-3b", dict(attn_chunk=16), "bfloat16")]
 
 
 @pytest.mark.parametrize("arch,changes,dtype", PARITY)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python
-"""Time the banded flash attention's backward (B5-bwd) of a checkout of this
-repository, and split its device time by kernel.
+"""Time the banded flash attention's backwards (B5-bwd; the split-TF32
+backward) and forwards of a checkout of this repository, and split the
+backwards' device time by kernel.
 
 Usage: python tools/flash_bwd_times.py [--checkout DIR] [--reps N]
 
@@ -28,6 +29,16 @@ and the prefill's forward (no log-sum-exp) at 1 x 32 / 16 x 32,768, causal
 and W 1,024 (``prefill_ms``), the shapes of chip_smoke.py's `flash_checks`,
 so that a change of the forward's source shows beside its parent.
 
+The split-TF32 route (``tf32x3``): its serving forward at chip_smoke.py's
+`flash_f32_shapes` (f32 2 x 32 / 16 x 2,048, D 128, W 1,024 and causal;
+bf16 1 x 32 x 4,096, D 80, causal; inputs from a generator seeded 13),
+``serving_ms``; and, where the checkout has the split-TF32 backward
+(`flash_attention_bwd_tf32x3_cuda`), at chip_smoke.py's
+`SPLIT_BWD_SHAPES` (stablelm-3b's microbatch, bf16 2 x 32 x 2,048, D 80;
+f32 2 x 16 / 8 x 2,048, D 128; causal; seed 31) the backward's ``ms``
+and ``by_kernel``, the forward with its log-sum-exp, and the bound (10*D
+FLOP a live pair at the bf16 or TF32 peak).
+
 Exits 1 when the profiler saw no device event, and with no CUDA device.
 Imports no JAX.
 """
@@ -43,6 +54,7 @@ from kernel_timing import by_kernel, card, checkout_args, time_cuda
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 494.7e12
 SHAPES = (("qwen3_train_causal", (4, 16, 8, 4096, None)),
           ("gemma3_local_w1024", (1, 32, 16, 32768, 1024)))
 D = 128
@@ -98,9 +110,61 @@ def main() -> int:
             str(W): time_cuda(lambda: la.flash_attention_tc_cuda(
                 q, k, v, window=W), args.reps)
             for W in (None, 1024)}
+        rec["tf32x3"] = tf32x3_times(la, dev, args.reps)
+        if rec["tf32x3"] is None:
+            print("the profiler saw no device event", file=sys.stderr)
+            return 1
     rec.update(card())
     print(json.dumps(rec))
     return 0
+
+
+def tf32x3_times(la, dev, reps):
+    """The split-TF32 route's serving forward and, where the checkout has
+    it, its backward (module note); None when the profiler saw no device
+    event."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q = torch.randn(2, 32, 2048, 128, device=dev, generator=gen)
+    k, v = (torch.randn(2, 16, 2048, 128, device=dev, generator=gen)
+            for _ in range(2))
+    out = {"serving_ms": {f"f32_w{W}": time_cuda(
+        lambda: la.flash_attention_tf32x3_cuda(q, k, v, window=W), reps)
+        for W in (1024, None)}}
+    q, k, v = (torch.randn(1, 32, 4096, 80, device=dev, generator=gen)
+               .bfloat16() for _ in range(3))
+    out["serving_ms"]["bf16_d80"] = time_cuda(
+        lambda: la.flash_attention_tf32x3_cuda(q, k, v), reps)
+    del q, k, v
+    if not hasattr(la, "flash_attention_bwd_tf32x3_cuda"):
+        return out
+    gen = torch.Generator(device=dev).manual_seed(31)
+    out["bwd"] = []
+    for name, (B, Hq, Hkv, T, D, dtype) in (
+            ("stablelm_train_d80", (2, 32, 32, 2048, 80, torch.bfloat16)),
+            ("qwen3_f32_d128", (2, 16, 8, 2048, 128, torch.float32))):
+        q, k, v, dout = (torch.randn(B, h, T, D, device=dev,
+                                     generator=gen).to(dtype)
+                         for h in (Hq, Hkv, Hkv, Hq))
+        o, lse = la._tf32x3_forward(q, k, v, None, True)
+
+        def bwd():
+            return la.flash_attention_bwd_tf32x3_cuda(q, k, v, o, lse, dout)
+        ms = time_cuda(bwd, reps)
+        kernels = by_kernel(bwd, reps)
+        if kernels is None:
+            return None
+        ops = 10 * D * live_pairs(B, Hq, T, None)
+        peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 \
+            else TF32_FLOP_PER_S
+        out["bwd"].append({
+            "shape": name, "q": list(q.shape), "kv": list(k.shape),
+            "ms": ms, "by_kernel": kernels,
+            "fwd_with_lse_ms": time_cuda(
+                lambda: la._tf32x3_forward(q, k, v, None, True), reps),
+            "bound_ms": ops / peak * 1e3, "tflop_per_s": ops / ms / 1e9})
+        del q, k, v, dout, o, lse
+        torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":
