@@ -1,6 +1,8 @@
 // B5-bwd: the backward of the banded (causal sliding-window) flash attention
-// with GQA, on Hopper's tensor cores, for sm_90a: bf16 q, k, v, o, dO at D
-// in {64, 128, 256} (the (dtype, D) set of csrc/flash_tc.cu), f32 lse.
+// with GQA, on Hopper's tensor cores, for sm_90a: bf16 q, k, v, o, dO at
+// every head size of the registry, D in {16, 64, 80, 128, 256}, f32 lse (the
+// forward's: csrc/flash_tc.cu's at D 64/128/256, csrc/flash_tf32x3.cu's at
+// D 16/80, both natural-log units of the scaled scores).
 //
 // Replaces the backward that the JAX package gets from differentiating its
 // attention (`jax.grad` through `_chunked_attention`, whose
@@ -18,8 +20,8 @@
 //
 // What bounds it on an H100: 5 products of 2*D FLOP per live (query, key)
 // pair, 10*D in all, against q, k, v, o, dO read once and dq, dk, dv
-// written once: the tensor cores (989 TFLOP/s bf16). The design at D 64
-// and 128 (`flash_bwd_wgmma_kernel`):
+// written once: the tensor cores (989 TFLOP/s bf16). The design at D 16,
+// 64, 80 and 128 (`flash_bwd_wgmma_kernel`):
 //
 //   * a pre-pass (`flash_bwd_prep_kernel`) writes, per query row padded to
 //     a multiple of 64, delta = rowsum(dO * O) in f32 and lse * log2(e)
@@ -36,23 +38,29 @@
 //     (3-D tensor maps: rows past T within a head read as zeros) and the
 //     tile's lse and delta (bulk copies) into a 2-stage ring with full and
 //     empty mbarriers. Two consumer warpgroups (240 registers) own 64 keys
-//     each.
+//     each. Rows are staged as whole 64-column chunks of 128 bytes: at D
+//     80 two chunks (128 columns), at D 16 one; the tensor maps keep the
+//     true D, so TMA fills the columns past D with zeros (and counts them
+//     in the barrier's bytes).
 //   * products on wgmma, operands in shared memory with the 128-byte
-//     swizzle: S^T = K Q^T and dP^T = V dO^T (m64n64k16, both K-major);
+//     swizzle: S^T = K Q^T and dP^T = V dO^T (m64n64k16, both K-major,
+//     D / 16 k-steps: the fifth at D 80 starts the second chunk);
 //     P^T and dS^T formed in registers (ex2; tiles that cross the diagonal,
 //     the window's lower edge or T select a masked P to exactly 0);
 //     dV += P^T dO and dK += dS^T Q with P^T, dS^T as register A operands
 //     (the accumulator layout is the A layout) and dO, Q MN-major
-//     (m64nDk16).
+//     (m64nDk16: N = 80 reads 16 columns of the second, zero-filled chunk;
+//     no product runs on the padding).
 //   * dQ in the same pass, 5 products a pair: dS^T goes to shared memory as
 //     bf16 (double-buffered, swizzled), and dQ_tile = dS K runs as a wgmma
 //     with both operands MN-major (dS read transposed). At D 128 each
 //     warpgroup takes 64 of dQ's columns over all 128 keys (a named barrier
-//     joins the two halves of dS^T); at D 64 each takes its own 64 keys and
-//     all columns. Each warpgroup writes its f32 partial into a staging
-//     tile in shared memory (128-byte swizzle) and one thread adds it into
-//     dq_acc with TMA reductions (cp.reduce.async.bulk.tensor .add.f32,
-//     rows past T dropped by the tensor map). Measured on the H100 at
+//     joins the two halves of dS^T); below D 128 each takes its own 64 keys
+//     and all D columns (m64nDk16). Each warpgroup writes its f32 partial
+//     into a staging tile in shared memory (boxes of 32 columns, 128-byte
+//     swizzle: three at D 80) and one thread adds it into dq_acc with TMA
+//     reductions (cp.reduce.async.bulk.tensor .add.f32, rows past T and
+//     columns past D dropped by the tensor map). Measured on the H100 at
 //     qwen3-0.6b's training shape, that took the kernel from 1.79 to 1.63
 //     ms against per-thread float2 reductions (red.global.add) of the same
 //     bytes (tools/flash_bwd_times.py, both in one call). A last kernel
@@ -158,7 +166,7 @@ flash_bwd_dq_cast_kernel(const float* __restrict__ dq_acc,
 }
 
 // ---------------------------------------------------------------------------
-// The wgmma design (D 64 and 128).
+// The wgmma design (D 16, 64, 80 and 128).
 // ---------------------------------------------------------------------------
 
 constexpr int WG_THREADS = 384;  // producer + two consumer warpgroups
@@ -168,21 +176,32 @@ template <int D>
 struct BwdTile {
   static constexpr int BK = 128;               // keys per block
   static constexpr int BQ = 64;                // queries per streamed tile
-  static constexpr int NCH = D / CHUNK;        // 64-column chunks per row
+  // A row is staged as whole 64-column (128-byte) swizzle chunks: D 16 and
+  // 80 at the next multiple of 64, TMA filling the columns past D with
+  // zeros. The products run at the true D.
+  static constexpr int NCH = (D + CHUNK - 1) / CHUNK;
+  static constexpr int DP = NCH * CHUNK;       // staged columns
   static constexpr int STAGES = 2;
-  static constexpr int KV_BYTES = BK * D * 2;  // K or V
-  static constexpr int Q_BYTES = BQ * D * 2;   // one Q or dO tile
+  static constexpr int KV_BYTES = BK * DP * 2; // K or V
+  static constexpr int Q_BYTES = BQ * DP * 2;  // one Q or dO tile
   static constexpr int DS_BYTES = BK * BQ * 2; // dS^T, 128 keys x 64 queries
   static constexpr int VEC = BQ * 4;           // 64 f32 (lse2 or delta)
-  // dQ_tile = dS K: at D 128 each warpgroup takes D/2 columns over all BK
-  // keys; at D 64 all columns over its own 64 keys. N = 64 either way: B
-  // is one whole 64-column (128-byte) swizzle chunk of K.
+  // dQ_tile = dS K: at D 128 each warpgroup takes D/2 = 64 columns (one
+  // whole chunk of K) over all BK keys; below, all D columns over its own
+  // 64 keys. DQ_N is the product's N.
   static constexpr bool DQ_COLS = D >= 128;
   static constexpr int DQ_KEYS = DQ_COLS ? BK : BK / 2;
-  static constexpr int DQS_BYTES = BQ * 64 * 4; // a warpgroup's f32 dQ_tile
+  static constexpr int DQ_N = DQ_COLS ? 64 : D;
+  // A warpgroup's f32 dQ_tile is staged as boxes of 64 rows x 32 columns
+  // (128-byte rows); the reduction's tensor map drops the columns >= D of
+  // the last box.
+  static constexpr int DQ_BOXES = (DQ_N + 31) / 32;
+  static constexpr int DQ_BOX_BYTES = BQ * 32 * 4;
+  static constexpr int DQS_BYTES = DQ_BOXES * DQ_BOX_BYTES;
   // 1 KB to align the tiles to the swizzle's 1024-byte period, then K, V,
   // STAGES x (Q, dO), two dS^T buffers, a dQ_tile staging tile per
-  // warpgroup, STAGES x (lse2, delta), and 1 + 2 * STAGES mbarriers.
+  // warpgroup, STAGES x (lse2, delta), and 1 + 2 * STAGES mbarriers: 210 KB
+  // at D 80.
   static constexpr int SMEM = 1024 + 2 * KV_BYTES + STAGES * 2 * Q_BYTES
                               + 2 * DS_BYTES + 2 * DQS_BYTES
                               + STAGES * 2 * VEC + 8 * (1 + 2 * STAGES);
@@ -250,6 +269,20 @@ __device__ __forceinline__ void produce(
   }
 }
 
+// D(64 x 16) (+)= A(64 x 16) * B(16 x 16), both MN-major in shared memory
+// (128-byte swizzle); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n16_mn(float (&d)[8], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D(64 x 64) (+)= A(64 x 16) * B(16 x 64), both MN-major in shared memory
 // (128-byte swizzle): A read transposed from a (K, M) tile, B from a (K, N)
 // tile; scale_d = 0 overwrites D.
@@ -269,6 +302,29 @@ __device__ __forceinline__ void wgmma_ss_n64_mn(float (&d)[32], uint64_t da,
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D(64 x 80) (+)= A(64 x 16) * B(16 x 80), both MN-major in shared memory
+// (128-byte swizzle); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n80_mn(float (&d)[40], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -300,6 +356,15 @@ __device__ __forceinline__ void wgmma_ss_n128_mn(float (&d)[64], uint64_t da,
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  if constexpr (N == 16) wgmma_ss_n16_mn(d, da, db, scale_d);
+  else if constexpr (N == 64) wgmma_ss_n64_mn(d, da, db, scale_d);
+  else if constexpr (N == 80) wgmma_ss_n80_mn(d, da, db, scale_d);
+  else wgmma_ss_n128_mn(d, da, db, scale_d);
 }
 
 // Shared -> global TMA reduction: the box at `src` is added (f32) into the
@@ -498,9 +563,9 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         asm volatile("bar.sync 1, 256;\n" ::: "memory");
       else
         asm volatile("bar.sync %0, 128;\n" ::"r"(2 + w) : "memory");
-      float dq[32];
+      float dq[C::DQ_N / 2];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+      for (int i = 0; i < C::DQ_N / 2; ++i) dq[i] = 0.f;
       fence_regs(dq);
       wgmma_fence();
       const int key_lo = C::DQ_COLS ? 0 : 64 * w;
@@ -508,8 +573,9 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int kk = 0; kk < C::DQ_KEYS / 16; ++kk) {
         const uint32_t row = (key_lo + 16 * kk) * ROW_BYTES;
-        wgmma_ss_n64_mn(dq, smem_desc(sds + row, BK * ROW_BYTES, 1024),
-                        smem_desc(s_kcol + row, BK * ROW_BYTES, 1024), kk > 0);
+        wgmma_ss_mn<C::DQ_N>(dq, smem_desc(sds + row, BK * ROW_BYTES, 1024),
+                             smem_desc(s_kcol + row, BK * ROW_BYTES, 1024),
+                             kk > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -520,20 +586,21 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(dq);
       mbar_arrive(bar_empty(st));
 
-      // dq_acc += dQ_tile: the tile into this warpgroup's staging (two
-      // boxes of 64 rows x 32 f32 columns, 128-byte swizzle), then one
-      // thread adds it into dq_acc by TMA reductions (rows past T dropped).
+      // dq_acc += dQ_tile: the tile into this warpgroup's staging (boxes
+      // of 64 rows x 32 f32 columns, 128-byte swizzle), then one thread
+      // adds it into dq_acc by TMA reductions (rows past T and columns past
+      // D dropped).
       {
         const uint32_t stage = s_dqs + w * C::DQS_BYTES;
         uint8_t* const p = smem_raw + (stage - raw);
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < C::DQ_N / 8; ++j)
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
             const int r = r0 + 8 * hh;
             const int off = (8 * (j % 4) + c0) * 4;  // byte in the box row
             *reinterpret_cast<float2*>(
-                p + (j / 4) * (C::DQS_BYTES / 2) + r * ROW_BYTES
+                p + (j / 4) * C::DQ_BOX_BYTES + r * ROW_BYTES
                 + (((off >> 4) ^ (r & 7)) << 4) + (off & 15)) =
                 make_float2(dq[4 * j + 2 * hh], dq[4 * j + 2 * hh + 1]);
           }
@@ -541,8 +608,10 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         asm volatile("bar.sync %0, 128;\n" ::"r"(2 + w) : "memory");
         if (tid == 0) {
           const int col = C::DQ_COLS ? 64 * w : 0;
-          tma_reduce_add(stage, &tm_dq, col, q0, bh);
-          tma_reduce_add(stage + C::DQS_BYTES / 2, &tm_dq, col + 32, q0, bh);
+#pragma unroll
+          for (int x = 0; x < C::DQ_BOXES; ++x)
+            tma_reduce_add(stage + x * C::DQ_BOX_BYTES, &tm_dq, col + 32 * x,
+                           q0, bh);
           bulk_commit();
         }
       }
@@ -550,7 +619,7 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (tid == 0) bulk_wait();
 
     // dK (times scale) and dV, rounded to bf16 once; rows past T are not
-    // written.
+    // written. The accumulators are D wide: no column past D is written.
     const long long kv_off = (long long)bkv * T;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -900,13 +969,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
 
 // Launches B5-bwd on `stream`: bf16 q, o, dout, dq (B, Hq, T, D); k, v, dk,
 // dv (B, Hkv, T, D); f32 lse (B, Hq, T) in natural-log units of the scaled
-// scores (as flash_tc.cu writes it); f32 scratch `rowvec` (2, B*Hq, Tp),
+// scores (as flash_tc.cu and flash_tf32x3.cu write it); f32 scratch `rowvec` (2, B*Hq, Tp),
 // Tp = T rounded up to a multiple of 64 (lse * log2(e) and delta), and f32
 // scratch `dq_acc` (B, Hq, T, D); all contiguous with 16-byte aligned
-// bases, D in {64, 128, 256}; W is the window (T for full causal, 0 for
-// none). Three kernels: the pre-pass, the wgmma kernel
-// (`flash_bwd_wgmma_kernel` at D 64 and 128, `flash_bwd_wgmma_split_kernel`
-// at D 256) and the dq cast. Returns the CUDA error code of the launches
+// bases, D in {16, 64, 80, 128, 256}; W is the window (T for full causal, 0
+// for none). Three kernels: the pre-pass, the wgmma kernel
+// (`flash_bwd_wgmma_kernel` at D 16, 64, 80 and 128,
+// `flash_bwd_wgmma_split_kernel` at D 256) and the dq cast. Returns the CUDA error code of the launches
 // (0 = success). Allocates nothing and does not synchronise.
 extern "C" int flash_attention_bwd_tc_launch(
     const void* q, const void* k, const void* v, const void* o,
@@ -918,8 +987,14 @@ extern "C" int flash_attention_bwd_tc_launch(
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
+    case 16:
+      return (int)launch<16>(q, k, v, o, lse, dout, dq, dk, dv, rowvec,
+                             dq_acc, B, Hq, Hkv, T, W, s);
     case 64:
       return (int)launch<64>(q, k, v, o, lse, dout, dq, dk, dv, rowvec,
+                             dq_acc, B, Hq, Hkv, T, W, s);
+    case 80:
+      return (int)launch<80>(q, k, v, o, lse, dout, dq, dk, dv, rowvec,
                              dq_acc, B, Hq, Hkv, T, W, s);
     case 128:
       return (int)launch<128>(q, k, v, o, lse, dout, dq, dk, dv, rowvec,

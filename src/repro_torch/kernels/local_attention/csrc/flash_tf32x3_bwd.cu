@@ -1,7 +1,7 @@
 // The backward of the split-TF32 banded flash attention (flash_tf32x3.cu)
 // with GQA, for sm_90a: f32 q, k, v, o, dO at every head size of the
-// registry (D 16, 64, 80, 128, 256) and bf16 at D 16 and 80 (the (dtype,
-// D) set of the forward), f32 lse.
+// registry (D 16, 64, 80, 128, 256), f32 lse. (The forward's bf16 arm, D 16
+// and 80, has its backward on bf16 tensor cores: csrc/flash_tc_bwd.cu.)
 //
 // Replaces the backward that the JAX package gets by differentiating its
 // attention (`jax.grad` through `_chunked_attention`); the TPU kernel
@@ -18,18 +18,15 @@
 //   dQ = scale dS K   dK = dS^T (q scale)    (dK, dV summed over G)
 //
 // What bounds it on an H100: 5 products of 2*D FLOP per live (query, key)
-// pair, 10*D in all, on the tensor cores at the input type's peak (TF32
-// 494.7 TFLOP/s for f32; the bf16 peak for bf16, whose operands are all
-// exact or split in tf32 here). The split issues 3x (f32) or fewer
-// (bf16) of those passes on mma.sync, which runs at a fraction of wgmma's
-// peak: this kernel is right first, not fast.
+// pair, 10*D in all, on the tensor cores at the TF32 peak (494.7
+// TFLOP/s). The split issues 3x those passes on mma.sync, which runs at a
+// fraction of wgmma's peak: this kernel is right first, not fast.
 //
 // Design (simple; each block recomputes what it needs):
 //
 //   * a pre-pass (`flash_tf32x3_bwd_prep_kernel`) writes delta =
-//     rowsum(dO * O) per row in f32 and zeroes the f32 dQ accumulator: dq
-//     itself for f32 inputs, an f32 scratch for bf16 (then cast by
-//     `flash_tf32x3_bwd_cast_kernel`).
+//     rowsum(dO * O) per row in f32 and zeroes dq, which is its own f32
+//     accumulator.
 //   * one block of 4 warps per (64-key tile, b * kv head, chunk of DC
 //     output columns); DC = D up to D 80, 64 above, so that a warp's dK and
 //     dV accumulators (16 keys x DC, f32) stay in registers. Each chunk's
@@ -52,9 +49,8 @@
 //     into the f32 accumulator with float2 atomics (so dq's f32 sums land
 //     in an order that varies from call to call; dk and dv do not).
 //   * every operand split into tf32 hi + lo as in the forward (its note),
-//     the dropped lo*lo term below 2^-21 of a product: three passes where
-//     both sides are f32 values (q scale, P and dS always are); bf16 K, V
-//     and dO are exact in tf32, their lo is 0 and that pass is skipped.
+//     the dropped lo*lo term below 2^-21 of a product: three passes a
+//     product.
 //   * dK and dV sum each query tile's share in a fresh fragment and add it
 //     to their registers in f32: kept as one mma.sync accumulator over all
 //     G x T queries they drift, the tensor cores' accumulation not rounding
@@ -64,12 +60,10 @@
 // Rows and keys past T read as zero, are masked and never written. At W = 0
 // no query tile is visited and dq, dk, dv are 0.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <cmath>
-#include <type_traits>
 
 #include "flash_tf32x3.cuh"
 
@@ -98,38 +92,27 @@ struct Cfg {
 };
 
 // An A fragment (16 x 8) as tf32 hi and lo: elements (row g, k t), (row
-// g + 8, k t), (row g, k t + 4), (row g + 8, k t + 4). EXACT: the values
-// are exact in tf32 (bf16 inputs), lo unused.
+// g + 8, k t), (row g, k t + 4), (row g + 8, k t + 4).
 struct FragA {
   uint32_t h[4], l[4];
 };
 
-template <bool EXACT>
 __device__ __forceinline__ void frag_a(FragA& f, float a0, float a1,
                                        float a2, float a3) {
   const float a[4] = {a0, a1, a2, a3};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if constexpr (EXACT) f.h[i] = __float_as_uint(a[i]);
-    else split(a[i], f.h[i], f.l[i]);
-  }
+  for (int i = 0; i < 4; ++i) split(a[i], f.h[i], f.l[i]);
 }
 
 // d += a * b with b's two values (k t, n g) and (k t + 4, n g): the small
-// terms first, the lo pass of a side skipped where that side is exact.
-template <bool A_EXACT, bool B_EXACT>
+// terms first.
 __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, float b0,
                                      float b1) {
-  uint32_t bh0, bl0 = 0, bh1, bl1 = 0;
-  if constexpr (B_EXACT) {
-    bh0 = __float_as_uint(b0);
-    bh1 = __float_as_uint(b1);
-  } else {
-    split(b0, bh0, bl0);
-    split(b1, bh1, bl1);
-  }
-  if constexpr (!A_EXACT) mma(d, a.l, bh0, bh1);
-  if constexpr (!B_EXACT) mma(d, a.h, bl0, bl1);
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma(d, a.l, bh0, bh1);
+  mma(d, a.h, bl0, bl1);
   mma(d, a.h, bh0, bh1);
 }
 
@@ -140,7 +123,7 @@ __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, float b0,
 // column g of the chunk; stride S), NC n-tiles of 8 columns. The tile's
 // sum is formed in a fresh fragment, then added to acc in f32 (the note:
 // a long chain of mma.sync accumulation drifts).
-template <bool B_EXACT, int NC, int S>
+template <int NC, int S>
 __device__ __forceinline__ void tile_product(float (&acc)[NC][4],
                                              const float (&a)[BQT / 8][4],
                                              const float* b) {
@@ -152,11 +135,11 @@ __device__ __forceinline__ void tile_product(float (&acc)[NC][4],
 #pragma unroll
   for (int j = 0; j < BQT / 8; ++j) {
     FragA f;
-    frag_a<false>(f, a[j][0], a[j][2], a[j][1], a[j][3]);
+    frag_a(f, a[j][0], a[j][2], a[j][1], a[j][3]);
     const float* row = b + 8 * j * S;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      mma3<false, B_EXACT>(t[c], f, row[8 * c], row[S + 8 * c]);
+      mma3(t[c], f, row[8 * c], row[S + 8 * c]);
   }
 #pragma unroll
   for (int c = 0; c < NC; ++c)
@@ -164,12 +147,12 @@ __device__ __forceinline__ void tile_product(float (&acc)[NC][4],
     for (int e = 0; e < 4; ++e) acc[c][e] += t[c][e];
 }
 
-// delta = rowsum(dO * O) per row (b * Hq + h, t), and that row of the f32
-// dQ accumulator zeroed. 8 threads a row.
-template <typename T, int D>
+// delta = rowsum(dO * O) per row (b * Hq + h, t), and that row of dq (the
+// f32 accumulator) zeroed. 8 threads a row.
+template <int D>
 __global__ void __launch_bounds__(256)
-flash_tf32x3_bwd_prep_kernel(const T* __restrict__ o,
-                             const T* __restrict__ dout,
+flash_tf32x3_bwd_prep_kernel(const float* __restrict__ o,
+                             const float* __restrict__ dout,
                              float* __restrict__ delta,
                              float* __restrict__ dq_acc, long long rows) {
   const long long row = (long long)blockIdx.x * 32 + threadIdx.x / 8;
@@ -192,27 +175,19 @@ flash_tf32x3_bwd_prep_kernel(const T* __restrict__ o,
   if (sub == 0 && row < rows) delta[row] = acc;
 }
 
-// dq = bf16(dq_acc), elementwise.
-__global__ void __launch_bounds__(256)
-flash_tf32x3_bwd_cast_kernel(const float* __restrict__ dq_acc,
-                             __nv_bfloat16* __restrict__ dq, long long n) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x)
-    dq[i] = __float2bfloat16(dq_acc[i]);
-}
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS, Cfg<D>::MIN_BLOCKS)
-flash_tf32x3_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
+flash_tf32x3_bwd_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
-                        float* __restrict__ dq_acc, T* __restrict__ dk,
-                        T* __restrict__ dv, int Hq, int Hkv, int Tlen, int W,
-                        float scale) {
+                        float* __restrict__ dq_acc, float* __restrict__ dk,
+                        float* __restrict__ dv, int Hq, int Hkv, int Tlen,
+                        int W, float scale) {
   using C = Cfg<D>;
   constexpr int S = C::S, KD = C::KD, NC = C::NC, NQ = C::NQ, DC = C::DC;
-  constexpr bool X = !std::is_same<T, float>::value;  // K, V, dO exact
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;               // [BKV][S]
   float* Vs = Ks + BKV * S;       // [BKV][S]
@@ -288,8 +263,8 @@ flash_tf32x3_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const float2 vb =
               *reinterpret_cast<const float2*>(Va + 8 * S + 8 * kk);
           FragA fk, fv;
-          frag_a<X>(fk, ka.x, kb.x, ka.y, kb.y);
-          frag_a<X>(fv, va.x, vb.x, va.y, vb.y);
+          frag_a(fk, ka.x, kb.x, ka.y, kb.y);
+          frag_a(fv, va.x, vb.x, va.y, vb.y);
 #pragma unroll
           for (int j = 0; j < BQT / 8; ++j) {
             // (k t, query 8j + g) and (k t + 4, query 8j + g)
@@ -297,8 +272,8 @@ flash_tf32x3_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 *reinterpret_cast<const float2*>(Qb + 8 * j * S + 8 * kk);
             const float2 z =
                 *reinterpret_cast<const float2*>(Ob + 8 * j * S + 8 * kk);
-            mma3<X, false>(st[j], fk, y.x, y.y);
-            mma3<X, X>(dpt[j], fv, z.x, z.y);
+            mma3(st[j], fk, y.x, y.y);
+            mma3(dpt[j], fv, z.x, z.y);
           }
         }
         // ---- P^T, dS^T (element e of n-tile j: key g + 8 (e / 2), query
@@ -325,8 +300,8 @@ flash_tf32x3_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
         // ---- dV_w += P^T dO[:, chunk], dK_w += dS^T (q scale)[:, chunk],
         // each query tile's share added in f32 ----
-        tile_product<X, NC, S>(dV, st, Os + 2 * tq * S + col0 + g);
-        tile_product<false, NC, S>(dK, dpt, Qs + 2 * tq * S + col0 + g);
+        tile_product<NC, S>(dV, st, Os + 2 * tq * S + col0 + g);
+        tile_product<NC, S>(dK, dpt, Qs + 2 * tq * S + col0 + g);
       }
       __syncthreads();  // dS^T complete
 
@@ -343,11 +318,11 @@ flash_tf32x3_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int kk = 0; kk < BKV / 8; ++kk) {
         const float* r0 = dSt + (8 * kk + 2 * tq) * DSS + qr + g;
         FragA fa;
-        frag_a<false>(fa, r0[0], r0[8], r0[DSS], r0[DSS + 8]);
+        frag_a(fa, r0[0], r0[8], r0[DSS], r0[DSS + 8]);
         const float* kr = Ks + (8 * kk + 2 * tq) * S + cq + g;
 #pragma unroll
         for (int c = 0; c < NQ; ++c)
-          mma3<false, X>(acc[c], fa, kr[8 * c], kr[S + 8 * c]);
+          mma3(acc[c], fa, kr[8 * c], kr[S + 8 * c]);
       }
       const int ra = q0 + qr + g, rb = ra + 8;
 #pragma unroll
@@ -379,75 +354,54 @@ flash_tf32x3_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
-                   const float* lse, const void* dout, void* dq, void* dk,
-                   void* dv, float* delta, float* dq_acc, int B, int Hq,
-                   int Hkv, int Tlen, int W, cudaStream_t s) {
+template <int D>
+cudaError_t launch(const float* q, const float* k, const float* v,
+                   const float* o, const float* lse, const float* dout,
+                   float* dq, float* dk, float* dv, float* delta, int B,
+                   int Hq, int Hkv, int Tlen, int W, cudaStream_t s) {
   using C = Cfg<D>;
-  constexpr bool F32 = std::is_same<T, float>::value;
-  float* acc = F32 ? (float*)dq : dq_acc;  // f32: dq is its own accumulator
   const long long rows = (long long)B * Hq * Tlen;
-  flash_tf32x3_bwd_prep_kernel<T, D>
-      <<<(unsigned)((rows + 31) / 32), 256, 0, s>>>(
-          (const T*)o, (const T*)dout, delta, acc, rows);
+  flash_tf32x3_bwd_prep_kernel<D><<<(unsigned)((rows + 31) / 32), 256, 0, s>>>(
+      o, dout, delta, dq, rows);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int smem = C::SMEM_FLOATS * (int)sizeof(float);
-  e = cudaFuncSetAttribute(flash_tf32x3_bwd_kernel<T, D>,
+  e = cudaFuncSetAttribute(flash_tf32x3_bwd_kernel<D>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((Tlen + BKV - 1) / BKV, B * Hkv, C::NCH);
   const float scale = (float)(1.0 / sqrt((double)D));
-  flash_tf32x3_bwd_kernel<T, D><<<grid, THREADS, smem, s>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, acc,
-      (T*)dk, (T*)dv, Hq, Hkv, Tlen, W, scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || F32) return e;
-  const long long n = rows * D;
-  const long long blocks = (n + 255) / 256;
-  flash_tf32x3_bwd_cast_kernel<<<(unsigned)(blocks < 65535 ? blocks : 65535),
-                                 256, 0, s>>>(acc, (__nv_bfloat16*)dq, n);
+  flash_tf32x3_bwd_kernel<D><<<grid, THREADS, smem, s>>>(
+      q, k, v, dout, lse, delta, dq, dk, dv, Hq, Hkv, Tlen, W, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches the split-TF32 flash attention backward on `stream`: q, o, dout
-// and dq (B, Hq, T, D), k, v, dk and dv (B, Hkv, T, D), all of one dtype
-// (0 = float32 at D 16, 64, 80, 128, 256; 1 = bfloat16 at D 16 and 80),
-// contiguous on 16-byte boundaries; lse (B, Hq, T) f32 as the forward wrote
-// it; delta: B * Hq * T floats of scratch; dq_acc: B * Hq * T * D floats of
-// scratch for bf16 (null for f32, whose dq accumulates in place). W is the
+// Launches the split-TF32 flash attention backward on `stream`: f32 q, o,
+// dout and dq (B, Hq, T, D), k, v, dk and dv (B, Hkv, T, D), D in {16, 64,
+// 80, 128, 256}, contiguous on 16-byte boundaries; lse (B, Hq, T) f32 as
+// the forward wrote it; delta: B * Hq * T floats of scratch. W is the
 // window (T for full causal). Returns the CUDA error code (0 = success).
 // Allocates nothing and does not synchronise.
 extern "C" int flash_attention_bwd_tf32x3_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,
-    void* delta, void* dq_acc, int B, int Hq, int Hkv, int T, int D, int W,
-    int dtype, void* stream) {
+    void* delta, int B, int Hq, int Hkv, int T, int D, int W, void* stream) {
   if (B <= 0 || T <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || B * Hkv > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const float* l = (const float*)lse;
-  float* dl = (float*)delta;
-  float* da = (float*)dq_acc;
-#define TF32X3_BWD_ARGS \
-  q, k, v, o, l, dout, dq, dk, dv, dl, da, B, Hq, Hkv, T, W, s
-  if (dtype == 0) {
-    switch (D) {
-      case 16: return (int)launch<float, 16>(TF32X3_BWD_ARGS);
-      case 64: return (int)launch<float, 64>(TF32X3_BWD_ARGS);
-      case 80: return (int)launch<float, 80>(TF32X3_BWD_ARGS);
-      case 128: return (int)launch<float, 128>(TF32X3_BWD_ARGS);
-      case 256: return (int)launch<float, 256>(TF32X3_BWD_ARGS);
-    }
-  } else if (dtype == 1 && dq_acc) {
-    switch (D) {
-      case 16: return (int)launch<__nv_bfloat16, 16>(TF32X3_BWD_ARGS);
-      case 80: return (int)launch<__nv_bfloat16, 80>(TF32X3_BWD_ARGS);
-    }
+#define TF32X3_BWD_ARGS                                                     \
+  (const float*)q, (const float*)k, (const float*)v, (const float*)o,       \
+      (const float*)lse, (const float*)dout, (float*)dq, (float*)dk,        \
+      (float*)dv, (float*)delta, B, Hq, Hkv, T, W, s
+  switch (D) {
+    case 16: return (int)launch<16>(TF32X3_BWD_ARGS);
+    case 64: return (int)launch<64>(TF32X3_BWD_ARGS);
+    case 80: return (int)launch<80>(TF32X3_BWD_ARGS);
+    case 128: return (int)launch<128>(TF32X3_BWD_ARGS);
+    case 256: return (int)launch<256>(TF32X3_BWD_ARGS);
   }
 #undef TF32X3_BWD_ARGS
   return (int)cudaErrorInvalidValue;

@@ -26,13 +26,13 @@ the tensors live.
 
 The backward: `FlashAttention`, a `torch.autograd.Function`, runs on CUDA
 tensors the forward of the route `kernel_route` picks, with its per-row
-log-sum-exp, and that route's backward kernel: B5-bwd
+log-sum-exp, and the backward kernel `bwd_route` picks: B5-bwd
 (`csrc/flash_tc_bwd.cu`, `flash_attention_bwd_tc_cuda`: one wgmma kernel
 per (b, kv head, key tile) that also reduces dQ into an f32 scratch) for
-the tc route, `csrc/flash_tf32x3_bwd.cu`
-(`flash_attention_bwd_tf32x3_cuda`: mma.sync with split tf32 operands, one
-block per (key tile, b * kv head, column chunk), dQ by f32 atomics) for
-the split-TF32 route. On CPU tensors it runs
+bf16 at every head size, behind either forward, and
+`csrc/flash_tf32x3_bwd.cu` (`flash_attention_bwd_tf32x3_cuda`: mma.sync
+with split tf32 operands, one block per (key tile, b * kv head, column
+chunk), dQ by f32 atomics) for f32. On CPU tensors it runs
 `flash_attention_plain(return_lse=True)` and `flash_attention_bwd_plain`.
 `flash_attention_tc_cuda` and `flash_attention_tf32x3_cuda` go through it
 whenever autograd would record the call; the FMA kernel, on no route, has
@@ -57,7 +57,9 @@ KERNEL_HEAD_DIMS = (16, 64, 80, 128, 256)
 #: dtype.
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: Head sizes the wgmma kernel takes, bf16 only.
+#: Head sizes the forward wgmma kernel (`csrc/flash_tc.cu`) takes, bf16
+#: only. Its backward, B5-bwd, takes bf16 at every size of
+#: `KERNEL_HEAD_DIMS`.
 TC_HEAD_DIMS = (64, 128, 256)
 
 #: B5-bwd's per-row vectors (lse * log2(e), delta) are padded to a multiple
@@ -248,6 +250,16 @@ def kernel_route(dtype, D):
         else "tf32x3"
 
 
+def bwd_route(dtype, D):
+    """Which backward kernel takes (dtype, D) on a CUDA tensor: "tc"
+    (B5-bwd, `csrc/flash_tc_bwd.cu`) for bf16 at every head size of
+    `KERNEL_HEAD_DIMS`, whichever forward ran; "tf32x3"
+    (`csrc/flash_tf32x3_bwd.cu`) for f32. Raises ValueError for what
+    neither takes, as `kernel_route` does."""
+    kernel_route(dtype, D)
+    return "tc" if dtype == torch.bfloat16 else "tf32x3"
+
+
 def _contiguous(*ts):
     """Contiguous rows on 16-byte boundaries: the kernels load 16 bytes of
     a row at a time (TMA requires it of its base address)."""
@@ -353,15 +365,17 @@ def flash_attention_bwd_tc_cuda(q, k, v, out, lse, dout, *, window=None):
     `BWD_ROW_PAD`; it also zeroes an f32 scratch `dq_acc`), one wgmma
     kernel per (b, kv head, 128-key tile; 64 at D 256) that sums dK, dV
     over the group and adds each tile's dQ into `dq_acc`, and a cast dq =
-    bf16(scale * dq_acc). bf16 operands, f32 accumulation. q, k,
-    v as `flash_attention_tc_cuda` takes them, `out` the forward's output
-    and `dout` its gradient (bf16, like q), `lse` (B, Hq, T) f32 from the
-    forward kernel. Returns (dq, dk, dv) bf16 on PyTorch's current stream,
-    without synchronising; dq's f32 sums come in an order that varies from
-    call to call. Raises on anything the kernels do not take."""
+    bf16(scale * dq_acc). bf16 operands, f32 accumulation. bf16 q (B, Hq,
+    T, D), k/v (B, Hkv, T, D), D in `KERNEL_HEAD_DIMS`, `out` the
+    forward's output and `dout` its gradient (bf16, like q), `lse` (B, Hq,
+    T) f32 from either forward kernel (`flash_tc.cu` at D 64/128/256,
+    `flash_tf32x3.cu` at D 16/80). Returns (dq, dk, dv) bf16 on PyTorch's
+    current stream, without synchronising; dq's f32 sums come in an order
+    that varies from call to call. Raises on anything the kernels do not
+    take."""
     name = "flash_attention_bwd_tc_cuda"
     q, k, v, W, sizes = _prepare(q, k, v, window, (torch.bfloat16,),
-                                 TC_HEAD_DIMS, name)
+                                 KERNEL_HEAD_DIMS, name)
     B, Hq, Hkv, T, D = sizes
     out, dout, lse = _bwd_operands(name, q, out, lse, dout, sizes)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -382,35 +396,30 @@ def flash_attention_bwd_tc_cuda(q, k, v, out, lse, dout, *, window=None):
 def flash_attention_bwd_tf32x3_cuda(q, k, v, out, lse, dout, *,
                                     window=None):
     """Launch the split-TF32 backward (`csrc/flash_tf32x3_bwd.cu`) on CUDA
-    tensors: a pre-pass (delta = rowsum(dO * O) per row; the f32 dQ
-    accumulator zeroed), one mma.sync kernel per (64-key tile, b * kv head,
-    chunk of output columns) that sums dK, dV over the group and adds each
-    query tile's dQ into the accumulator by f32 atomics, and for bf16 a
-    cast of the accumulator. Every operand split into tf32 hi + lo as the
-    forward splits them; f32 accumulation. q, k, v as
-    `flash_attention_tf32x3_cuda` takes them, `out` the forward's output
-    and `dout` its gradient (like q), `lse` (B, Hq, T) f32 from the
-    forward kernel. Returns (dq, dk, dv) in q's dtype on PyTorch's current
-    stream, without synchronising; dq's f32 sums come in an order that
-    varies from call to call. Raises on anything the kernels do not
-    take."""
+    tensors: a pre-pass (delta = rowsum(dO * O) per row; dq, its own f32
+    accumulator, zeroed) and one mma.sync kernel per (64-key tile, b * kv
+    head, chunk of output columns) that sums dK, dV over the group and
+    adds each query tile's dQ into dq by f32 atomics. Every operand split
+    into tf32 hi + lo as the forward splits them; f32 accumulation. f32 q
+    (B, Hq, T, D), k/v (B, Hkv, T, D), D in `KERNEL_HEAD_DIMS`, `out` the
+    forward's output and `dout` its gradient (like q), `lse` (B, Hq, T)
+    f32 from `flash_tf32x3.cu`. Returns (dq, dk, dv) f32 on PyTorch's
+    current stream, without synchronising; dq's f32 sums come in an order
+    that varies from call to call. Raises on anything the kernels do not
+    take, bf16 included (its backward is `flash_attention_bwd_tc_cuda`)."""
     name = "flash_attention_bwd_tf32x3_cuda"
-    head_dims = TF32X3_BF16_HEAD_DIMS if q.dtype == torch.bfloat16 \
-        else KERNEL_HEAD_DIMS
-    q, k, v, W, sizes = _prepare(q, k, v, window, KERNEL_DTYPES, head_dims,
-                                 name)
+    q, k, v, W, sizes = _prepare(q, k, v, window, (torch.float32,),
+                                 KERNEL_HEAD_DIMS, name)
     out, dout, lse = _bwd_operands(name, q, out, lse, dout, sizes)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel():
         B, Hq, _, T, D = sizes
         delta = torch.empty((B, Hq, T), dtype=torch.float32,
                             device=q.device)
-        dq_acc = None if q.dtype == torch.float32 else torch.empty(
-            q.shape, dtype=torch.float32, device=q.device)
         _call(_lib("flash_tf32x3_bwd", "flash_attention_bwd_tf32x3_launch",
-                   7, n_ptr=11),
-              (q, k, v, out, lse, dout, dq, dk, dv, delta, dq_acc),
-              (*sizes, W, KERNEL_DTYPES[q.dtype]), "flash_tf32x3_bwd")
+                   6, n_ptr=10),
+              (q, k, v, out, lse, dout, dq, dk, dv, delta), (*sizes, W),
+              "flash_tf32x3_bwd")
         build.count(flash_attention_bwd_tf32x3_cuda)
     return dq, dk, dv
 
@@ -418,8 +427,9 @@ def flash_attention_bwd_tf32x3_cuda(q, k, v, out, lse, dout, *,
 class FlashAttention(torch.autograd.Function):
     """The banded flash attention with its backward: on CUDA tensors the
     forward of the route `kernel_route` picks with the per-row
-    log-sum-exp and that route's backward (B5-bwd for tc, the split-TF32
-    backward for tf32x3), on CPU tensors
+    log-sum-exp and the backward of the route `bwd_route` picks (B5-bwd
+    for bf16 at every head size, the split-TF32 backward for f32), on CPU
+    tensors
     `flash_attention_plain(return_lse=True)` and
     `flash_attention_bwd_plain`. Everything the backward reads is saved
     through `ctx.save_for_backward` (q, k, v, out, lse), so a
@@ -447,7 +457,7 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         if not q.is_cuda:
             bwd = flash_attention_bwd_plain
-        elif kernel_route(q.dtype, q.shape[-1]) == "tc":
+        elif bwd_route(q.dtype, q.shape[-1]) == "tc":
             bwd = flash_attention_bwd_tc_cuda
         else:
             bwd = flash_attention_bwd_tf32x3_cuda
@@ -481,7 +491,8 @@ def flash_attention_tf32x3_cuda(q, k, v, *, window=None):
     `TF32X3_BF16_HEAD_DIMS`, any T >= 1. Returns (B, Hq, T, D) in q's
     dtype on PyTorch's current stream, without synchronising. Where
     autograd would record the call, it goes through `FlashAttention` (the
-    forward with its log-sum-exp, the split-TF32 backward behind it).
+    forward with its log-sum-exp; behind it B5-bwd for bf16, the
+    split-TF32 backward for f32).
     Raises on anything the kernel does not take."""
     if build.records_grad(q, k, v):
         return FlashAttention.apply(q, k, v, window)
@@ -525,7 +536,7 @@ def flash_attention_cuda(q, k, v, *, window=None):
 
 #: Kernel launches since the count was last set to 0 (the backwards: one a
 #: call of the wrapper, which launches the pre-pass, the main kernel and,
-#: for B5-bwd and for bf16 on the split-TF32 route, the dq cast).
+#: for B5-bwd, the dq cast).
 flash_attention_tc_cuda.launches = 0
 flash_attention_bwd_tc_cuda.launches = 0
 flash_attention_tf32x3_cuda.launches = 0

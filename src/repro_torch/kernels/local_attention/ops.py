@@ -4,8 +4,8 @@ The choice is made by where the tensors live and by nothing else: CPU
 tensors take the plain version, CUDA tensors launch the kernel or raise.
 Both are differentiable where a backward exists: on the CPU through
 `FlashAttention` (the plain forward with its log-sum-exp and the plain
-backward), on CUDA through the tc route's `FlashAttention` (B5-bwd); the
-split-TF32 route raises under autograd.
+backward), on CUDA through `FlashAttention` behind either forward route
+(B5-bwd for bf16 at every head size, the split-TF32 backward for f32).
 """
 
 from __future__ import annotations

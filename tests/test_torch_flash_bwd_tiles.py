@@ -3,16 +3,20 @@
 The kernels of `csrc/flash_tc_bwd.cu` cannot run here, so their arithmetic
 is emulated in plain PyTorch at their tile order and rounding points:
 
-  * key tiles of 128 keys at D 64 and 128 (`BwdTile::BK`), 64 at D 256
-    (`SplitTile::BK`, where the kernel's two warpgroups split dK and dV);
-    for each, the G query heads of its group and, for each head, the
+  * key tiles of 128 keys at D 16, 64, 80 and 128 (`BwdTile::BK`), 64 at
+    D 256 (`SplitTile::BK`, where the kernel's two warpgroups split dK and
+    dV); for each, the G query heads of its group and, for each head, the
     64-query tiles that meet the band [k_lo, k_hi + W - 1];
   * S and dP summed in f32 from the bf16 inputs, P = exp2(s * sl2 - lse *
     log2(e)) with masked pairs 0, delta = rowsum(dO * O) from the bf16
     output the forward returned, dS = P (dP - delta) in f32;
   * P and dS rounded to bf16 before each product; dV and dK summed in f32
-    over the group and its query tiles, dQ summed in f32 one key tile at a
-    time into an f32 scratch; dq, dk, dv each rounded to bf16 once.
+    over the group and its query tiles; dQ summed in f32 into an f32
+    scratch one partial at a time: below D 128 each consumer warpgroup's
+    own 64 keys (two partials a 128-key tile), at D 128 the whole tile, at
+    D 256 its 64 keys; dq, dk, dv each rounded to bf16 once. The products
+    run at the true D (16 and 80 are staged at 64 and 128 columns, the
+    padding zero, and no product reads it).
 
 The emulation is held, with the card check's tolerance (each of dq, dk, dv
 within 2^-6 x max |reference| and relative L2 2^-7; at W = 1 dq and dk,
@@ -20,8 +24,10 @@ exactly 0 there, within 2^-6 x max |dv|), against `torch.autograd` of the
 naive masked attention in f64 on the same bf16 inputs, and against
 `flash_attention_bwd_plain`, the version the card check compares with. So
 the tolerance holds for this order before the card runs it. Inputs come
-from a numpy seed, over D {64, 128, 256} x W {full, 1, 40} x G {1, 2, 8}
-at ragged T (not a multiple of 64).
+from a numpy seed, over D {16, 64, 80, 128, 256} x W {full, 1, 40} x G {1,
+2, 8} at ragged T (not a multiple of 64). At D 16 and 80 the forward's
+lse comes from `flash_tf32x3.cu` on the card; here, as for the other head
+sizes, from the plain forward.
 
 A last test reads what the wrapper hands the C entry point: eleven
 pointers, the padded per-row vectors and the f32 dq scratch."""
@@ -42,8 +48,10 @@ MAX_TOL = 2 ** -6
 L2_TOL = 2 ** -7
 BQ = 64
 #: Keys per block of the kernels, by head size.
-KEY_TILE = {64: 128, 128: 128, 256: 64}
-CASES = [(D, W, G) for D in (64, 128, 256) for W in (None, 1, 40)
+KEY_TILE = {16: 128, 64: 128, 80: 128, 128: 128, 256: 64}
+#: Keys of one dQ partial: a consumer warpgroup's own 64 below D 128.
+DQ_KEYS = {16: 64, 64: 64, 80: 64, 128: 128, 256: 64}
+CASES = [(D, W, G) for D in (64, 128, 256, 16, 80) for W in (None, 1, 40)
          for G in (1, 2, 8)]
 
 
@@ -98,7 +106,9 @@ def emulate_bwd_tiles(q, k, v, out, lse, dout, window=None):
                 pb, dsb = _bf16(p), _bf16(ds)
                 dv[:, :, k_lo:k_hi] += pb.transpose(-1, -2) @ dot
                 dk[:, :, k_lo:k_hi] += dsb.transpose(-1, -2) @ qt
-                dq_acc[:, :, g, q0:q1] += dsb @ kt
+                for h in range(0, k_hi - k_lo, DQ_KEYS[D]):
+                    dq_acc[:, :, g, q0:q1] += dsb[..., h:h + DQ_KEYS[D]] \
+                        @ kt[:, :, h:h + DQ_KEYS[D]]
     return ((dq_acc * scale).reshape(B, Hq, T, D).to(torch.bfloat16),
             (dk * scale).to(torch.bfloat16), dv.to(torch.bfloat16))
 
@@ -153,7 +163,7 @@ def test_tile_order_holds_the_card_tolerance(D, W, G):
                                              window=W), W)
 
 
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [16, 64, 80, 128, 256])
 def test_wrapper_hands_the_entry_point_its_scratch(monkeypatch, D):
     """One launch a call; rowvec (2, B*Hq, T padded to 64) f32; dq_acc
     (B, Hq, T, D) f32."""

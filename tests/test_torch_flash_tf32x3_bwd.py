@@ -12,11 +12,13 @@ the CPU.
   autograd would record it, `flash_attention_tf32x3_cuda` (f32 at every
   head size, bf16 at D 16 and 80) goes through `FlashAttention`, whose
   forward reaches `flash_attention_tf32x3_launch` with a non-null lse
-  (B, Hq, T) f32, and whose backward reaches
+  (B, Hq, T) f32, and whose backward reaches, for f32,
   `flash_attention_bwd_tf32x3_launch` with q, k, v, the forward's output
-  and lse, dO, the three gradients, a delta scratch and, for bf16 only,
-  an f32 dQ accumulator; no plain version runs. Without autograd the
-  forward's lse pointer is null."""
+  and lse, dO, the three gradients and a delta scratch, and for bf16
+  B5-bwd's `flash_attention_bwd_tc_launch` with the same and B5-bwd's
+  scratch (the padded per-row vectors, an f32 dQ accumulator); no plain
+  version runs. Without autograd the forward's lse pointer is null. The
+  split-TF32 backward's wrapper refuses bf16."""
 
 import contextlib
 import types
@@ -115,11 +117,14 @@ def test_route_under_autograd_reaches_both_entry_points(entry_points, dtype,
     q = fake_cuda(torch.zeros(B, Hq, T, D, dtype=dtype).requires_grad_())
     k, v = (fake_cuda(torch.zeros(B, Hkv, T, D, dtype=dtype))
             for _ in range(2))
+    bf16 = dtype == torch.bfloat16
     assert la.kernel_route(dtype, D) == "tf32x3"
+    assert la.bwd_route(dtype, D) == ("tc" if bf16 else "tf32x3")
+    bwd = la.flash_attention_bwd_tc_cuda if bf16 \
+        else la.flash_attention_bwd_tf32x3_cuda
     plain = (la.flash_attention_plain.calls,
              la.flash_attention_bwd_plain.calls)
-    launches = (la.flash_attention_tf32x3_cuda.launches,
-                la.flash_attention_bwd_tf32x3_cuda.launches)
+    launches = (la.flash_attention_tf32x3_cuda.launches, bwd.launches)
     out = la.flash_attention_cuda(q, k, v, window=W)
     assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
     (name, ptrs, ints), = entry_points
@@ -130,21 +135,23 @@ def test_route_under_autograd_reaches_both_entry_points(entry_points, dtype,
     assert ints == (B, Hq, Hkv, T, D, W, la.KERNEL_DTYPES[dtype])
     out.backward(torch.ones_like(out))
     name, ptrs, ints = entry_points[1]
-    assert name == "flash_attention_bwd_tf32x3_launch"
     assert len(entry_points) == 2
     assert ptrs[4] is lse and ptrs[3].shape == q.shape
     assert [p.shape for p in ptrs[6:9]] == [q.shape, k.shape, v.shape]
-    assert ptrs[9].shape == (B, Hq, T) and ptrs[9].dtype == torch.float32
-    if dtype == torch.float32:
-        assert ptrs[10] is None
-    else:
+    if bf16:
+        assert name == "flash_attention_bwd_tc_launch" and len(ptrs) == 11
+        t_pad = -(-T // la.BWD_ROW_PAD) * la.BWD_ROW_PAD
+        assert ptrs[9].shape == (2, B * Hq, t_pad)
         assert ptrs[10].shape == q.shape and ptrs[10].dtype == torch.float32
-    assert ints == (B, Hq, Hkv, T, D, W, la.KERNEL_DTYPES[dtype])
+    else:
+        assert name == "flash_attention_bwd_tf32x3_launch" and len(ptrs) == 10
+        assert ptrs[9].shape == (B, Hq, T)
+    assert ptrs[9].dtype == torch.float32
+    assert ints == (B, Hq, Hkv, T, D, W)
     assert (la.flash_attention_plain.calls,
             la.flash_attention_bwd_plain.calls) == plain
     assert (la.flash_attention_tf32x3_cuda.launches - launches[0],
-            la.flash_attention_bwd_tf32x3_cuda.launches - launches[1]) \
-        == (1, 1)
+            bwd.launches - launches[1]) == (1, 1)
 
 
 def test_serving_launch_passes_no_lse(entry_points):
@@ -154,3 +161,16 @@ def test_serving_launch_passes_no_lse(entry_points):
     (name, ptrs, ints), = entry_points
     assert name == "flash_attention_tf32x3_launch" and ptrs[4] is None
     assert ints == (1, 2, 2, 16, 80, 16, 1)
+
+
+@pytest.mark.parametrize("D", [16, 80])
+def test_split_backward_refuses_bf16(entry_points, D):
+    """bf16's backward is B5-bwd: the split-TF32 backward's wrapper raises
+    on bf16 and launches nothing."""
+    q = fake_cuda(torch.zeros(1, 2, 16, D, dtype=torch.bfloat16))
+    lse = fake_cuda(torch.zeros(1, 2, 16))
+    before = la.flash_attention_bwd_tf32x3_cuda.launches
+    with pytest.raises(ValueError, match="one dtype in"):
+        la.flash_attention_bwd_tf32x3_cuda(q, q, q, q, lse, q)
+    assert entry_points == []
+    assert la.flash_attention_bwd_tf32x3_cuda.launches == before

@@ -33,11 +33,15 @@ The split-TF32 route (``tf32x3``): its serving forward at chip_smoke.py's
 `flash_f32_shapes` (f32 2 x 32 / 16 x 2,048, D 128, W 1,024 and causal;
 bf16 1 x 32 x 4,096, D 80, causal; inputs from a generator seeded 13),
 ``serving_ms``; and, where the checkout has the split-TF32 backward
-(`flash_attention_bwd_tf32x3_cuda`), at chip_smoke.py's
-`SPLIT_BWD_SHAPES` (stablelm-3b's microbatch, bf16 2 x 32 x 2,048, D 80;
-f32 2 x 16 / 8 x 2,048, D 128; causal; seed 31) the backward's ``ms``
-and ``by_kernel``, the forward with its log-sum-exp, and the bound (10*D
-FLOP a live pair at the bf16 or TF32 peak).
+(`flash_attention_bwd_tf32x3_cuda`), at stablelm-3b's training
+microbatch (bf16 2 x 32 x 2,048, D 80) and an f32 shape (2 x 16 / 8 x
+2,048, D 128; causal; seed 31), whichever backward that checkout routes
+the shape to (``backward``: B5-bwd, `flash_attention_bwd_tc_cuda`, where
+its `bwd_route` says "tc"; else the split-TF32 backward), its ``ms`` and
+``by_kernel``, the forward with its log-sum-exp, and the bound (10*D
+FLOP a live pair at the bf16 or TF32 peak). So ``--checkout`` of a tree
+that routes bf16 D 80 to the split-TF32 backward times that kernel, and
+this tree's run times B5-bwd there.
 
 Exits 1 when the profiler saw no device event, and with no CUDA device.
 Imports no JAX.
@@ -146,9 +150,13 @@ def tf32x3_times(la, dev, reps):
                                      generator=gen).to(dtype)
                          for h in (Hq, Hkv, Hkv, Hq))
         o, lse = la._tf32x3_forward(q, k, v, None, True)
+        route = la.bwd_route(dtype, D) if hasattr(la, "bwd_route") \
+            else la.kernel_route(dtype, D)
+        backward = la.flash_attention_bwd_tc_cuda if route == "tc" \
+            else la.flash_attention_bwd_tf32x3_cuda
 
         def bwd():
-            return la.flash_attention_bwd_tf32x3_cuda(q, k, v, o, lse, dout)
+            return backward(q, k, v, o, lse, dout)
         ms = time_cuda(bwd, reps)
         kernels = by_kernel(bwd, reps)
         if kernels is None:
@@ -158,7 +166,7 @@ def tf32x3_times(la, dev, reps):
             else TF32_FLOP_PER_S
         out["bwd"].append({
             "shape": name, "q": list(q.shape), "kv": list(k.shape),
-            "ms": ms, "by_kernel": kernels,
+            "backward": backward.__name__, "ms": ms, "by_kernel": kernels,
             "fwd_with_lse_ms": time_cuda(
                 lambda: la._tf32x3_forward(q, k, v, None, True), reps),
             "bound_ms": ops / peak * 1e3, "tflop_per_s": ops / ms / 1e9})
