@@ -1,16 +1,19 @@
 // Banded (causal sliding-window) flash attention with GQA on Hopper's tensor
-// cores, for sm_90a: bf16 q, k, v at D in {64, 128, 256}.
+// cores, for sm_90a: bf16 q, k, v at every head size of the registry, D in
+// {16, 64, 80, 128, 256}.
 //
-// Replaces, for these inputs, the TPU kernel `_flash_kernel` (wrapper
+// Replaces, for bf16 inputs, the TPU kernel `_flash_kernel` (wrapper
 // `flash_attention_pallas`) of src/repro/kernels/local_attention/
-// local_attention.py. The FMA kernel of csrc/local_attention.cu keeps the
-// f32 inputs and the other head sizes. Same function: the mask is
-// (k_pos <= q_pos) & (k_pos > q_pos - W), masked probabilities are 0, a row
-// whose normaliser stayed 0 divides by 1, q head h reads kv head
-// h / (Hq / Hkv), W = T is full causal.
+// local_attention.py. The split-TF32 kernel (csrc/flash_tf32x3.cu) keeps
+// the f32 inputs. Same function: the mask is (k_pos <= q_pos) & (k_pos >
+// q_pos - W), masked probabilities are 0, a row whose normaliser stayed 0
+// divides by 1, q head h reads kv head h / (Hq / Hkv), W = T is full
+// causal.
 //
 // What bounds it on an H100: 4*D FLOP per live (query, key) pair, far above
-// the bytes of q, k, v and o, so the tensor cores (989 TFLOP/s bf16). The
+// the bytes of q, k, v and o, so the tensor cores (989 TFLOP/s bf16), at
+// every D: at D 80 the bound is 5/8 of D 128's for the same pairs, at D 16
+// 1/8 (the bytes, 4*D*2 per row of q, k, v and o, stay far below). The
 // design:
 //
 //   * one block per (batch * q head, 128-row query tile), query tiles
@@ -25,15 +28,20 @@
 //     an "empty" mbarrier. Two consumer warpgroups (240 registers) own 64
 //     query rows each.
 //   * shared memory holds bf16 tiles in 64-column (128-byte) chunks with
-//     the 128-byte swizzle that TMA writes and wgmma reads: Q 128 x D, and
-//     per stage K and V BK x D (BK = 128, or 64 at D = 256): 160 KB at
-//     D = 128. A 3-D tensor map (D, T, B*H) per input makes TMA zero-fill
-//     rows past T within a head instead of reading the next head's rows;
-//     o is written with plain stores of rows < T only.
+//     the 128-byte swizzle that TMA writes and wgmma reads: Q 128 x DP, and
+//     per stage K and V BK x DP (BK = 128, or 64 at D = 256), DP = D
+//     rounded up to whole chunks: 160 KB at D = 80 and 128, 80 KB at D =
+//     16. A 3-D tensor map (D, T, B*H) per input, of the true width D,
+//     makes TMA zero-fill rows past T within a head instead of reading the
+//     next head's rows, and the columns past D of a D 16 or 80 row (the
+//     barrier counts the whole box, zeros included); o is written with
+//     plain stores of rows < T and columns < D only.
 //   * S = Q K^T: wgmma m64nBKk16, both operands K-major from shared memory,
-//     f32 accumulation. 1/sqrt(D) and log2(e) are applied in f32 to the
-//     accumulator inside the exponent (exp2); the plain version scales q
-//     after the upcast: a few f32 ulps apart.
+//     f32 accumulation, in D / 16 k-steps (at D 80 four in chunk 0 and the
+//     fifth at the head of chunk 1; no product runs on the zero columns).
+//     1/sqrt(D) and log2(e) are applied in f32 to the accumulator inside
+//     the exponent (exp2); the plain version scales q after the upcast: a
+//     few f32 ulps apart.
 //   * online softmax in registers on the accumulator fragment: a row lives
 //     in the 4 threads of a quad, joined by two xor shuffles. Only tiles
 //     that cross the diagonal or the window's lower edge are masked
@@ -43,11 +51,13 @@
 //     bf16(p - p_hi) in registers (the accumulator layout is the A-operand
 //     layout of the next product), and O += p_hi V + p_lo V by two wgmma
 //     m64nDk16 with A from registers and V MN-major (transposed B) from
-//     shared memory. p_hi + p_lo is p within 2^-18 p, and bf16 x bf16
-//     products are exact in f32, so the result stays within one bf16 ulp
-//     of the f32 plain version. One bf16 P would err by up to 2^-9 of
-//     sum(p|v|)/l: many ulps at the output's magnitude. The split costs
-//     6*D FLOP per live pair instead of 4*D; the bound counts 4*D.
+//     shared memory; at D 80 N = 80 reads columns 64-79 from the second,
+//     zero-filled chunk, one chunk stride (BK * 128 bytes) on. p_hi + p_lo
+//     is p within 2^-18 p, and bf16 x bf16 products are exact in f32, so
+//     the result stays within one bf16 ulp of the f32 plain version. One
+//     bf16 P would err by up to 2^-9 of sum(p|v|)/l: many ulps at the
+//     output's magnitude. The split costs 6*D FLOP per live pair instead
+//     of 4*D; the bound counts 4*D.
 //   * the normaliser l is summed from the f32 p; O / l in f32, rounded to
 //     bf16 and written once.
 //   * optionally (a second instantiation, launched when the caller passes a
@@ -57,6 +67,10 @@
 //     the backward (csrc/flash_tc_bwd.cu); a row with l = 0 (only at
 //     W = 0) gets +inf, for which every P of the backward is exactly 0.
 //     Without it the kernel is the prefill's, unchanged.
+//
+// At D 16 and 80 the softmax and the P split cost what they cost at D 128
+// per live pair, while the products shrink to 1/8 and 5/8: those head sizes
+// run further from their bound than D 128 does.
 //
 // Later work (ROADMAP): overlap of one warpgroup's softmax with its own
 // next QK^T (two score buffers), a persistent grid, and a single-bf16-P
@@ -80,9 +94,13 @@ template <int D>
 struct TcTile {
   static constexpr int BQ = 128;                // query rows per block
   static constexpr int BK = D > 128 ? 64 : 128;  // keys per tile
-  static constexpr int NCH = D / CHUNK;         // chunks per row
-  static constexpr int Q_BYTES = BQ * D * 2;
-  static constexpr int KV_BYTES = BK * D * 2;   // one K or V stage
+  // A row is staged as whole 64-column (128-byte) swizzle chunks: D 16 and
+  // 80 at the next multiple of 64, TMA filling the columns past D with
+  // zeros. The products run at the true D.
+  static constexpr int NCH = (D + CHUNK - 1) / CHUNK;
+  static constexpr int DP = NCH * CHUNK;        // staged columns
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int KV_BYTES = BK * DP * 2;  // one K or V stage
   static constexpr int STAGES = 2;
   // 1 KB to align the tiles to the swizzle's 1024-byte period, then Q,
   // K[STAGES], V[STAGES] and 7 mbarriers.
@@ -197,7 +215,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int k_lo = (kt_hi - it) * BK;
       const uint32_t s_kt = s_k + st * KV_BYTES, s_vt = s_v + st * KV_BYTES;
 
-      // S = Q K^T (unscaled), 64 x BK per warpgroup.
+      // S = Q K^T (unscaled), 64 x BK per warpgroup; k-step kk reads
+      // columns [16 kk, 16 kk + 16) of chunk kk / 4.
       float s[BK / 2];
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
@@ -294,7 +313,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_arrive(bar_free(st));
     }
 
-    // O / l, rounded to bf16; rows past T are not written.
+    // O / l, rounded to bf16; rows past T are not written (columns past D
+    // have no accumulator).
     l_a = quad_sum(l_a);
     l_b = quad_sum(l_b);
     const float den_a = l_a == 0.f ? 1.f : l_a;
@@ -361,11 +381,11 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
 
 // Launches the tensor-core banded flash attention on `stream`: bf16 q
 // (B, Hq, T, D), k and v (B, Hkv, T, D), o like q, all contiguous with
-// 16-byte aligned bases, D in {64, 128, 256}; W is the window (T for full
-// causal). `lse`, if not null, is f32 (B, Hq, T) and receives each row's
-// log-sum-exp of the scaled scores (natural log). Returns the CUDA error
-// code of the launch (0 = success). Allocates nothing and does not
-// synchronise.
+// 16-byte aligned bases, D in {16, 64, 80, 128, 256}; W is the window (T
+// for full causal). `lse`, if not null, is f32 (B, Hq, T) and receives
+// each row's log-sum-exp of the scaled scores (natural log). Returns the
+// CUDA error code of the launch (0 = success). Allocates nothing and does
+// not synchronise.
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
                                          const void* v, void* o, void* lse,
                                          int B, int Hq, int Hkv, int T, int D,
@@ -375,7 +395,9 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
   cudaStream_t s = (cudaStream_t)stream;
   float* l = (float*)lse;
   switch (D) {
+    case 16: return (int)launch_d<16>(q, k, v, o, l, B, Hq, Hkv, T, W, s);
     case 64: return (int)launch_d<64>(q, k, v, o, l, B, Hq, Hkv, T, W, s);
+    case 80: return (int)launch_d<80>(q, k, v, o, l, B, Hq, Hkv, T, W, s);
     case 128: return (int)launch_d<128>(q, k, v, o, l, B, Hq, Hkv, T, W, s);
     case 256: return (int)launch_d<256>(q, k, v, o, l, B, Hq, Hkv, T, W, s);
     default: return (int)cudaErrorInvalidValue;

@@ -4,9 +4,9 @@
 //
 // Replaces the TPU kernel `_flash_kernel` (wrapper `flash_attention_pallas`)
 // of src/repro/kernels/local_attention/local_attention.py for f32 inputs at
-// every head size, and for bf16 inputs at the head sizes the wgmma kernel
-// (flash_tc.cu) is not built for (D 16 and 80). It computes the same
-// function as the FMA kernel (local_attention.cu) and keeps its rules:
+// every head size (bf16 inputs at every head size take the wgmma kernel,
+// flash_tc.cu). It computes the same function as the FMA kernel
+// (local_attention.cu) and keeps its rules:
 //
 //   * q head h reads kv head h / (Hq / Hkv); q is scaled by 1/sqrt(D) after
 //     the upcast; the mask is (k_pos <= q_pos) & (k_pos > q_pos - W);
@@ -22,16 +22,13 @@
 //     lo*hi + hi*lo + hi*hi. The dropped lo*lo term and lo's own
 //     rounding are below 2^-21 of |x||y|, so the products keep f32 accuracy
 //     (one tf32 pass would keep 2^-11 and miss the f32 check by far).
-//     bf16 K and V are exact in tf32 (8 significant bits of 11): their lo
-//     is 0, so bf16 inputs take two passes, lo*hi + hi*hi, with the same
-//     sums; q / sqrt(D) and p are still split.
 //   * the key loop visits exactly the key tiles of 32 (16 at D = 256) that
 //     meet the block's band [q_lo - W + 1, q_hi]; a warp skips the tiles
 //     that are dead for all of its 16 rows, and masks only tiles that
 //     cross its diagonal or its window's edge. Key and value tiles are
-//     copied by cp.async (bf16 tiles converted to f32 on the way in) into
-//     one stage; three blocks an SM overlap one's copy with the others'
-//     products, which measured faster than a double buffer at two.
+//     copied by cp.async into one stage; three blocks an SM overlap one's
+//     copy with the others' products, which measured faster than a double
+//     buffer at two.
 //   * no shared-memory round trip for P: the m16n8 accumulator fragment of
 //     S holds (row g, keys 2t, 2t+1) and (row g + 8, the same keys). Read
 //     as the A fragment of P.V with the tile's k index t standing for key
@@ -46,10 +43,10 @@
 //
 // What bounds it on an H100: 4*D FLOP per live (query, key) pair on the
 // tensor cores (TF32 dense peak 494.7 TFLOP/s), far above the bytes of q,
-// k, v and o; the split issues 3x (f32) or 2x (bf16) that. That peak is
-// wgmma's; the tf32 mma.sync used here runs at
-// a fraction of it, and the splits (five integer / float operations per
-// operand) and the softmax are issued beside the products (PERF.md). Split
+// k, v and o; the split issues 3x that. That peak is wgmma's; the tf32
+// mma.sync used here runs at a fraction of it, and the splits (five
+// integer / float operations per operand) and the softmax are issued
+// beside the products (PERF.md). Split
 // planes of K and V in shared memory, made once per block for 8 warps,
 // were tried and were no faster: the products, not the splits, set the
 // pace.
@@ -59,12 +56,10 @@
 // the backward (flash_tf32x3_bwd.cu) reads. The split, the mma and the row
 // staging are shared with it (flash_tf32x3.cuh).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <cmath>
-#include <type_traits>
 
 #include "flash_tf32x3.cuh"
 
@@ -92,25 +87,17 @@ struct Cfg {
 };
 
 // d += a * b, a split, b's two f32 values (b0, b1) split here: three
-// tensor-core passes, the small terms first; two where b is exact in tf32
-// (B_EXACT: bf16 inputs), its lo part being 0.
-template <bool B_EXACT>
+// tensor-core passes, the small terms first.
 __device__ __forceinline__ void mma_split(float (&d)[4],
                                           const uint32_t (&ah)[4],
                                           const uint32_t (&al)[4], float b0,
                                           float b1) {
-  if constexpr (B_EXACT) {
-    const uint32_t bh0 = __float_as_uint(b0), bh1 = __float_as_uint(b1);
-    mma(d, al, bh0, bh1);
-    mma(d, ah, bh0, bh1);
-  } else {
-    uint32_t bh0, bl0, bh1, bl1;
-    split(b0, bh0, bl0);
-    split(b1, bh1, bl1);
-    mma(d, al, bh0, bh1);
-    mma(d, ah, bl0, bl1);
-    mma(d, ah, bh0, bh1);
-  }
+  uint32_t bh0, bl0, bh1, bl1;
+  split(b0, bh0, bl0);
+  split(b1, bh1, bl1);
+  mma(d, al, bh0, bh1);
+  mma(d, ah, bl0, bl1);
+  mma(d, ah, bh0, bh1);
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const void* src,
@@ -129,39 +116,32 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Key and value rows [lo, lo + BK) into shared memory; rows past T are
-// zero. f32: cp.async (completes at cp_wait); bf16:
-// converted through registers.
-template <int D, typename T>
-__device__ __forceinline__ void stage_kv(const T* __restrict__ k,
-                                         const T* __restrict__ v, int lo,
+// Key and value rows [lo, lo + BK) into shared memory by cp.async
+// (completes at cp_wait); rows past T are zero.
+template <int D>
+__device__ __forceinline__ void stage_kv(const float* __restrict__ k,
+                                         const float* __restrict__ v, int lo,
                                          int Tlen, float* Kd, float* Vd) {
   using C = Cfg<D>;
-  if constexpr (std::is_same<T, float>::value) {
-    constexpr int CH = D / 4;  // 16-byte chunks per row
-    for (int i = threadIdx.x; i < C::BK * CH; i += THREADS) {
-      const int r = i / CH, c = i % CH;
-      const bool ok = lo + r < Tlen;
-      const long long off = (long long)(ok ? lo + r : 0) * D + c * 4;
-      cp_async16(Kd + r * C::QS + c * 4, k + off, ok);
-      cp_async16(Vd + r * C::VS + c * 4, v + off, ok);
-    }
-  } else {
-    stage_rows<D, C::BK, C::QS>(k, lo, Tlen, 1.f, Kd);
-    stage_rows<D, C::BK, C::VS>(v, lo, Tlen, 1.f, Vd);
+  constexpr int CH = D / 4;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < C::BK * CH; i += THREADS) {
+    const int r = i / CH, c = i % CH;
+    const bool ok = lo + r < Tlen;
+    const long long off = (long long)(ok ? lo + r : 0) * D + c * 4;
+    cp_async16(Kd + r * C::QS + c * 4, k + off, ok);
+    cp_async16(Vd + r * C::VS + c * 4, v + off, ok);
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS, Cfg<D>::MIN_BLOCKS)
-flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ o,
+flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o,
                     float* __restrict__ lse, int Hq, int Hkv, int Tlen,
                     int W, float scale) {
   using C = Cfg<D>;
   constexpr int BK = C::BK, NT = C::NT, KD = C::KD;
   constexpr int QS = C::QS, VS = C::VS;
-  constexpr bool KV_EXACT = !std::is_same<T, float>::value;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;              // [BQ][QS]
   float* Ks = Qs + BQ * QS;      // [BK][QS]
@@ -174,8 +154,8 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long q_off = (long long)bh * Tlen * D;
   const long long kv_off =
       ((long long)b * Hkv + h / (Hq / Hkv)) * (long long)Tlen * D;
-  const T* kp = k + kv_off;
-  const T* vp = v + kv_off;
+  const float* kp = k + kv_off;
+  const float* vp = v + kv_off;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int r0 = q_lo + warp * 16;  // the warp's first query row
@@ -208,7 +188,7 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k_lo = kt * BK;
     const bool dead = r0 >= Tlen || k_lo > r0 + 15 || k_lo + BK - 1 <= r0 - W;
     if (!dead) {
-      // ---- S = (q / sqrt(D)) K^T, three (bf16: two) passes per k-step ----
+      // ---- S = (q / sqrt(D)) K^T, three passes per k-step ----
       const float* Kb = Ks + g * QS + 2 * tq;
       float s[NT][4];
 #pragma unroll
@@ -227,7 +207,7 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
           // (k t, key 8j + g) and (k t + 4, key 8j + g)
           const float2 y =
               *reinterpret_cast<const float2*>(Kb + 8 * j * QS + 8 * kk);
-          mma_split<KV_EXACT>(s[j], ah, al, y.x, y.y);
+          mma_split(s[j], ah, al, y.x, y.y);
         }
       }
 
@@ -295,7 +275,7 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float* vr = Vb + 8 * j * VS;
 #pragma unroll
         for (int c = 0; c < KD; ++c)  // (k t, d 8c + g), (k t + 4, d 8c + g)
-          mma_split<KV_EXACT>(acc[c], ph, pl, vr[8 * c], vr[VS + 8 * c]);
+          mma_split(acc[c], ph, pl, vr[8 * c], vr[VS + 8 * c]);
       }
     }
     __syncthreads();  // every warp is done with this stage
@@ -318,7 +298,7 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
       lse[(long long)bh * Tlen + rb] = l_b == 0.f ? INFINITY
                                                   : m_b + logf(l_b);
   }
-  T* out = o + q_off + 2 * tq;
+  float* out = o + q_off + 2 * tq;
 #pragma unroll
   for (int c = 0; c < KD; ++c) {
     if (ra < Tlen)
@@ -330,73 +310,49 @@ flash_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int Hq, int Hkv, int Tlen, int W,
                    cudaStream_t stream) {
   using C = Cfg<D>;
   const int smem = C::SMEM_FLOATS * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_tf32x3_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_tf32x3_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((Tlen + BQ - 1) / BQ, B * Hq);
   const float scale = (float)(1.0 / sqrt((double)D));
-  flash_tf32x3_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Hq, Hkv, Tlen, W,
-      scale);
+  flash_tf32x3_kernel<D><<<grid, THREADS, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, Hq,
+      Hkv, Tlen, W, scale);
   return cudaGetLastError();
-}
-
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int B, int Hq, int Hkv, int Tlen, int D,
-                       int W, cudaStream_t s) {
-  switch (D) {
-    case 16: return launch<float, 16>(q, k, v, o, lse, B, Hq, Hkv, Tlen, W, s);
-    case 64: return launch<float, 64>(q, k, v, o, lse, B, Hq, Hkv, Tlen, W, s);
-    case 80: return launch<float, 80>(q, k, v, o, lse, B, Hq, Hkv, Tlen, W, s);
-    case 128:
-      return launch<float, 128>(q, k, v, o, lse, B, Hq, Hkv, Tlen, W, s);
-    case 256:
-      return launch<float, 256>(q, k, v, o, lse, B, Hq, Hkv, Tlen, W, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// bf16 only at the head sizes flash_tc.cu is not built for.
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        float* lse, int B, int Hq, int Hkv, int Tlen, int D,
-                        int W, cudaStream_t s) {
-  using bf = __nv_bfloat16;
-  switch (D) {
-    case 16: return launch<bf, 16>(q, k, v, o, lse, B, Hq, Hkv, Tlen, W, s);
-    case 80: return launch<bf, 80>(q, k, v, o, lse, B, Hq, Hkv, Tlen, W, s);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// Launches the split-TF32 banded flash attention on `stream`: q (B, Hq, T,
-// D), k and v (B, Hkv, T, D), o like q, all contiguous on 16-byte
-// boundaries; dtype 0 = float32 (D in 16, 64, 80, 128, 256), 1 = bfloat16
-// (D 16 and 80). W is the window (T for full causal). lse: null (serving),
-// or (B, Hq, T) f32 that receives each row's log-sum-exp (training: the
-// backward, flash_tf32x3_bwd.cu, reads it). Returns the CUDA error code of
-// the launch (0 = success). Allocates nothing and does not synchronise.
+// Launches the split-TF32 banded flash attention on `stream`: f32 q (B, Hq,
+// T, D), k and v (B, Hkv, T, D), o like q, all contiguous on 16-byte
+// boundaries, D in 16, 64, 80, 128, 256. W is the window (T for full
+// causal). lse: null (serving), or (B, Hq, T) f32 that receives each row's
+// log-sum-exp (training: the backward, flash_tf32x3_bwd.cu, reads it).
+// Returns the CUDA error code of the launch (0 = success). Allocates
+// nothing and does not synchronise.
 extern "C" int flash_attention_tf32x3_launch(const void* q, const void* k,
                                              const void* v, void* o,
                                              void* lse, int B, int Hq,
                                              int Hkv, int T, int D, int W,
-                                             int dtype, void* stream) {
+                                             void* stream) {
   if (B <= 0 || T <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || B * Hq > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   float* l = (float*)lse;
-  if (dtype == 0)
-    return (int)launch_f32(q, k, v, o, l, B, Hq, Hkv, T, D, W, s);
-  if (dtype == 1)
-    return (int)launch_bf16(q, k, v, o, l, B, Hq, Hkv, T, D, W, s);
-  return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 16: return (int)launch<16>(q, k, v, o, l, B, Hq, Hkv, T, W, s);
+    case 64: return (int)launch<64>(q, k, v, o, l, B, Hq, Hkv, T, W, s);
+    case 80: return (int)launch<80>(q, k, v, o, l, B, Hq, Hkv, T, W, s);
+    case 128: return (int)launch<128>(q, k, v, o, l, B, Hq, Hkv, T, W, s);
+    case 256: return (int)launch<256>(q, k, v, o, l, B, Hq, Hkv, T, W, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

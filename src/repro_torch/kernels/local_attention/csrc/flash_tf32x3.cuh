@@ -1,11 +1,9 @@
 // Helpers shared by the split-TF32 flash attention (flash_tf32x3.cu) and
 // its backward (flash_tf32x3_bwd.cu): the tf32 hi + lo split, the
-// m16n8k8 tf32 mma.sync, and the staging of f32 / bf16 rows into shared
-// memory as f32.
+// m16n8k8 tf32 mma.sync, and the staging of f32 rows into shared memory.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -44,17 +42,6 @@ __device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
   x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void store8(float* p, const float (&x)[8]) {
   reinterpret_cast<float4*>(p)[0] = make_float4(x[0], x[1], x[2], x[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(x[4], x[5], x[6], x[7]);
@@ -64,15 +51,12 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
 // Rows [lo, lo + ROWS) of a (T, D) matrix into shared memory with row
 // stride S, times `mul`; rows past T are zero. Synchronous.
-template <int D, int ROWS, int S, typename T>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src, int lo,
-                                           int Tlen, float mul, float* dst) {
+template <int D, int ROWS, int S>
+__device__ __forceinline__ void stage_rows(const float* __restrict__ src,
+                                           int lo, int Tlen, float mul,
+                                           float* dst) {
   constexpr int CH = D / 8;
   for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
     const int r = i / CH, c = i % CH;

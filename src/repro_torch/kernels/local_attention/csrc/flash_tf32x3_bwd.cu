@@ -1,7 +1,7 @@
 // The backward of the split-TF32 banded flash attention (flash_tf32x3.cu)
 // with GQA, for sm_90a: f32 q, k, v, o, dO at every head size of the
-// registry (D 16, 64, 80, 128, 256), f32 lse. (The forward's bf16 arm, D 16
-// and 80, has its backward on bf16 tensor cores: csrc/flash_tc_bwd.cu.)
+// registry (D 16, 64, 80, 128, 256), f32 lse. (bf16 runs forward and
+// backward on bf16 tensor cores: csrc/flash_tc.cu, csrc/flash_tc_bwd.cu.)
 //
 // Replaces the backward that the JAX package gets by differentiating its
 // attention (`jax.grad` through `_chunked_attention`); the TPU kernel

@@ -10,11 +10,12 @@ W < T the sliding window (gemma3's local layers, mixtral's SWA).
 `flash_attention_cuda` launches one of two kernels that replace the TPU
 kernel `_flash_kernel` of the JAX package's
 `kernels/local_attention/local_attention.py`, chosen by `kernel_route`
-from (dtype, head size): `csrc/flash_tc.cu` (bf16 at D 64/128/256 on the
-tensor cores: wgmma, TMA, an exact bf16 hi/lo split of the
-probabilities) and `csrc/flash_tf32x3.cu` (f32 at every head size of the
-registry and bf16 at D 16/80, on the tensor cores: mma.sync with every
-operand split into tf32 hi + lo). A third kernel, `csrc/local_attention.cu`
+from the dtype, at every head size of the registry: `csrc/flash_tc.cu`
+(bf16, on the tensor cores: wgmma, TMA, an exact bf16 hi/lo split of the
+probabilities; D 16 and 80 staged as whole 64-column chunks, TMA
+zero-filling past D) and `csrc/flash_tf32x3.cu` (f32, on the tensor
+cores: mma.sync with every operand split into tf32 hi + lo). A third
+kernel, `csrc/local_attention.cu`
 (f32 FMA, every dtype and head size), is on no route; it stays callable
 as `flash_attention_fma_cuda` and is timed beside the others. Each design
 note is at the top of its source.
@@ -26,13 +27,13 @@ the tensors live.
 
 The backward: `FlashAttention`, a `torch.autograd.Function`, runs on CUDA
 tensors the forward of the route `kernel_route` picks, with its per-row
-log-sum-exp, and the backward kernel `bwd_route` picks: B5-bwd
-(`csrc/flash_tc_bwd.cu`, `flash_attention_bwd_tc_cuda`: one wgmma kernel
-per (b, kv head, key tile) that also reduces dQ into an f32 scratch) for
-bf16 at every head size, behind either forward, and
-`csrc/flash_tf32x3_bwd.cu` (`flash_attention_bwd_tf32x3_cuda`: mma.sync
-with split tf32 operands, one block per (key tile, b * kv head, column
-chunk), dQ by f32 atomics) for f32. On CPU tensors it runs
+log-sum-exp, and the backward kernel `bwd_route` picks, the same route:
+B5-bwd (`csrc/flash_tc_bwd.cu`, `flash_attention_bwd_tc_cuda`: one wgmma
+kernel per (b, kv head, key tile) that also reduces dQ into an f32
+scratch) for bf16, and `csrc/flash_tf32x3_bwd.cu`
+(`flash_attention_bwd_tf32x3_cuda`: mma.sync with split tf32 operands,
+one block per (key tile, b * kv head, column chunk), dQ by f32 atomics)
+for f32. On CPU tensors it runs
 `flash_attention_plain(return_lse=True)` and `flash_attention_bwd_plain`.
 `flash_attention_tc_cuda` and `flash_attention_tf32x3_cuda` go through it
 whenever autograd would record the call; the FMA kernel, on no route, has
@@ -50,25 +51,21 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 
-#: Head sizes the FMA kernel is built for (every head_dim of the registry).
+#: Head sizes every kernel is built for (every head_dim of the registry),
+#: the wgmma kernels (`csrc/flash_tc.cu`, B5-bwd) included: they stage D 16
+#: and 80 as whole 64-column chunks.
 KERNEL_HEAD_DIMS = (16, 64, 80, 128, 256)
 
 #: Input dtypes the FMA kernel takes; it computes in f32 and writes q's
 #: dtype.
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: Head sizes the forward wgmma kernel (`csrc/flash_tc.cu`) takes, bf16
-#: only. Its backward, B5-bwd, takes bf16 at every size of
-#: `KERNEL_HEAD_DIMS`.
-TC_HEAD_DIMS = (64, 128, 256)
+#: The one dtype each route's kernels take.
+ROUTE_DTYPE = {"tc": torch.bfloat16, "tf32x3": torch.float32}
 
 #: B5-bwd's per-row vectors (lse * log2(e), delta) are padded to a multiple
 #: of this many rows, one streamed query tile.
 BWD_ROW_PAD = 64
-
-#: Head sizes the split-TF32 kernel takes in bf16 (in f32: every size of
-#: `KERNEL_HEAD_DIMS`).
-TF32X3_BF16_HEAD_DIMS = (16, 80)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -237,27 +234,34 @@ def _lib(name, fn_name, n_int, n_ptr=4):
 
 def kernel_route(dtype, D):
     """Which kernel takes (dtype, D) on a CUDA tensor: "tc" (the wgmma
-    kernel, `csrc/flash_tc.cu`) for bf16 at `TC_HEAD_DIMS`, "tf32x3"
-    (`csrc/flash_tf32x3.cu`) for f32 and bf16 at the other head sizes of
-    `KERNEL_HEAD_DIMS`. Raises ValueError for what neither takes."""
+    kernel, `csrc/flash_tc.cu`) for bf16, "tf32x3" (`csrc/flash_tf32x3.cu`)
+    for f32, at every head size of `KERNEL_HEAD_DIMS`. Raises ValueError
+    for what neither takes."""
     if dtype not in KERNEL_DTYPES:
         raise ValueError(f"kernel takes q, k, v all of one dtype in "
                          f"{list(KERNEL_DTYPES)}; got {dtype}")
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head size D={D} not built; the kernels take "
                          f"{KERNEL_HEAD_DIMS}")
-    return "tc" if dtype == torch.bfloat16 and D in TC_HEAD_DIMS \
-        else "tf32x3"
+    return "tc" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def bwd_route(dtype, D):
-    """Which backward kernel takes (dtype, D) on a CUDA tensor: "tc"
-    (B5-bwd, `csrc/flash_tc_bwd.cu`) for bf16 at every head size of
-    `KERNEL_HEAD_DIMS`, whichever forward ran; "tf32x3"
-    (`csrc/flash_tf32x3_bwd.cu`) for f32. Raises ValueError for what
-    neither takes, as `kernel_route` does."""
-    kernel_route(dtype, D)
-    return "tc" if dtype == torch.bfloat16 else "tf32x3"
+    """Which backward kernel takes (dtype, D) on a CUDA tensor: the
+    forward's route, "tc" (B5-bwd, `csrc/flash_tc_bwd.cu`) for bf16 and
+    "tf32x3" (`csrc/flash_tf32x3_bwd.cu`) for f32. Raises ValueError for
+    what neither takes, as `kernel_route` does."""
+    return kernel_route(dtype, D)
+
+
+def _check_route(q, k, v, route, name):
+    """Refuse, before anything launches, inputs that the kernels of
+    `route` do not take: under autograd a wrapper goes through
+    `FlashAttention`, which would pick the forward by `kernel_route`."""
+    want = ROUTE_DTYPE[route]
+    if q.dtype != want or k.dtype != want or v.dtype != want:
+        raise ValueError(f"{name} takes q, k, v all of one dtype in "
+                         f"{[want]}; got {q.dtype}, {k.dtype}, {v.dtype}")
 
 
 def _contiguous(*ts):
@@ -311,8 +315,8 @@ def _launch(fn, q, k, v, sizes, W, extra, what):
 
 def _tc_forward(q, k, v, window, with_lse):
     """One launch of `csrc/flash_tc.cu`: (out, lse or None)."""
-    q, k, v, W, sizes = _prepare(q, k, v, window, (torch.bfloat16,),
-                                 TC_HEAD_DIMS, "flash_attention_tc_cuda")
+    q, k, v, W, sizes = _prepare(q, k, v, window, (ROUTE_DTYPE["tc"],),
+                                 KERNEL_HEAD_DIMS, "flash_attention_tc_cuda")
     if sizes[3] > 65535 * 128:
         raise ValueError(f"T={sizes[3]} > 65,535 query tiles of 128")
     out = torch.empty_like(q)
@@ -328,12 +332,13 @@ def _tc_forward(q, k, v, window, with_lse):
 def flash_attention_tc_cuda(q, k, v, *, window=None):
     """Launch the tensor-core kernel (`csrc/flash_tc.cu`: wgmma, TMA,
     exact-split P.V) on CUDA tensors: bf16 q (B, Hq, T, D), k/v (B, Hkv,
-    T, D), D in `TC_HEAD_DIMS`, any T up to 65,535 query tiles of 128.
+    T, D), D in `KERNEL_HEAD_DIMS`, any T up to 65,535 query tiles of 128.
     Returns (B, Hq, T, D) bf16 on PyTorch's current stream, without
     synchronising. Where autograd would record the call, it goes through
     `FlashAttention` (the forward with its log-sum-exp, B5-bwd behind it).
     Raises on anything the kernel does not take."""
     if build.records_grad(q, k, v):
+        _check_route(q, k, v, "tc", "flash_attention_tc_cuda")
         return FlashAttention.apply(q, k, v, window)
     return _tc_forward(q, k, v, window, False)[0]
 
@@ -368,13 +373,12 @@ def flash_attention_bwd_tc_cuda(q, k, v, out, lse, dout, *, window=None):
     bf16(scale * dq_acc). bf16 operands, f32 accumulation. bf16 q (B, Hq,
     T, D), k/v (B, Hkv, T, D), D in `KERNEL_HEAD_DIMS`, `out` the
     forward's output and `dout` its gradient (bf16, like q), `lse` (B, Hq,
-    T) f32 from either forward kernel (`flash_tc.cu` at D 64/128/256,
-    `flash_tf32x3.cu` at D 16/80). Returns (dq, dk, dv) bf16 on PyTorch's
-    current stream, without synchronising; dq's f32 sums come in an order
-    that varies from call to call. Raises on anything the kernels do not
-    take."""
+    T) f32 from the forward kernel `flash_tc.cu`. Returns (dq, dk, dv)
+    bf16 on PyTorch's current stream, without synchronising; dq's f32 sums
+    come in an order that varies from call to call. Raises on anything the
+    kernels do not take."""
     name = "flash_attention_bwd_tc_cuda"
-    q, k, v, W, sizes = _prepare(q, k, v, window, (torch.bfloat16,),
+    q, k, v, W, sizes = _prepare(q, k, v, window, (ROUTE_DTYPE["tc"],),
                                  KERNEL_HEAD_DIMS, name)
     B, Hq, Hkv, T, D = sizes
     out, dout, lse = _bwd_operands(name, q, out, lse, dout, sizes)
@@ -408,7 +412,7 @@ def flash_attention_bwd_tf32x3_cuda(q, k, v, out, lse, dout, *,
     that varies from call to call. Raises on anything the kernels do not
     take, bf16 included (its backward is `flash_attention_bwd_tc_cuda`)."""
     name = "flash_attention_bwd_tf32x3_cuda"
-    q, k, v, W, sizes = _prepare(q, k, v, window, (torch.float32,),
+    q, k, v, W, sizes = _prepare(q, k, v, window, (ROUTE_DTYPE["tf32x3"],),
                                  KERNEL_HEAD_DIMS, name)
     out, dout, lse = _bwd_operands(name, q, out, lse, dout, sizes)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
@@ -427,9 +431,9 @@ def flash_attention_bwd_tf32x3_cuda(q, k, v, out, lse, dout, *,
 class FlashAttention(torch.autograd.Function):
     """The banded flash attention with its backward: on CUDA tensors the
     forward of the route `kernel_route` picks with the per-row
-    log-sum-exp and the backward of the route `bwd_route` picks (B5-bwd
-    for bf16 at every head size, the split-TF32 backward for f32), on CPU
-    tensors
+    log-sum-exp and the backward of the route `bwd_route` picks
+    (`flash_tc.cu` and B5-bwd for bf16, the split-TF32 forward and
+    backward for f32), on CPU tensors
     `flash_attention_plain(return_lse=True)` and
     `flash_attention_bwd_plain`. Everything the backward reads is saved
     through `ctx.save_for_backward` (q, k, v, out, lse), so a
@@ -467,34 +471,32 @@ class FlashAttention(torch.autograd.Function):
 
 def _tf32x3_forward(q, k, v, window, with_lse):
     """One launch of `csrc/flash_tf32x3.cu`: (out, lse or None)."""
-    head_dims = TF32X3_BF16_HEAD_DIMS if q.dtype == torch.bfloat16 \
-        else KERNEL_HEAD_DIMS
-    q, k, v, W, sizes = _prepare(q, k, v, window, KERNEL_DTYPES, head_dims,
+    q, k, v, W, sizes = _prepare(q, k, v, window, (ROUTE_DTYPE["tf32x3"],),
+                                 KERNEL_HEAD_DIMS,
                                  "flash_attention_tf32x3_cuda")
     out = torch.empty_like(q)
     lse = torch.empty(sizes[:2] + sizes[3:4], dtype=torch.float32,
                       device=q.device) if with_lse else None
     if q.numel():
-        _call(_lib("flash_tf32x3", "flash_attention_tf32x3_launch", 7,
+        _call(_lib("flash_tf32x3", "flash_attention_tf32x3_launch", 6,
                    n_ptr=5),
-              (q, k, v, out, lse), (*sizes, W, KERNEL_DTYPES[q.dtype]),
-              "flash_tf32x3")
+              (q, k, v, out, lse), (*sizes, W), "flash_tf32x3")
         build.count(flash_attention_tf32x3_cuda)
     return out, lse
 
 
 def flash_attention_tf32x3_cuda(q, k, v, *, window=None):
     """Launch the split-TF32 kernel (`csrc/flash_tf32x3.cu`: mma.sync,
-    each operand as tf32 hi + lo, three passes per product; two for bf16,
-    whose k and v are exact in tf32) on CUDA tensors: q (B, Hq, T, D),
-    k/v (B, Hkv, T, D), f32 at D in `KERNEL_HEAD_DIMS` or bf16 at D in
-    `TF32X3_BF16_HEAD_DIMS`, any T >= 1. Returns (B, Hq, T, D) in q's
-    dtype on PyTorch's current stream, without synchronising. Where
-    autograd would record the call, it goes through `FlashAttention` (the
-    forward with its log-sum-exp; behind it B5-bwd for bf16, the
-    split-TF32 backward for f32).
-    Raises on anything the kernel does not take."""
+    each operand as tf32 hi + lo, three passes per product) on CUDA
+    tensors: f32 q (B, Hq, T, D), k/v (B, Hkv, T, D), D in
+    `KERNEL_HEAD_DIMS`, any T >= 1. Returns (B, Hq, T, D) f32 on PyTorch's
+    current stream, without synchronising. Where autograd would record the
+    call, it goes through `FlashAttention` (the forward with its
+    log-sum-exp, the split-TF32 backward behind it). Raises on anything
+    the kernel does not take, bf16 included (its kernel is
+    `flash_attention_tc_cuda`), before any launch."""
     if build.records_grad(q, k, v):
+        _check_route(q, k, v, "tf32x3", "flash_attention_tf32x3_cuda")
         return FlashAttention.apply(q, k, v, window)
     return _tf32x3_forward(q, k, v, window, False)[0]
 
@@ -520,11 +522,11 @@ def flash_attention_fma_cuda(q, k, v, *, window=None):
 
 def flash_attention_cuda(q, k, v, *, window=None):
     """The banded flash attention on CUDA tensors, by `kernel_route`:
-    bf16 at D in `TC_HEAD_DIMS` launches `flash_attention_tc_cuda`, the
-    rest of `KERNEL_DTYPES` x `KERNEL_HEAD_DIMS`
-    `flash_attention_tf32x3_cuda`. Returns (B, Hq, T, D) in q's dtype;
-    raises on anything neither kernel takes (a CPU tensor included). Both
-    routes are differentiable (through `FlashAttention`)."""
+    bf16 launches `flash_attention_tc_cuda`, f32
+    `flash_attention_tf32x3_cuda`, at D in `KERNEL_HEAD_DIMS`. Returns (B,
+    Hq, T, D) in q's dtype; raises on anything neither kernel takes (a CPU
+    tensor included). Both routes are differentiable (through
+    `FlashAttention`)."""
     route = kernel_route(q.dtype, q.shape[-1])
     kernel = flash_attention_tc_cuda if route == "tc" \
         else flash_attention_tf32x3_cuda

@@ -8,14 +8,14 @@ Paths, as in the JAX package's `models/attention.py`:
   * "pallas"  — the banded flash attention of `kernels/local_attention`.
 
 On CUDA tensors "chunked" launches the hand-written kernel B5
-(`kernels/local_attention/csrc/`: `flash_tc.cu` for bf16 at D in
-{64, 128, 256}, `flash_tf32x3.cu` for the rest of f32 / bf16 at the built
-head sizes) at any sequence length, straight through
+(`kernels/local_attention/csrc/`: `flash_tc.cu` for bf16,
+`flash_tf32x3.cu` for f32, at every built head size) at any sequence
+length, straight through
 `flash_attention_cuda`, which raises for a (dtype, head size) no kernel
 is built for. Under autograd both CUDA paths ("chunked" and "pallas")
 reach B5's `FlashAttention` (the route's forward with its log-sum-exp,
-then B5-bwd, `csrc/flash_tc_bwd.cu`, for bf16 at every head size, or the
-split-TF32 backward, `csrc/flash_tf32x3_bwd.cu`, for f32). "pallas"
+then B5-bwd, `csrc/flash_tc_bwd.cu`, for bf16, or the split-TF32
+backward, `csrc/flash_tf32x3_bwd.cu`, for f32). "pallas"
 keeps the reference wrapper's block rule (`ops.flash_attention`: T must
 divide the blocks clipped to T) on every device. On CPU tensors each impl
 keeps its reference meaning, and "pallas" takes the kernels' plain

@@ -25,9 +25,8 @@ naive masked attention in f64 on the same bf16 inputs, and against
 `flash_attention_bwd_plain`, the version the card check compares with. So
 the tolerance holds for this order before the card runs it. Inputs come
 from a numpy seed, over D {16, 64, 80, 128, 256} x W {full, 1, 40} x G {1,
-2, 8} at ragged T (not a multiple of 64). At D 16 and 80 the forward's
-lse comes from `flash_tf32x3.cu` on the card; here, as for the other head
-sizes, from the plain forward.
+2, 8} at ragged T (not a multiple of 64). The forward's lse comes from
+`flash_tc.cu` on the card; here from the plain forward.
 
 A last test reads what the wrapper hands the C entry point: eleven
 pointers, the padded per-row vectors and the f32 dq scratch."""

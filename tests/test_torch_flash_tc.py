@@ -10,19 +10,29 @@ f32 p, O / l rounded to bf16. It must agree with `flash_attention_plain`
 within the check the card holds the kernel to: one bf16 ulp of the plain
 value, floor 2e-5. The same pass with one bf16 P is held beside it: its
 error is larger and breaks that check — the reason for the split. Inputs
-are made with numpy from a seed."""
+are made with numpy from a seed. D 16 and 80 (stablelm-3b's), which the
+kernel stages as whole 64-column chunks, are emulated at their true D
+(the zero columns add nothing) and held to the same check, and D 80
+against the JAX package's Pallas kernel in interpret mode. The last
+tests read what the wrapper hands the C entry point (recorders in place
+of the library, inputs that say they live on a card)."""
 
+import contextlib
 import math
+import types
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.local_attention import flash_attention as jax_flash
 from repro_torch.kernels.local_attention import flash_attention
+from repro_torch.kernels.local_attention import local_attention as la
 from repro_torch.kernels.local_attention.local_attention import (
-    KERNEL_HEAD_DIMS, TC_HEAD_DIMS, flash_attention_cuda,
-    flash_attention_fma_cuda, flash_attention_plain, flash_attention_tc_cuda,
-    kernel_route)
+    flash_attention_cuda, flash_attention_fma_cuda, flash_attention_plain,
+    flash_attention_tc_cuda, kernel_route)
+from torch_parity import fake_cuda
 
 # The shapes of tests/test_torch_flash.py's ATT_CASES (B, Hq, Hkv, T, D,
 # window), taken in bf16, and a GQA-2 case at the main path's D = 128.
@@ -36,6 +46,14 @@ SHAPES = [
     (2, 4, 2, 256, 64, 64),
     (1, 4, 2, 384, 128, None),
     (1, 4, 2, 384, 128, 64),
+]
+#: The head sizes staged as whole chunks: stablelm-3b's MHA causal pass at
+#: D 80, GQA with W 40 at a ragged T, D 16 with W 17 and causal.
+NARROW_SHAPES = [
+    (1, 4, 4, 256, 80, None),
+    (2, 8, 2, 300, 80, 40),
+    (1, 4, 2, 200, 16, 17),
+    (1, 2, 2, 384, 16, None),
 ]
 LOG2E = 1.4426950408889634
 
@@ -112,6 +130,30 @@ def test_split_emulation_within_the_card_check(shape):
     assert bad == 0, (shape, worst)
 
 
+@pytest.mark.parametrize("shape", NARROW_SHAPES,
+                         ids=["d80_mha_causal", "d80_gqa_w40_ragged",
+                              "d16_w17_ragged", "d16_causal"])
+def test_narrow_head_sizes_within_the_card_check(shape):
+    B, Hq, Hkv, T, D, W = shape
+    q, k, v = _inputs(31 + T + D + (W or 0), B, Hq, Hkv, T, D)
+    ref = _plain(q, k, v, W)
+    worst, bad = card_check(emulate_tc(q, k, v, W), ref)
+    assert bad == 0, (shape, worst)
+
+
+def test_d80_emulation_matches_the_jax_kernel():
+    """stablelm-3b's head size against the JAX package's Pallas kernel in
+    interpret mode, within the reference's bf16 tolerance (atol = rtol =
+    2e-2, its kernel test's), on the same bf16 inputs."""
+    q, k, v = _inputs(41, 1, 4, 2, 256, 80)
+    want = jax_flash(*(jnp.asarray(x.float().numpy(), jnp.bfloat16)
+                       for x in (q, k, v)), block_q=128, block_k=128)
+    got = emulate_tc(q, k, v)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=2e-2,
+                               rtol=2e-2)
+
+
 @pytest.mark.parametrize("shape", SHAPES[-2:], ids=["causal", "w64"])
 def test_single_bf16_p_breaks_the_card_check(shape):
     """One bf16 P errs by up to 2^-9 sum(p|v|)/l: beyond one ulp where the
@@ -140,14 +182,13 @@ def test_emulation_ragged_t_and_empty_window():
 
 @pytest.mark.parametrize("dtype,D,want", [
     (torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc"),
-    (torch.bfloat16, 256, "tc"), (torch.bfloat16, 16, "tf32x3"),
-    (torch.bfloat16, 80, "tf32x3"), (torch.float32, 128, "tf32x3"),
+    (torch.bfloat16, 256, "tc"), (torch.bfloat16, 16, "tc"),
+    (torch.bfloat16, 80, "tc"), (torch.float32, 128, "tf32x3"),
     (torch.float32, 64, "tf32x3"), (torch.float32, 256, "tf32x3"),
     (torch.float32, 16, "tf32x3"), (torch.float32, 80, "tf32x3"),
 ])
 def test_kernel_route(dtype, D, want):
     assert kernel_route(dtype, D) == want
-    assert set(TC_HEAD_DIMS) <= set(KERNEL_HEAD_DIMS)
 
 
 @pytest.mark.parametrize("dtype,D,match", [
@@ -169,7 +210,7 @@ def test_tc_wrapper_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="dtype"):
         flash_attention_tc_cuda(bf.float(), bf.float(), bf.float())
     with pytest.raises(ValueError, match="head size"):
-        x = torch.zeros(1, 2, 64, 80, dtype=torch.bfloat16)
+        x = torch.zeros(1, 2, 64, 96, dtype=torch.bfloat16)
         flash_attention_tc_cuda(x, x, x)
     with pytest.raises(ValueError, match="dtype"):
         flash_attention_tc_cuda(bf, bf, bf.float())
@@ -188,3 +229,56 @@ def test_cpu_tensors_take_the_plain_version():
     out = flash_attention(q, k, v, window=64)
     assert flash_attention_plain.calls == calls + 1
     assert torch.equal(out, flash_attention_plain(q, k, v, window=64))
+
+
+@pytest.fixture
+def entry_points(monkeypatch):
+    """The kernel entry points replaced by recorders of (name, the pointer
+    arguments as the tensors passed, the int arguments)."""
+    calls = []
+
+    def lib(lib_name, fn, n_int, n_ptr=4):
+        def record(*args):
+            calls.append((fn, args[:n_ptr], args[n_ptr:-1]))
+            return 0
+        return record
+
+    # `_call` hands the C function data_ptr()s; keep the tensors instead.
+    def call(fn, ptrs, ints, what):
+        assert fn(*ptrs, *ints, 7) == 0
+
+    monkeypatch.setattr(la, "_lib", lib)
+    monkeypatch.setattr(la, "_call", call)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=7))
+    return calls
+
+
+@pytest.mark.parametrize("with_lse", [False, True], ids=["serving", "lse"])
+@pytest.mark.parametrize("D", [16, 80])
+def test_tc_wrapper_hands_the_entry_point_narrow_head_sizes(entry_points, D,
+                                                            with_lse):
+    """At D 16 and 80 `flash_attention_tc_cuda` launches
+    `flash_attention_tc_launch` with (B, Hq, Hkv, T, D, W) at the true D:
+    serving with a null lse, under autograd (through `FlashAttention`)
+    with an f32 (B, Hq, T) lse."""
+    B, Hq, Hkv, T, W = 2, 4, 2, 24, 9
+    q = fake_cuda(torch.zeros(B, Hq, T, D, dtype=torch.bfloat16)
+                  .requires_grad_(with_lse))
+    k, v = (fake_cuda(torch.zeros(B, Hkv, T, D, dtype=torch.bfloat16))
+            for _ in range(2))
+    before = flash_attention_tc_cuda.launches
+    out = flash_attention_tc_cuda(q, k, v, window=W)
+    (name, ptrs, ints), = entry_points
+    assert name == "flash_attention_tc_launch" and len(ptrs) == 5
+    assert ints == (B, Hq, Hkv, T, D, W)
+    assert ptrs[3].shape == q.shape and ptrs[3].dtype == torch.bfloat16
+    lse = ptrs[4]
+    if with_lse:
+        assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+        assert lse.shape == (B, Hq, T) and lse.dtype == torch.float32
+    else:
+        assert lse is None
+    assert flash_attention_tc_cuda.launches == before + 1

@@ -6,15 +6,16 @@ operands (q scaled by 1/sqrt(D) after the upcast) split into tf32 hi + lo
 — hi rounded to nearest with ties away on the int32 view, as the kernel
 does it, lo = x - hi rounded the same way — and every product taken as
 the three passes
-lo*hi + hi*lo + hi*hi in f32 (tf32 products are exact in f32; bf16 inputs
-take two, lo*hi + hi*hi, their k and v being exact in tf32); an online
+lo*hi + hi*lo + hi*hi in f32 (tf32 products are exact in f32); an online
 softmax over key tiles of 32 (16 at D > 128) taken in the kernel's order,
 from the band's first tile up; p split the same way for P.V; O / l. It
 must agree with `flash_attention_plain` within the check the card holds
 the kernel to: |err| <= 2e-5 + 2e-5 |plain| (the reference's own kernel
 test bound). The same pass with one tf32 operand per product is held
 beside it and breaks that check: the reason for the split. Inputs are
-made with numpy from a seed."""
+made with numpy from a seed. The kernel takes f32 only: bf16 goes to
+`csrc/flash_tc.cu` at every head size, and the wrapper refuses it before
+any launch."""
 
 import math
 
@@ -22,10 +23,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.local_attention import local_attention as la
 from repro_torch.kernels.local_attention.local_attention import (
-    KERNEL_HEAD_DIMS, TC_HEAD_DIMS, TF32X3_BF16_HEAD_DIMS,
-    flash_attention_cuda, flash_attention_fma_cuda, flash_attention_plain,
-    flash_attention_tc_cuda, flash_attention_tf32x3_cuda, kernel_route)
+    KERNEL_HEAD_DIMS, flash_attention_cuda,
+    flash_attention_fma_cuda, flash_attention_plain, flash_attention_tc_cuda,
+    flash_attention_tf32x3_cuda, kernel_route)
+from torch_parity import fake_cuda
 
 # The f32 shapes of tests/test_torch_flash.py's ATT_CASES (B, Hq, Hkv, T,
 # D, window) and a GQA-2 case at the main path's D = 128.
@@ -63,21 +66,17 @@ def split(x):
 
 def product(a, b, passes):
     """a @ b as the kernel's tensor cores take it: three passes of the
-    split, two with b taken whole (bf16 inputs), or one tf32 pass."""
+    split, or one tf32 pass."""
     if passes == 1:
         return tf32_round(a) @ tf32_round(b)
     ah, al = split(a)
     bh, bl = split(b)
-    if passes == 2:
-        return al @ bh + ah @ bh
     return al @ bh + ah @ bl + ah @ bh
 
 
-def emulate(q, k, v, window=None, passes=None):
+def emulate(q, k, v, window=None, passes=3):
     """The kernel's pass, one query tile of 64 rows at a time, with the
-    kernel's passes per product for q's dtype unless `passes` is given."""
-    if passes is None:
-        passes = 3 if q.dtype == torch.float32 else 2
+    kernel's three passes per product unless `passes` is 1."""
     B, Hq, T, D = q.shape
     BQ = 64
     group = Hq // k.shape[1]
@@ -107,7 +106,7 @@ def emulate(q, k, v, window=None, passes=None):
             acc = acc * alpha + product(p, vf[:, :, keys], passes)
             m = m_new
         out[:, :, rows] = acc / torch.where(l == 0.0, 1.0, l)
-    return out.to(q.dtype)
+    return out
 
 
 def card_check(out, ref):
@@ -173,43 +172,16 @@ def test_emulation_ragged_t_and_empty_window():
     assert not emulate(q, k, v, 0).abs().max()
 
 
-def test_bf16_inputs_at_d80_within_one_ulp():
-    """bf16 at D 80 (stablelm-3b's head size) takes the same kernel: bf16
-    values are exact in tf32, q / sqrt(D) is not and is split; the output
-    rounds to bf16 within one ulp of the plain value."""
-    q, k, v = (x.bfloat16() for x in _inputs(9, 1, 4, 4, 256, 80))
-    out, ref = emulate(q, k, v), _plain(q, k, v, None)
-    d = (out.float() - ref.float()).abs()
-    ulp = torch.exp2(torch.floor(torch.log2(ref.float().abs()
-                                            .clamp_min(1e-30))) - 7)
-    assert (d <= ulp.clamp_min(TOL)).all()
-
-
-@pytest.mark.parametrize("W", [None, 40])
-def test_bf16_two_passes_equal_three(W):
-    """bf16 k and v are exact in tf32 (8 significant bits of 11): their lo
-    parts are 0, so the kernel's two passes for bf16 inputs give the sums
-    of the three passes bit for bit."""
-    q, k, v = (x.bfloat16().float()
-               for x in _inputs(11, 1, 4, 2, 192, 80))
-    for x in (k, v):
-        hi, lo = split(x)
-        assert torch.equal(hi, x) and not lo.abs().max()
-    assert torch.equal(emulate(q, k, v, W, passes=2),
-                       emulate(q, k, v, W, passes=3))
-
-
 @pytest.mark.parametrize("dtype,D", [
     (dt, D) for dt in (torch.float32, torch.bfloat16)
     for D in KERNEL_HEAD_DIMS])
 def test_route_table_covers_every_built_case_once(dtype, D):
     """Each (dtype, D) the kernels are built for has one route, and the
-    kernel it names takes that case: the wgmma kernel bf16 at its head
-    sizes, the split-TF32 kernel f32 everywhere and bf16 at the rest."""
+    kernel it names takes that case: the wgmma kernel bf16 at every head
+    size, the split-TF32 kernel f32 at every head size."""
     route = kernel_route(dtype, D)
-    takes = {"tc": dtype == torch.bfloat16 and D in TC_HEAD_DIMS,
-             "tf32x3": dtype == torch.float32
-             or D in TF32X3_BF16_HEAD_DIMS}
+    takes = {"tc": dtype == torch.bfloat16 and D in KERNEL_HEAD_DIMS,
+             "tf32x3": dtype == torch.float32 and D in KERNEL_HEAD_DIMS}
     assert takes[route]
     assert sum(takes.values()) == 1, takes
 
@@ -220,9 +192,9 @@ def test_tf32x3_wrapper_refuses_what_it_does_not_take():
               flash_attention_tc_cuda.launches,
               flash_attention_fma_cuda.launches,
               flash_attention_cuda.launches)
-    with pytest.raises(ValueError, match="head size"):
+    with pytest.raises(ValueError, match="dtype"):
         x = torch.zeros(1, 2, 64, 128, dtype=torch.bfloat16)
-        flash_attention_tf32x3_cuda(x, x, x)     # bf16 D 128 is the tc's
+        flash_attention_tf32x3_cuda(x, x, x)     # bf16 is the tc's
     with pytest.raises(ValueError, match="head size"):
         x = torch.zeros(1, 2, 64, 32)
         flash_attention_tf32x3_cuda(x, x, x)
@@ -238,3 +210,23 @@ def test_tf32x3_wrapper_refuses_what_it_does_not_take():
             flash_attention_tc_cuda.launches,
             flash_attention_fma_cuda.launches,
             flash_attention_cuda.launches) == before
+
+
+@pytest.mark.parametrize("D", KERNEL_HEAD_DIMS)
+def test_split_forward_refuses_bf16_before_any_launch(monkeypatch, D):
+    """bf16 at every head size is `flash_tc.cu`'s: the split-TF32
+    forward's wrapper raises on it, serving and under autograd (where it
+    would otherwise reach `FlashAttention`, which routes bf16 to the
+    wgmma kernel), and neither kernel library is reached."""
+    reached = []
+    monkeypatch.setattr(la, "_lib", lambda *a, **kw: reached.append(a))
+    x = fake_cuda(torch.zeros(1, 2, 16, D, dtype=torch.bfloat16))
+    before = (flash_attention_tf32x3_cuda.launches,
+              flash_attention_tc_cuda.launches)
+    for q in (x, fake_cuda(torch.zeros(1, 2, 16, D, dtype=torch.bfloat16)
+                           .requires_grad_())):
+        with pytest.raises(ValueError, match="one dtype in"):
+            flash_attention_tf32x3_cuda(q, x, x)
+    assert reached == []
+    assert (flash_attention_tf32x3_cuda.launches,
+            flash_attention_tc_cuda.launches) == before

@@ -9,16 +9,18 @@ the CPU.
   before the product where the plain version scales the product).
 * The wrappers with their entry points replaced by recorders and the
   inputs made to say they live on a card (`torch_parity.fake_cuda`): where
-  autograd would record it, `flash_attention_tf32x3_cuda` (f32 at every
-  head size, bf16 at D 16 and 80) goes through `FlashAttention`, whose
-  forward reaches `flash_attention_tf32x3_launch` with a non-null lse
+  autograd would record it, `flash_attention_cuda` goes through
+  `FlashAttention`, whose forward reaches, for f32,
+  `flash_attention_tf32x3_launch` and, for bf16 at D 16 and 80 (the head
+  sizes the split-TF32 route took in bf16 until the wgmma kernel was
+  built for them), `flash_attention_tc_launch`, each with a non-null lse
   (B, Hq, T) f32, and whose backward reaches, for f32,
   `flash_attention_bwd_tf32x3_launch` with q, k, v, the forward's output
   and lse, dO, the three gradients and a delta scratch, and for bf16
   B5-bwd's `flash_attention_bwd_tc_launch` with the same and B5-bwd's
   scratch (the padded per-row vectors, an f32 dQ accumulator); no plain
-  version runs. Without autograd the forward's lse pointer is null. The
-  split-TF32 backward's wrapper refuses bf16."""
+  version runs. Without autograd the split forward's lse pointer is null.
+  The split-TF32 backward's wrapper refuses bf16."""
 
 import contextlib
 import types
@@ -118,21 +120,24 @@ def test_route_under_autograd_reaches_both_entry_points(entry_points, dtype,
     k, v = (fake_cuda(torch.zeros(B, Hkv, T, D, dtype=dtype))
             for _ in range(2))
     bf16 = dtype == torch.bfloat16
-    assert la.kernel_route(dtype, D) == "tf32x3"
-    assert la.bwd_route(dtype, D) == ("tc" if bf16 else "tf32x3")
+    route = "tc" if bf16 else "tf32x3"
+    assert la.kernel_route(dtype, D) == route
+    assert la.bwd_route(dtype, D) == route
+    fwd = la.flash_attention_tc_cuda if bf16 \
+        else la.flash_attention_tf32x3_cuda
     bwd = la.flash_attention_bwd_tc_cuda if bf16 \
         else la.flash_attention_bwd_tf32x3_cuda
     plain = (la.flash_attention_plain.calls,
              la.flash_attention_bwd_plain.calls)
-    launches = (la.flash_attention_tf32x3_cuda.launches, bwd.launches)
+    launches = (fwd.launches, bwd.launches)
     out = la.flash_attention_cuda(q, k, v, window=W)
     assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
     (name, ptrs, ints), = entry_points
-    assert name == "flash_attention_tf32x3_launch"
+    assert name == f"flash_attention_{route}_launch"
     lse = ptrs[4]
     assert lse is not None and lse.shape == (B, Hq, T) \
         and lse.dtype == torch.float32
-    assert ints == (B, Hq, Hkv, T, D, W, la.KERNEL_DTYPES[dtype])
+    assert ints == (B, Hq, Hkv, T, D, W)
     out.backward(torch.ones_like(out))
     name, ptrs, ints = entry_points[1]
     assert len(entry_points) == 2
@@ -150,17 +155,17 @@ def test_route_under_autograd_reaches_both_entry_points(entry_points, dtype,
     assert ints == (B, Hq, Hkv, T, D, W)
     assert (la.flash_attention_plain.calls,
             la.flash_attention_bwd_plain.calls) == plain
-    assert (la.flash_attention_tf32x3_cuda.launches - launches[0],
+    assert (fwd.launches - launches[0],
             bwd.launches - launches[1]) == (1, 1)
 
 
 def test_serving_launch_passes_no_lse(entry_points):
-    q = fake_cuda(torch.zeros(1, 2, 16, 80, dtype=torch.bfloat16))
+    q = fake_cuda(torch.zeros(1, 2, 16, 80))
     with torch.no_grad():
         la.flash_attention_tf32x3_cuda(q, q, q, window=None)
     (name, ptrs, ints), = entry_points
     assert name == "flash_attention_tf32x3_launch" and ptrs[4] is None
-    assert ints == (1, 2, 2, 16, 80, 16, 1)
+    assert ints == (1, 2, 2, 16, 80, 16)
 
 
 @pytest.mark.parametrize("D", [16, 80])

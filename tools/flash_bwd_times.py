@@ -29,19 +29,22 @@ and the prefill's forward (no log-sum-exp) at 1 x 32 / 16 x 32,768, causal
 and W 1,024 (``prefill_ms``), the shapes of chip_smoke.py's `flash_checks`,
 so that a change of the forward's source shows beside its parent.
 
-The split-TF32 route (``tf32x3``): its serving forward at chip_smoke.py's
-`flash_f32_shapes` (f32 2 x 32 / 16 x 2,048, D 128, W 1,024 and causal;
-bf16 1 x 32 x 4,096, D 80, causal; inputs from a generator seeded 13),
-``serving_ms``; and, where the checkout has the split-TF32 backward
-(`flash_attention_bwd_tf32x3_cuda`), at stablelm-3b's training
-microbatch (bf16 2 x 32 x 2,048, D 80) and an f32 shape (2 x 16 / 8 x
-2,048, D 128; causal; seed 31), whichever backward that checkout routes
-the shape to (``backward``: B5-bwd, `flash_attention_bwd_tc_cuda`, where
-its `bwd_route` says "tc"; else the split-TF32 backward), its ``ms`` and
-``by_kernel``, the forward with its log-sum-exp, and the bound (10*D
-FLOP a live pair at the bf16 or TF32 peak). So ``--checkout`` of a tree
-that routes bf16 D 80 to the split-TF32 backward times that kernel, and
-this tree's run times B5-bwd there.
+The split-TF32 route and bf16 at D 80 (``tf32x3``): the serving forward
+at the shapes chip_smoke.py timed the split-TF32 kernel at (f32 2 x 32 /
+16 x 2,048, D 128, W 1,024 and causal; bf16 1 x 32 x 4,096, D 80, causal;
+inputs from a generator seeded 13), ``serving_ms``; and, where the
+checkout has the split-TF32 backward (`flash_attention_bwd_tf32x3_cuda`),
+at stablelm-3b's training microbatch (bf16 2 x 32 x 2,048, D 80) and an
+f32 shape (2 x 16 / 8 x 2,048, D 128; causal; seed 31), whichever
+backward that checkout routes the shape to (``backward``: B5-bwd,
+`flash_attention_bwd_tc_cuda`, where its `bwd_route` says "tc"; else the
+split-TF32 backward), its ``ms`` and ``by_kernel``, the forward with its
+log-sum-exp, and the bound (10*D FLOP a live pair at the bf16 or TF32
+peak). Each forward is the one that checkout routes its (dtype, D) to
+(``forward``: `_tc_forward` where `kernel_route` says "tc", else
+`_tf32x3_forward`), so ``--checkout`` of a tree that routes bf16 D 80 to
+the split-TF32 kernel times that kernel, and this tree's run times
+`flash_tc.cu` there.
 
 Exits 1 when the profiler saw no device event, and with no CUDA device.
 Imports no JAX.
@@ -123,10 +126,17 @@ def main() -> int:
     return 0
 
 
+def route_forward(la, q):
+    """The forward (`_tc_forward` or `_tf32x3_forward`) that the checkout's
+    `kernel_route` picks for q's (dtype, D)."""
+    return la._tc_forward if la.kernel_route(q.dtype, q.shape[-1]) == "tc" \
+        else la._tf32x3_forward
+
+
 def tf32x3_times(la, dev, reps):
-    """The split-TF32 route's serving forward and, where the checkout has
-    it, its backward (module note); None when the profiler saw no device
-    event."""
+    """The split-TF32 route's serving forward, bf16 D 80's on its route,
+    and, where the checkout has it, the backward (module note); None when
+    the profiler saw no device event."""
     gen = torch.Generator(device=dev).manual_seed(13)
     q = torch.randn(2, 32, 2048, 128, device=dev, generator=gen)
     k, v = (torch.randn(2, 16, 2048, 128, device=dev, generator=gen)
@@ -136,8 +146,10 @@ def tf32x3_times(la, dev, reps):
         for W in (1024, None)}}
     q, k, v = (torch.randn(1, 32, 4096, 80, device=dev, generator=gen)
                .bfloat16() for _ in range(3))
+    forward = route_forward(la, q)
     out["serving_ms"]["bf16_d80"] = time_cuda(
-        lambda: la.flash_attention_tf32x3_cuda(q, k, v), reps)
+        lambda: forward(q, k, v, None, False), reps)
+    out["bf16_d80_forward"] = forward.__name__
     del q, k, v
     if not hasattr(la, "flash_attention_bwd_tf32x3_cuda"):
         return out
@@ -149,7 +161,8 @@ def tf32x3_times(la, dev, reps):
         q, k, v, dout = (torch.randn(B, h, T, D, device=dev,
                                      generator=gen).to(dtype)
                          for h in (Hq, Hkv, Hkv, Hq))
-        o, lse = la._tf32x3_forward(q, k, v, None, True)
+        forward = route_forward(la, q)
+        o, lse = forward(q, k, v, None, True)
         route = la.bwd_route(dtype, D) if hasattr(la, "bwd_route") \
             else la.kernel_route(dtype, D)
         backward = la.flash_attention_bwd_tc_cuda if route == "tc" \
@@ -167,8 +180,8 @@ def tf32x3_times(la, dev, reps):
         out["bwd"].append({
             "shape": name, "q": list(q.shape), "kv": list(k.shape),
             "backward": backward.__name__, "ms": ms, "by_kernel": kernels,
-            "fwd_with_lse_ms": time_cuda(
-                lambda: la._tf32x3_forward(q, k, v, None, True), reps),
+            "forward": forward.__name__, "fwd_with_lse_ms": time_cuda(
+                lambda: forward(q, k, v, None, True), reps),
             "bound_ms": ops / peak * 1e3, "tflop_per_s": ops / ms / 1e9})
         del q, k, v, dout, o, lse
         torch.cuda.empty_cache()
