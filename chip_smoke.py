@@ -22,10 +22,12 @@ each tile's dQ into f32 scratch, between a pre-pass and a cast) against
 at three shapes (stablelm-3b's training microbatch at D 80 among them),
 timed beside plain, SDPA's backward and the bound, with the largest |dq|
 difference of two calls on the same inputs, and the f32 route's
-backward (`csrc/flash_tf32x3_bwd.cu`: mma.sync on split tf32 operands, a
-block per (key tile, kv head, column chunk), dQ by float atomics)
-likewise over f32 x D {16, 64, 80, 128, 256}, timed at an f32 shape
-(`flash_bwd_checks`), then drives the
+backward (`csrc/flash_tf32x3_bwd.cu`: B5-bwd's wgmma/TMA pipeline on bf16
+tensor cores with every f32 operand split into three bf16 pieces, six
+piece products a product, dQ reduced by TMA, at D 16-128; the mma.sync
+kernel on split tf32 operands at D 256) likewise over f32 x D {16, 64,
+80, 128, 256}, timed at an f32 shape with its registers and spills by
+head size (`flash_bwd_checks`), then drives the
 language-model serving path — gemma3-27b at
 full width, 14 of its 62 layers, random bf16 weights from `--seed`: one
 32,768-token prefill, 4 x 1,152 tokens decoded through the KV caches and
@@ -1481,24 +1483,24 @@ def flash_bwd_shapes(reps):
 
 
 # ---------------------------------------------------------------------------
-# The split-TF32 backward (`csrc/flash_tf32x3_bwd.cu`) vs its plain version.
+# The f32 backward (`csrc/flash_tf32x3_bwd.cu`) vs its plain version.
 # ---------------------------------------------------------------------------
 
-#: The split-TF32 backward (f32 only) vs `flash_attention_bwd_plain`
-#: (stated before its first run in this script): f32 gradients at f32
-#: level, each of dq, dk, dv within `REC_TOL` (1e-4) x max |plain| and rel
-#: L2 `REC_TOL` (the same f32 function, P recomputed from the forward's
-#: lse, summed in another order and with dq's sums by atomics); at W = 1
-#: dq and dk against their exact 0 within the same share of max |plain
-#: dv|.
+#: The f32 backward (f32 only) vs `flash_attention_bwd_plain` (stated
+#: before its first run in this script): f32 gradients at f32 level, each
+#: of dq, dk, dv within `REC_TOL` (1e-4) x max |plain| and rel L2
+#: `REC_TOL` (the same f32 function, P recomputed from the forward's lse,
+#: summed in another order and with dq's sums by reductions in varying
+#: order); at W = 1 dq and dk against their exact 0 within the same share
+#: of max |plain dv|.
 def split_bwd_errs(got, want, W=None):
     return bwd_errs(got, want, W, REC_TOL, REC_TOL)
 
 
 def tf32x3_bwd_case(q, k, v, dout, W):
-    """The split-TF32 forward with its lse and its backward, against the
-    plain forward (`return_lse=True`) and `flash_attention_bwd_plain`, all
-    on the card from the same inputs; the same tuple as
+    """The split-TF32 forward with its lse and the f32 backward, against
+    the plain forward (`return_lse=True`) and `flash_attention_bwd_plain`,
+    all on the card from the same inputs; the same tuple as
     `flash_bwd_case`."""
     out_k, lse_k = la_mod._tf32x3_forward(q, k, v, W, True)
     got = flash_attention_bwd_tf32x3_cuda(q, k, v, out_k, lse_k, dout,
@@ -1543,7 +1545,7 @@ def tf32x3_bwd_matrix(quick):
         errs, ok = split_bwd_errs(got, want, W)
         if not (ok and lse_ok):
             raise AssertionError(
-                f"split-TF32 backward != plain beyond tolerance: {dtype} "
+                f"f32 backward != plain beyond tolerance: {dtype} "
                 f"D={D} W={W} G={group} T={T} {errs} lse {lse_err}")
         w = worst.setdefault(str(dtype).split(".")[-1], {
             "dq": 0.0, "dk": 0.0, "dv": 0.0, "rel_l2": 0.0, "lse": 0.0,
@@ -1577,17 +1579,18 @@ def split_bwd_bound(q, k, W):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-#: The split-TF32 backward's timed shape: f32 at qwen3-0.6b's heads (2 x
-#: 16 q / 8 kv x 2,048, D 128, causal). (stablelm-3b's bf16 microbatch
-#: moved to B5-bwd's `BWD_SHAPES` with its backward.)
+#: The f32 backward's timed shape: f32 at qwen3-0.6b's heads (2 x 16 q /
+#: 8 kv x 2,048, D 128, causal). (stablelm-3b's bf16 microbatch moved to
+#: B5-bwd's `BWD_SHAPES` with its backward.)
 SPLIT_BWD_SHAPES = (("qwen3_f32_d128", (2, 16, 8, 2048, 128, None,
                                         torch.float32)),)
 
 
-def tf32x3_bwd_shapes(reps):
-    """The split-TF32 backward at `SPLIT_BWD_SHAPES`: held against plain,
-    timed beside plain, SDPA's backward (kv expanded) and the bound, with
-    the forward's training launch (with lse) and serving launch."""
+def tf32x3_bwd_shapes(reps, ptxas):
+    """The f32 backward at `SPLIT_BWD_SHAPES`: held against plain, timed
+    beside plain, SDPA's backward (kv expanded) and the bound, with the
+    forward's training launch (with lse) and serving launch, and the
+    backward's registers and spills by kernel and head size (`ptxas`)."""
     gen = torch.Generator(device=DEV).manual_seed(31)
     recs = []
     for name, (B, Hq, Hkv, T, D, W, dtype) in SPLIT_BWD_SHAPES:
@@ -1599,7 +1602,7 @@ def tf32x3_bwd_shapes(reps):
         errs, ok = split_bwd_errs(got, want)
         del got, want
         if not (ok and lse_ok):
-            raise AssertionError(f"split-TF32 backward != plain at {name}: "
+            raise AssertionError(f"f32 backward != plain at {name}: "
                                  f"{errs} lse {lse_err}")
         out, lse = la_mod._tf32x3_forward(q, k, v, W, True)
         plain_ms, _ = time_host(lambda: flash_attention_bwd_plain(
@@ -1622,7 +1625,7 @@ def tf32x3_bwd_shapes(reps):
                      "tflop_per_s": BWD_FLOP_PER_PAIR_PER_D * D * pairs
                      / ms / 1e9, "bound_share": bound / ms, "errs": errs,
                      "dq_repeat_max_abs": dq_rep, "lse_err": lse_err,
-                     "within_tolerance": ok and lse_ok})
+                     "ptxas": ptxas, "within_tolerance": ok and lse_ok})
         del q, k, v, dout, out, lse
         torch.cuda.empty_cache()
     return recs
@@ -2023,15 +2026,17 @@ def f32_grad_check(cfg, seed, paths):
     """qwen3-0.6b at full width cut to 4 layers (D 128), f32 compute and
     params (TF32 off), 2 x 1,024 tokens: the loss and every leaf's
     gradient with attention on the split-TF32 route (`flash_tf32x3` and
-    its backward, the main path `lm_train_f32_grads`: the f32 route's
-    training launches) against `attn_impl="naive"`."""
+    the f32 backward's wgmma kernel, the main path `lm_train_f32_grads`:
+    the f32 route's training launches; none of the backward's mma.sync
+    kernel, which takes D 256 only) against `attn_impl="naive"`."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rec, _, _ = kernel_vs_naive_grads(
         dataclasses.replace(cfg, n_layers=4), seed, torch.float32,
         ("flash_tf32x3", "flash_tf32x3_bwd"), F32_GRAD_LOSS_TOL,
-        F32_GRAD_LEAF_TOL, absent=("flash_tc", "flash_tc_bwd"), paths=paths,
-        tag="lm_train_f32_grads")
+        F32_GRAD_LEAF_TOL, absent=("flash_tc", "flash_tc_bwd",
+                                   "flash_tf32x3_bwd_mma_sync"),
+        paths=paths, tag="lm_train_f32_grads")
     return rec
 
 
@@ -3225,7 +3230,7 @@ def lm_train_recurrentgemma_phase(args, paths):
         dataclasses.replace(cfg, n_layers=3), args.seed, 1, 512,
         RG_GRAD_LOSS_TOL, RG_GRAD_LEAF_TOL,
         ("rglru_scan", "rglru_scan_bwd", "flash_tf32x3",
-         "flash_tf32x3_bwd"))[0]
+         "flash_tf32x3_bwd_mma_sync"))[0]
     torch.cuda.empty_cache()
     return rec
 
@@ -3694,8 +3699,18 @@ def sweep_class(T):
                 DEFAULT_BUCKET_EDGES[-1])
 
 
+#: Launch counters a wrapper keeps beside `launches`: (wrapper, attribute).
+#: The f32 backward counts its D 256 kernel (mma.sync) apart.
+EXTRA_COUNTERS = {
+    "flash_tf32x3_bwd_mma_sync": (flash_attention_bwd_tf32x3_cuda,
+                                  "mma_sync_launches"),
+}
+
+
 def counts():
     out = {k: fn.launches for k, fn in COUNTERS.items()}
+    out.update({k: getattr(fn, attr)
+                for k, (fn, attr) in EXTRA_COUNTERS.items()})
     out.update({k: fn.calls for k, fn in PLAIN.items()})
     return out
 
@@ -3703,6 +3718,8 @@ def counts():
 def zero_counts():
     for fn in COUNTERS.values():
         fn.launches = 0
+    for fn, attr in EXTRA_COUNTERS.values():
+        setattr(fn, attr, 0)
     for fn in PLAIN.values():
         fn.calls = 0
     for fn in SHAPED.values():
@@ -4354,11 +4371,19 @@ def main():
     bwd_cases, bwd_worst = flash_bwd_matrix(args.quick)
     bwd_shapes = flash_bwd_shapes(3 if args.quick else 8)
     t_split = time.perf_counter()
+    split_ptxas = ptxas_facts(built["logs"].get("flash_tf32x3_bwd", ""), "",
+                              r"(split_bwd_prep|split_bwd|split_kv|"
+                              r"flash_tf32x3_bwd_prep|flash_tf32x3_bwd)"
+                              r"_kernel(?:ILi(\d+)E|E)")
+    if "flash_tf32x3_bwd" in built["built"]:
+        assert split_ptxas and all(
+            f["spill_stores"] == 0 and f["spill_loads"] == 0
+            for key, f in split_ptxas.items()
+            if str(key).startswith("split_bwd/")), split_ptxas
     split_cases, split_worst = tf32x3_bwd_matrix(args.quick)
-    split_shapes = tf32x3_bwd_shapes(3 if args.quick else 8)
-    split_ptxas = ptxas_facts(built["logs"].get("flash_tf32x3_bwd", ""),
-                              "flash_tf32x3_bwd_",
-                              r"(kernel|prep_kernel)ILi(\d+)E")
+    split_shapes = tf32x3_bwd_shapes(
+        3 if args.quick else 8,
+        split_ptxas or "not measured (library not rebuilt)")
     t_split = time.perf_counter() - t_split
     bwd_ptxas = ptxas_facts(built["logs"].get("flash_tc_bwd", ""),
                             "flash_bwd_",
@@ -4377,6 +4402,9 @@ def main():
             "seconds": t_split, "cases": split_cases, "worst": split_worst,
             "shapes": split_shapes, "ptxas": split_ptxas
             or "not measured (library not rebuilt)",
+            "kernels": "D 16-128: split_bwd_prep, split_kv, split_bwd "
+                       "(wgmma, three bf16 pieces); D 256: "
+                       "flash_tf32x3_bwd_prep, flash_tf32x3_bwd (mma.sync)",
             "tolerance": "f32 only: each of dq, dk, dv max |kernel - "
                          "plain| <= 1e-4 x max |plain| and rel L2 <= 1e-4 "
                          "(at W = 1 dq, dk <= 1e-4 x max |plain dv|); lse "
@@ -4944,6 +4972,9 @@ def main():
         tolerance="f32: dq, dk, dv each max |err| <= 1e-4 x max |plain|, "
                   "rel L2 1e-4",
         launches=tot("flash_tf32x3_bwd"),
+        mma_sync_launches=tot("flash_tf32x3_bwd_mma_sync"),
+        design="wgmma on three bf16 pieces a f32 operand (D 16-128); "
+               "mma.sync on tf32 hi + lo at D 256",
         max_abs_err=max(max(w["max_abs_err"] for w in split_worst.values()),
                         *(e["max_abs_err"] for r in split_shapes
                           for e in r["errs"].values())),

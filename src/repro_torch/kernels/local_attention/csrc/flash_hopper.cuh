@@ -1,10 +1,11 @@
 // Hopper building blocks shared by the banded flash attention's forward
-// (flash_tc.cu) and backward (flash_tc_bwd.cu), for sm_90a: mbarriers, TMA
-// loads through 3-D tensor maps, wgmma shared-memory descriptors for the
-// 128-byte swizzle, and the wgmma shapes both kernels issue. Everything is
-// in an anonymous namespace: each source is its own shared library. The
-// register-A shapes at N 16 and 80 serve the backward's head sizes 16 and
-// 80 only.
+// (flash_tc.cu) and its two backwards (flash_tc_bwd.cu for bf16,
+// flash_tf32x3_bwd.cu for f32), for sm_90a: mbarriers, TMA loads through
+// 3-D tensor maps and bulk copies, TMA reductions from shared memory,
+// wgmma shared-memory descriptors for the 128-byte swizzle, and the wgmma
+// shapes the kernels issue. Everything is in an anonymous namespace: each
+// source is its own shared library. The register-A shapes at N 16 and 80
+// serve the backwards' head sizes 16 and 80 only.
 
 #pragma once
 
@@ -72,6 +73,41 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
       : "memory");
+}
+
+// Global -> shared bulk copy of `bytes` (a multiple of 16, both addresses
+// 16-byte aligned), completing on the barrier.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Shared -> global TMA reduction: the box at `src` is added (f32) into the
+// tensor at coordinates (c0, c1, c2); rows past the map's T and columns
+// past its D are dropped.
+__device__ __forceinline__ void tma_reduce_add(uint32_t src,
+                                               const CUtensorMap* map, int c0,
+                                               int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until the committed bulk operations have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Wait until the committed bulk operations have completed.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
@@ -362,6 +398,23 @@ EncodeTiled encode_tiled() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// A (D, T, B*H) f32 tensor map in boxes of 32 columns x `rows` rows of
+// one head with the 128-byte swizzle: the target of the backwards' dQ
+// reductions.
+bool make_map_f32(CUtensorMap* map, void* ptr, int D, int T, int BH,
+                  int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 4, (cuuint64_t)T * D * 4};
+  const cuuint32_t box[3] = {32, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, ptr, dims, strides,
+             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // A (D, T, B*H) bf16 tensor map read in boxes of 64 columns x `rows` rows

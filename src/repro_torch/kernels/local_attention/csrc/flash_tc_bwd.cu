@@ -207,17 +207,6 @@ struct BwdTile {
                               + STAGES * 2 * VEC + 8 * (1 + 2 * STAGES);
 };
 
-// Global -> shared bulk copy of `bytes` (a multiple of 16, both addresses
-// 16-byte aligned), completing on the barrier.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
 // The ring's barriers at `bars`: K and V's, then per stage "full" (one
 // arrival and the stage's bytes) and "empty" (every consumer thread).
 template <int STAGES>
@@ -365,29 +354,6 @@ __device__ __forceinline__ void wgmma_ss_mn(float (&d)[N / 2], uint64_t da,
   else if constexpr (N == 64) wgmma_ss_n64_mn(d, da, db, scale_d);
   else if constexpr (N == 80) wgmma_ss_n80_mn(d, da, db, scale_d);
   else wgmma_ss_n128_mn(d, da, db, scale_d);
-}
-
-// Shared -> global TMA reduction: the box at `src` is added (f32) into the
-// tensor at coordinates (c0, c1, c2); rows past the map's T are dropped.
-__device__ __forceinline__ void tma_reduce_add(uint32_t src,
-                                               const CUtensorMap* map, int c0,
-                                               int c1, int c2) {
-  asm volatile(
-      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.bulk_group "
-      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// Wait until the committed bulk operations have read their shared memory.
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-// Wait until the committed bulk operations have completed.
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 template <int D>
@@ -891,22 +857,6 @@ flash_bwd_wgmma_split_kernel(const __grid_constant__ CUtensorMap tm_q,
 // Launch.
 // ---------------------------------------------------------------------------
 
-// A (D, T, B*H) f32 tensor map over dq_acc, in boxes of 32 columns x 64
-// rows of one head with the 128-byte swizzle: the target of the dQ_tile
-// reductions.
-bool make_map_f32(CUtensorMap* map, void* ptr, int D, int T, int BH) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 4, (cuuint64_t)T * D * 4};
-  const cuuint32_t box[3] = {32, 64, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, ptr, dims, strides,
-             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* lse, const void* dout, void* dq, void* dk,
@@ -930,7 +880,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
       !make_map(&tm_do, dout, D, T, B * Hq, BQ) ||
       !make_map(&tm_k, k, D, T, B * Hkv, BK) ||
       !make_map(&tm_v, v, D, T, B * Hkv, BK) ||
-      !make_map_f32(&tm_dq, dq_acc, D, T, B * Hq))
+      !make_map_f32(&tm_dq, dq_acc, D, T, B * Hq, BQ))
     return cudaErrorInvalidValue;
   const dim3 grid(B * Hkv, nk);
   cudaError_t e;

@@ -1,6 +1,7 @@
 // Helpers shared by the split-TF32 flash attention (flash_tf32x3.cu) and
-// its backward (flash_tf32x3_bwd.cu): the tf32 hi + lo split, the
-// m16n8k8 tf32 mma.sync, and the staging of f32 rows into shared memory.
+// its backward's mma.sync kernel at D 256 (flash_tf32x3_bwd.cu): the tf32
+// hi + lo split, the m16n8k8 tf32 mma.sync, and the staging of f32 rows
+// into shared memory.
 
 #pragma once
 

@@ -31,9 +31,11 @@ log-sum-exp, and the backward kernel `bwd_route` picks, the same route:
 B5-bwd (`csrc/flash_tc_bwd.cu`, `flash_attention_bwd_tc_cuda`: one wgmma
 kernel per (b, kv head, key tile) that also reduces dQ into an f32
 scratch) for bf16, and `csrc/flash_tf32x3_bwd.cu`
-(`flash_attention_bwd_tf32x3_cuda`: mma.sync with split tf32 operands,
-one block per (key tile, b * kv head, column chunk), dQ by f32 atomics)
-for f32. On CPU tensors it runs
+(`flash_attention_bwd_tf32x3_cuda`) for f32: at D 16-128 B5-bwd's
+wgmma/TMA pipeline on bf16 tensor cores, every f32 operand split into
+three bf16 pieces (`split3_plain`) and each product formed from six piece
+products, dQ reduced into dq by TMA; at D 256 the mma.sync kernel with
+split tf32 operands. On CPU tensors it runs
 `flash_attention_plain(return_lse=True)` and `flash_attention_bwd_plain`.
 `flash_attention_tc_cuda` and `flash_attention_tf32x3_cuda` go through it
 whenever autograd would record the call; the FMA kernel, on no route, has
@@ -63,9 +65,15 @@ KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: The one dtype each route's kernels take.
 ROUTE_DTYPE = {"tc": torch.bfloat16, "tf32x3": torch.float32}
 
-#: B5-bwd's per-row vectors (lse * log2(e), delta) are padded to a multiple
-#: of this many rows, one streamed query tile.
+#: B5-bwd's and the f32 backward's per-row vectors (lse * log2(e), delta)
+#: are padded to a multiple of this many rows (one of B5-bwd's streamed
+#: query tiles, two of the f32 backward's).
 BWD_ROW_PAD = 64
+
+#: Head sizes at which the f32 backward runs its wgmma design; D 256 runs
+#: the mma.sync kernel (the pieces of a 64-key tile's K and V would fill a
+#: block's shared memory: `csrc/flash_tf32x3_bwd.cu`).
+SPLIT_BWD_WGMMA_DIMS = (16, 64, 80, 128)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -397,34 +405,65 @@ def flash_attention_bwd_tc_cuda(q, k, v, out, lse, dout, *, window=None):
     return dq, dk, dv
 
 
+def split_bwd_pieces_numel(B, Hq, Hkv, T, D):
+    """Elements of the bf16 scratch `flash_attention_bwd_tf32x3_cuda`
+    hands its wgmma design: the three pieces of q, dO (B, Hq, T, D) and of
+    k, v (B, Hkv, T, D); 0 at a head size the mma.sync kernel takes."""
+    if D not in SPLIT_BWD_WGMMA_DIMS:
+        return 0
+    return 3 * 2 * (B * Hq + B * Hkv) * T * D
+
+
+def split3_plain(x):
+    """The three bf16 pieces of an f32 tensor as the f32 backward's kernels
+    form them: x1 = bf16(x), x2 = bf16(x - x1), x3 = bf16(x - x1 - x2),
+    each rounded to nearest (even). The differences are exact in f32, and
+    x3 is exact: x1 + x2 + x3 == x wherever x3 stays in bf16's range
+    (|x| above about 2^-103)."""
+    x1 = x.to(torch.bfloat16)
+    r = x - x1.float()
+    x2 = r.to(torch.bfloat16)
+    return x1, x2, (r - x2.float()).to(torch.bfloat16)
+
+
 def flash_attention_bwd_tf32x3_cuda(q, k, v, out, lse, dout, *,
                                     window=None):
-    """Launch the split-TF32 backward (`csrc/flash_tf32x3_bwd.cu`) on CUDA
-    tensors: a pre-pass (delta = rowsum(dO * O) per row; dq, its own f32
-    accumulator, zeroed) and one mma.sync kernel per (64-key tile, b * kv
-    head, chunk of output columns) that sums dK, dV over the group and
-    adds each query tile's dQ into dq by f32 atomics. Every operand split
-    into tf32 hi + lo as the forward splits them; f32 accumulation. f32 q
-    (B, Hq, T, D), k/v (B, Hkv, T, D), D in `KERNEL_HEAD_DIMS`, `out` the
-    forward's output and `dout` its gradient (like q), `lse` (B, Hq, T)
-    f32 from `flash_tf32x3.cu`. Returns (dq, dk, dv) f32 on PyTorch's
-    current stream, without synchronising; dq's f32 sums come in an order
-    that varies from call to call. Raises on anything the kernels do not
-    take, bf16 included (its backward is `flash_attention_bwd_tc_cuda`)."""
+    """Launch the f32 backward (`csrc/flash_tf32x3_bwd.cu`) on CUDA
+    tensors. At D 16, 64, 80 and 128: a pre-pass (delta = rowsum(dO * O)
+    and lse * log2(e), per row padded to `BWD_ROW_PAD`; dq, the TMA
+    reductions' target, zeroed; the three bf16 pieces of q and dO, as
+    `split3_plain` forms them), one for the pieces of k and v, and one
+    wgmma kernel per (b, kv head, 64-key tile), fed by TMA, that forms
+    every product from six piece products with f32 accumulation, sums dK
+    and dV over the group and adds each query tile's dQ into dq by TMA
+    reductions. At D 256 the mma.sync kernel (every operand split into
+    tf32 hi + lo, dQ by f32 atomics), counted apart in
+    ``mma_sync_launches``. f32 q (B, Hq, T, D), k/v (B, Hkv, T, D), D in
+    `KERNEL_HEAD_DIMS`, `out` the forward's output and `dout` its gradient
+    (like q), `lse` (B, Hq, T) f32 from `flash_tf32x3.cu`. Returns (dq, dk,
+    dv) f32 on PyTorch's current stream, without synchronising; dq's f32
+    sums come in an order that varies from call to call. Raises on
+    anything the kernels do not take, bf16 included (its backward is
+    `flash_attention_bwd_tc_cuda`)."""
     name = "flash_attention_bwd_tf32x3_cuda"
     q, k, v, W, sizes = _prepare(q, k, v, window, (ROUTE_DTYPE["tf32x3"],),
                                  KERNEL_HEAD_DIMS, name)
+    B, Hq, Hkv, T, D = sizes
     out, dout, lse = _bwd_operands(name, q, out, lse, dout, sizes)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel():
-        B, Hq, _, T, D = sizes
-        delta = torch.empty((B, Hq, T), dtype=torch.float32,
-                            device=q.device)
+        t_pad = -(-T // BWD_ROW_PAD) * BWD_ROW_PAD
+        rowvec = torch.empty((2, B * Hq, t_pad), dtype=torch.float32,
+                             device=q.device)
+        n = split_bwd_pieces_numel(B, Hq, Hkv, T, D)
+        pieces = torch.empty(n, dtype=torch.bfloat16, device=q.device) \
+            if n else None
         _call(_lib("flash_tf32x3_bwd", "flash_attention_bwd_tf32x3_launch",
-                   6, n_ptr=10),
-              (q, k, v, out, lse, dout, dq, dk, dv, delta), (*sizes, W),
-              "flash_tf32x3_bwd")
-        build.count(flash_attention_bwd_tf32x3_cuda)
+                   6, n_ptr=11),
+              (q, k, v, out, lse, dout, dq, dk, dv, rowvec, pieces),
+              (*sizes, W), "flash_tf32x3_bwd")
+        build.count(flash_attention_bwd_tf32x3_cuda,
+                    "launches" if n else "mma_sync_launches")
     return dq, dk, dv
 
 
@@ -432,8 +471,8 @@ class FlashAttention(torch.autograd.Function):
     """The banded flash attention with its backward: on CUDA tensors the
     forward of the route `kernel_route` picks with the per-row
     log-sum-exp and the backward of the route `bwd_route` picks
-    (`flash_tc.cu` and B5-bwd for bf16, the split-TF32 forward and
-    backward for f32), on CPU tensors
+    (`flash_tc.cu` and B5-bwd for bf16, the split-TF32 forward and the
+    f32 backward, `csrc/flash_tf32x3_bwd.cu`, for f32), on CPU tensors
     `flash_attention_plain(return_lse=True)` and
     `flash_attention_bwd_plain`. Everything the backward reads is saved
     through `ctx.save_for_backward` (q, k, v, out, lse), so a
@@ -543,6 +582,9 @@ flash_attention_tc_cuda.launches = 0
 flash_attention_bwd_tc_cuda.launches = 0
 flash_attention_tf32x3_cuda.launches = 0
 flash_attention_bwd_tf32x3_cuda.launches = 0
+#: Launches of the f32 backward's mma.sync kernel (D 256) since the count
+#: was last set to 0; `launches` counts the wgmma design's.
+flash_attention_bwd_tf32x3_cuda.mma_sync_launches = 0
 flash_attention_fma_cuda.launches = 0
 #: Launches of either kernel made through the route.
 flash_attention_cuda.launches = 0

@@ -14,8 +14,8 @@ length, straight through
 `flash_attention_cuda`, which raises for a (dtype, head size) no kernel
 is built for. Under autograd both CUDA paths ("chunked" and "pallas")
 reach B5's `FlashAttention` (the route's forward with its log-sum-exp,
-then B5-bwd, `csrc/flash_tc_bwd.cu`, for bf16, or the split-TF32
-backward, `csrc/flash_tf32x3_bwd.cu`, for f32). "pallas"
+then B5-bwd, `csrc/flash_tc_bwd.cu`, for bf16, or the f32 backward,
+`csrc/flash_tf32x3_bwd.cu`, for f32). "pallas"
 keeps the reference wrapper's block rule (`ops.flash_attention`: T must
 divide the blocks clipped to T) on every device. On CPU tensors each impl
 keeps its reference meaning, and "pallas" takes the kernels' plain

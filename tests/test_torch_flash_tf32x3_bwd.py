@@ -16,11 +16,13 @@ the CPU.
   built for them), `flash_attention_tc_launch`, each with a non-null lse
   (B, Hq, T) f32, and whose backward reaches, for f32,
   `flash_attention_bwd_tf32x3_launch` with q, k, v, the forward's output
-  and lse, dO, the three gradients and a delta scratch, and for bf16
-  B5-bwd's `flash_attention_bwd_tc_launch` with the same and B5-bwd's
-  scratch (the padded per-row vectors, an f32 dQ accumulator); no plain
-  version runs. Without autograd the split forward's lse pointer is null.
-  The split-TF32 backward's wrapper refuses bf16."""
+  and lse, dO, the three gradients, the padded per-row vectors and the
+  bf16 scratch of the operands' pieces (none at D 256, where the mma.sync
+  kernel runs and `mma_sync_launches` counts it), and for bf16 B5-bwd's
+  `flash_attention_bwd_tc_launch` with the same and B5-bwd's scratch (the
+  padded per-row vectors, an f32 dQ accumulator); no plain version runs.
+  Without autograd the split forward's lse pointer is null. The f32
+  backward's wrapper refuses bf16."""
 
 import contextlib
 import types
@@ -129,7 +131,8 @@ def test_route_under_autograd_reaches_both_entry_points(entry_points, dtype,
         else la.flash_attention_bwd_tf32x3_cuda
     plain = (la.flash_attention_plain.calls,
              la.flash_attention_bwd_plain.calls)
-    launches = (fwd.launches, bwd.launches)
+    mma_sync = la.flash_attention_bwd_tf32x3_cuda.mma_sync_launches
+    launches = (fwd.launches, bwd.launches, mma_sync)
     out = la.flash_attention_cuda(q, k, v, window=W)
     assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
     (name, ptrs, ints), = entry_points
@@ -143,20 +146,27 @@ def test_route_under_autograd_reaches_both_entry_points(entry_points, dtype,
     assert len(entry_points) == 2
     assert ptrs[4] is lse and ptrs[3].shape == q.shape
     assert [p.shape for p in ptrs[6:9]] == [q.shape, k.shape, v.shape]
+    assert len(ptrs) == 11
+    t_pad = -(-T // la.BWD_ROW_PAD) * la.BWD_ROW_PAD
+    assert ptrs[9].shape == (2, B * Hq, t_pad)
     if bf16:
-        assert name == "flash_attention_bwd_tc_launch" and len(ptrs) == 11
-        t_pad = -(-T // la.BWD_ROW_PAD) * la.BWD_ROW_PAD
-        assert ptrs[9].shape == (2, B * Hq, t_pad)
+        assert name == "flash_attention_bwd_tc_launch"
         assert ptrs[10].shape == q.shape and ptrs[10].dtype == torch.float32
     else:
-        assert name == "flash_attention_bwd_tf32x3_launch" and len(ptrs) == 10
-        assert ptrs[9].shape == (B, Hq, T)
+        assert name == "flash_attention_bwd_tf32x3_launch"
+        if D == 256:
+            assert ptrs[10] is None
+        else:
+            assert ptrs[10].dtype == torch.bfloat16 and ptrs[10].numel() \
+                == la.split_bwd_pieces_numel(B, Hq, Hkv, T, D)
     assert ptrs[9].dtype == torch.float32
     assert ints == (B, Hq, Hkv, T, D, W)
     assert (la.flash_attention_plain.calls,
             la.flash_attention_bwd_plain.calls) == plain
-    assert (fwd.launches - launches[0],
-            bwd.launches - launches[1]) == (1, 1)
+    d256 = int(not bf16 and D == 256)
+    assert (fwd.launches - launches[0], bwd.launches - launches[1],
+            la.flash_attention_bwd_tf32x3_cuda.mma_sync_launches
+            - launches[2]) == (1, 1 - d256, d256)
 
 
 def test_serving_launch_passes_no_lse(entry_points):
@@ -170,12 +180,13 @@ def test_serving_launch_passes_no_lse(entry_points):
 
 @pytest.mark.parametrize("D", [16, 80])
 def test_split_backward_refuses_bf16(entry_points, D):
-    """bf16's backward is B5-bwd: the split-TF32 backward's wrapper raises
-    on bf16 and launches nothing."""
+    """bf16's backward is B5-bwd: the f32 backward's wrapper raises on
+    bf16 and launches nothing."""
     q = fake_cuda(torch.zeros(1, 2, 16, D, dtype=torch.bfloat16))
     lse = fake_cuda(torch.zeros(1, 2, 16))
-    before = la.flash_attention_bwd_tf32x3_cuda.launches
+    fn = la.flash_attention_bwd_tf32x3_cuda
+    before = (fn.launches, fn.mma_sync_launches)
     with pytest.raises(ValueError, match="one dtype in"):
-        la.flash_attention_bwd_tf32x3_cuda(q, q, q, q, lse, q)
+        fn(q, q, q, q, lse, q)
     assert entry_points == []
-    assert la.flash_attention_bwd_tf32x3_cuda.launches == before
+    assert (fn.launches, fn.mma_sync_launches) == before

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Time the banded flash attention's backwards (B5-bwd; the split-TF32
-backward) and forwards of a checkout of this repository, and split the
-backwards' device time by kernel.
+"""Time the banded flash attention's backwards (B5-bwd; the f32 backward)
+and forwards of a checkout of this repository, and split the backwards'
+device time by kernel.
 
 Usage: python tools/flash_bwd_times.py [--checkout DIR] [--reps N]
 
@@ -33,12 +33,15 @@ The split-TF32 route and bf16 at D 80 (``tf32x3``): the serving forward
 at the shapes chip_smoke.py timed the split-TF32 kernel at (f32 2 x 32 /
 16 x 2,048, D 128, W 1,024 and causal; bf16 1 x 32 x 4,096, D 80, causal;
 inputs from a generator seeded 13), ``serving_ms``; and, where the
-checkout has the split-TF32 backward (`flash_attention_bwd_tf32x3_cuda`),
-at stablelm-3b's training microbatch (bf16 2 x 32 x 2,048, D 80) and an
-f32 shape (2 x 16 / 8 x 2,048, D 128; causal; seed 31), whichever
-backward that checkout routes the shape to (``backward``: B5-bwd,
+checkout has the f32 backward (`flash_attention_bwd_tf32x3_cuda`: the
+mma.sync kernel on split tf32 operands in trees before its wgmma design,
+that design at D 16-128 since, its kernels `split_bwd_prep_kernel`,
+`split_kv_kernel` and `split_bwd_kernel` in ``by_kernel``), at
+stablelm-3b's training microbatch (bf16 2 x 32 x 2,048, D 80) and an f32
+shape (2 x 16 / 8 x 2,048, D 128; causal; seed 31), whichever backward
+that checkout routes the shape to (``backward``: B5-bwd,
 `flash_attention_bwd_tc_cuda`, where its `bwd_route` says "tc"; else the
-split-TF32 backward), its ``ms`` and ``by_kernel``, the forward with its
+f32 backward), its ``ms`` and ``by_kernel``, the forward with its
 log-sum-exp, and the bound (10*D FLOP a live pair at the bf16 or TF32
 peak). Each forward is the one that checkout routes its (dtype, D) to
 (``forward``: `_tc_forward` where `kernel_route` says "tc", else
