@@ -54,7 +54,9 @@ with a 4-layer cut's bf16 loss and gradients against naive
 attention: `lm_train_stablelm`) — then B8's per-step
 exchange alone (`slstm_exchange`: the probe `models/csrc/slstm_probe.cu`
 at B8's grid, cluster barrier against one-way `st.async` at cluster
-sizes 2-16; its fastest exchange is B8's latency floor), the recurrent
+sizes 2-16; its fastest exchange is B8's latency floor) and B8-bwd's
+(its reduce-scatter alone, the backward's floor, and with each dot and
+cell on the chain: the split of its step), the recurrent
 kernels B6 (RG-LRU scan), B7 (chunkwise mLSTM: three chunk-parallel
 passes, each held against its own plain version) and B8 (sLSTM, a
 thread-block cluster per head, R in registers, a one-way h exchange)
@@ -63,8 +65,10 @@ edges, B6 also at the long-memory recipe (`recurrent_checks`), their
 backwards B6-bwd (`models/csrc/rglru_scan_bwd.cu`, at recurrentgemma's
 training microbatch, with an h0, ragged T and D, and a = 1), B7-bwd (`models/csrc/mlstm_chunk_bwd.cu`, three passes, each
 against its own plain version) and B8-bwd (`models/csrc/slstm_bwd.cu`)
-against the plain backwards at their training shapes and ragged edges,
-with registers and spills, and the forwards' training launches (B6 with
+against the plain backwards at their training shapes and ragged edges
+(B8-bwd also with the step's max flipping between its branches, and its
+kernel and dR's product timed apart), with registers and spills, and
+the forwards' training launches (B6 with
 its scratch's per-tile inclusive h, B7's outputs pass with each row's
 dot_r, B8 with its per-step record) against
 their plain versions on the same inputs (`recurrent_bwd_checks`), the MoE
@@ -2579,16 +2583,39 @@ def slstm_check(name, B, T, H, Dh, dtype, seed, with_state=False, reps=0):
 #: Cluster sizes the exchange probe and B8 are tried at (16 needs the
 #: non-portable cluster attribute and may not launch).
 PROBE_CLUSTERS = (2, 4, 6, 8, 16)
+#: The probe's variants by launch index: 0-2 B8's all-gather of h, 3-7
+#: B8-bwd's reduce-scatter of dh_rec (4-7 need <= 32 units a block; 4-5
+#: split the first design's step, 6-7 this design's).
 PROBE_VARIANTS = ("dsmem_cluster_sync", "st_async_mbarrier",
-                  "st_async_mbarrier_cell")
+                  "st_async_mbarrier_cell", "bwd_reduce_scatter",
+                  "bwd_dot4x32", "bwd_dot4x32_cell", "bwd_dot_quad",
+                  "bwd_dot_quad_linear")
+PROBE_DESCRIPTIONS = (
+    "plain DSMEM stores + cluster barrier (B8's first design)",
+    "st.async into each rank + own mbarrier parity wait",
+    "the same + the sLSTM cell update on each unit's thread",
+    "B8-bwd's reduce-scatter: each row's st.async into the owner's slot, "
+    "the owner's mbarrier wait, the CL-slot sum, one block barrier",
+    "the same + B8-bwd's first dot (thread = row, 32 units x 4 gates of R "
+    "in registers, four chains 32 deep) on the chain",
+    "bwd_dot4x32 + B8-bwd's first cell (precise expf / log1pf / tanhf, "
+    "divisions, from a record that changes every step) after the slot "
+    "sum, on the chain",
+    "the reduce-scatter + B8-bwd's dot of quads (4 rows x 8 units x 4 gates "
+    "a thread, the quad's sums reduce-scattered by shuffles)",
+    "bwd_dot_quad + the linear update alone after the slot sum: B8-bwd's "
+    "chain")
 
 
 def slstm_exchange_probe(quick):
     """`models/csrc/slstm_probe.cu` at B8's main grid shape (xlstm-125m: 4
     heads of Dh 192, one cluster each) over T empty steps: µs per step of
     each exchange variant at each cluster size, in turns (each size's
-    variants back to back, twice); the least of the one-way variants is
-    B8's latency floor per step."""
+    variants back to back, twice). The least of B8's one-way all-gathers
+    is B8's latency floor per step (`floor_us_per_step`), the least of
+    the reduce-scatters alone B8-bwd's (`bwd_floor_us_per_step`); at
+    B8-bwd's cluster (`slstm_cluster(Dh)`) the step split into the
+    exchange, each dot and each cell on the chain (`bwd_split_us`)."""
     import ctypes
     fn = build.load("slstm_probe").slstm_probe_launch
     fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
@@ -2601,8 +2628,11 @@ def slstm_exchange_probe(quick):
     us = {v: {} for v in PROBE_VARIANTS}
     errors = {}
     for cl in PROBE_CLUSTERS:
+        units = -(-Dh // cl)
         for rep in range(2):
             for vi, v in enumerate(PROBE_VARIANTS):
+                if vi >= 4 and units > xlstm_mod.SLSTM_MAX_UNITS:
+                    continue
                 err = fn(vi, cl, BH, Dh, 64, out.data_ptr(), stream)
                 if err:
                     errors[f"{v}@{cl}"] = err
@@ -2617,16 +2647,26 @@ def slstm_exchange_probe(quick):
                 assert err == 0 and torch.isfinite(out).all(), (v, cl, err)
                 step = t0.elapsed_time(t1) * 1e3 / T
                 us[v][cl] = min(us[v].get(cl, step), step)
-    exchange = [(t, v, cl) for v in PROBE_VARIANTS if not v.endswith("cell")
+    exchange = [(t, v, cl) for v in PROBE_VARIANTS[:2]
                 for cl, t in us[v].items()]
     floor, floor_variant, floor_cluster = min(exchange)
+    bwd = us["bwd_reduce_scatter"]
+    bwd_floor, bwd_cluster = min((t, cl) for cl, t in bwd.items())
+    kc = xlstm_mod.slstm_cluster(Dh)
+    split = None
+    if all(kc in us[v] for v in PROBE_VARIANTS[3:]):
+        x, d4, c4, q, ql = (us[v][kc] for v in PROBE_VARIANTS[3:])
+        split = {"cluster": kc, "exchange": x, "dot4x32": d4 - x,
+                 "dot_quad": q - x,
+                 "cell_precise": c4 - d4, "linear_update": ql - q,
+                 "first_design_without_memory": c4,
+                 "this_design_without_memory": ql}
     return {"T": T, "B_H": BH, "Dh": Dh, "us_per_step": us,
             "launch_errors": errors, "floor_us_per_step": floor,
             "floor_variant": floor_variant, "floor_cluster": floor_cluster,
-            "variants": {v: d for v, d in zip(PROBE_VARIANTS, (
-                "plain DSMEM stores + cluster barrier (B8's first design)",
-                "st.async into each rank + own mbarrier parity wait",
-                "the same + the sLSTM cell update on each unit's thread"))}}
+            "bwd_floor_us_per_step": bwd_floor,
+            "bwd_floor_cluster": bwd_cluster, "bwd_split_us": split,
+            "variants": dict(zip(PROBE_VARIANTS, PROBE_DESCRIPTIONS))}
 
 
 def recurrent_checks(quick):
@@ -2704,9 +2744,17 @@ def recurrent_checks(quick):
 #: tensor may differ by 1e-3 of the largest |plain value| of that tensor;
 #: a bf16 output by one bf16 ulp of the value more.
 BWD_REC_TOL = 1e-3
-# f32 operations per (b, head, step, unit) of B8-bwd's cell beside the
-# 8 Dh recurrent-product operations.
-SLSTM_BWD_CELL_OPS = 60
+# f32 operations per (b, head, step, unit) of the sLSTM cell's backward
+# beside the 16 Dh of the recurrent product and dR (a multiply, an add,
+# a max, a compare or a select counting one, as does a transcendental or
+# a division), term by term as slstm_bwd.cu's note writes the function,
+# each shared value once. The step's forward from its record, 21: f~ 1,
+# log_sigmoid(f~) 2, m' 2, i' 2, f' 2, z 1, o 3, c' 3, n' 2, 1 / n' 2,
+# the max's branch 1. Its backward, 31: dh_t 1; c' / n', o / n', do,
+# dc', o c' / n'^2, dn' 8; delta_z 4; delta_i 3; delta_f 5 and
+# sigmoid(-f~) 3; delta_o 3; dc, dn 2; g onto the winning branch and on
+# to the step before 2.
+SLSTM_BWD_CELL_OPS = 52
 #: The kernels' names in -Xptxas -v output and in a profiler trace.
 B7_BWD_PASSES = ("mlstm_bwd_outputs", "mlstm_bwd_scan", "mlstm_bwd_inputs")
 
@@ -2838,15 +2886,23 @@ def mlstm_bwd_check(name, B, H, T, D, chunk, seed, with_state=False,
 
 
 def slstm_bwd_check(name, B, T, H, Dh, dtype, seed, with_state=False,
-                    reps=0, floor_us=None):
+                    reps=0, floor_us=None, flip=0.0):
     """B8-bwd against `slstm_scan_bwd_plain` on the record of one forward
     of the kernel; `with_state`: a random initial state and random
     final-state gradients. The forward asked for its record (the launch
     training makes) is first held against `slstm_scan_plain(...,
     with_saved=True)` on the same inputs: h, the final state and each of
-    the record's rows within `REC_TOL`. With `reps` timed (kernel and
-    dR's product; µs a step beside the exchange floor `floor_us`)."""
+    the record's rows within `REC_TOL`. `flip`: wx_i gets a square wave
+    of that height and a period of 32 steps, so that the step's max
+    flips between its branches within the run (asserted: both branches
+    taken, flips counted). With `reps` timed: the call (kernel and dR's
+    product), the kernel alone (`slstm_bwd_cells_cuda`) and dR's product
+    alone; µs a step beside the backward's exchange floor `floor_us`."""
     wx, r, state = slstm_inputs(B, T, H, Dh, dtype, seed, with_state)
+    if flip:
+        wave = torch.where(torch.arange(T, device=DEV) % 32 < 16, flip,
+                           -flip)
+        wx["i"] = (wx["i"].float() + wave[None, :, None]).to(dtype)
     g = torch.Generator(device=DEV).manual_seed(seed + 1000)
     h, st, saved = xlstm_mod.slstm_scan_cuda(wx, r, state, with_saved=True)
     torch.cuda.synchronize()
@@ -2872,21 +2928,38 @@ def slstm_bwd_check(name, B, T, H, Dh, dtype, seed, with_state=False,
         delta, dR, *rest = out
         return [delta, *dR, *rest]
     err, ok = rec_errs(flat(got), flat(ref), BWD_REC_TOL)
+    wins = xlstm_mod.slstm_lsf_wins(savedp, state["m"])
     rec = {"shape": name, "B": B, "T": T, "H": H, "Dh": Dh,
            "dtype": str(dtype).split(".")[-1], "state_in": with_state,
            "cluster": xlstm_mod.slstm_cluster(Dh),
            "forward_with_saved": {"max_abs_err": fwd_err,
                                   "within_tolerance": fwd_ok},
+           "lsf_wins_share": float(wins.float().mean()),
+           "branch_flips": int((wins[:, 1:] != wins[:, :-1]).sum()),
            "max_abs_err": err, "within_tolerance": ok, "plain_ms": plain_ms}
+    if flip and not (0.0 < rec["lsf_wins_share"] < 1.0
+                     and rec["branch_flips"] > 0):
+        raise AssertionError(f"B8-bwd {name}: the max never flipped: {rec}")
     if reps:
         d = H * Dh
         ops = B * T * H * Dh * (16 * Dh + SLSTM_BWD_CELL_OPS)
         nbytes = B * T * d * 4 * (xlstm_mod.SLSTM_SAVED + 1 + 4 + 1) \
             + 4 * H * Dh * Dh * r["z"].element_size() * 2 + 8 * B * d * 4
         bound, by = bound_of(ops, nbytes)
+        # The kernel alone: dR's 8 Dh, h and dR's bytes left out.
+        kernel_bound, _ = bound_of(
+            B * T * H * Dh * (8 * Dh + SLSTM_BWD_CELL_OPS),
+            B * T * d * 4 * (xlstm_mod.SLSTM_SAVED + 1 + 4)
+            + 4 * H * Dh * Dh * r["z"].element_size() + 8 * B * d * 4)
         ms = time_cuda(lambda: xlstm_mod.slstm_scan_bwd_cuda(*args), reps)
+        kernel_ms = time_cuda(lambda: xlstm_mod.slstm_bwd_cells_cuda(
+            *args[:1], *args[2:]), reps)
+        dr_ms = time_cuda(lambda: xlstm_mod.slstm_bwd_dr(
+            state["h"], h, got[0]), reps)
         rec.update(ms=ms, bound_ms=bound, bound_by=by,
-                   us_per_step=ms * 1e3 / T,
+                   us_per_step=ms * 1e3 / T, kernel_ms=kernel_ms,
+                   kernel_us_per_step=kernel_ms * 1e3 / T,
+                   kernel_bound_ms=kernel_bound, dr_ms=dr_ms,
                    max_active_clusters=xlstm_mod.slstm_bwd_max_clusters(Dh),
                    clusters=B * H,
                    forward_saved_ms=time_cuda(
@@ -2896,7 +2969,9 @@ def slstm_bwd_check(name, B, T, H, Dh, dtype, seed, with_state=False,
                        lambda: xlstm_mod.slstm_scan_cuda(wx, r, state), reps))
         if floor_us is not None:
             rec.update(exchange_floor_us_per_step=floor_us,
-                       us_per_step_over_floor=rec["us_per_step"] / floor_us)
+                       us_per_step_over_floor=rec["us_per_step"] / floor_us,
+                       kernel_us_per_step_over_floor=rec[
+                           "kernel_us_per_step"] / floor_us)
     if not (fwd_ok and ok):
         raise AssertionError(f"B8-bwd != plain: {rec}")
     return rec
@@ -3003,7 +3078,9 @@ def recurrent_bwd_checks(quick, built, floor_us):
     edges: B7-bwd at chunk 40 with a carried state (T = 200, five chunks
     of 40), D 16 at chunk 16, and the extreme gates of `mlstm_check` (both
     denominator branches counted); B8-bwd at T 37 in f32 with a state, at
-    Dh 20 and at Dh 256. With each kernel's registers and spills."""
+    Dh 20, at Dh 256 and at Dh 192 with the step's max flipping between
+    its branches. With each kernel's registers and spills (B8-bwd's also
+    beside its µs a step and the backward's exchange floor `floor_us`)."""
     xl = get_config("xlstm-125m")
     H, D = xl.n_heads, xl.head_dim
     T = 1024 if quick else TRAIN_T
@@ -3024,7 +3101,9 @@ def recurrent_bwd_checks(quick, built, floor_us):
           slstm_bwd_check("dh20", 2, 16, 3, 20, torch.float32, 47,
                           with_state=True),
           slstm_bwd_check("dh256", 1, 64, 2, xlstm_mod.SLSTM_MAX_HEAD_DIM,
-                          torch.float32, 48, with_state=True)]
+                          torch.float32, 48, with_state=True),
+          slstm_bwd_check("max_flip", 2, 256, H, Dh, torch.float32, 49,
+                          with_state=True, flip=4.0)]
     rg = get_config("recurrentgemma-9b")
     b6 = [rglru_bwd_check("train", RG_TRAIN_B // RG_TRAIN_NM, T, rg.d_model,
                           torch.bfloat16, 51, reps=reps),
@@ -3049,7 +3128,9 @@ def recurrent_bwd_checks(quick, built, floor_us):
             r"(outputs|scan|inputs)_kernel(?:ILi(\d+)E|E)"),
         "slstm_bwd": ptxas_facts(logs.get("slstm_bwd", ""),
                                  "slstm_bwd_kernel",
-                                 r"I(f|13__nv_bfloat16)E")}
+                                 r"I(f|13__nv_bfloat16)Lb([01])E")}
+    b8[0]["ptxas"] = ptxas["slstm_bwd"] or "not measured (library not " \
+        "rebuilt)"
     return {"rglru_scan_bwd": b6, "mlstm_chunk_bwd": b7, "slstm_bwd": b8,
             "ptxas": {k_: v_ or "not measured (library not rebuilt)"
                       for k_, v_ in ptxas.items()}}
@@ -4452,7 +4533,7 @@ def main():
                   f"the value more"))
     t0 = time.perf_counter()
     rec_bwd = recurrent_bwd_checks(args.quick, built,
-                                   probe["floor_us_per_step"])
+                                   probe["bwd_floor_us_per_step"])
     emit("recurrent_bwd_checks", dict(
         rec_bwd, seconds=time.perf_counter() - t0,
         tolerance=f"B7-bwd, B8-bwd: each gradient tensor: max |kernel - "
@@ -5102,8 +5183,14 @@ def main():
         ragged_shapes=[r["shape"] for r in b8b[1:]],
         **{key: main8b[key] for key in (
             "us_per_step", "exchange_floor_us_per_step",
-            "us_per_step_over_floor", "max_active_clusters", "clusters",
-            "forward_ms", "forward_saved_ms", "cluster")},
+            "us_per_step_over_floor", "kernel_ms", "kernel_us_per_step",
+            "kernel_us_per_step_over_floor", "kernel_bound_ms", "dr_ms",
+            "max_active_clusters", "clusters", "forward_ms",
+            "forward_saved_ms", "cluster")},
+        exchange_floor_cluster=probe["bwd_floor_cluster"],
+        exchange_split_us=probe["bwd_split_us"],
+        max_flip={key: b8b[-1][key] for key in (
+            "lsf_wins_share", "branch_flips", "max_abs_err")},
         ptxas=rec_bwd["ptxas"]["slstm_bwd"], train_trace=xl_trace))
     b6b = rec_bwd["rglru_scan_bwd"]
     main6b = b6b[0]

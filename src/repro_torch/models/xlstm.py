@@ -1000,6 +1000,8 @@ slstm_scan_plain.calls = 0
 
 #: Most units a block of the B8 kernel takes (one per lane of a warp).
 SLSTM_MAX_UNITS = 32
+#: Most blocks a cluster of B8 / B8-bwd holds (at Dh 256).
+SLSTM_MAX_CL = SLSTM_MAX_HEAD_DIM // SLSTM_MAX_UNITS
 
 
 def slstm_cluster(head_dim: int) -> int:
@@ -1179,6 +1181,126 @@ def slstm_scan_bwd_plain(r, h0, c0, n0, m0, h, saved, dh, dh1, dc1, dn1,
 slstm_scan_bwd_plain.calls = 0
 
 
+#: B8-bwd's per-step coefficients (`csrc/slstm_bwd.cu`, struct Coef), in
+#: the kernel's order: what the linear update of a step needs of its
+#: record and of the gauge term, formed off the step chain.
+SLSTM_BWD_COEFS = ("dh", "kdc", "kdn", "kdo", "kz", "kzi", "ip", "kc", "kn",
+                   "kf", "fp", "gi", "gf")
+
+
+def slstm_lsf_wins(saved, m0):
+    """Whether log_sigmoid(f~) + m (not i~) wins each step's max, (B, T,
+    H*Dh), from the forward's record `saved` (B, T, 7, H*Dh) and the
+    initial m0: the branch B8-bwd's gauge term follows."""
+    B, T, _, d = saved.shape
+    mp = torch.cat([m0.reshape(B, 1, d).to(saved.dtype), saved[:, :-1, 6]],
+                   1)
+    return F.logsigmoid(saved[:, :, 2] + 1.0) + mp >= saved[:, :, 1]
+
+
+def slstm_bwd_coefficients_plain(saved, dh, c0, n0, m0, g1):
+    """Plain version of B8-bwd's off-chain arithmetic: from the forward's
+    record `saved` (B, T, 7, H*Dh), the output's gradient dh (B, T, H*Dh),
+    the initial state c0, n0, m0 and the gauge term of the final state
+    g1 = dm1 - dc1 c1 - dn1 n1 (each (B, H*Dh)), every step's
+    coefficients (B, T, len(`SLSTM_BWD_COEFS`), H*Dh) and whether
+    log_sigmoid(f~) + m wins the step's max (`slstm_lsf_wins`). The gauge
+    term reaches step t while log_sigmoid(f~) + m won every later step,
+    and there goes to the branch that wins: gf where it wins again, gi
+    where i~ does."""
+    B, T, _, d = saved.shape
+    cp = torch.cat([c0.reshape(B, 1, d), saved[:, :-1, 4]], 1)
+    np_ = torch.cat([n0.reshape(B, 1, d), saved[:, :-1, 5]], 1)
+    mp = torch.cat([m0.reshape(B, 1, d), saved[:, :-1, 6]], 1)
+    pz, pi, pf, po = saved[:, :, 0], saved[:, :, 1], saved[:, :, 2], \
+        saved[:, :, 3]
+    ft = pf + 1.0
+    lsf = F.logsigmoid(ft)
+    mn = torch.maximum(lsf + mp, pi)
+    ip = torch.exp(pi - mn)
+    fp = torch.exp(lsf + mp - mn)
+    z = torch.tanh(pz)
+    o = torch.sigmoid(po)
+    cn = fp * cp + ip * z
+    nn = fp * np_ + ip
+    rd = 1.0 / torch.clamp(nn, min=1e-6)
+    wins = slstm_lsf_wins(saved, m0)
+    # g_t: g1 times "log_sigmoid(f~) + m won every step after t".
+    later = torch.flip(torch.cumprod(torch.flip(wins.to(saved.dtype), [1]),
+                                     1), [1])
+    reach = torch.cat([later[:, 1:], torch.ones_like(later[:, :1])], 1) \
+        * g1.reshape(B, 1, d)
+    coef = [dh.to(saved.dtype), o * rd,
+            torch.where(nn >= 1e-6, o * cn * rd * rd, 0.0),
+            cn * rd * o * (1.0 - o), ip * (1.0 - z * z), z * ip, ip,
+            cp * fp, np_ * fp, torch.sigmoid(-ft), fp,
+            torch.where(wins, 0.0, reach), torch.where(wins, reach, 0.0)]
+    return torch.stack(coef, 2), wins
+
+
+def slstm_bwd_partials_plain(dg, R, CL):
+    """dh_rec (B, H*Dh) as B8-bwd forms it from the step's four deltas dg
+    (B, 4, H, Dh) and R (4, H, Dh, Dh): block r of the head's cluster of
+    `CL` sums its own units [r U, (r + 1) U) (U = ceil(Dh / CL)) for
+    every row, and the owner of a row sums the CL partials as a tree over
+    8 slots (empty slots 0)."""
+    B, _, H, Dh = dg.shape
+    U = -(-Dh // CL)
+    pad = CL * U - Dh
+    dgp = F.pad(dg, (0, pad)).reshape(B, 4, H, CL, U)
+    Rp = F.pad(R, (0, pad)).reshape(4, H, Dh, CL, U)
+    part = torch.einsum("bghru,ghdru->rbhd", dgp, Rp)
+    slots = list(part) + [torch.zeros_like(part[0])] * (SLSTM_MAX_CL - CL)
+    return (((slots[0] + slots[1]) + (slots[2] + slots[3]))
+            + ((slots[4] + slots[5]) + (slots[6] + slots[7]))).reshape(B, -1)
+
+
+def slstm_scan_bwd_split_plain(r, h0, c0, n0, m0, h, saved, dh, dh1, dc1,
+                               dn1, dm1):
+    """B8-bwd's arithmetic in its order, same arguments and results as
+    `slstm_scan_bwd_plain`: every step's coefficients first
+    (`slstm_bwd_coefficients_plain`), then the step loop with only the
+    linear update on the chain — dht = dh + dh_rec, dc' = dc + dht kdc,
+    dn' = dn - dht kdn, the four deltas and dm from dc', dn' and the
+    gauge terms — and dh_rec from the deltas by blocks and slots
+    (`slstm_bwd_partials_plain`)."""
+    B, T, d = h.shape
+    H, Dh = r[0].shape[0], r[0].shape[1]
+    saved = _wide(saved)
+    dt = saved.dtype
+    R = torch.stack([_wide(x) for x in r]).to(dt)
+
+    def flat(x):
+        return torch.zeros((B, d), dtype=dt, device=h.device) if x is None \
+            else x.reshape(B, d).to(dt)
+    dc, dn, dhr = flat(dc1), flat(dn1), flat(dh1)
+    g1 = flat(dm1) - dc * saved[:, T - 1, 4] - dn * saved[:, T - 1, 5]
+    coef, _ = slstm_bwd_coefficients_plain(saved, dh, flat(c0), flat(n0),
+                                           flat(m0), g1)
+    CL = slstm_cluster(Dh)
+    dm = torch.zeros_like(dc)
+    delta = torch.empty((B, T, 4, d), dtype=dt, device=h.device)
+    for t in reversed(range(T)):
+        k = dict(zip(SLSTM_BWD_COEFS, coef[:, t].unbind(1)))
+        dht = k["dh"] + dhr
+        dcn = dc + dht * k["kdc"]
+        dnn = dn - dht * k["kdn"]
+        dm = dcn * k["kc"] + (dnn * k["kn"] + k["gf"])
+        dg = torch.stack([dcn * k["kz"],
+                          dcn * k["kzi"] + (dnn * k["ip"] + k["gi"]),
+                          dm * k["kf"], dht * k["kdo"]], 1)
+        dc, dn = dcn * k["fp"], dnn * k["fp"]
+        delta[:, t] = dg
+        dhr = slstm_bwd_partials_plain(dg.reshape(B, 4, H, Dh), R, CL)
+    hprev = torch.cat([_wide(h0).to(dt).reshape(B, 1, d), h[:, :-1].to(dt)],
+                      1)
+    dR = torch.einsum("bthd,btghe->ghde", hprev.reshape(B, T, H, Dh),
+                      delta.reshape(B, T, 4, H, Dh))
+    shape = (B, H, Dh)
+    return (delta, list(dR), dhr.reshape(shape), dc.reshape(shape),
+            dn.reshape(shape), dm.reshape(shape))
+
+
 def slstm_bwd_max_clusters(head_dim: int) -> int:
     """How many of B8-bwd's clusters (`slstm_cluster(head_dim)` blocks
     each) the card holds at once (`cudaOccupancyMaxActiveClusters`): a
@@ -1193,16 +1315,43 @@ def slstm_bwd_max_clusters(head_dim: int) -> int:
     return out.value
 
 
+def slstm_bwd_dr(h0, h, delta):
+    """dR_g = sum_t h_{t-1} delta_g^T (four (H, Dh, Dh), f32) as one
+    batched `torch.matmul`: B8-bwd's product after its kernel. h0 (B, H,
+    Dh), h (B, T, H*Dh) f32, delta (B, T, 4, H*Dh) f32."""
+    B, T, d = h.shape
+    H, Dh = h0.shape[1], h0.shape[2]
+    hprev = torch.cat([h0.float().reshape(B, 1, d), h[:, :-1]], 1)
+    dR = torch.matmul(hprev.reshape(B * T, H, Dh).permute(1, 2, 0),
+                      delta.reshape(B * T, 4, H, Dh).permute(2, 0, 1, 3)
+                      .reshape(H, B * T, 4 * Dh))     # (H, Dh, 4 Dh)
+    return [dR[:, :, g * Dh:(g + 1) * Dh] for g in range(4)]
+
+
 def slstm_scan_bwd_cuda(r, h0, c0, n0, m0, h, saved, dh, dh1, dc1, dn1,
                         dm1):
     """B8-bwd on CUDA tensors, same arguments and results as
-    `slstm_scan_bwd_plain`: the kernel (one cluster of
-    `slstm_cluster(Dh)` blocks per (batch row, head), R's columns of a
-    block's units in registers, the partial sums of dh_{t-1} handed one
-    way between the blocks each step) writes delta and the initial
-    state's gradients; dR is one batched `torch.matmul` after it. r in
-    one dtype of `KERNEL_DTYPES`; everything else f32. On the current
-    stream, not synchronised."""
+    `slstm_scan_bwd_plain`: the kernel (`slstm_bwd_cells_cuda`: one
+    cluster of `slstm_cluster(Dh)` blocks per (batch row, head), R's
+    columns of a block's units in registers, the partial sums of dh_{t-1}
+    handed one way between the blocks each step, only the linear part of
+    the cell on the step chain) writes delta and the initial state's
+    gradients; dR is one batched `torch.matmul` after it
+    (`slstm_bwd_dr`). r in one dtype of `KERNEL_DTYPES`; everything else
+    f32. On the current stream, not synchronised."""
+    delta, *out = slstm_bwd_cells_cuda(r, c0, n0, m0, h, saved, dh, dh1,
+                                       dc1, dn1, dm1)
+    return (delta, slstm_bwd_dr(h0, h, delta), *out)
+
+
+#: Kernel launches since the count was last set to 0.
+slstm_scan_bwd_cuda.launches = 0
+
+
+def slstm_bwd_cells_cuda(r, c0, n0, m0, h, saved, dh, dh1, dc1, dn1, dm1):
+    """B8-bwd's kernel alone, the arguments of `slstm_scan_bwd_cuda` but
+    h0: (delta, dh0, dc0, dn0, dm0). Each launch counts in
+    `slstm_scan_bwd_cuda.launches`."""
     name = "slstm_scan_bwd_cuda"
     B, T, d = h.shape
     H, Dh = r[0].shape[0], r[0].shape[1]
@@ -1239,16 +1388,7 @@ def slstm_scan_bwd_cuda(r, h0, c0, n0, m0, h, saved, dh, dh1, dc1, dn1,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "slstm_bwd")
     build.count(slstm_scan_bwd_cuda)
-    hprev = torch.cat([h0.float().reshape(B, 1, d), h[:, :-1]], 1)
-    dR = torch.matmul(hprev.reshape(B * T, H, Dh).permute(1, 2, 0),
-                      delta.reshape(B * T, 4, H, Dh).permute(2, 0, 1, 3)
-                      .reshape(H, B * T, 4 * Dh))     # (H, Dh, 4 Dh)
-    dR = [dR[:, :, g * Dh:(g + 1) * Dh] for g in range(4)]
-    return (delta, dR, *out)
-
-
-#: Kernel launches since the count was last set to 0.
-slstm_scan_bwd_cuda.launches = 0
+    return (delta, *out)
 
 
 class SLSTMScan(torch.autograd.Function):

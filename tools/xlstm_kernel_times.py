@@ -20,8 +20,11 @@ from fixed seeds:
 - at its training shape (4 x 4 x 4,096), where the checkout trains:
   ``b7_outputs_dot`` and ``b8_saved`` (the forwards keeping what their
   backwards read), ``b7_bwd`` and ``b8_bwd`` (`mlstm_chunk_scan_bwd_cuda`,
-  `slstm_scan_bwd_cuda`), and ``b7_bwd_by_kernel``, B7-bwd's device ms
-  per call by pass kernel from one profiler window.
+  `slstm_scan_bwd_cuda`), ``b7_bwd_by_kernel``, B7-bwd's device ms
+  per call by pass kernel from one profiler window, and
+  ``b8_bwd_by_kernel``, B8-bwd's device ms per call of its kernel and of
+  dR's product (its GEMM and the copies around it) from one profiler
+  window.
 
 Exits 1 with no CUDA device. Imports no JAX.
 """
@@ -100,9 +103,13 @@ def main() -> int:
                 wx, r, st8, with_saved=True), args.reps)
             dh = torch.randn_like(h)
             rs = [r[gn] for gn in "zifo"]
-            out["b8_bwd"] = time_cuda(lambda: xlstm.slstm_scan_bwd_cuda(
-                rs, st8["h"], st8["c"], st8["n"], st8["m"], h, saved, dh,
-                None, None, None, None), args.reps)
+
+            def b8_bwd():
+                return xlstm.slstm_scan_bwd_cuda(
+                    rs, st8["h"], st8["c"], st8["n"], st8["m"], h, saved,
+                    dh, None, None, None, None)
+            out["b8_bwd"] = time_cuda(b8_bwd, args.reps)
+            out["b8_bwd_by_kernel"] = by_kernel(b8_bwd, args.reps)
     print(json.dumps(out))
     return 0
 
