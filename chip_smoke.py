@@ -64,7 +64,10 @@ against their plain versions at the main paths' shapes and at ragged
 edges, B6 also at the long-memory recipe (`recurrent_checks`), their
 backwards B6-bwd (`models/csrc/rglru_scan_bwd.cu`, at recurrentgemma's
 training microbatch, with an h0, ragged T and D, and a = 1), B7-bwd (`models/csrc/mlstm_chunk_bwd.cu`, three passes, each
-against its own plain version) and B8-bwd (`models/csrc/slstm_bwd.cu`)
+against its own plain version; the products of passes 1 and 3 on the
+tensor cores from three bf16 pieces of each f32 operand, its bound with
+them at the TF32 peak beside `fma_bound_ms`) and B8-bwd
+(`models/csrc/slstm_bwd.cu`)
 against the plain backwards at their training shapes and ragged edges
 (B8-bwd also with the step's max flipping between its branches, and its
 kernel and dR's product timed apart), with registers and spills, and
@@ -2739,8 +2742,9 @@ def recurrent_checks(quick):
 
 #: Kernel vs plain backward for B7-bwd and B8-bwd (stated before their
 #: first card run): both sides compute in f32 from the same forward
-#: record, the kernels summing in other orders (B7-bwd's staged products
-#: and float atomics, B8-bwd's split partial sums), so each gradient
+#: record, the kernels summing in other orders (B7-bwd's products — on the
+#: FMA units then, since on the tensor cores from three bf16 pieces an
+#: operand — and float atomics, B8-bwd's split partial sums), so each gradient
 #: tensor may differ by 1e-3 of the largest |plain value| of that tensor;
 #: a bf16 output by one bf16 ulp of the value more.
 BWD_REC_TOL = 1e-3
@@ -2760,30 +2764,44 @@ B7_BWD_PASSES = ("mlstm_bwd_outputs", "mlstm_bwd_scan", "mlstm_bwd_inputs")
 
 
 def mlstm_bwd_bounds(B, H, T, D, L):
-    """(ms, what binds) of B7-bwd whole and of each pass: f32 FMA
-    operations (the intra-chunk products over the causal triangle only),
-    each pass's inputs read once and outputs written once (a chunk state
-    counted as its D^2 + D values). Per chunk the function needs four
-    L x D x D products, 8 L D^2: dC_own (pass 1; the m-gradient through
-    sigma is the state's dot with it, not a product q C_in) and pass 3's
-    k dC_out, v dC_out^T, dh~ C_in^T."""
+    """{"whole" and each pass: (ms, what binds, fma_ms)} of B7-bwd: the
+    products at the TF32 tensor-core peak (494.7 TFLOP/s, as the f32
+    attention backward's bound counts its f32 products), the other f32
+    operations on the FMA units (67 TFLOP/s), each pass's inputs read once
+    and outputs written once (a chunk state counted as its D^2 + D
+    values), the least time the largest of the three; `fma_ms` with every
+    operation on the FMA units, as the first design counted it. Per chunk
+    the products are four L x D x D (8 L D^2: dC_own in pass 1 — the
+    m-gradient through sigma is the state's dot with it, not a product q
+    C_in — and pass 3's k dC_out, v dC_out^T, dh~ C_in^T) and pass 3's
+    intra-chunk S, dP, P^T dh~, dS^T q, dS k over the causal triangle
+    (5 L (L + 1) D)."""
     nc = T // L
     st = 4 * B * H * nc * (D * D + D)
     rows = 4 * B * T * H * D
     gates = 4 * B * H * T
-    p1 = bound_of(B * H * nc * (2 * L * D * D + 2 * (D * D + D) + 4 * L * D),
-                  3 * rows + 3 * gates + 2 * st)
-    p2 = bound_of(B * H * nc * (4 * (D * D + D) + 6),
-                  3 * st + 4 * 4 * B * H * nc + 4 * B * H * (D * D + D))
-    p3 = bound_of(B * H * nc * (6 * L * D * D + 5 * L * (L + 1) * D
-                                + 10 * L * D),
-                  8 * rows + 5 * gates + 2 * st)
-    whole = bound_of(B * H * nc * (
-        8 * L * D * D + 5 * L * (L + 1) * D + 14 * L * D
-        + 6 * (D * D + D)),
-        8 * rows + 5 * gates + st + 4 * B * H * (D * D + D + 1))
-    return {"whole": whole, "mlstm_bwd_outputs": p1, "mlstm_bwd_scan": p2,
-            "mlstm_bwd_inputs": p3}
+    n = B * H * nc
+
+    def bound(products, other, nbytes):
+        t_ops = max(products / TF32_FLOP_PER_S, other / F32_FLOP_PER_S)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        return (max(t_ops, t_bytes) * 1e3,
+                "operations" if t_ops >= t_bytes else "bytes",
+                bound_of(products + other, nbytes)[0])
+    return {
+        "whole": bound(n * (8 * L * D * D + 5 * L * (L + 1) * D),
+                       n * (14 * L * D + 6 * (D * D + D)),
+                       8 * rows + 5 * gates + st + 4 * B * H * (D * D + D
+                                                                + 1)),
+        "mlstm_bwd_outputs": bound(n * 2 * L * D * D,
+                                   n * (2 * (D * D + D) + 4 * L * D),
+                                   3 * rows + 3 * gates + 2 * st),
+        "mlstm_bwd_scan": bound(0, n * (4 * (D * D + D) + 6),
+                                3 * st + 4 * 4 * B * H * nc
+                                + 4 * B * H * (D * D + D)),
+        "mlstm_bwd_inputs": bound(n * (6 * L * D * D + 5 * L * (L + 1) * D),
+                                  n * 10 * L * D,
+                                  8 * rows + 5 * gates + 2 * st)}
 
 
 def mlstm_bwd_check(name, B, H, T, D, chunk, seed, with_state=False,
@@ -2860,6 +2878,7 @@ def mlstm_bwd_check(name, B, H, T, D, chunk, seed, with_state=False,
         rec.update(ms=time_cuda(
             lambda: xlstm_mod.mlstm_chunk_scan_bwd_cuda(*args), reps),
             bound_ms=bounds["whole"][0], bound_by=bounds["whole"][1],
+            fma_bound_ms=bounds["whole"][2],
             forward_ms=time_cuda(lambda: xlstm_mod.mlstm_chunk_scan_cuda(
                 q, k, v, it, ft, state, chunk), reps))
         wt, st_ = wp.clone(), sp.clone()
@@ -2876,7 +2895,8 @@ def mlstm_bwd_check(name, B, H, T, D, chunk, seed, with_state=False,
                      chunk))):
             rec["passes"][key].update(ms=time_cuda(fn, reps),
                                       bound_ms=bounds[key][0],
-                                      bound_by=bounds[key][1])
+                                      bound_by=bounds[key][1],
+                                      fma_bound_ms=bounds[key][2])
     if not (fwd_ok and ok and all(p[2] for p in passes.values())):
         raise AssertionError(f"B7-bwd != plain: {rec}")
     if extreme and not (rec["rows_on_dot_branch"]
@@ -5148,8 +5168,8 @@ def main():
     b7b = rec_bwd["mlstm_chunk_bwd"]
     main7b = b7b[0]
     whole7b = {key: main7b[key] for key in (
-        "ms", "plain_ms", "bound_ms", "bound_by", "forward_ms",
-        "scratch_bytes")}
+        "ms", "plain_ms", "bound_ms", "bound_by", "fma_bound_ms",
+        "forward_ms", "scratch_bytes")}
     whole7b.update(max_abs_err=max(r["max_abs_err"] for r in b7b),
                    rows_on_floor_branch={r["shape"]: r["rows_on_floor_branch"]
                                          for r in b7b},
@@ -5165,7 +5185,7 @@ def main():
             within_tolerance=all(r["passes"][key]["within_tolerance"]
                                  and r["within_tolerance"] for r in b7b),
             ms=pr["ms"], plain_ms=pr["plain_ms"], bound_ms=pr["bound_ms"],
-            bound_by=pr["bound_by"],
+            bound_by=pr["bound_by"], fma_bound_ms=pr["fma_bound_ms"],
             shape=shape_of(main7b, ("B", "H", "T", "D", "chunk")),
             ragged_shapes=[r["shape"] for r in b7b[1:]],
             **({"b7_bwd_whole": whole7b} if i == 0 else {})))

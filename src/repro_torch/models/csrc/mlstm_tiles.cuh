@@ -1,8 +1,8 @@
 // Tile helpers shared by the chunkwise mLSTM's forward passes (B7,
 // mlstm_chunk.cu) and backward passes (B7-bwd, mlstm_chunk_bwd.cu), for
 // sm_90a: 256 threads over a 64-row tile, the gate scans of a chunk in one
-// warp, and a 64-row by 64 NJ-column product on the FMA units from shared
-// memory.
+// warp, cp.async, and — for the forward — a 64-row by 64 NJ-column product
+// on the FMA units from shared memory.
 
 #pragma once
 

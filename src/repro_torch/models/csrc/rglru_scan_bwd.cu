@@ -27,16 +27,19 @@
 // launch; a block owns a tile of the forward's shape (rglru_tiles.cuh: L =
 // 96 steps by C = 128 channels of one batch row), so that the inclusive h
 // the forward left for the tile before is the h entering this one — that
-// is what the wrapper keeps of the forward, not h itself. A block
+// is what the wrapper keeps of the forward, not h itself. The block cuts
+// the tile into 16 warps of 6 steps (the forward: 8 of 12), one block an
+// SM, so that a bf16 tile's rows of wa, wx, x and dy, 48 words a thread,
+// stay in registers from step 2 to step 5 and are read from memory once
+// (f32 rows, 96 words, are loaded again in step 5). A block
 //
 //   1. takes its tile from an atomic counter, in the order (t-tile from
 //      the last, b, channel tile), so every tile it may wait for took its
 //      number earlier and is resident or done;
-//   2. loads its rows of wa, wx and x, keeps (a, b) in shared memory and
-//      forms its warp's segment of the forward map h -> P h + H; then
-//      loads dy and forms the warp's segment of the reverse map u -> P u
-//      + H (P the product of a over the rows, H = sum_r (prod_{q<=r} a_q)
-//      dy_r);
+//   2. loads its rows of wa, wx, x and dy, keeps (a, b) in shared memory,
+//      forms its warp's segment of the forward map h -> P h + H and of the
+//      reverse map u -> P u + H (P the product of a over the rows, H =
+//      sum_r (prod_{q<=r} a_q) dy_r);
 //   3. composes the warps: each warp's incoming h (the tile's from the
 //      forward's scratch, h0 or 0 at t-tile 0), and each warp's exclusive
 //      suffix of reverse maps and the tile's aggregate;
@@ -49,12 +52,25 @@
 //      is dh0);
 //   5. recomputes each warp's h from its incoming h (h_{t-1} replaces b in
 //      shared memory), then walks each warp's rows from the last: g, u,
-//      the gate chain; the rows' inputs are loaded again (from L2: the
-//      tile read them a moment before) and dwa, dwx, dx written;
-//   6. sums its rows' da a r over the warps and adds -8 sigmoid(lam) times
-//      that into dlam, one f32 atomic per channel and tile. The order in
-//      which those land varies from launch to launch, so dlam may differ
-//      in its last bits between two calls on the same inputs.
+//      the gate chain, dwa, dwx, dx written;
+//   6. sums its rows' da a r per warp (from the last row), then over the
+//      warps in order, and adds -8 sigmoid(lam) times that into dlam, one
+//      f32 atomic per channel and tile. The order in which those land
+//      varies from launch to launch, so dlam may differ in its last bits
+//      between two calls on the same inputs (`rglru_scan_bwd_tiles_plain`
+//      in rglru.py sums in this order).
+//
+// The split of the first design (8 warps of 12 steps, two blocks an SM,
+// the rows loaded again in step 5; H100 at recurrentgemma-9b's training
+// microbatch, tools/bwd_parts.py, PERF.md §7): 0.344 ms, of which step 5
+// 0.188 (its loads again 0.094, its stores 0.091), the look-ahead wait
+// 0.015, dlam's atomics 0.004. This design takes 0.328: one block an SM
+// leaves the serial steps 3, 4 and 6 with no other block to hide them
+// (the first design without its loads again, two blocks an SM, took
+// 0.251; its registers leave no room to keep the rows there). Tried and
+// slower than the first design on the card: half the channels a tile (8
+// warps of 12 steps, 2 channels a lane, rows kept, two blocks an SM),
+// which spilled.
 //
 // Ordering of the look-ahead as in the forward: values stored at L2
 // (`st.cg`), a block barrier, then the flag with `st.release.gpu`; flags
@@ -73,8 +89,13 @@ using namespace rglru;
 
 namespace {
 
+// The forward's tile, cut into 16 warps of 6 steps (module note), one
+// block an SM.
+constexpr int BWD_WARPS = 16, BWD_R = TILE_L / BWD_WARPS;
+static_assert(BWD_WARPS * BWD_R == TILE_L, "the forward's tile");
+
 template <typename TX, typename TL, bool VEC>
-__global__ void __launch_bounds__(TILE_WARPS * 32, TILE_MINB)
+__global__ void __launch_bounds__(BWD_WARPS * 32, 1)
 rglru_scan_bwd_kernel(const TX* __restrict__ wa, const TX* __restrict__ wx,
                       const TX* __restrict__ x, const TL* __restrict__ lam,
                       const float* __restrict__ h0,
@@ -86,8 +107,11 @@ rglru_scan_bwd_kernel(const TX* __restrict__ wa, const TX* __restrict__ wx,
                       float* __restrict__ dh0, float2* agg, float* inc,
                       int* flags, int* counter, int B, int T, int D, int nDC,
                       int nT) {
-  constexpr int WARPS = TILE_WARPS, R = TILE_R, V = TILE_V, L = TILE_L,
+  constexpr int WARPS = BWD_WARPS, R = BWD_R, V = TILE_V, L = TILE_L,
                 C = TILE_C;
+  // bf16 rows stay in registers from step 2 to step 5 (48 words a thread);
+  // f32 rows (96) are loaded again in step 5.
+  constexpr bool KEEP = sizeof(TX) == 2;
   static_assert(WARPS * 32 >= C, "one thread per channel of the tile");
   extern __shared__ float2 ab[];    // [R][WARPS][C]: (a, b), then (a, h_{t-1})
   __shared__ float2 seg[WARPS][C];  // forward, then reverse segment maps
@@ -119,8 +143,8 @@ rglru_scan_bwd_kernel(const TX* __restrict__ wa, const TX* __restrict__ wx,
                    : 0.0f;
   }
   float P[V], H[V];
+  Raw<TX, V> ra[R], rx[R], rv[R], rd[R];
   {
-    Raw<TX, V> ra[R], rx[R], rv[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int t = t0 + r;
@@ -154,7 +178,6 @@ rglru_scan_bwd_kernel(const TX* __restrict__ wa, const TX* __restrict__ wx,
 #pragma unroll
   for (int j = 0; j < V; ++j) seg[warp][j * 32 + lane] = make_float2(P[j], H[j]);
   {
-    Raw<TX, V> rd[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int t = t0 + r;
@@ -303,25 +326,25 @@ rglru_scan_bwd_kernel(const TX* __restrict__ wa, const TX* __restrict__ wx,
       h[j] = fmaf(v.x, h[j], v.y);
     }
   }
-#pragma unroll 4
+#pragma unroll
   for (int r = R - 1; r >= 0; --r) {
     const int t = t0 + r;
     const int n = t < T ? nch : 0;
     const int64_t i = ((int64_t)b * T + t) * D + c0;
-    const Raw<TX, V> ra = load_raw<VEC, TX, V>(wa, i, n);
-    const Raw<TX, V> rx = load_raw<VEC, TX, V>(wx, i, n);
-    const Raw<TX, V> rv = load_raw<VEC, TX, V>(x, i, n);
-    const Raw<TX, V> rd = load_raw<VEC, TX, V>(dy, i, n);
+    const Raw<TX, V> ga = KEEP ? ra[r] : load_raw<VEC, TX, V>(wa, i, n);
+    const Raw<TX, V> gx = KEEP ? rx[r] : load_raw<VEC, TX, V>(wx, i, n);
+    const Raw<TX, V> gv = KEEP ? rv[r] : load_raw<VEC, TX, V>(x, i, n);
+    const Raw<TX, V> gd = KEEP ? rd[r] : load_raw<VEC, TX, V>(dy, i, n);
     float o_wa[V], o_wx[V], o_x[V];
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       const float2 e = ab[(r * WARPS + warp) * C + j * 32 + lane];
       const float a = e.x, hp = e.y;
-      const float g = unpack(rd, j) + u[j];
+      const float g = unpack(gd, j) + u[j];
       u[j] = a * g;
-      const float rr = fast_sigmoid(unpack(ra, j));
-      const float ii = fast_sigmoid(unpack(rx, j));
-      const float xv = unpack(rv, j);
+      const float rr = fast_sigmoid(unpack(ga, j));
+      const float ii = fast_sigmoid(unpack(gx, j));
+      const float xv = unpack(gv, j);
       const float s2 = 1.0f - a * a;
       const float sq = fast_sqrt(fmaxf(s2, 1e-9f));
       const float gs = g * sq;
@@ -379,7 +402,7 @@ cudaError_t launch(const void* wa, const void* wx, const void* x,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem)) != cudaSuccess)
     return err;
-  kernel<<<(unsigned)ntiles, TILE_WARPS * 32, smem, s>>>(
+  kernel<<<(unsigned)ntiles, BWD_WARPS * 32, smem, s>>>(
       (const TX*)wa, (const TX*)wx, (const TX*)x, (const TL*)lam, h0, h_inc,
       (const TX*)dy, dh_last, (TX*)dwa, (TX*)dwx, (TX*)dx, dlam, dh0, agg,
       inc, flags, flags + ntiles, B, T, D, (D + TILE_C - 1) / TILE_C,

@@ -50,6 +50,9 @@ KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_CHUNK = 96
 KERNEL_CHANNELS = 128
 KERNEL_WARPS = 8
+#: Warps of the backward's block over the same tile (its BWD_WARPS), each
+#: walking KERNEL_CHUNK / BWD_WARPS steps.
+BWD_WARPS = 16
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -134,6 +137,19 @@ def rglru_scan_bwd_plain(wa, wx, x, lam, h0, dy, dh_last):
     D) f32 or None. Returns (dwa, dwx, dx in x's dtype, dlam in lam's,
     dh0 f32 or None); f32 math, f64 for f64 x."""
     build.count(rglru_scan_bwd_plain, "calls")
+    dwa, dwx, dx, dk, dh0, ct = _bwd_terms(wa, wx, x, lam, h0, dy, dh_last)
+    dlam = dk.sum((0, 1)) * (-_C * torch.sigmoid(lam.to(ct)))
+    return dwa, dwx, dx, dlam.to(lam.dtype), dh0
+
+
+#: Calls of the plain backward since the count was last set to 0.
+rglru_scan_bwd_plain.calls = 0
+
+
+def _bwd_terms(wa, wx, x, lam, h0, dy, dh_last):
+    """`rglru_scan_bwd_plain`'s arithmetic up to dlam: (dwa, dwx, dx in
+    x's dtype, the terms da a r (B, T, D) that dlam sums, dh0 or None, the
+    compute dtype)."""
     ct = _ct(x)
     r = torch.sigmoid(wa.to(ct))
     i = torch.sigmoid(wx.to(ct))
@@ -160,13 +176,35 @@ def rglru_scan_bwd_plain(wa, wx, x, lam, h0, dy, dh_last):
     dwa = dk * k * (1.0 - r)
     dwx = g * s * xf * i * (1.0 - i)
     dx = g * s * i
-    dlam = dk.sum((0, 1)) * (-_C * torch.sigmoid(lam.to(ct)))
-    return (dwa.to(x.dtype), dwx.to(x.dtype), dx.to(x.dtype),
-            dlam.to(lam.dtype), None if h0 is None else u.to(h0.dtype))
+    return (dwa.to(x.dtype), dwx.to(x.dtype), dx.to(x.dtype), dk,
+            None if h0 is None else u.to(h0.dtype), ct)
 
 
-#: Calls of the plain backward since the count was last set to 0.
-rglru_scan_bwd_plain.calls = 0
+def rglru_scan_bwd_tiles_plain(wa, wx, x, lam, h0, dy, dh_last):
+    """`rglru_scan_bwd_plain` with dlam summed in B6-bwd's order: per tile
+    of KERNEL_CHUNK steps (steps past T adding 0), each of its BWD_WARPS
+    warps adds its steps' da a r from the last, the warps' sums are added
+    in order, times -8 sigmoid(lam) per tile; then the tiles (the kernel
+    adds them by atomics, in an order that varies from launch to launch;
+    here from the first tile of the first batch row on)."""
+    dwa, dwx, dx, dk, dh0, ct = _bwd_terms(wa, wx, x, lam, h0, dy, dh_last)
+    B, T, D = x.shape
+    L, W = KERNEL_CHUNK, BWD_WARPS
+    nt = -(-T // L)
+    rows = F.pad(dk, (0, 0, 0, nt * L - T)).reshape(B, nt, W, L // W, D)
+    warps = torch.zeros_like(rows[:, :, :, 0])
+    for r in reversed(range(L // W)):
+        warps = warps + rows[:, :, :, r]
+    tiles = torch.zeros_like(warps[:, :, 0])
+    for w in range(W):
+        tiles = tiles + warps[:, :, w]
+    lc = lam.to(ct)
+    tiles = -_C * tiles / (1.0 + torch.exp(-lc))
+    dlam = torch.zeros_like(lc)
+    for b in range(B):
+        for tt in range(nt):
+            dlam = dlam + tiles[b, tt]
+    return dwa, dwx, dx, dlam.to(lam.dtype), dh0
 
 
 #: Pointer arguments of each library's launch entry (then B, T, D, the two

@@ -51,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels.local_attention.local_attention import split3_plain
 from repro_torch.models import layers
 
 #: dtype -> the kernels' type code.
@@ -629,28 +630,46 @@ def mlstm_bwd_inputs_plain(q, k, v, it, ft, dh, h, dot, work, scal, dwork,
     dht, ddot, dbden = _bwd_out_side(dh, h, dot, on_dot, den, B, H, nc, L,
                                      D)
     qc, kc, vc = (x.reshape(B, H, nc, L, D) for x in (q, k, v))
-    G, m0 = scal[..., 1], scal[..., 2]
-    Mc = torch.maximum(m0, G)
-    a = torch.exp(w - Mc[..., None])
-    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=q.device))
-    Dw = torch.where(mask, torch.exp(w[..., None, :] - M[..., :, None]), 0.0)
+    a, Dw = _bwd_decays(w, M, scal, L)
     P = Dw * torch.einsum("bhcrd,bhcsd->bhcrs", qc, kc)
-    dP = torch.where(mask, torch.einsum("bhcrd,bhcsd->bhcrs", dht, vc)
-                     + ddot[..., None], 0.0)
+    dP = torch.einsum("bhcrd,bhcsd->bhcrs", dht, vc) + ddot[..., None]
     dS = dP * Dw
     dCo, dno = dwork[..., :D, :D], dwork[..., D, :D]
     u = torch.einsum("bhcde,bhcse->bhcsd", dCo, vc) + dno[..., None, :]
-    g = dscal[..., 2]
-    mwin = m0 >= G
-    dw = (dP * P).sum(-2) + a * (u * kc).sum(-1) \
-        + torch.where(mwin, 0.0, g)[..., None] \
-        * F.one_hot(w.argmax(-1), L).to(w.dtype)
     dv = torch.einsum("bhcrs,bhcrd->bhcsd", P, dht) \
         + a[..., None] * torch.einsum("bhcsd,bhcdv->bhcsv", kc, dCo)
     dk = torch.einsum("bhcrs,bhcrd->bhcsd", dS, qc) + a[..., None] * u
     dq = torch.einsum("bhcrs,bhcsd->bhcrd", dS, kc) + sig[..., None] * (
         torch.einsum("bhcrv,bhcdv->bhcrd", dht, work[..., :D, :D])
         + ddot[..., None] * work[..., None, D, :D])
+    return (dq.reshape(B, H, T, D), dk.reshape(B, H, T, D),
+            dv.reshape(B, H, T, D),
+            *_bwd_gates((dP * P).sum(-2), a * (u * kc).sum(-1), w, dbden,
+                        scal, dscal, dm1))
+
+
+def _bwd_decays(w, M, scal, L):
+    """a_s = exp(w_s - M_c) and the masked weights exp(w_s - M_r) (s <=
+    r; 0 above the diagonal), (B, H, nc, L) and (B, H, nc, L, L)."""
+    Mc = torch.maximum(scal[..., 2], scal[..., 1])
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=w.device))
+    return torch.exp(w - Mc[..., None]), \
+        torch.where(mask, torch.exp(w[..., None, :] - M[..., :, None]), 0.0)
+
+
+def _bwd_gates(dPP, ada, w, dbden, scal, dscal, dm1):
+    """The gate gradients from the intra-chunk term sum_r dP P (dPP, P
+    zero above the diagonal) and a_s da_s (ada), each (B, H, nc, L): dw
+    (+ the gauge gradient at argmax G where G wins M_c), df the reverse
+    cumsum of dbden - dw with the next chunk's dm_in on the last row, and
+    the initial m's gradient. Returns (dit, dft (B, H, T), dm0 (B, H))."""
+    B, H, nc, L = w.shape
+    G, m0 = scal[..., 1], scal[..., 2]
+    Mc = torch.maximum(m0, G)
+    g = dscal[..., 2]
+    mwin = m0 >= G
+    dw = dPP + ada + torch.where(mwin, 0.0, g)[..., None] \
+        * F.one_hot(w.argmax(-1), L).to(w.dtype)
     dm_in = torch.exp(m0 - Mc) * dscal[..., 1] + dscal[..., 0] \
         + torch.where(mwin, g, 0.0)
     last = torch.zeros_like(dm_in[..., :1]) if dm1 is None \
@@ -658,9 +677,7 @@ def mlstm_bwd_inputs_plain(q, k, v, it, ft, dh, h, dot, work, scal, dwork,
     db = dbden - dw
     db[..., -1] += torch.cat([dm_in[..., 1:], last], dim=-1)
     df = torch.flip(torch.cumsum(torch.flip(db, (-1,)), -1), (-1,))
-    return (dq.reshape(B, H, T, D), dk.reshape(B, H, T, D),
-            dv.reshape(B, H, T, D), dw.reshape(B, H, T), df.reshape(B, H, T),
-            dm_in[..., 0])
+    return dw.reshape(B, H, nc * L), df.reshape(B, H, nc * L), dm_in[..., 0]
 
 
 mlstm_bwd_inputs_plain.calls = 0
@@ -692,6 +709,114 @@ def mlstm_chunk_scan_bwd_plain(q, k, v, it, ft, h, dot, work, scal, C1, n1,
     dC0, dn0 = mlstm_bwd_scan_plain(dwork, dscal, work, scal, dC1, dn1,
                                     mlstm_gauge(dC1, dn1, dm1, C1, n1))
     dq, dk, dv, dit, dft, dm0 = mlstm_bwd_inputs_plain(
+        q, k, v, it, ft, dh, h, dot, work, scal, dwork, dscal, dm1, chunk)
+    return dq, dk, dv, dit, dft, dC0, dn0, dm0
+
+
+# B7-bwd's kernels form the products of passes 1 and 3 on the tensor cores
+# at f32 accuracy: every f32 operand cut into three bf16 pieces, each
+# product the six piece products a_i b_j with i + j <= 2 of 16 rows of K at
+# a time, added to one f32 accumulator (`csrc/mlstm_chunk_bwd.cu`). The
+# plain versions below repeat that arithmetic in the kernels' order, so
+# that the CPU tests can hold it against the reference.
+
+#: The piece products the kernels keep, (a_i, b_j) in the order they are
+#: added: the small terms first.
+PIECE_PAIRS = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
+
+
+def pieces3_matmul_plain(a, b, acc=None):
+    """acc + a @ b ((..., M, K) x (..., K, N), f32) as B7-bwd's kernels
+    form it: both operands cut into three bf16 pieces (`split3_plain`),
+    and for each 16 rows of K the six kept piece products (`PIECE_PAIRS`,
+    each exact in f32) added in that order to the f32 accumulator (zero
+    when `acc` is None)."""
+    ap = [x.float() for x in split3_plain(a.float())]
+    bp = [x.float() for x in split3_plain(b.float())]
+    out = torch.zeros(torch.broadcast_shapes(a.shape[:-1] + (1,),
+                                             b.shape[:-2] + (1, b.shape[-1])),
+                      dtype=torch.float32, device=a.device) \
+        if acc is None else acc
+    for k0 in range(0, a.shape[-1], 16):
+        ks = slice(k0, k0 + 16)
+        for i, j in PIECE_PAIRS:
+            out = out + ap[i][..., ks] @ bp[j][..., ks, :]
+    return out
+
+
+def mlstm_bwd_outputs_split_plain(q, dh, h, dot, it, ft, work, scal,
+                                  chunk: int):
+    """B7-bwd's first pass as its kernel computes it (arguments and
+    results of `mlstm_bwd_outputs_plain`): dC_own = (sigma_r / den_r .
+    q)^T dh by `pieces3_matmul_plain`, dn_own = sum_r sigma_r ddot_r q_r
+    on the FMA units."""
+    B, H, T, D = q.shape
+    nc, L = T // chunk, chunk
+    _, _, _, sig, dot, den, on_dot = _bwd_rows(dot, it, ft, scal, chunk)
+    dhr = _rows(dh, B, H, nc, L, D)
+    hh = (dhr * _rows(h, B, H, nc, L, D)).sum(-1)
+    rden = 1.0 / den
+    ddot = torch.where(on_dot, -hh * rden * torch.sign(dot), 0.0)
+    qc = q.reshape(B, H, nc, L, D)
+    dwork = torch.zeros_like(work)
+    dwork[..., :D, :D] = pieces3_matmul_plain(
+        ((sig * rden)[..., None] * qc).transpose(-1, -2), dhr)
+    dwork[..., D, :D] = torch.einsum("bhcr,bhcrd->bhcd", sig * ddot, qc)
+    dscal = torch.zeros_like(scal)
+    dscal[..., 0] = (work[..., :D + 1, :D] * dwork[..., :D + 1, :D]).sum(
+        (-2, -1))
+    return dwork, dscal
+
+
+def mlstm_bwd_inputs_split_plain(q, k, v, it, ft, dh, h, dot, work, scal,
+                                 dwork, dscal, dm1, chunk: int):
+    """B7-bwd's third pass as its kernel computes it (arguments and
+    results of `mlstm_bwd_inputs_plain`), every product by
+    `pieces3_matmul_plain`: S = q k^T and dh v^T; dP = that / den_r +
+    ddot_r; dv = a_s (k dC_out) then + (P / den)^T dh into the same
+    accumulator; dk: u = v dC_out^T + dn_out, da_s = <u_s, k_s>, a_s u
+    then + dS^T q; dq: sigma_r (dh C_in^T / den_r + ddot_r n_in) then +
+    dS k."""
+    B, H, T, D = q.shape
+    nc, L = T // chunk, chunk
+    _, w, M, sig, dot, den, on_dot = _bwd_rows(dot, it, ft, scal, chunk)
+    dhr = _rows(dh, B, H, nc, L, D)
+    hh = (dhr * _rows(h, B, H, nc, L, D)).sum(-1)
+    rden = 1.0 / den
+    ddot = torch.where(on_dot, -hh / den * torch.sign(dot), 0.0)
+    dbden = torch.where(on_dot, 0.0, hh)
+    qc, kc, vc = (x.reshape(B, H, nc, L, D) for x in (q, k, v))
+    a, Dw = _bwd_decays(w, M, scal, L)
+    S = pieces3_matmul_plain(qc, kc.transpose(-1, -2))
+    dP = rden[..., None] * pieces3_matmul_plain(dhr, vc.transpose(-1, -2)) \
+        + ddot[..., None]
+    P = Dw * S
+    dS = dP * Dw
+    dCo, dno = dwork[..., :D, :D], dwork[..., D, :D]
+    dv = pieces3_matmul_plain((P * rden[..., None]).transpose(-1, -2), dhr,
+                              a[..., None] * pieces3_matmul_plain(kc, dCo))
+    u = pieces3_matmul_plain(vc, dCo.transpose(-1, -2)) + dno[..., None, :]
+    dk = pieces3_matmul_plain(dS.transpose(-1, -2), qc, a[..., None] * u)
+    dq = pieces3_matmul_plain(dS, kc, sig[..., None] * (
+        rden[..., None] * pieces3_matmul_plain(
+            dhr, work[..., :D, :D].transpose(-1, -2))
+        + ddot[..., None] * work[..., None, D, :D]))
+    return (dq.reshape(B, H, T, D), dk.reshape(B, H, T, D),
+            dv.reshape(B, H, T, D),
+            *_bwd_gates((dP * P).sum(-2), a * (u * kc).sum(-1), w, dbden,
+                        scal, dscal, dm1))
+
+
+def mlstm_chunk_scan_bwd_split_plain(q, k, v, it, ft, h, dot, work, scal,
+                                     C1, n1, dh, dC1, dn1, dm1, chunk: int):
+    """B7-bwd's arithmetic as its kernels compute it (arguments and
+    results of `mlstm_chunk_scan_bwd_plain`): the two split passes around
+    the plain reverse scan."""
+    dwork, dscal = mlstm_bwd_outputs_split_plain(q, dh, h, dot, it, ft,
+                                                 work, scal, chunk)
+    dC0, dn0 = mlstm_bwd_scan_plain(dwork, dscal, work, scal, dC1, dn1,
+                                    mlstm_gauge(dC1, dn1, dm1, C1, n1))
+    dq, dk, dv, dit, dft, dm0 = mlstm_bwd_inputs_split_plain(
         q, k, v, it, ft, dh, h, dot, work, scal, dwork, dscal, dm1, chunk)
     return dq, dk, dv, dit, dft, dC0, dn0, dm0
 
