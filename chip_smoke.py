@@ -41,7 +41,12 @@ by kernel, peak memory, model-FLOP share; the loss and every gradient of
 a 4-layer cut on the B5 route against naive attention, in bf16 and in
 f32 (the split-TF32 route and its backward, driven as the main path
 `lm_train_f32_grads`); one compressed (int8
-error-feedback) step at a one-pod mesh (`lm_train`) — then trains
+error-feedback) step at a one-pod mesh (`lm_train`) — then drives the
+training launcher (`launch.train.main`) on qwen3-0.6b whole through a
+fresh run, a round trip of its last checkpoint through disk, a resume, a
+NaN rolled back by `run_resilient_loop` and `plan_mesh` + `reshard`
+(`lm_train_resilient`: seconds of each save and restore, ms a step) —
+then trains
 xlstm-125m whole the same way (12 layers: 6 mLSTM on B7 and B7-bwd, 6
 sLSTM on B8 and B8-bwd; launches as the remat scheme implies, no plain
 version), with a 4-layer cut's loss and gradients in f32 on the card
@@ -165,6 +170,8 @@ from repro_torch.kernels.local_attention.local_attention import (  # noqa: E402
     flash_attention_tf32x3_cuda, kernel_route)
 from repro_torch.launch import map as map_launcher  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.launch.specs import abstract_state  # noqa: E402
 from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
 from repro_torch.map import STATUS_MAPPED, MinimizerIndex, ReadMapper  # noqa: E402
 from repro_torch.map import chain as chain_mod  # noqa: E402
@@ -172,14 +179,20 @@ from repro_torch.roofline.analysis import H100, H100_INT32  # noqa: E402
 from repro_torch.roofline.analytic import (DISPATCH_OVERHEAD_S,  # noqa: E402
                                            alignment_roofline)
 from repro_torch.serve import AlignmentRouter, AlignmentService  # noqa: E402
+from repro_torch.checkpoint import (CheckpointManager,  # noqa: E402
+                                   latest_step)
+from repro_torch.checkpoint import restore as ckpt_restore  # noqa: E402
 from repro_torch.data.tokens import TokenPipeline  # noqa: E402
+from repro_torch.runtime import (RecoveryPolicy, StepMonitor,  # noqa: E402
+                                plan_mesh, reshard, run_resilient_loop)
 from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import blocks as block_mod  # noqa: E402
 from repro_torch.models import init_cache, init_params  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import rglru as rglru_mod  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
-from repro_torch.models.model import tree_map  # noqa: E402
+from repro_torch.models.model import (tree_leaves_with_path,  # noqa: E402
+                                      tree_map)
 from repro_torch.optim import adamw_init  # noqa: E402
 from repro_torch.optim.grad_compress import init_error_buffer  # noqa: E402
 from repro_torch.train import (init_train_state, make_prefill_step,  # noqa: E402
@@ -1997,9 +2010,10 @@ def kernel_vs_naive_grads(cfg4, seed, dtype, keys, loss_tol, leaf_tol,
     (l_k, g_k), (l_n, g_n) = res["chunked"], res["naive"]
     loss_rel = float((l_k - l_n).abs() / l_n.abs())
     leaf = {}
-    for path, a, b in zip(tree_paths(g_n), tree_leaves(g_k),
-                          tree_leaves(g_n)):
-        leaf[path] = float((a - b).norm() / b.norm().clamp_min(1e-30))
+    for (_, a), (path, b) in zip(tree_leaves_with_path(g_k),
+                                 tree_leaves_with_path(g_n)):
+        leaf["/" + "/".join(path)] = float((a - b).norm()
+                                           / b.norm().clamp_min(1e-30))
     ok = loss_rel <= loss_tol and max(leaf.values()) <= leaf_tol
     rec = {"n_layers": cfg4.n_layers, "batch": 2, "tokens": 1024,
            "compute": str(dtype).split(".")[-1], "launches": launched,
@@ -2151,6 +2165,168 @@ def lm_train_phase(args, paths):
     rec["grad_check"] = train_grad_check(cfg, args.seed)
     torch.cuda.empty_cache()
     rec["f32_grad_check"] = f32_grad_check(cfg, args.seed, paths)
+    torch.cuda.empty_cache()
+    return rec
+
+
+#: The training launcher's path (`launch.train.main`) on qwen3-0.6b whole:
+#: a fresh run to step 3 (saves at 0 and 3), a resume to step 5, then
+#: `run_resilient_loop` with the launcher's step and data functions from
+#: step 5 to 8 with a NaN injected at step 6 (rolled back to the step-5
+#: checkpoint, step 6 skipped, a save at 8). The reference's loop cannot
+#: save at 7 after skipping step 6, the last step of a 7-step run, so the
+#: loop runs one more step.
+RESILIENT_STEPS = (3, 5, 8)
+RESILIENT_FAIL = 6
+#: Checkpoints on disk at once at most: keep_last 3 and one being written.
+RESILIENT_DISK_FACTOR = 4
+
+
+def tagged(events, run):
+    return [dict(e, run=run) for e in events]
+
+
+def lm_train_resilient_phase(args, paths):
+    """`launch.train.main` on qwen3-0.6b whole (28 layers, f32 state, bf16
+    compute, B 8 x T 4,096 in two microbatches) through a fresh run, a
+    round trip of its last checkpoint through disk (`checkpoint.restore`
+    on the card: every leaf `torch.equal`, same dtype and device), a
+    resume, a NaN rollback (`run_resilient_loop`) and an elastic re-place
+    (`plan_mesh` + `reshard`), as the main path `lm_train_resilient`: B5
+    and B5-bwd launches as `launches_per_step` implies for every step run,
+    no plain version. The checkpoints go under `build/` (its free space
+    checked first against 4 x a checkpoint) and are deleted after."""
+    cfg = get_config(TRAIN_ARCH)
+    B, T, nm = (2, 1024, 2) if args.quick else (TRAIN_B, TRAIN_T, TRAIN_NM)
+    argv = ["--arch", TRAIN_ARCH, "--global-batch", str(B), "--seq", str(T),
+            "--microbatches", str(nm)]
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    ckpt = os.path.join(root, "ckpt_resilient")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    state_bytes = sum(t.numel() * t.element_size() for _, t in
+                      tree_leaves_with_path(abstract_state(cfg)))
+    free = shutil.disk_usage(root).free
+    if free < RESILIENT_DISK_FACTOR * state_bytes:
+        raise RuntimeError(
+            f"{free} bytes free under {root}; {RESILIENT_DISK_FACTOR} "
+            f"checkpoints of {state_bytes} bytes need "
+            f"{RESILIENT_DISK_FACTOR * state_bytes}")
+    fresh_n, resume_n, loop_n = RESILIENT_STEPS
+    per_step = launches_per_step(cfg, nm, ATTN_KINDS, ("flash_tc",),
+                                 ("flash_tc_bwd",))
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": B,
+           "tokens": T, "num_microbatches": nm, "state_bytes": state_bytes,
+           "disk_free_bytes": free}
+    try:
+        with paths.path("lm_train_resilient"):
+            t0 = time.perf_counter()
+            state, fresh = train_launcher.main(
+                argv + ["--steps", str(fresh_n), "--ckpt-dir", ckpt])
+            rec["fresh_s"] = time.perf_counter() - t0
+            assert fresh["start_step"] == 0 and int(
+                state["opt"]["step"]) == fresh_n, fresh
+            assert latest_step(ckpt, all_steps=True) == [0, fresh_n]
+            assert not [f for f in os.listdir(ckpt) if f.endswith(".tmp")]
+            rec["checkpoint_bytes"] = os.path.getsize(os.path.join(
+                ckpt, f"step_{fresh_n:08d}", "arrays.npz"))
+            t0 = time.perf_counter()
+            back, meta = ckpt_restore(ckpt, state)
+            torch.cuda.synchronize()
+            rec["round_trip_restore_s"] = time.perf_counter() - t0
+            n_leaves = 0
+            for (path, a), (_, b) in zip(tree_leaves_with_path(state),
+                                         tree_leaves_with_path(back)):
+                assert (a.dtype, a.device, a.shape) \
+                    == (b.dtype, b.device, b.shape) and torch.equal(a, b), \
+                    path
+                n_leaves += 1
+            assert meta["step"] == fresh_n
+            rec["round_trip"] = {"leaves": n_leaves, "bit_equal": True,
+                                 "device": str(DEV)}
+            del back, state
+            torch.cuda.empty_cache()
+
+            t0 = time.perf_counter()
+            state, resumed = train_launcher.main(
+                argv + ["--steps", str(resume_n), "--ckpt-dir", ckpt])
+            rec["resume_s"] = time.perf_counter() - t0
+            assert resumed["start_step"] == fresh_n \
+                and int(state["opt"]["step"]) == resume_n \
+                and len(resumed["loss"]) == resume_n - fresh_n, resumed
+            assert latest_step(ckpt) == resume_n
+
+            loop_args = train_launcher.parse_args(
+                argv + ["--steps", str(loop_n), "--ckpt-dir", ckpt])
+            data_fn, step_fn = train_launcher.train_functions(loop_args, cfg,
+                                                              DEV)
+            manager = CheckpointManager(ckpt, keep_last=3)
+            monitor = StepMonitor()
+            log = []
+            t0 = time.perf_counter()
+            state, loop = run_resilient_loop(
+                state, step_fn, data_fn, num_steps=loop_n, manager=manager,
+                policy=RecoveryPolicy(ckpt_every=loop_args.ckpt_every),
+                monitor=monitor, fail_at={RESILIENT_FAIL},
+                start_step=resume_n, log=log.append)
+            rec["rollback_run_s"] = time.perf_counter() - t0
+            assert loop["rollbacks"] == 1 \
+                and loop["skipped"] == [RESILIENT_FAIL], loop
+            assert latest_step(ckpt) == loop_n
+            assert latest_step(ckpt, all_steps=True) == [fresh_n, resume_n,
+                                                         loop_n]
+            # Steps 5, 6 (NaN), 5 again after the rollback, 7.
+            assert len(loop["loss"]) == 3
+            assert int(state["opt"]["step"]) == loop_n - 1
+            assert all(t.device == DEV
+                       for _, t in tree_leaves_with_path(state))
+        losses = fresh["loss"] + resumed["loss"] + loop["loss"]
+        assert all(np.isfinite(losses)), losses
+        n_steps = fresh_n + (resume_n - fresh_n) + 4
+        got = paths.paths["lm_train_resilient"]
+        want = {k_: n_steps * v_ for k_, v_ in per_step.items()}
+        assert all(got[k_] == v_ for k_, v_ in want.items()) \
+            and got["flash_tf32x3"] == 0 and got["flash_fma"] == 0, \
+            (got, want)
+
+        t0 = time.perf_counter()
+        # A one-card mesh: `reshard` refuses a mesh over several cards (the
+        # port keeps every parameter whole on one card).
+        mesh = plan_mesh(1, model_parallel=1)
+        placed = reshard(state["params"], mesh)
+        torch.cuda.synchronize()
+        target = mesh.devices.reshape(-1)[0]
+        for (path, a), (_, b) in zip(tree_leaves_with_path(state["params"]),
+                                     tree_leaves_with_path(placed)):
+            assert b.device == target and torch.equal(a, b), path
+        rec["elastic"] = {"mesh": mesh.shape, "device": str(target),
+                          "leaves_equal": True,
+                          "seconds": time.perf_counter() - t0}
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    steps_s = fresh["step_seconds"][1:] + resumed["step_seconds"][1:] \
+        + monitor.durations[1:]
+    events = (tagged(fresh["checkpoints"], "fresh")
+              + tagged(resumed["checkpoints"], "resume")
+              + tagged(manager.events, "rollback"))
+    rollback_restores = [e for e in manager.events if e["op"] == "restore"]
+    rec.update(
+        losses={"fresh": fresh["loss"], "resume": resumed["loss"],
+                "rollback_loop": loop["loss"]},
+        loss_step5_repeat_rel=abs(loop["loss"][1] - loop["loss"][0])
+        / abs(loop["loss"][0]),
+        step_seconds={"fresh": fresh["step_seconds"],
+                      "resume": resumed["step_seconds"],
+                      "rollback_loop": monitor.durations},
+        ms_per_step=float(np.median(steps_s)) * 1e3,
+        saves=[e for e in events if e["op"] == "save"],
+        restores=[e for e in events if e["op"] == "restore"],
+        rollback={"rollbacks": loop["rollbacks"], "skipped": loop["skipped"],
+                  "restore_s": rollback_restores[0]["seconds"],
+                  "log": log, "latest_step": loop_n,
+                  "opt_step": int(state["opt"]["step"])},
+        launches=got, launches_expected=want, steps_run=n_steps)
+    del state, placed
     torch.cuda.empty_cache()
     return rec
 
@@ -3286,10 +3462,10 @@ def card_vs_cpu_grads(cfg, seed, B, T, loss_tol, leaf_tol, kernels):
     cpu_s = time.perf_counter() - t0
     loss_rel = float((l_k.cpu() - l_c).abs() / l_c.abs())
     leaf = {}
-    for path, a, b in zip(tree_paths(g_c), tree_leaves(g_k),
-                          tree_leaves(g_c)):
-        leaf[path] = float((a.cpu() - b).norm()
-                           / b.norm().clamp_min(1e-30))
+    for (_, a), (path, b) in zip(tree_leaves_with_path(g_k),
+                                 tree_leaves_with_path(g_c)):
+        leaf["/" + "/".join(path)] = float((a.cpu() - b).norm()
+                                           / b.norm().clamp_min(1e-30))
     ok = loss_rel <= loss_tol and max(leaf.values()) <= leaf_tol
     rec = {"n_layers": cfg.n_layers, "batch": B, "tokens": T,
            "compute": "float32", "loss": float(l_k), "loss_cpu": float(l_c),
@@ -3706,20 +3882,7 @@ def lm_recurrent_phase(args, paths):
 
 
 def tree_leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from tree_leaves(v)
-    else:
-        yield tree
-
-
-def tree_paths(tree, path=""):
-    """The "/"-joined key path of each leaf, in `tree_leaves` order."""
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from tree_paths(v, f"{path}/{k}")
-    else:
-        yield path
+    return [t for _, t in tree_leaves_with_path(tree)]
 
 
 # ---------------------------------------------------------------------------
@@ -4525,6 +4688,10 @@ def main():
     lm_train = lm_train_phase(args, paths)
     lm_train["seconds"] = time.perf_counter() - t0
     emit("lm_train", lm_train)
+    t0 = time.perf_counter()
+    lm_train_res = lm_train_resilient_phase(args, paths)
+    lm_train_res["seconds"] = time.perf_counter() - t0
+    emit("lm_train_resilient", lm_train_res)
     t0 = time.perf_counter()
     lm_train_xl = lm_train_xlstm_phase(args, paths)
     lm_train_xl["seconds"] = time.perf_counter() - t0

@@ -52,24 +52,23 @@ class KVCache(NamedTuple):
     # know from the block kind (`window` arg).
 
 
-def attention_init(gen, cfg, dtype=torch.float32, *, lead=()):
+def attention_init(gen, cfg, dtype=torch.float32, *, lead=(), device=None):
     """cfg needs: d_model, n_heads, n_kv_heads, head_dim, qkv_bias, qk_norm."""
     D = cfg.head_dim
+    kw = dict(dtype=dtype, lead=lead, device=device)
     p = {
         "wq": layers.dense_init(gen, cfg.d_model, cfg.n_heads * D,
-                                bias=cfg.qkv_bias, dtype=dtype, lead=lead),
+                                bias=cfg.qkv_bias, **kw),
         "wk": layers.dense_init(gen, cfg.d_model, cfg.n_kv_heads * D,
-                                bias=cfg.qkv_bias, dtype=dtype, lead=lead),
+                                bias=cfg.qkv_bias, **kw),
         "wv": layers.dense_init(gen, cfg.d_model, cfg.n_kv_heads * D,
-                                bias=cfg.qkv_bias, dtype=dtype, lead=lead),
-        "wo": layers.dense_init(gen, cfg.n_heads * D, cfg.d_model,
-                                dtype=dtype, lead=lead),
+                                bias=cfg.qkv_bias, **kw),
+        "wo": layers.dense_init(gen, cfg.n_heads * D, cfg.d_model, **kw),
     }
     if cfg.qk_norm:
-        p["q_norm"] = layers.rmsnorm_init(D, dtype, device=gen.device,
-                                          lead=lead)
-        p["k_norm"] = layers.rmsnorm_init(D, dtype, device=gen.device,
-                                          lead=lead)
+        dev = layers.init_device(gen, device)
+        p["q_norm"] = layers.rmsnorm_init(D, dtype, device=dev, lead=lead)
+        p["k_norm"] = layers.rmsnorm_init(D, dtype, device=dev, lead=lead)
     return p
 
 

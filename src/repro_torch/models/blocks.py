@@ -40,13 +40,14 @@ def _check_kind(kind: str) -> None:
         raise ValueError(f"unknown block kind {kind!r}")
 
 
-def _ffn_init(gen, cfg, kind, dtype, lead):
+def _ffn_init(gen, cfg, kind, dtype, lead, device):
     if kind in ("moe", "moe_swa"):
-        return {"moe": moe.moe_init(gen, cfg, dtype, lead=lead)}
+        return {"moe": moe.moe_init(gen, cfg, dtype, lead=lead,
+                                    device=device)}
     if cfg.d_ff:
         return {"mlp": layers.mlp_init(gen, cfg.d_model, cfg.d_ff,
                                        kind=cfg.mlp_kind, dtype=dtype,
-                                       lead=lead)}
+                                       lead=lead, device=device)}
     return {}
 
 
@@ -58,32 +59,34 @@ def _ffn_apply(p, cfg, x):
     return torch.zeros_like(x)
 
 
-def block_init(gen, cfg, kind: str, dtype=torch.float32, *, lead=()):
+def block_init(gen, cfg, kind: str, dtype=torch.float32, *, lead=(),
+               device=None):
     _check_kind(kind)
     d = cfg.d_model
-    dev = gen.device
+    dev = layers.init_device(gen, device)
+    kw = dict(lead=lead, device=dev)
 
     def dense(i, o):
-        return layers.dense_init(gen, i, o, dtype=dtype, lead=lead)
-    p = {"ln1": layers.rmsnorm_init(d, dtype, device=dev, lead=lead)}
+        return layers.dense_init(gen, i, o, dtype=dtype, **kw)
+    p = {"ln1": layers.rmsnorm_init(d, dtype, **kw)}
     if kind in _ATTN_KINDS:
-        p["attn"] = attention.attention_init(gen, cfg, dtype, lead=lead)
-        p["ln2"] = layers.rmsnorm_init(d, dtype, device=dev, lead=lead)
-        p.update(_ffn_init(gen, cfg, kind, dtype, lead))
+        p["attn"] = attention.attention_init(gen, cfg, dtype, **kw)
+        p["ln2"] = layers.rmsnorm_init(d, dtype, **kw)
+        p.update(_ffn_init(gen, cfg, kind, dtype, lead, dev))
     elif kind == "rglru":
         p["rx"] = dense(d, d)
         p["rgate"] = dense(d, d)
-        p["conv"] = layers.conv1d_init(gen, d, CONV_WIDTH, dtype, lead=lead)
-        p["rglru"] = rglru.rglru_init(gen, d, dtype, lead=lead)
+        p["conv"] = layers.conv1d_init(gen, d, CONV_WIDTH, dtype, **kw)
+        p["rglru"] = rglru.rglru_init(gen, d, dtype, **kw)
         p["rout"] = dense(d, d)
-        p["ln2"] = layers.rmsnorm_init(d, dtype, device=dev, lead=lead)
-        p.update(_ffn_init(gen, cfg, kind, dtype, lead))
+        p["ln2"] = layers.rmsnorm_init(d, dtype, **kw)
+        p.update(_ffn_init(gen, cfg, kind, dtype, lead, dev))
     elif kind == "mlstm":
-        p["conv"] = layers.conv1d_init(gen, d, CONV_WIDTH, dtype, lead=lead)
+        p["conv"] = layers.conv1d_init(gen, d, CONV_WIDTH, dtype, **kw)
         p["mlstm"] = xlstm.mlstm_init(gen, d, cfg.n_heads, cfg.head_dim,
-                                      dtype, lead=lead)
+                                      dtype, **kw)
     else:   # slstm
-        p["slstm"] = xlstm.slstm_init(gen, d, cfg.n_heads, dtype, lead=lead)
+        p["slstm"] = xlstm.slstm_init(gen, d, cfg.n_heads, dtype, **kw)
     return p
 
 

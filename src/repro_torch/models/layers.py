@@ -5,7 +5,9 @@ Every module is an (init, apply) pair, as in the JAX package's
 `models/layers.py`, whose weight layouts this file keeps — a dense weight
 is ``(in, out)`` — so carrying parameters across is a copy, not a
 transpose. An init takes a `torch.Generator` in place of a JAX key and
-makes its tensors on the generator's device, directly in `dtype`. `lead`
+makes its tensors directly in `dtype` on `device` (by default the
+generator's: a "meta" tree draws from a CPU generator and allocates
+nothing). `lead`
 prepends dimensions (the period stack of `models/model.py`): one draw
 fills the whole stack, so no per-period copy is ever stacked.
 """
@@ -16,8 +18,13 @@ import torch
 import torch.nn.functional as F
 
 
-def _trunc_normal(gen, shape, dtype, scale=1.0):
-    t = torch.empty(shape, dtype=dtype, device=gen.device)
+def init_device(gen, device=None) -> torch.device:
+    """Where an init makes its tensors: `device`, or the generator's."""
+    return gen.device if device is None else torch.device(device)
+
+
+def _trunc_normal(gen, shape, dtype, scale=1.0, device=None):
+    t = torch.empty(shape, dtype=dtype, device=init_device(gen, device))
     torch.nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,
                                 generator=gen)
     if scale != 1.0:
@@ -26,11 +33,14 @@ def _trunc_normal(gen, shape, dtype, scale=1.0):
 
 
 def dense_init(gen, in_dim: int, out_dim: int, *, bias: bool = False,
-               dtype=torch.float32, scale: float | None = None, lead=()):
+               dtype=torch.float32, scale: float | None = None, lead=(),
+               device=None):
     scale = scale if scale is not None else 1.0 / (in_dim ** 0.5)
-    p = {"w": _trunc_normal(gen, (*lead, in_dim, out_dim), dtype, scale)}
+    p = {"w": _trunc_normal(gen, (*lead, in_dim, out_dim), dtype, scale,
+                            device)}
     if bias:
-        p["b"] = torch.zeros((*lead, out_dim), dtype=dtype, device=gen.device)
+        p["b"] = torch.zeros((*lead, out_dim), dtype=dtype,
+                             device=init_device(gen, device))
     return p
 
 
@@ -55,8 +65,9 @@ def rmsnorm_apply(p, x, *, eps: float = 1e-6):
     return (y * p["scale"].float()).to(dt)
 
 
-def embed_init(gen, vocab: int, dim: int, dtype=torch.float32):
-    return {"table": _trunc_normal(gen, (vocab, dim), dtype)}
+def embed_init(gen, vocab: int, dim: int, dtype=torch.float32, *,
+               device=None):
+    return {"table": _trunc_normal(gen, (vocab, dim), dtype, device=device)}
 
 
 def embed_apply(p, tokens, compute_dtype=torch.float32):
@@ -112,17 +123,15 @@ def apply_rope(x, positions=None, theta: float = 10000.0, *, tables=None):
 # ---------------------------------------------------------------------------
 
 def mlp_init(gen, d_model: int, d_ff: int, *, kind: str = "swiglu",
-             dtype=torch.float32, lead=()):
+             dtype=torch.float32, lead=(), device=None):
+    kw = dict(dtype=dtype, lead=lead, device=device)
     if kind in ("swiglu", "geglu"):
-        return {"gate": dense_init(gen, d_model, d_ff, dtype=dtype,
-                                   lead=lead),
-                "up": dense_init(gen, d_model, d_ff, dtype=dtype, lead=lead),
-                "down": dense_init(gen, d_ff, d_model, dtype=dtype,
-                                   lead=lead)}
+        return {"gate": dense_init(gen, d_model, d_ff, **kw),
+                "up": dense_init(gen, d_model, d_ff, **kw),
+                "down": dense_init(gen, d_ff, d_model, **kw)}
     if kind == "gelu":
-        return {"up": dense_init(gen, d_model, d_ff, dtype=dtype, lead=lead),
-                "down": dense_init(gen, d_ff, d_model, dtype=dtype,
-                                   lead=lead)}
+        return {"up": dense_init(gen, d_model, d_ff, **kw),
+                "down": dense_init(gen, d_ff, d_model, **kw)}
     raise ValueError(kind)
 
 
@@ -146,11 +155,12 @@ def mlp_apply(p, x, *, kind: str = "swiglu"):
 # ---------------------------------------------------------------------------
 
 def conv1d_init(gen, dim: int, width: int = 4, dtype=torch.float32, *,
-                lead=()):
+                lead=(), device=None):
     """Depthwise causal temporal conv (Griffin / mLSTM front conv)."""
     return {"w": _trunc_normal(gen, (*lead, width, dim), dtype,
-                               1.0 / width ** 0.5),
-            "b": torch.zeros((*lead, dim), dtype=dtype, device=gen.device)}
+                               1.0 / width ** 0.5, device),
+            "b": torch.zeros((*lead, dim), dtype=dtype,
+                             device=init_device(gen, device))}
 
 
 def conv1d_apply(p, x, state=None):

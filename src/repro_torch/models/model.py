@@ -28,7 +28,6 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.batch import check_device
 from repro_torch.models import blocks, layers
-from repro_torch.models.attention import KVCache
 
 
 class LanguageModel:
@@ -46,23 +45,54 @@ class LanguageModel:
         return model_apply(self.params, self.cfg, batch)
 
 
+def _children(tree):
+    """(name, child) pairs of a tree node, or None for a leaf: a dict's
+    items, a named tuple's (a KVCache's) fields. Any other value — a
+    tensor, a `sharding.PartitionSpec` — is a leaf."""
+    if isinstance(tree, dict):
+        return list(tree.items())
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return list(zip(tree._fields, tree))
+    return None
+
+
+def tree_leaves_with_path(tree, path=()) -> list:
+    """[(path, leaf)] in the tree's order; a path is the tuple of the
+    names from the root (`jax.tree_util`'s key names)."""
+    kids = _children(tree)
+    if kids is None:
+        return [(path, tree)]
+    return [item for k, c in kids
+            for item in tree_leaves_with_path(c, path + (str(k),))]
+
+
+def tree_map_with_path(fn, tree, path=()):
+    """`fn(path, leaf)` on every leaf, the tree's structure kept."""
+    kids = _children(tree)
+    if kids is None:
+        return fn(path, tree)
+    vals = [tree_map_with_path(fn, c, path + (str(k),)) for k, c in kids]
+    if isinstance(tree, dict):
+        return dict(zip(tree, vals))
+    return type(tree)(*vals)
+
+
 def tree_map(fn, tree):
     """`fn` on every tensor of a params or cache tree (dicts, KVCaches)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, KVCache):
-        return KVCache(*(fn(t) for t in tree))
-    return fn(tree)
+    return tree_map_with_path(lambda _, t: fn(t), tree)
 
 
 def _generator(key, device) -> torch.Generator:
-    device = check_device(device)
+    """The generator the inits draw from: `key` itself, or one seeded with
+    it on `device` — on the CPU for "meta", which has no generator of its
+    own (a meta tensor's draw reads and allocates nothing)."""
+    gen_type = "cpu" if device.type == "meta" else device.type
     if isinstance(key, torch.Generator):
-        if key.device.type != device.type:
+        if key.device.type != gen_type:
             raise ValueError(f"generator on {key.device}, params asked on "
                              f"{device}")
         return key
-    gen = torch.Generator(device=device)
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device)
     gen.manual_seed(int(key))
     return gen
 
@@ -70,28 +100,34 @@ def _generator(key, device) -> torch.Generator:
 def init_params(cfg, key, dtype=torch.float32, *, device="cuda"):
     """Random parameters from `key` (an int seed or a `torch.Generator`),
     made on `device` directly in `dtype`: a bf16 model never passes
-    through an f32 copy. Same tree as the reference's `init_params`."""
-    gen = _generator(key, device)
-    dev = gen.device
+    through an f32 copy. Same tree as the reference's `init_params`.
+    ``device="meta"`` gives the tree's shapes and dtypes and allocates
+    nothing (`launch.specs.abstract_params`)."""
+    dev = check_device(device)
+    gen = _generator(key, dev)
     params = {}
     if cfg.input_mode in ("tokens", "patch_prefix"):
         params["embed"] = layers.embed_init(gen, cfg.vocab_size, cfg.d_model,
-                                            dtype)
+                                            dtype, device=dev)
     if cfg.input_mode == "patch_prefix":
         params["vision_proj"] = layers.dense_init(gen, cfg.d_model,
-                                                  cfg.d_model, dtype=dtype)
+                                                  cfg.d_model, dtype=dtype,
+                                                  device=dev)
     if cfg.input_mode == "embeds" or not cfg.tie_embeddings:
         params["lm_head"] = layers.dense_init(gen, cfg.d_model,
-                                              cfg.vocab_size, dtype=dtype)
+                                              cfg.vocab_size, dtype=dtype,
+                                              device=dev)
     params["final_norm"] = layers.rmsnorm_init(cfg.d_model, dtype, device=dev)
 
     n_p = cfg.n_periods
     if n_p > 0:
         params["periods"] = {
-            f"pos{pos}": blocks.block_init(gen, cfg, kind, dtype, lead=(n_p,))
+            f"pos{pos}": blocks.block_init(gen, cfg, kind, dtype, lead=(n_p,),
+                                           device=dev)
             for pos, kind in enumerate(cfg.pattern)}
     for ridx, kind in enumerate(cfg.remainder):
-        params[f"rem{ridx}"] = blocks.block_init(gen, cfg, kind, dtype)
+        params[f"rem{ridx}"] = blocks.block_init(gen, cfg, kind, dtype,
+                                                 device=dev)
     return params
 
 

@@ -35,22 +35,24 @@ import torch.nn.functional as F
 from repro_torch.models import layers
 
 
-def moe_init(gen, cfg, dtype=torch.float32, *, lead=()):
+def moe_init(gen, cfg, dtype=torch.float32, *, lead=(), device=None):
     """cfg needs: d_model, moe_num_experts, moe_d_ff, moe_shared_d_ff."""
     E, d, f = cfg.moe_num_experts, cfg.d_model, cfg.moe_d_ff
     scale = 1.0 / (d ** 0.5)
+    kw = dict(dtype=dtype, lead=lead, device=device)
     p = {
-        "router": layers.dense_init(gen, d, E, dtype=dtype, lead=lead),
-        "gate": layers._trunc_normal(gen, (*lead, E, d, f), dtype, scale),
-        "up": layers._trunc_normal(gen, (*lead, E, d, f), dtype, scale),
+        "router": layers.dense_init(gen, d, E, **kw),
+        "gate": layers._trunc_normal(gen, (*lead, E, d, f), dtype, scale,
+                                     device),
+        "up": layers._trunc_normal(gen, (*lead, E, d, f), dtype, scale,
+                                   device),
         "down": layers._trunc_normal(gen, (*lead, E, f, d), dtype,
-                                     1.0 / f ** 0.5),
+                                     1.0 / f ** 0.5, device),
     }
     if cfg.moe_shared_d_ff:
         p["shared"] = layers.mlp_init(gen, d, cfg.moe_shared_d_ff,
-                                      kind="swiglu", dtype=dtype, lead=lead)
-        p["shared_gate"] = layers.dense_init(gen, d, 1, dtype=dtype,
-                                             lead=lead)
+                                      kind="swiglu", **kw)
+        p["shared_gate"] = layers.dense_init(gen, d, 1, **kw)
     return p
 
 

@@ -57,15 +57,15 @@ BWD_WARPS = 16
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def rglru_init(gen, dim: int, dtype=torch.float32, *, lead=()):
+def rglru_init(gen, dim: int, dtype=torch.float32, *, lead=(), device=None):
     # Lambda uniform in [0.01, 0.5] (the reference's Griffin init).
-    lam = torch.empty((*lead, dim), dtype=dtype, device=gen.device)
+    lam = torch.empty((*lead, dim), dtype=dtype,
+                      device=layers.init_device(gen, device))
     lam.uniform_(0.01, 0.5, generator=gen)
+    kw = dict(bias=True, dtype=dtype, lead=lead, device=device)
     return {
-        "wa": layers.dense_init(gen, dim, dim, bias=True, dtype=dtype,
-                                lead=lead),
-        "wx": layers.dense_init(gen, dim, dim, bias=True, dtype=dtype,
-                                lead=lead),
+        "wa": layers.dense_init(gen, dim, dim, **kw),
+        "wx": layers.dense_init(gen, dim, dim, **kw),
         "lam": lam,
     }
 

@@ -88,11 +88,12 @@ def _raise_on(err, name):
 # ---------------------------------------------------------------------------
 
 def mlstm_init(gen, d_model: int, n_heads: int, head_dim: int,
-               dtype=torch.float32, *, lead=()):
+               dtype=torch.float32, *, lead=(), device=None):
     H, D = n_heads, head_dim
 
     def dense(i, o, bias=False):
-        return layers.dense_init(gen, i, o, bias=bias, dtype=dtype, lead=lead)
+        return layers.dense_init(gen, i, o, bias=bias, dtype=dtype, lead=lead,
+                                 device=device)
     return {
         "wq": dense(d_model, H * D),
         "wk": dense(d_model, H * D),
@@ -1025,7 +1026,7 @@ def mlstm_chunkwise(p, x, n_heads, head_dim, state=None, chunk: int = 64):
 # ---------------------------------------------------------------------------
 
 def slstm_init(gen, d_model: int, n_heads: int, dtype=torch.float32, *,
-               lead=()):
+               lead=(), device=None):
     if d_model % n_heads:
         raise ValueError("d_model must divide n_heads")
     Dh = d_model // n_heads
@@ -1035,9 +1036,10 @@ def slstm_init(gen, d_model: int, n_heads: int, dtype=torch.float32, *,
     p = {}
     for gate in _GATES:
         p[f"w{gate}"] = layers.dense_init(gen, d_model, d_model, bias=True,
-                                          dtype=dtype, lead=lead)
+                                          dtype=dtype, lead=lead,
+                                          device=device)
         p[f"r{gate}"] = layers._trunc_normal(gen, (*lead, n_heads, Dh, Dh),
-                                             dtype, Dh ** -0.5)
+                                             dtype, Dh ** -0.5, device)
     return p
 
 

@@ -1,6 +1,7 @@
 """Roofline models on H100 records: the three-term roofline
-(`analysis`) and the alignment workload's closed-form bound (`analytic`).
-The reference's XLA-HLO collective inventory has no counterpart here
+(`analysis`) and the closed-form bounds of the alignment workload and the
+language models (`analytic`). The reference's XLA-HLO collective
+inventory (`roofline/hlo_collectives.py`) has no counterpart yet
 (ROADMAP A11d)."""
 
 from repro_torch.roofline.analysis import (H100, H100_INT32, HW, Hardware,

@@ -1,20 +1,74 @@
-"""Closed-form roofline cost model of the alignment workload.
+"""Closed-form roofline cost model per (arch x shape x mesh) cell: the
+port of the JAX package's `roofline/analytic.py`.
 
-The reference's own bound on aligned pairs/s for a (length, band, pairs,
-mesh, dispatch mode) record, computed from first principles and the same
-for whatever implements the work, here on an H100 record by default
-(`analysis.H100_INT32`: the DP is int32 work outside the tensor cores).
+The reference's own bound for a record, computed from first principles
+and the same for whatever implements the work. Two halves:
 
-Only the alignment half of the reference module is ported:
-`analytic_roofline` sends ``arch == "rapidx-align"`` records to
-`alignment_roofline` and raises for the language models, whose half needs
-the train-step microbatch policy (`launch/specs.py:microbatches_for`,
-ROADMAP A11d).
+  * the alignment workload (``arch == "rapidx-align"``,
+    `alignment_roofline`), on the H100's int32 record by default
+    (`analysis.H100_INT32`: the DP is int32 work outside the tensor
+    cores);
+  * the language models, on the H100's dense bf16 record by default
+    (`analysis.H100`), with the train step's microbatch count from
+    `launch.specs.microbatches_for`.
+
+Accounting conventions of the LM half (the reference's; flops = 2 x MACs):
+  * train pass multiplier: forward 1x + backward 2x + remat re-forward 1x.
+  * causal attention context: (S+1)/2 average; windowed: min(W, that).
+  * weights are read in bf16 once per pass per microbatch; MoE reads ALL
+    experts (every expert is activated by some token in the batch).
+  * TP all-reduce: 2 per layer on the (tokens_local, d) activations
+    (attention out + FFN out), bf16, x2 ring factor, per pass.
+  * gradient reduce-scatter over data: ~P x 4B per device.
+  * decode with masked cache write rewrites the cache (3x traffic vs 1x).
 """
 
 from __future__ import annotations
 
-from repro_torch.roofline.analysis import H100_INT32, Hardware, roofline_terms
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.launch.specs import microbatches_for
+from repro_torch.roofline.analysis import (H100, H100_INT32, Hardware,
+                                           roofline_terms)
+
+
+def _layer_kinds(cfg):
+    for li in range(cfg.n_layers):
+        yield cfg.pattern[li % len(cfg.pattern)]
+
+
+def _per_token_layer_flops(cfg, kind, l_ctx):
+    d, f = cfg.d_model, cfg.d_ff
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    glu = 3 if cfg.mlp_kind in ("swiglu", "geglu") else 2
+    attn_proj = 2 * d * (Hq * Dh * 2 + Hkv * Dh * 2)
+    attn_score = 2 * 2 * l_ctx * Hq * Dh
+    mlp = 2 * glu * d * f
+    moe = (2 * 3 * d * cfg.moe_d_ff * cfg.moe_top_k
+           + 2 * d * cfg.moe_num_experts
+           + (2 * 3 * d * cfg.moe_shared_d_ff + 2 * d
+              if cfg.moe_shared_d_ff else 0))
+    if kind in ("attn", "local"):
+        return attn_proj + attn_score + mlp
+    if kind in ("moe", "moe_swa"):
+        return attn_proj + attn_score + moe
+    if kind == "rglru":
+        return 2 * 5 * d * d + 2 * 4 * d + mlp
+    if kind == "mlstm":
+        c = cfg.mlstm_chunk
+        proj = 2 * 4 * d * Hq * Dh
+        intra = 2 * 2 * c * Hq * Dh          # chunk-local attention
+        state = 2 * 2 * Dh * Dh * Hq / max(c, 1)  # amortised state update
+        return proj + intra + state
+    if kind == "slstm":
+        Dh_s = d // Hq
+        return 2 * (4 * d * d + 4 * d * Dh_s) + 2 * d * d
+    raise ValueError(kind)
+
+
+def _weight_bytes(cfg, active_only: bool, dtype_bytes: int = 2) -> float:
+    p = (cfg.active_param_count() if active_only else cfg.param_count())
+    return p * dtype_bytes
+
 
 #: Divergence rate assumed for the RLE host-fetch estimate: one op-run
 #: boundary per ~20 bases (read error + true-variant events), i.e. each
@@ -127,12 +181,103 @@ def alignment_roofline(record: dict, hw: Hardware = H100_INT32) -> dict:
     }
 
 
-def analytic_roofline(record: dict, hw: Hardware = H100_INT32) -> dict:
-    """record: arch/shape/mesh + mesh_shape. Only the alignment workload
-    (``arch == "rapidx-align"``) is modelled in this package."""
+def analytic_roofline(record: dict, hw: Hardware | None = None) -> dict:
+    """record: arch/shape/mesh + mesh_shape (a dry-run record's keys).
+    `hw` defaults to `H100_INT32` for the alignment workload and to
+    `H100` (dense bf16) for the language models."""
     if record.get("arch") == "rapidx-align":
-        return alignment_roofline(record, hw)
-    raise NotImplementedError(
-        f"analytic_roofline for arch {record.get('arch')!r}: the language "
-        "models' half needs launch/specs.py:microbatches_for, not ported "
-        "yet (ROADMAP A11d)")
+        return alignment_roofline(record, H100_INT32 if hw is None else hw)
+    hw = H100 if hw is None else hw
+    arch, shape_name = record["arch"], record["shape"]
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    mesh_shape = record.get("mesh_shape") or [16, 16]
+    chips = 1
+    for s in mesh_shape:
+        chips *= s
+    model_par = mesh_shape[-1]
+    dp = chips // model_par
+    B, S = shape.global_batch, shape.seq_len
+    tokens = B * (1 if shape.kind == "decode" else S)
+    tokens_dev = tokens / dp
+
+    # ---- FLOPs ----
+    l_full = (S + 1) / 2 if shape.kind != "decode" else min(S, 10**12)
+    flops_tok = 0.0
+    for kind in _layer_kinds(cfg):
+        w = cfg.window if kind in ("local", "moe_swa") else None
+        if shape.kind == "decode":
+            l_ctx = min(w, S) if w else S
+        else:
+            l_ctx = min(w, l_full) if w else l_full
+        flops_tok += _per_token_layer_flops(cfg, kind, l_ctx)
+    head = 2 * cfg.d_model * cfg.vocab_size
+    embed = head if (cfg.vocab_size >= 8192
+                     and cfg.input_mode != "embeds") else 0
+    flops_tok += head + embed
+    pass_mult = 4.0 if shape.kind == "train" else 1.0
+    flops_total = flops_tok * tokens * pass_mult
+    flops_dev = flops_total / chips
+
+    # ---- memory bytes per device ----
+    nm = (microbatches_for(cfg, shape, dp) if shape.kind == "train" else 1)
+    passes = 3 if shape.kind == "train" else 1
+    wbytes = _weight_bytes(cfg, active_only=(shape.kind == "decode"))
+    weight_traffic = wbytes * passes * nm     # gathered per microbatch
+    act_traffic = tokens_dev * cfg.d_model * cfg.n_layers * 8 * passes
+    opt_traffic = (cfg.param_count() * (6 * 4) / chips
+                   if shape.kind == "train" else 0)
+    cache_traffic = 0.0
+    if shape.kind == "decode":
+        per_layer = 0.0
+        for kind in _layer_kinds(cfg):
+            if kind in ("attn", "moe"):
+                sl = S
+            elif kind in ("local", "moe_swa"):
+                sl = min(cfg.window, S)
+            else:
+                sl = 0  # recurrent state, negligible
+            per_layer += sl * cfg.n_kv_heads * cfg.head_dim * 2 * 2
+        rw = 3.0 if record.get("masked_cache_write") else 1.0
+        cache_traffic = (B / dp) * per_layer * (1 + rw) / 2
+    bytes_dev = weight_traffic + act_traffic + opt_traffic + cache_traffic
+
+    # ---- collective bytes per device ----
+    # The reference's collective model, calibrated by it against XLA's
+    # compiled HLO for TPU meshes (there GSPMD contracts matmuls over the
+    # FSDP-sharded dim in place, so no per-use weight all-gather is
+    # charged). Not calibrated on the card: the port runs no sharded LM
+    # step. Volumes: 2 TP activation reductions per layer (x2 ring
+    # factor, bf16), the per-step gradient reduce-scatter, and the
+    # embedding / cross-entropy reductions.
+    coll = 0.0
+    act_red = 2 * tokens_dev * cfg.d_model * 2 * 2 * cfg.n_layers
+    if shape.kind == "train":
+        coll += act_red * passes
+        coll += cfg.param_count() * 4 / dp * 2   # grad reduce-scatter
+        coll += tokens_dev * 4 * 2               # CE logsumexp reductions
+    elif shape.kind == "prefill":
+        coll += act_red
+    else:  # decode
+        coll += 2 * (B / dp) * cfg.d_model * 2 * 2 * cfg.n_layers
+        # S- or head-sharded cache attention psum of scores/outputs.
+        coll += (B / dp) * cfg.n_heads * cfg.head_dim * 4 * cfg.n_layers
+
+    terms = roofline_terms(flops_dev, bytes_dev, coll, hw)
+    out = {
+        "cell": f"{arch}/{shape_name}/{record.get('mesh', '?')}",
+        "chips": chips,
+        "flops_per_device": flops_dev,
+        "bytes_per_device": bytes_dev,
+        "collective_bytes_per_device": coll,
+        "microbatches": nm,
+        **terms,
+    }
+    # Useful-flops ratio and MFU bound.
+    n_active = cfg.active_param_count()
+    model_fl = (6.0 if shape.kind == "train" else 2.0) * n_active * tokens
+    out["model_flops_total"] = model_fl
+    out["useful_flops_ratio"] = model_fl / flops_total if flops_total else 0
+    t = terms["step_time_overlap_s"]
+    out["mfu_bound"] = (model_fl / t) / (chips * hw.peak_flops) if t else 0.0
+    return out

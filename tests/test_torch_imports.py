@@ -52,7 +52,12 @@ def test_port_has_its_modules():
                 "core/pim_model.py", "core/distributed.py",
                 "launch/mesh.py", "roofline/__init__.py",
                 "roofline/analysis.py", "roofline/analytic.py",
-                "models/moe.py", "models/rglru.py", "models/xlstm.py"):
+                "models/moe.py", "models/rglru.py", "models/xlstm.py",
+                "launch/specs.py", "launch/train.py", "sharding/__init__.py",
+                "sharding/rules.py", "checkpoint/__init__.py",
+                "checkpoint/checkpoint.py", "runtime/__init__.py",
+                "runtime/elastic.py", "runtime/recovery.py",
+                "runtime/straggler.py"):
         assert f"src/repro_torch/{mod}" in names
 
 

@@ -1,6 +1,7 @@
 """`repro_torch.roofline` against the JAX package's roofline, key by key,
 with the same `Hardware` fields handed to both. Same arithmetic in the
-same order: tolerance 0 (exact float equality)."""
+same order: tolerance 0 (exact float equality); the language models'
+half of `analytic_roofline` within 1e-12 relative."""
 
 import ast
 import pathlib
@@ -75,9 +76,35 @@ def test_alignment_roofline_defaults_and_constants():
     assert got["dominant"] == "compute" and got["launches"] == 1
 
 
-def test_analytic_roofline_refuses_the_language_models():
-    with pytest.raises(NotImplementedError, match="A11d"):
-        analytic_roofline({"arch": "qwen3-0.6b", "shape": "train_4k"})
+LM_MESHES = (("1x1", [1, 1]), ("16x16", [16, 16]), ("2x16x16", [2, 16, 16]))
+
+
+def _assert_close(ref: dict, got: dict, rtol=1e-12):
+    assert list(got) == list(ref)
+    for key in ref:
+        if isinstance(ref[key], str):
+            assert got[key] == ref[key], key
+        else:
+            assert abs(got[key] - ref[key]) <= rtol * abs(ref[key]), key
+
+
+@pytest.mark.parametrize("mesh,mesh_shape", LM_MESHES,
+                         ids=[m for m, _ in LM_MESHES])
+@pytest.mark.parametrize("shape", list(JAX_SHAPES))
+@pytest.mark.parametrize("arch", jax_list_archs())
+def test_analytic_roofline_lm_matches_jax(arch, shape, mesh, mesh_shape):
+    """The LM half against the reference's, both handed the port's H100
+    fields: every field within 1e-12 relative (strings equal); the default
+    record of an LM cell is the dense bf16 `H100`."""
+    rec = {"arch": arch, "shape": shape, "mesh": mesh,
+           "mesh_shape": mesh_shape}
+    want = jax_analytic.analytic_roofline(rec, _jax_hw(H100))
+    _assert_close(want, analytic_roofline(rec, H100))
+    _assert_close(want, analytic_roofline(rec))
+    if JAX_SHAPES[shape].kind == "decode":
+        masked = dict(rec, masked_cache_write=True)
+        _assert_close(jax_analytic.analytic_roofline(masked, _jax_hw(H100)),
+                      analytic_roofline(masked))
 
 
 @pytest.mark.parametrize("hw", RECORDS_HW, ids=lambda h: h.name)
