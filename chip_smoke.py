@@ -98,7 +98,14 @@ and flush causes; one traced loop for the streams' busy and overlapping
 time); `launch.serve --no-mesh` and `launch.map` at 1 and 2 replicas
 (results equal); the ragged request through the engine sharded over a
 mesh of the visible cards, equal to unsharded, with a trace holding no
-NCCL kernel and no peer copy, and `launch.serve` on that mesh (`mesh`);
+NCCL kernel, no peer copy and no collective (`collective_bytes_by_kind`),
+and `launch.serve` on that mesh (`mesh`); the dry run (`dryrun`:
+`launch.dryrun` on the meta device for qwen3-0.6b's, xlstm-125m's and the
+alignment cells on the single mesh, and one train step of qwen3-0.6b and
+of xlstm-125m, in `lm_train` and `lm_train_xlstm`, counted on the card
+under its `StepCounter` against the same step traced on meta: FLOPs,
+bytes and each kernel's calls and work equal, the predicted peak memory
+within 5 %);
 `alignment_roofline` on the H100's int32 record per bucket class beside
 the measured pairs/s and B1's kernel-table bound (`roofline`); edit distance (paper Fig. 14) on 4,096 Illumina and 256
 PacBio pairs, CUDA backend against plain, a full-band sample against
@@ -157,6 +164,8 @@ from repro_torch.core.scoring import MINIMAP2  # noqa: E402
 from repro_torch.data.genome import (ERROR_PROFILES, ReadSimulator,  # noqa: E402
                                      random_genome, reverse_complement)
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import work as kernel_work  # noqa: E402
+from repro_torch.kernels.work import flash_live_pairs  # noqa: E402
 from repro_torch.kernels.banded_dp.banded_dp import (  # noqa: E402
     banded_align_cuda, kernel_body)
 from repro_torch.kernels.banded_dp.persistent import (  # noqa: E402
@@ -170,6 +179,7 @@ from repro_torch.kernels.local_attention.local_attention import (  # noqa: E402
     flash_attention_tf32x3_cuda, kernel_route)
 from repro_torch.launch import map as map_launcher  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.launch.specs import abstract_state  # noqa: E402
 from repro_torch.launch.mesh import make_debug_mesh  # noqa: E402
@@ -177,7 +187,10 @@ from repro_torch.map import STATUS_MAPPED, MinimizerIndex, ReadMapper  # noqa: E
 from repro_torch.map import chain as chain_mod  # noqa: E402
 from repro_torch.roofline.analysis import H100, H100_INT32  # noqa: E402
 from repro_torch.roofline.analytic import (DISPATCH_OVERHEAD_S,  # noqa: E402
-                                           alignment_roofline)
+                                           alignment_roofline,
+                                           analytic_roofline)
+from repro_torch.roofline.hlo_collectives import (  # noqa: E402
+    KINDS as COLLECTIVE_KINDS, collective_bytes_by_kind)
 from repro_torch.serve import AlignmentRouter, AlignmentService  # noqa: E402
 from repro_torch.checkpoint import (CheckpointManager,  # noqa: E402
                                    latest_step)
@@ -210,10 +223,8 @@ DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = H100_INT32.hbm_bw
 INT32_OPS_PER_S = H100_INT32.peak_flops
 
-# int32 operations per band cell and wavefront step, counted from the plain
-# version's step (selects, compares, adds, maxima, index clamps, flag
-# packing, reductions), and per traceback step of the walker.
-WAVEFRONT_OPS_PER_CELL = 80
+# int32 operations per traceback step of the walker, counted from the plain
+# version's step (B1's per band cell: `kernels.work.WAVEFRONT_OPS_PER_CELL`).
 WALKER_OPS_PER_STEP = 60
 # int32 operations per (anchor i, earlier anchor j) pair of the chaining
 # DP: differences, the six admissibility tests, min, the gap cost
@@ -352,17 +363,11 @@ def check_case(q, r, n, m, ref=None, **kw):
 
 
 def wavefront_bound(n, m, N, Lq, Lr, T, band, collect_tb):
-    """Least time for the wavefront on these inputs: every pair's true
-    n + m steps of `band` cells; q, r, n, m read once, outputs written
-    once."""
+    """Least time for the wavefront on these inputs (`kernels.work.
+    wavefront`): every pair's true n + m steps of `band` cells."""
     steps = int((n.astype(np.int64) + m).sum())
-    ops = steps * band * WAVEFRONT_OPS_PER_CELL
-    nbytes = N * (Lq + Lr) + 8 * N + 6 * 4 * N
-    if collect_tb:
-        nbytes += N * T * ((band + 1) // 2) + 4 * N * (T + 1)
-    t_ops, t_bytes = ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    return kernel_work.wavefront(steps, band, N, Lq, Lr, T,
+                                 collect_tb).bound()
 
 
 def walker_bound(path_steps, N, T):
@@ -657,7 +662,7 @@ def persistent_bound(table, n, m):
     band = np.concatenate([np.full(s.rows, s.band) for s in table.spans])
     steps = np.concatenate([np.full(s.rows, s.steps) for s in table.spans])
     live = np.minimum(n.astype(np.int64) + m, steps)
-    ops = int((live * band).sum()) * WAVEFRONT_OPS_PER_CELL
+    ops = int((live * band).sum()) * kernel_work.WAVEFRONT_OPS_PER_CELL
     R = table.num_rows
     nbytes = (sum(s.rows * (s.q_len + s.r_len) for s in table.spans)
               + R * (8 + 24 + 8 * table.rows.shape[1])
@@ -903,11 +908,9 @@ def chain_checks(ill_sets, pb_sets, params, reps):
 # B5 (banded flash attention) vs its plain version, and its yardsticks.
 # ---------------------------------------------------------------------------
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): dense bf16 and TF32
-# on the tensor cores, and float32 outside them.
+# The published dense bf16 peak of one H100 SXM (NVIDIA data sheet): the
+# MFU's denominator.
 BF16_FLOP_PER_S = H100.peak_flops
-TF32_FLOP_PER_S = 494.7e12
-F32_FLOP_PER_S = 67e12
 # Tensor-core passes per product of the split-TF32 kernel, each 4*D FLOP
 # per live pair: lo*hi + hi*lo + hi*hi for f32; lo*hi + hi*hi for bf16,
 # whose k and v are exact in tf32.
@@ -933,32 +936,21 @@ def flash_err(out, ref):
     return float(d.max()), bool((d <= tol).all())
 
 
-def flash_live_pairs(B, Hq, T, W):
-    """Live (query, key) pairs of a causal pass with window W."""
-    W = T if W is None else min(W, T)
-    return B * Hq * (W * (W + 1) // 2 + (T - W) * W)
-
-
 def flash_bound(q, k, W, units=None):
-    """Least time for B5 on these inputs, against q, k, v read once and o
-    written once, at the 4*D FLOP per live pair the function needs: on the
-    tensor cores at the dense bf16 peak for bf16, at the dense TF32 peak
-    for f32 (the default `units`). Two named yardsticks beside it:
-    `units` "split", the split-TF32 kernel's own passes (3 x 4*D for f32,
-    2 x 4*D for bf16) at the TF32 peak; "fma", 4*D on the FMA units at
-    67 TFLOP/s."""
+    """Least time for B5 on these inputs (`kernels.work.flash`: 4*D FLOP a
+    live pair on the tensor cores, at the dense bf16 peak for bf16 and the
+    TF32 peak for f32; q, k, v read once and o written once). Two named
+    yardsticks beside it: `units` "split", the split-TF32 kernel's own
+    passes (3 x 4*D for f32, 2 x 4*D for bf16) at the TF32 peak; "fma",
+    4*D on the FMA units at 67 TFLOP/s."""
     B, Hq, T, D = q.shape
-    ops = 4 * D * flash_live_pairs(B, Hq, T, W)
-    nbytes = 2 * q.numel() * q.element_size() \
-        + 2 * k.numel() * k.element_size()
-    units = units or ("tc" if q.dtype == torch.bfloat16 else "tf32")
+    w = kernel_work.flash(B, Hq, k.shape[1], T, D, W, q.element_size())
     if units == "split":
-        ops *= TF32_SPLIT_PASSES[q.dtype]
-    peak = {"tc": BF16_FLOP_PER_S, "tf32": TF32_FLOP_PER_S,
-            "split": TF32_FLOP_PER_S, "fma": F32_FLOP_PER_S}[units]
-    t_ops, t_bytes = ops / peak, nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+        w = kernel_work.Work({"tf32": w.total_ops
+                              * TF32_SPLIT_PASSES[q.dtype]}, w.nbytes)
+    elif units == "fma":
+        w = w.at("f32")
+    return w.bound()
 
 
 def flash_matrix(quick):
@@ -1294,9 +1286,6 @@ def flash_tc_narrow_shapes(reps):
 BWD_MAX_TOL = 2 ** -6
 BWD_L2_TOL = 2 ** -7
 LSE_TOL = 2 ** -14
-#: FLOP per live (query, key) pair of the backward: five products of 2*D
-#: (S = QK^T, dP = dO V^T, dV += P^T dO, dK += dS^T Q, dQ += dS K).
-BWD_FLOP_PER_PAIR_PER_D = 10
 
 
 def bwd_errs(got, want, W=None, max_tol=BWD_MAX_TOL, l2_tol=BWD_L2_TOL):
@@ -1401,17 +1390,14 @@ def flash_bwd_matrix(quick):
 
 
 def flash_bwd_bound(q, k, W):
-    """Least time of the backward on these inputs: 10*D FLOP per live pair
-    at the dense bf16 peak, against q, k, v, o, dO (bf16) and lse (f32)
-    read once and dq, dk, dv written once."""
+    """Least time of an attention backward on these inputs
+    (`kernels.work.flash_bwd`: 10*D FLOP a live pair at the dense bf16
+    peak for bf16 — B5-bwd — and at the TF32 peak for f32 — the f32
+    backward; q, k, v, o, dO and lse read once, dq, dk, dv written
+    once)."""
     B, Hq, T, D = q.shape
-    ops = BWD_FLOP_PER_PAIR_PER_D * D * flash_live_pairs(B, Hq, T, W)
-    nbytes = 2 * (2 * q.numel() * q.element_size()
-                  + 2 * k.numel() * k.element_size()) \
-        + q.numel() * q.element_size() + 4 * B * Hq * T
-    t_ops, t_bytes = ops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    return kernel_work.flash_bwd(B, Hq, k.shape[1], T, D, W,
+                                 q.element_size()).bound()
 
 
 def sdpa_bwd_time(q, k, v, dout, W, reps):
@@ -1493,7 +1479,7 @@ def flash_bwd_shapes(reps):
                      "plain_ms": plain_ms,
                      "library_ms": lib_ms, "library": lib,
                      "bound_ms": bound, "bound_by": by,
-                     "tflop_per_s": BWD_FLOP_PER_PAIR_PER_D * D * pairs
+                     "tflop_per_s": kernel_work.FLASH_BWD_OPS_PER_PAIR_PER_D * D * pairs
                      / ms / 1e9, "bound_share": bound / ms, "errs": errs,
                      "dq_repeat_max_abs": dq_rep,
                      "lse_err": lse_err, "within_tolerance": ok and lse_ok})
@@ -1585,20 +1571,6 @@ def tf32x3_bwd_matrix(quick):
     return len(grid), worst
 
 
-def split_bwd_bound(q, k, W):
-    """Least time of the f32 backward on these inputs: 10*D FLOP per live
-    pair at the TF32 tensor-core peak (494.7 TFLOP/s), against q, k, v,
-    o, dO and lse read once and dq, dk, dv written once."""
-    B, Hq, T, D = q.shape
-    ops = BWD_FLOP_PER_PAIR_PER_D * D * flash_live_pairs(B, Hq, T, W)
-    nbytes = 2 * (2 * q.numel() * q.element_size()
-                  + 2 * k.numel() * k.element_size()) \
-        + q.numel() * q.element_size() + 4 * B * Hq * T
-    t_ops, t_bytes = ops / TF32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
 #: The f32 backward's timed shape: f32 at qwen3-0.6b's heads (2 x 16 q /
 #: 8 kv x 2,048, D 128, causal). (stablelm-3b's bf16 microbatch moved to
 #: B5-bwd's `BWD_SHAPES` with its backward.)
@@ -1634,7 +1606,7 @@ def tf32x3_bwd_shapes(reps, ptxas):
         serve_ms = time_cuda(lambda: flash_attention_tf32x3_cuda(
             q, k, v, window=W), reps)
         lib_ms, lib = sdpa_bwd_time(q, k, v, dout, W, reps)
-        bound, by = split_bwd_bound(q, k, W)
+        bound, by = flash_bwd_bound(q, k, W)
         pairs = flash_live_pairs(B, Hq, T, W)
         recs.append({"shape": name, "q": list(q.shape), "kv": list(k.shape),
                      "dtype": str(dtype).split(".")[-1], "window": W,
@@ -1642,7 +1614,7 @@ def tf32x3_bwd_shapes(reps, ptxas):
                      "fwd_serving_ms": serve_ms, "plain_ms": plain_ms,
                      "library_ms": lib_ms, "library": lib,
                      "bound_ms": bound, "bound_by": by,
-                     "tflop_per_s": BWD_FLOP_PER_PAIR_PER_D * D * pairs
+                     "tflop_per_s": kernel_work.FLASH_BWD_OPS_PER_PAIR_PER_D * D * pairs
                      / ms / 1e9, "bound_share": bound / ms, "errs": errs,
                      "dq_repeat_max_abs": dq_rep, "lse_err": lse_err,
                      "ptxas": ptxas, "within_tolerance": ok and lse_ok})
@@ -2082,8 +2054,137 @@ def compressed_step(cfg, params, batch, used, plain):
             "launches": {k_: v_ for k_, v_ in got.items() if v_}}
 
 
+#: The dry run's peak memory against the card's (stated before its first
+#: card run): the meta trace's arguments plus the peak of the live bytes it
+#: allocated, within 5 % of `torch.cuda.max_memory_allocated` over the
+#: same step on the card.
+DRYRUN_PEAK_TOL = 0.05
+
+
+def _count(counter):
+    return {"product_flops": counter.flops, "aten_bytes": counter.aten_bytes,
+            "aten_calls": counter.aten_calls, "kernels": counter.kernels}
+
+
+def dryrun_card_check(cfg, state, batch, nm):
+    """One more `make_train_step` step on the card under the dry run's
+    `StepCounter` (its kernels launching and reporting their work), then
+    the same step traced on meta tensors (`launch.specs.abstract_state`,
+    the batch's shapes): the product FLOPs, the aten bytes and each
+    kernel's calls, operations and bytes equal as integers (a mismatch
+    raises with the ops that differ), and the trace's arguments plus its
+    live-bytes peak within `DRYRUN_PEAK_TOL` of the card's
+    `max_memory_allocated` over the step."""
+    step = make_train_step(cfg, num_microbatches=nm, peak_lr=1e-3,
+                           compute_dtype=torch.bfloat16)
+    args_ = tree_leaves(state) + list(batch.values())
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with dryrun.StepCounter(args_) as card:
+        step(state, batch)
+        torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    card_peak = torch.cuda.max_memory_allocated()
+    meta_state = abstract_state(cfg)
+    meta_batch = {k_: torch.empty(v_.shape, dtype=v_.dtype, device="meta")
+                  for k_, v_ in batch.items()}
+    margs = tree_leaves(meta_state) + list(meta_batch.values())
+    t0 = time.perf_counter()
+    with dryrun.StepCounter(margs) as meta:
+        step(meta_state, meta_batch)
+    meta_s = time.perf_counter() - t0
+    arg_bytes = sum(t.numel() * t.element_size() for t in margs)
+    predicted = arg_bytes + meta.peak
+    rec = {"arch": cfg.name, "batch": list(next(iter(batch.values())).shape),
+           "card": _count(card), "meta": _count(meta),
+           "equal": _count(card) == _count(meta),
+           "card_seconds": card_s, "meta_seconds": meta_s,
+           "argument_bytes": arg_bytes,
+           "allocated_before_bytes": allocated,
+           "traced_peak_temp_bytes": meta.peak,
+           "predicted_peak_bytes": predicted,
+           "card_peak_bytes": card_peak,
+           "peak_rel_err": predicted / card_peak - 1,
+           "peak_tol": DRYRUN_PEAK_TOL}
+    if not rec["equal"]:
+        ops = sorted(set(card.by_op) | set(meta.by_op))
+        rec["ops_differing"] = {
+            op: {"card": card.by_op.get(op), "meta": meta.by_op.get(op)}
+            for op in ops if card.by_op.get(op) != meta.by_op.get(op)}
+        raise AssertionError(f"dry run != card count: {rec}")
+    assert abs(rec["peak_rel_err"]) <= DRYRUN_PEAK_TOL, rec
+    return rec
+
+
+#: The dry run's subset on the card machine's host: every shape of these
+#: archs on the single-pod mesh, and the alignment cells.
+DRYRUN_ARCHS = ("qwen3-0.6b", "xlstm-125m", "rapidx-align")
+
+
+def dryrun_phase(lm_train, lm_train_xl, mesh):
+    """(a) `launch.dryrun` on the meta device for `DRYRUN_ARCHS` on the
+    single mesh: ok / skip / error counts, seconds, GB and GFLOP per
+    device, each LM cell beside `analytic_roofline`'s FLOPs per device;
+    B6's scratch size in Python against its libraries'; (b) the train
+    steps' card-against-meta counts (`dryrun_card_check`, run inside
+    `lm_train` and `lm_train_xlstm`); (c) the mesh phase's trace read by
+    `collective_bytes_by_kind`, all zero. Any error fails the run."""
+    t0 = time.perf_counter()
+    cells = []
+    counts = collections.Counter()
+    out_dir = str(build.build_dir() / "dryrun_smoke")
+    for arch, shape, mesh_name in dryrun.plan(list(DRYRUN_ARCHS),
+                                              meshes=("single",)):
+        rec = dryrun.run_cell(arch, shape, mesh_name, skip_existing=False,
+                              results_dir=out_dir)
+        tag = "skip" if rec.get("skipped") else rec["status"]
+        counts[tag] += 1
+        cell = {"cell": f"{arch}/{shape}/{mesh_name}", "status": tag,
+                "seconds": rec["compile_seconds"]}
+        if tag == "ok":
+            cell.update(
+                gb_per_device=rec["memory"]["total_per_device"] / 1e9,
+                gflop_per_device=rec["flops_per_device"] / 1e9,
+                collective_bytes_per_device=rec["collectives"]
+                ["total_bytes"])
+            if arch != "rapidx-align":
+                cell["analytic_gflop_per_device"] = analytic_roofline(
+                    rec)["flops_per_device"] / 1e9
+        else:
+            cell["error"] = rec.get("error")
+        cells.append(cell)
+    assert counts["error"] == 0, cells
+    scratch = {}
+    for name in ("rglru_scan", "rglru_scan_bwd"):
+        for B, T, D in ((1, 32768, 4096), (2, 4096, 4096), (3, 1000, 1003)):
+            py, lib = rglru_mod.scratch_bytes(B, T, D), \
+                rglru_mod._lib(name)[1](B, T, D)
+            assert py == lib, (name, B, T, D, py, lib)
+            scratch[f"{name}/{B}x{T}x{D}"] = py
+    checks = {"lm_train": lm_train["dryrun_check"],
+              "lm_train_xlstm": lm_train_xl["dryrun_check"]}
+    coll = mesh["trace"]["collectives"]
+    assert coll["total_bytes"] == 0 and all(
+        coll[k]["count"] == 0 for k in COLLECTIVE_KINDS), coll
+    return {"subset": {"cells": cells, "counts": dict(counts),
+                       "seconds": time.perf_counter() - t0},
+            "card_vs_meta": {k_: {key: v_[key] for key in (
+                "arch", "batch", "equal", "card", "card_seconds",
+                "meta_seconds", "argument_bytes", "allocated_before_bytes",
+                "traced_peak_temp_bytes", "predicted_peak_bytes",
+                "card_peak_bytes", "peak_rel_err", "peak_tol")}
+                for k_, v_ in checks.items()},
+            "rglru_scratch_bytes_equal": scratch,
+            "mesh_collectives": coll,
+            "seconds": time.perf_counter() - t0
+            + sum(v_["card_seconds"] + v_["meta_seconds"]
+                  for v_ in checks.values())}
+
+
 def train_run(args, paths, cfg, tag, B, T, nm, seed, trace_kernels,
-              want_per_step):
+              want_per_step, count_step=False):
     """`make_train_step` on `cfg` (f32 params and AdamW moments, bf16
     compute), B x T tokens in `nm` microbatches, `TRAIN_STEPS` steps on
     one batch inside the main path `tag`: finite losses, the second <=
@@ -2120,6 +2221,8 @@ def train_run(args, paths, cfg, tag, B, T, nm, seed, trace_kernels,
     assert int(state["opt"]["step"]) == TRAIN_STEPS
     assert all(got[k_] == v_ for k_, v_ in want.items()), (got, want)
     step_ms = wall[-1]
+    counted = dryrun_card_check(cfg, state, batch, nm) if count_step \
+        else None
     rec = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
            "batch": B, "tokens": T, "num_microbatches": nm,
            "dtypes": {"params": "float32", "moments": "float32",
@@ -2133,6 +2236,8 @@ def train_run(args, paths, cfg, tag, B, T, nm, seed, trace_kernels,
            "launches": got, "launches_expected": want,
            "trace": trace,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if counted is not None:
+        rec["dryrun_check"] = counted
     return rec, state
 
 
@@ -2150,7 +2255,7 @@ def lm_train_phase(args, paths):
     rec, state = train_run(args, paths, cfg, "lm_train", B, T, nm, 3,
                            TRAIN_KERNELS, launches_per_step(
                                cfg, nm, ATTN_KINDS, ("flash_tc",),
-                               ("flash_tc_bwd",)))
+                               ("flash_tc_bwd",)), count_step=True)
     got = rec["launches"]
     assert got["flash_tf32x3"] == 0 and got["flash_fma"] == 0, got
     flop = model_flop(cfg, state["params"], B, T)
@@ -2342,18 +2447,12 @@ def lm_train_resilient_phase(args, paths):
 #: value| of that output; a bf16 output (B6's y) by one bf16 ulp of the
 #: value more (both round an f32 result).
 REC_TOL = 1e-4
-# f32 operations per (b, t, d) of B6's gates and step (two sigmoids, exp,
-# sqrt, max and the products; a transcendental counts one).
-RGLRU_OPS_PER_ELEM = 16
 # Special-function (MUFU) operations per (b, t, d) of B6's gates: an
 # exponential and a reciprocal for each sigmoid, the exponential of a,
 # the square root.
 RGLRU_SFU_PER_ELEM = 6
 # MUFU results per SM per clock on Hopper (4 per SM sub-partition).
 SFU_PER_SM_CLOCK = 16
-# f32 operations per (b, head, step, unit) of B8's cell update beside the
-# 8 Dh recurrent-product operations.
-SLSTM_CELL_OPS = 24
 
 
 def rec_err(out, ref, rel=REC_TOL):
@@ -2373,14 +2472,6 @@ def rec_err(out, ref, rel=REC_TOL):
 def rec_errs(outs, refs, rel=REC_TOL):
     errs = [rec_err(a, b, rel) for a, b in zip(outs, refs)]
     return max(e for e, _ in errs), all(ok for _, ok in errs)
-
-
-def bound_of(ops, nbytes):
-    """(ms, what binds): f32 operations on the FMA units at 67 TFLOP/s,
-    bytes at 3.35 TB/s."""
-    t_ops, t_bytes = ops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def sfu_floor_ms(n_ops):
@@ -2436,10 +2527,8 @@ def rglru_check(name, B, T, D, dtype, seed, with_h0=False, reps=0,
                     rglru_mod.KERNEL_WARPS],
            "max_abs_err": err, "within_tolerance": ok, "plain_ms": plain_ms}
     if reps:
-        es = x.element_size()
-        nbytes = 4 * B * T * D * es + D * lam.element_size() \
-            + B * D * 4 * (2 if with_h0 else 1)
-        bound, by = bound_of(B * T * D * RGLRU_OPS_PER_ELEM, nbytes)
+        bound, by = kernel_work.rglru(B, T, D, x.element_size(),
+                                      lam.element_size(), with_h0).bound()
 
         sfu_ms, sfu = sfu_floor_ms(B * T * D * RGLRU_SFU_PER_ELEM)
         rec.update(ms=time_cuda(
@@ -2554,25 +2643,10 @@ def mlstm_inputs(B, H, T, D, seed, with_state=False, extreme=0,
 
 
 def mlstm_bounds(B, H, T, D, L):
-    """(ms, what binds) of B7 whole (f32 FMA operations, q, k, v, gates,
-    h and the state once) and of each pass
-    (its own inputs read once, its outputs — the D^2 + D + 2 values of a
-    chunk's state — written once)."""
-    nc = T // L
-    state_b = 4 * B * H * nc * (D * D + D + 2)
-    whole = bound_of(B * H * nc * (2 * L * (L + 1) * D + 4 * L * D * D
-                                   + 4 * L * D),
-                     4 * (4 * B * T * H * D + 2 * B * H * T
-                          + 2 * B * H * (D * D + D + 1)))
-    states = bound_of(B * H * nc * (2 * L * D * D + 2 * L * D + 4 * L),
-                      4 * (2 * B * T * H * D + 2 * B * H * T) + state_b)
-    scan = bound_of(B * H * nc * (3 * (D * D + D) + 6),
-                    2 * state_b + 8 * B * H * (D * D + D + 1))
-    outputs = bound_of(B * H * nc * (2 * L * L * D + L * (L + 1) * D
-                                     + 2 * L * D * D + 2 * L * D + 8 * L),
-                       4 * (4 * B * T * H * D + 2 * B * H * T) + state_b)
-    return {"whole": whole, "mlstm_chunk_states": states,
-            "mlstm_state_scan": scan, "mlstm_chunk_outputs": outputs}
+    """(ms, what binds) of B7 whole and of each pass
+    (`kernels.work.mlstm`)."""
+    return {key: w.bound()
+            for key, w in kernel_work.mlstm(B, H, T, D, L).items()}
 
 
 def mlstm_check(name, B, H, T, D, chunk, seed, with_state=False,
@@ -2745,12 +2819,8 @@ def slstm_check(name, B, T, H, Dh, dtype, seed, with_state=False, reps=0):
            "cluster": xlstm_mod.slstm_cluster(Dh),
            "max_abs_err": err, "within_tolerance": ok, "plain_ms": plain_ms}
     if reps:
-        d = H * Dh
-        es = wx["z"].element_size()
-        ops = B * T * H * Dh * (8 * Dh + SLSTM_CELL_OPS)
-        nbytes = 4 * B * T * d * es + 4 * H * Dh * Dh * r["z"].element_size() \
-            + B * T * d * 4 + 8 * B * d * 4
-        bound, by = bound_of(ops, nbytes)
+        bound, by = kernel_work.slstm(B, T, H, Dh, wx["z"].element_size(),
+                                      r["z"].element_size()).bound()
         ms = time_cuda(lambda: xlstm_mod.slstm_scan_cuda(wx, r, state), reps)
         rec.update(ms=ms, bound_ms=bound, bound_by=by,
                    us_per_step=ms * 1e3 / T)
@@ -2924,60 +2994,17 @@ def recurrent_checks(quick):
 #: tensor may differ by 1e-3 of the largest |plain value| of that tensor;
 #: a bf16 output by one bf16 ulp of the value more.
 BWD_REC_TOL = 1e-3
-# f32 operations per (b, head, step, unit) of the sLSTM cell's backward
-# beside the 16 Dh of the recurrent product and dR (a multiply, an add,
-# a max, a compare or a select counting one, as does a transcendental or
-# a division), term by term as slstm_bwd.cu's note writes the function,
-# each shared value once. The step's forward from its record, 21: f~ 1,
-# log_sigmoid(f~) 2, m' 2, i' 2, f' 2, z 1, o 3, c' 3, n' 2, 1 / n' 2,
-# the max's branch 1. Its backward, 31: dh_t 1; c' / n', o / n', do,
-# dc', o c' / n'^2, dn' 8; delta_z 4; delta_i 3; delta_f 5 and
-# sigmoid(-f~) 3; delta_o 3; dc, dn 2; g onto the winning branch and on
-# to the step before 2.
-SLSTM_BWD_CELL_OPS = 52
 #: The kernels' names in -Xptxas -v output and in a profiler trace.
 B7_BWD_PASSES = ("mlstm_bwd_outputs", "mlstm_bwd_scan", "mlstm_bwd_inputs")
 
 
 def mlstm_bwd_bounds(B, H, T, D, L):
-    """{"whole" and each pass: (ms, what binds, fma_ms)} of B7-bwd: the
-    products at the TF32 tensor-core peak (494.7 TFLOP/s, as the f32
-    attention backward's bound counts its f32 products), the other f32
-    operations on the FMA units (67 TFLOP/s), each pass's inputs read once
-    and outputs written once (a chunk state counted as its D^2 + D
-    values), the least time the largest of the three; `fma_ms` with every
-    operation on the FMA units, as the first design counted it. Per chunk
-    the products are four L x D x D (8 L D^2: dC_own in pass 1 — the
-    m-gradient through sigma is the state's dot with it, not a product q
-    C_in — and pass 3's k dC_out, v dC_out^T, dh~ C_in^T) and pass 3's
-    intra-chunk S, dP, P^T dh~, dS^T q, dS k over the causal triangle
-    (5 L (L + 1) D)."""
-    nc = T // L
-    st = 4 * B * H * nc * (D * D + D)
-    rows = 4 * B * T * H * D
-    gates = 4 * B * H * T
-    n = B * H * nc
-
-    def bound(products, other, nbytes):
-        t_ops = max(products / TF32_FLOP_PER_S, other / F32_FLOP_PER_S)
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        return (max(t_ops, t_bytes) * 1e3,
-                "operations" if t_ops >= t_bytes else "bytes",
-                bound_of(products + other, nbytes)[0])
-    return {
-        "whole": bound(n * (8 * L * D * D + 5 * L * (L + 1) * D),
-                       n * (14 * L * D + 6 * (D * D + D)),
-                       8 * rows + 5 * gates + st + 4 * B * H * (D * D + D
-                                                                + 1)),
-        "mlstm_bwd_outputs": bound(n * 2 * L * D * D,
-                                   n * (2 * (D * D + D) + 4 * L * D),
-                                   3 * rows + 3 * gates + 2 * st),
-        "mlstm_bwd_scan": bound(0, n * (4 * (D * D + D) + 6),
-                                3 * st + 4 * 4 * B * H * nc
-                                + 4 * B * H * (D * D + D)),
-        "mlstm_bwd_inputs": bound(n * (6 * L * D * D + 5 * L * (L + 1) * D),
-                                  n * 10 * L * D,
-                                  8 * rows + 5 * gates + 2 * st)}
+    """{"whole" and each pass: (ms, what binds, fma_ms)} of B7-bwd
+    (`kernels.work.mlstm_bwd`: the products at the TF32 peak, the other
+    f32 operations on the FMA units); `fma_ms` with every operation on
+    the FMA units, as the first design counted it."""
+    return {key: (*w.bound(), w.at("f32").bound()[0])
+            for key, w in kernel_work.mlstm_bwd(B, H, T, D, L).items()}
 
 
 def mlstm_bwd_check(name, B, H, T, D, chunk, seed, with_state=False,
@@ -3137,16 +3164,13 @@ def slstm_bwd_check(name, B, T, H, Dh, dtype, seed, with_state=False,
                      and rec["branch_flips"] > 0):
         raise AssertionError(f"B8-bwd {name}: the max never flipped: {rec}")
     if reps:
-        d = H * Dh
-        ops = B * T * H * Dh * (16 * Dh + SLSTM_BWD_CELL_OPS)
-        nbytes = B * T * d * 4 * (xlstm_mod.SLSTM_SAVED + 1 + 4 + 1) \
-            + 4 * H * Dh * Dh * r["z"].element_size() * 2 + 8 * B * d * 4
-        bound, by = bound_of(ops, nbytes)
+        bound, by = kernel_work.slstm_bwd(
+            B, T, H, Dh, r["z"].element_size(), xlstm_mod.SLSTM_SAVED,
+            True).bound()
         # The kernel alone: dR's 8 Dh, h and dR's bytes left out.
-        kernel_bound, _ = bound_of(
-            B * T * H * Dh * (8 * Dh + SLSTM_BWD_CELL_OPS),
-            B * T * d * 4 * (xlstm_mod.SLSTM_SAVED + 1 + 4)
-            + 4 * H * Dh * Dh * r["z"].element_size() + 8 * B * d * 4)
+        kernel_bound, _ = kernel_work.slstm_bwd(
+            B, T, H, Dh, r["z"].element_size(), xlstm_mod.SLSTM_SAVED,
+            False).bound()
         ms = time_cuda(lambda: xlstm_mod.slstm_scan_bwd_cuda(*args), reps)
         kernel_ms = time_cuda(lambda: xlstm_mod.slstm_bwd_cells_cuda(
             *args[:1], *args[2:]), reps)
@@ -3173,9 +3197,6 @@ def slstm_bwd_check(name, B, T, H, Dh, dtype, seed, with_state=False,
     return rec
 
 
-#: f32 operations per (b, t, d) of B6-bwd: the gates and h recomputed (as
-#: `RGLRU_OPS_PER_ELEM`), the reverse step and the gate chain (about 24).
-RGLRU_BWD_OPS_PER_ELEM = 40
 #: MUFU operations per (b, t, d) of B6-bwd: the forward's six, then two
 #: sigmoids (an exponential and a reciprocal each), a square root and a
 #: reciprocal again in the chain.
@@ -3246,12 +3267,13 @@ def rglru_bwd_check(name, B, T, D, dtype, seed, with_h0=False, reps=0,
            "dlam_repeat_max_abs": dlam_rep,
            "within_tolerance": fwd_ok and ok, "plain_ms": plain_ms}
     if reps:
-        es, n = x.element_size(), B * T * D
-        ntiles = -(-T // rglru_mod.KERNEL_CHUNK) * B \
-            * -(-D // rglru_mod.KERNEL_CHANNELS)
-        nbytes = 7 * n * es + 4 * ntiles * rglru_mod.KERNEL_CHANNELS \
-            + 2 * D * lam.element_size() + B * D * 4 * (3 if with_h0 else 1)
-        bound, by = bound_of(n * RGLRU_BWD_OPS_PER_ELEM, nbytes)
+        n = B * T * D
+        w = kernel_work.rglru_bwd(B, T, D, x.element_size(),
+                                  lam.element_size(), with_h0,
+                                  rglru_mod.KERNEL_CHUNK,
+                                  rglru_mod.KERNEL_CHANNELS)
+        bound, by = w.bound()
+        nbytes = w.nbytes
         sfu_ms, _ = sfu_floor_ms(n * RGLRU_BWD_SFU_PER_ELEM)
         rec.update(
             ms=time_cuda(lambda: rglru_mod.rglru_scan_bwd_cuda(*args), reps),
@@ -3388,7 +3410,7 @@ def lm_train_xlstm_phase(args, paths):
     for kind, (fwd, bwd) in XL_KERNELS.items():
         want.update(launches_per_step(cfg, nm, (kind,), fwd, bwd))
     rec, state = train_run(args, paths, cfg, "lm_train_xlstm", B, T, nm, 13,
-                           XL_TRAIN_KERNELS, want)
+                           XL_TRAIN_KERNELS, want, count_step=True)
     del state
     torch.cuda.empty_cache()
     emit("lm_progress", {"lm_train_xlstm": {k_: v_ for k_, v_ in rec.items()
@@ -4289,19 +4311,21 @@ def launcher_phase(paths, quick):
 
 
 def shard_trace(fn):
-    """Run `fn` once under torch.profiler and count, in the exported
-    trace, the device kernels by device, the copies by kind, the NCCL
-    kernels and the peer-to-peer copies (card to card): a sharded run
-    holds none of the last two."""
+    """Run `fn` once under torch.profiler (shapes recorded) and count, in
+    the exported trace, the device kernels by device, the copies by kind,
+    the NCCL kernels and the peer-to-peer copies (card to card), and read
+    its collectives by kind (`collective_bytes_by_kind`): a sharded run
+    holds none of the last three."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         wall_ms, _ = time_host(fn)
     path = build.build_dir() / "shard_trace.json"
     prof.export_chrome_trace(str(path))
     with open(path) as fh:
-        events = json.load(fh)["traceEvents"]
+        trace = json.load(fh)
     path.unlink()
+    events = trace["traceEvents"]
     kernels, copies = collections.Counter(), collections.Counter()
     nccl = peer = 0
     for e in events:
@@ -4315,7 +4339,8 @@ def shard_trace(fn):
             peer += "PtoP" in e["name"]
     return {"traced_wall_ms": wall_ms, "kernels_by_device": dict(kernels),
             "copies_by_kind": dict(copies), "nccl_kernels": nccl,
-            "peer_copies": peer}
+            "peer_copies": peer,
+            "collectives": collective_bytes_by_kind(trace)}
 
 
 def mesh_phase(paths, reads, refs, out_all, short, eng64):
@@ -4381,6 +4406,7 @@ def mesh_phase(paths, reads, refs, out_all, short, eng64):
         trace = shard_trace(lambda: engm.align(reads, refs, collect_tb=True))
     assert sum(trace["kernels_by_device"].values()) > 0, trace
     assert trace["nccl_kernels"] == 0 and trace["peer_copies"] == 0, trace
+    assert trace["collectives"]["total_bytes"] == 0, trace
     out["trace"] = trace
     served = {}
     for tag, argv in (("launch_serve_mesh", ["--reads", "512"]),
@@ -4403,7 +4429,8 @@ def roofline_phase(reads, refs, engine, pipelined, persistent, num_shards):
     request, pipelined and persistent, beside the measured pairs/s and
     the share of the bound; the measured host time per dispatch slice
     against the model's assumed `DISPATCH_OVERHEAD_S`; and B1's
-    kernel-table bound at the same classes (`WAVEFRONT_OPS_PER_CELL` per
+    kernel-table bound at the same classes (`kernel_work.
+    WAVEFRONT_OPS_PER_CELL` per
     cell, not the model's 15). Host arithmetic only."""
     t0 = time.perf_counter()
     classes, totals = [], {"pipelined": 0.0, "persistent_overlap": 0.0}
@@ -4439,7 +4466,7 @@ def roofline_phase(reads, refs, engine, pipelined, persistent, num_shards):
             "roofline_dominant": pipe["dominant"],
             "roofline_ops_per_cell": 15,
             "b1_bound_ms": b1_ms, "b1_bound_by": b1_by,
-            "b1_ops_per_cell": WAVEFRONT_OPS_PER_CELL,
+            "b1_ops_per_cell": kernel_work.WAVEFRONT_OPS_PER_CELL,
             "b1_bound_pairs_per_s": pairs / (b1_ms / 1e3)})
     N = len(reads)
     pipe_bound = N / totals["pipelined"]
@@ -4927,6 +4954,7 @@ def main():
     # ---- 5b. the sharded engine over the cards' mesh; the roofline ----
     mesh = mesh_phase(paths, reads, refs, out_all, short, eng64)
     emit("mesh", mesh)
+    emit("dryrun", dryrun_phase(lm_train, lm_train_xl, mesh))
     emit("roofline", roofline_phase(reads, refs, eng64, runs[0], rec_p,
                                     eng64.num_shards))
 

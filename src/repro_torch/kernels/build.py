@@ -58,6 +58,20 @@ _LOAD_LOCK = threading.Lock()
 # The same threads bump the wrappers' launch counters.
 _COUNT_LOCK = threading.Lock()
 
+#: The dry run's active counter (`launch.dryrun.StepCounter`) or None.
+#: While one is active every kernel wrapper hands it each call's work
+#: (`kernels.work`), whether the call launched on CUDA tensors or was
+#: traced on meta ones; with none, a launch pays one test of this name.
+WORK = None
+
+
+def kernel_side(t) -> bool:
+    """Whether `t` takes a kernel's route rather than its plain version:
+    on a CUDA tensor the wrapper launches the kernel; on a "meta" tensor
+    (the dry run's abstract trees) it allocates what the launch would
+    allocate, launches nothing and counts no launch."""
+    return t.is_cuda or t.is_meta
+
 
 def count(fn, attr: str = "launches", **keyed) -> None:
     """Add one to the counter `fn.<attr>` (a wrapper's ``launches``, a

@@ -40,6 +40,12 @@ split tf32 operands. On CPU tensors it runs
 `flash_attention_tc_cuda` and `flash_attention_tf32x3_cuda` go through it
 whenever autograd would record the call; the FMA kernel, on no route, has
 no backward and raises there (`build.refuse_grad`).
+
+"meta" tensors (the dry run's, `launch.dryrun`) take the CUDA tensors'
+route (`build.kernel_side`): each kernel wrapper allocates what its launch
+would, launches nothing and counts no launch; while a counter is active
+(`build.WORK`) every call, launched or traced, reports its work by the
+kernel table's formula (`kernels.work`).
 """
 
 from __future__ import annotations
@@ -49,7 +55,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work
 
 NEG_INF = -1e30
 
@@ -296,7 +302,7 @@ def _prepare(q, k, v, window, dtypes, head_dims, name):
     if B * Hq > 65535 or T > 2 ** 30:
         raise ValueError(f"B*Hq={B * Hq} > 65535 or T={T} too long for one "
                          f"launch")
-    if not q.is_cuda:
+    if not build.kernel_side(q):
         raise ValueError(f"{name} takes CUDA tensors; the plain version "
                          f"flash_attention_plain runs anywhere")
     return (*_contiguous(q, k, v), max(min(W, T), 0),
@@ -330,10 +336,12 @@ def _tc_forward(q, k, v, window, with_lse):
     out = torch.empty_like(q)
     lse = torch.empty(sizes[:2] + sizes[3:4], dtype=torch.float32,
                       device=q.device) if with_lse else None
-    if q.numel():
+    if q.numel() and not q.is_meta:
         _call(_lib("flash_tc", "flash_attention_tc_launch", 6, n_ptr=5),
               (q, k, v, out, lse), (*sizes, W), "flash_tc")
         build.count(flash_attention_tc_cuda)
+    if build.WORK is not None:
+        build.WORK.kernel("flash_tc", work.flash(*sizes, W, 2))
     return out, lse
 
 
@@ -397,11 +405,14 @@ def flash_attention_bwd_tc_cuda(q, k, v, out, lse, dout, *, window=None):
                              device=q.device)
         dq_acc = torch.empty((B, Hq, T, D), dtype=torch.float32,
                              device=q.device)
-        _call(_lib("flash_tc_bwd", "flash_attention_bwd_tc_launch", 6,
-                   n_ptr=11),
-              (q, k, v, out, lse, dout, dq, dk, dv, rowvec, dq_acc),
-              (*sizes, W), "flash_tc_bwd")
-        build.count(flash_attention_bwd_tc_cuda)
+        if not q.is_meta:
+            _call(_lib("flash_tc_bwd", "flash_attention_bwd_tc_launch", 6,
+                       n_ptr=11),
+                  (q, k, v, out, lse, dout, dq, dk, dv, rowvec, dq_acc),
+                  (*sizes, W), "flash_tc_bwd")
+            build.count(flash_attention_bwd_tc_cuda)
+    if build.WORK is not None:
+        build.WORK.kernel("flash_tc_bwd", work.flash_bwd(*sizes, W, 2))
     return dq, dk, dv
 
 
@@ -458,12 +469,15 @@ def flash_attention_bwd_tf32x3_cuda(q, k, v, out, lse, dout, *,
         n = split_bwd_pieces_numel(B, Hq, Hkv, T, D)
         pieces = torch.empty(n, dtype=torch.bfloat16, device=q.device) \
             if n else None
-        _call(_lib("flash_tf32x3_bwd", "flash_attention_bwd_tf32x3_launch",
-                   6, n_ptr=11),
-              (q, k, v, out, lse, dout, dq, dk, dv, rowvec, pieces),
-              (*sizes, W), "flash_tf32x3_bwd")
-        build.count(flash_attention_bwd_tf32x3_cuda,
-                    "launches" if n else "mma_sync_launches")
+        if not q.is_meta:
+            _call(_lib("flash_tf32x3_bwd",
+                       "flash_attention_bwd_tf32x3_launch", 6, n_ptr=11),
+                  (q, k, v, out, lse, dout, dq, dk, dv, rowvec, pieces),
+                  (*sizes, W), "flash_tf32x3_bwd")
+            build.count(flash_attention_bwd_tf32x3_cuda,
+                        "launches" if n else "mma_sync_launches")
+    if build.WORK is not None:
+        build.WORK.kernel("flash_tf32x3_bwd", work.flash_bwd(*sizes, W, 4))
     return dq, dk, dv
 
 
@@ -482,7 +496,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, window=None, block_q=128, block_k=128):
-        if q.is_cuda:
+        if build.kernel_side(q):
             forward = _tc_forward if kernel_route(
                 q.dtype, q.shape[-1]) == "tc" else _tf32x3_forward
             out, lse = forward(q, k, v, window, True)
@@ -498,7 +512,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if not q.is_cuda:
+        if not build.kernel_side(q):
             bwd = flash_attention_bwd_plain
         elif bwd_route(q.dtype, q.shape[-1]) == "tc":
             bwd = flash_attention_bwd_tc_cuda
@@ -516,11 +530,13 @@ def _tf32x3_forward(q, k, v, window, with_lse):
     out = torch.empty_like(q)
     lse = torch.empty(sizes[:2] + sizes[3:4], dtype=torch.float32,
                       device=q.device) if with_lse else None
-    if q.numel():
+    if q.numel() and not q.is_meta:
         _call(_lib("flash_tf32x3", "flash_attention_tf32x3_launch", 6,
                    n_ptr=5),
               (q, k, v, out, lse), (*sizes, W), "flash_tf32x3")
         build.count(flash_attention_tf32x3_cuda)
+    if build.WORK is not None:
+        build.WORK.kernel("flash_tf32x3", work.flash(*sizes, W, 4))
     return out, lse
 
 
@@ -549,6 +565,9 @@ def flash_attention_fma_cuda(q, k, v, *, window=None):
     leads here any more: `flash_attention_tf32x3_cuda` computes the same
     function on the tensor cores."""
     build.refuse_grad("flash_attention_fma_cuda", q, k, v)
+    if q.is_meta:
+        raise ValueError("flash_attention_fma_cuda is on no route and takes "
+                         "CUDA tensors only")
     q, k, v, W, sizes = _prepare(q, k, v, window, KERNEL_DTYPES,
                                  KERNEL_HEAD_DIMS,
                                  "flash_attention_fma_cuda")

@@ -19,7 +19,8 @@ then B5-bwd, `csrc/flash_tc_bwd.cu`, for bf16, or the f32 backward,
 keeps the reference wrapper's block rule (`ops.flash_attention`: T must
 divide the blocks clipped to T) on every device. On CPU tensors each impl
 keeps its reference meaning, and "pallas" takes the kernels' plain
-version.
+version. "meta" tensors (the dry run's) take the CUDA tensors' route and
+launch nothing.
 
 Caches: a full cache (B, Hkv, S_max, D) for global layers, a ring buffer
 (B, Hkv, W, D) for windowed layers; keys are stored after RoPE, so ring
@@ -36,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.local_attention.local_attention import \
     flash_attention_cuda
 from repro_torch.kernels.local_attention.ops import flash_attention
@@ -173,7 +175,7 @@ def attention_apply(p, cfg, x, positions, *, window=None, impl="chunked",
     q, k, v = _project_qkv(p, cfg, x, positions, rope=rope)
     if impl == "pallas":
         out = flash_attention(q, k, v, window=window)
-    elif impl == "chunked" and q.is_cuda:
+    elif impl == "chunked" and build.kernel_side(q):
         out = flash_attention_cuda(q, k, v, window=window)
     elif impl == "naive" or T <= q_chunk:
         out = _naive_attention(q, k, v, window)

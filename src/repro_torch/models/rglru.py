@@ -28,6 +28,12 @@ h of the tile before) on CUDA tensors, and `rglru_scan_plain` with
 go through it whenever autograd would record the call.
 
 The surrounding Griffin recurrent block is in blocks.py (conv1d + gating).
+
+"meta" tensors (the dry run's, `launch.dryrun`) take the CUDA tensors'
+route (`build.kernel_side`): each kernel wrapper allocates what its launch
+would, launches nothing and counts no launch; while a counter is active
+(`build.WORK`) every call, launched or traced, reports its work by the
+kernel table's formula (`kernels.work`).
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work as kernel_work
 from repro_torch.models import layers
 
 _C = 8.0
@@ -225,9 +231,20 @@ def _lib(name="rglru_scan"):
     return fn, size
 
 
+def scratch_bytes(B, T, D) -> int:
+    """Bytes of B6's (and B6-bwd's) scratch, as the kernels' own
+    `*_scratch_bytes` entry gives them: per tile of `KERNEL_CHUNK` steps x
+    `KERNEL_CHANNELS` channels an aggregate (2 f32), an inclusive h (1
+    f32) per channel and a flag (4 bytes), and 4 bytes more. The dry run
+    sizes a meta scratch by it; a CUDA launch asks the library."""
+    tiles = B * -(-T // KERNEL_CHUNK) * -(-D // KERNEL_CHANNELS)
+    return tiles * (KERNEL_CHANNELS * 12 + 4) + 4
+
+
 def _check_cuda(name, wa, wx, x, lam, h0):
-    """The checks both kernels' wrappers make of the forward's inputs."""
-    if not (isinstance(x, torch.Tensor) and x.is_cuda):
+    """The checks both kernels' wrappers make of the forward's inputs:
+    CUDA tensors (or the dry run's meta ones: `build.kernel_side`)."""
+    if not (isinstance(x, torch.Tensor) and build.kernel_side(x)):
         raise ValueError(f"{name} takes CUDA tensors; the plain version "
                          f"runs anywhere")
     if x.dim() != 3 or wa.shape != x.shape or wx.shape != x.shape:
@@ -261,19 +278,24 @@ def _forward_cuda(wa, wx, x, lam, h0):
     B, T, D = _check_cuda("rglru_scan_cuda", wa, wx, x, lam, h0)
     y = torch.empty_like(x)
     h_last = torch.empty((B, D), dtype=torch.float32, device=x.device)
-    fn, size = _lib()
+    fn, size = (None, scratch_bytes) if x.is_meta else _lib()
     # The look-back's values and flags; the launch zeroes the flags.
     scratch = torch.empty(size(B, T, D), dtype=torch.uint8, device=x.device)
-    with torch.cuda.device(x.device):
-        err = fn(wa.data_ptr(), wx.data_ptr(), x.data_ptr(), lam.data_ptr(),
-                 h0.data_ptr() if h0 is not None else None, y.data_ptr(),
-                 h_last.data_ptr(), scratch.data_ptr(), B, T, D,
-                 KERNEL_DTYPES[x.dtype], KERNEL_DTYPES[lam.dtype],
-                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error "
-                           f"{err}")
-    build.count(rglru_scan_cuda)
+    if not x.is_meta:
+        with torch.cuda.device(x.device):
+            err = fn(
+                wa.data_ptr(), wx.data_ptr(), x.data_ptr(), lam.data_ptr(),
+                h0.data_ptr() if h0 is not None else None, y.data_ptr(),
+                h_last.data_ptr(), scratch.data_ptr(), B, T, D,
+                KERNEL_DTYPES[x.dtype], KERNEL_DTYPES[lam.dtype],
+                torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"rglru_scan kernel launch failed: CUDA "
+                               f"error {err}")
+        build.count(rglru_scan_cuda)
+    if build.WORK is not None:
+        build.WORK.kernel("rglru_scan", kernel_work.rglru(
+            B, T, D, x.element_size(), lam.element_size(), h0 is not None))
     return y, h_last, scratch
 
 
@@ -304,7 +326,7 @@ def rglru_scan_bwd_cuda(wa, wx, x, lam, h0, saved, dy, dh_last=None):
     anything the kernel does not take."""
     name = "rglru_scan_bwd_cuda"
     B, T, D = _check_cuda(name, wa, wx, x, lam, h0)
-    fwd_size = _lib()[1](B, T, D)
+    fwd_size = (scratch_bytes if x.is_meta else _lib()[1])(B, T, D)
     if saved.dtype != torch.uint8 or saved.shape != (fwd_size,) \
             or not saved.is_contiguous():
         raise ValueError(f"{name}: saved must be the forward's scratch, "
@@ -323,18 +345,25 @@ def rglru_scan_bwd_cuda(wa, wx, x, lam, h0, saved, dy, dh_last=None):
     dwa, dwx, dx = (torch.empty_like(x) for _ in range(3))
     dlam = torch.empty(D, dtype=torch.float32, device=x.device)
     dh0 = None if h0 is None else torch.empty_like(h0)
-    fn, size = _lib("rglru_scan_bwd")
+    fn, size = (None, scratch_bytes) if x.is_meta \
+        else _lib("rglru_scan_bwd")
     scratch = torch.empty(size(B, T, D), dtype=torch.uint8, device=x.device)
-    with torch.cuda.device(x.device):
-        err = fn(*(None if t is None else t.data_ptr() for t in (
-            wa, wx, x, lam, h0, saved, dy, dh_last, dwa, dwx, dx, dlam,
-            dh0, scratch)), B, T, D, KERNEL_DTYPES[x.dtype],
-            KERNEL_DTYPES[lam.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"rglru_scan_bwd kernel launch failed: CUDA "
-                           f"error {err}")
-    build.count(rglru_scan_bwd_cuda)
+    if not x.is_meta:
+        with torch.cuda.device(x.device):
+            err = fn(
+                *(None if t is None else t.data_ptr() for t in (
+                    wa, wx, x, lam, h0, saved, dy, dh_last, dwa, dwx, dx,
+                    dlam, dh0, scratch)), B, T, D, KERNEL_DTYPES[x.dtype],
+                KERNEL_DTYPES[lam.dtype],
+                torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"rglru_scan_bwd kernel launch failed: CUDA "
+                               f"error {err}")
+        build.count(rglru_scan_bwd_cuda)
+    if build.WORK is not None:
+        build.WORK.kernel("rglru_scan_bwd", kernel_work.rglru_bwd(
+            B, T, D, x.element_size(), lam.element_size(), h0 is not None,
+            KERNEL_CHUNK, KERNEL_CHANNELS))
     return dwa, dwx, dx, dlam.to(lam.dtype), dh0
 
 
@@ -352,7 +381,7 @@ class RGLRUScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, wa, wx, x, lam, h0):
-        if x.is_cuda:
+        if build.kernel_side(x):
             y, h_last, saved = _forward_cuda(wa, wx, x, lam, h0)
         else:
             (y, h_last), saved = rglru_scan_plain(wa, wx, x, lam, h0), None
@@ -367,9 +396,9 @@ class RGLRUScan(torch.autograd.Function):
             dy = torch.zeros_like(x)
         dy = dy.to(x.dtype).contiguous()
         if dh_last is not None:
-            dh_last = dh_last.to(torch.float32 if x.is_cuda
+            dh_last = dh_last.to(torch.float32 if build.kernel_side(x)
                                  else _ct(x)).contiguous()
-        if x.is_cuda:
+        if build.kernel_side(x):
             grads = rglru_scan_bwd_cuda(wa, wx, x, lam, h0, saved, dy,
                                         dh_last)
         else:

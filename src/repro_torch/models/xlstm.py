@@ -40,6 +40,12 @@ forward's) and `SLSTMScan` (B8 writing a per-step record, then B8-bwd,
 reduce-scattered one way) — on CPU tensors through the plain passes and
 the plain backwards (`mlstm_chunk_scan_bwd_plain`, `slstm_scan_bwd_plain`).
 The backwards hold the stabilisers constant (see their notes below).
+
+"meta" tensors (the dry run's, `launch.dryrun`) take the CUDA tensors'
+route (`build.kernel_side`): each kernel wrapper allocates what its launch
+would, launches nothing and counts no launch; while a counter is active
+(`build.WORK`) every call, launched or traced, reports its work by the
+kernel table's formula (`kernels.work`).
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, work as kernel_work
 from repro_torch.kernels.local_attention.local_attention import split3_plain
 from repro_torch.models import layers
 
@@ -69,7 +75,10 @@ _GATES = ("z", "i", "f", "o")
 
 
 def _check_cuda(name, *tensors):
-    if not all(isinstance(t, torch.Tensor) and t.is_cuda for t in tensors):
+    """CUDA tensors (or the dry run's meta ones: `build.kernel_side`) on
+    one device, none that autograd would record."""
+    if not all(isinstance(t, torch.Tensor) and build.kernel_side(t)
+               for t in tensors):
         raise ValueError(f"{name} takes CUDA tensors; its plain version runs "
                          f"anywhere")
     dev = tensors[0].device
@@ -405,14 +414,18 @@ def mlstm_chunk_states_cuda(k, v, it, ft, chunk: int):
     wshape, sshape = mlstm_work_shapes(B, H, T, D, chunk)
     work = torch.empty(wshape, dtype=torch.float32, device=k.device)
     scal = torch.empty(sshape, dtype=torch.float32, device=k.device)
-    with torch.cuda.device(k.device):
-        err = _mlstm_fn("mlstm_chunk_states_launch", (6, 11))(
-            k.data_ptr(), v.data_ptr(), it.data_ptr(), ft.data_ptr(),
-            work.data_ptr(), scal.data_ptr(), B, H, T, D, chunk,
-            *k.stride()[:3], *it.stride(),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "mlstm_chunk_states")
-    build.count(mlstm_chunk_states_cuda)
+    if not k.is_meta:
+        with torch.cuda.device(k.device):
+            err = _mlstm_fn("mlstm_chunk_states_launch", (6, 11))(
+                k.data_ptr(), v.data_ptr(), it.data_ptr(), ft.data_ptr(),
+                work.data_ptr(), scal.data_ptr(), B, H, T, D, chunk,
+                *k.stride()[:3], *it.stride(),
+                torch.cuda.current_stream().cuda_stream)
+        _raise_on(err, "mlstm_chunk_states")
+        build.count(mlstm_chunk_states_cuda)
+    if build.WORK is not None:
+        build.WORK.kernel("mlstm_chunk_states", kernel_work.mlstm(
+            B, H, T, D, chunk)["mlstm_chunk_states"])
     return work, scal
 
 
@@ -433,13 +446,18 @@ def mlstm_state_scan_cuda(work, scal, state):
         raise ValueError("state must be C (B,H,D,D), n (B,H,D), m (B,H)")
     C1, n1, m1 = torch.empty_like(C0), torch.empty_like(n0), \
         torch.empty_like(m0)
-    with torch.cuda.device(work.device):
-        err = _mlstm_fn("mlstm_state_scan_launch", (8, 4))(
-            work.data_ptr(), scal.data_ptr(), C0.data_ptr(), n0.data_ptr(),
-            m0.data_ptr(), C1.data_ptr(), n1.data_ptr(), m1.data_ptr(),
-            B, H, nc, D, torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "mlstm_state_scan")
-    build.count(mlstm_state_scan_cuda)
+    if not work.is_meta:
+        with torch.cuda.device(work.device):
+            err = _mlstm_fn("mlstm_state_scan_launch", (8, 4))(
+                work.data_ptr(), scal.data_ptr(), C0.data_ptr(),
+                n0.data_ptr(), m0.data_ptr(), C1.data_ptr(), n1.data_ptr(),
+                m1.data_ptr(), B, H, nc, D,
+                torch.cuda.current_stream().cuda_stream)
+        _raise_on(err, "mlstm_state_scan")
+        build.count(mlstm_state_scan_cuda)
+    if build.WORK is not None:       # the pass's work is nc chunks' states
+        build.WORK.kernel("mlstm_state_scan", kernel_work.mlstm(
+            B, H, nc, D, 1)["mlstm_state_scan"])
     return {"C": C1, "n": n1, "m": m1}
 
 
@@ -458,13 +476,17 @@ def mlstm_chunk_outputs_cuda(q, k, v, it, ft, work, scal, chunk: int, *,
     h = torch.empty((B, T, H * D), dtype=torch.float32, device=q.device)
     dot = torch.empty((B, H, T), dtype=torch.float32, device=q.device) \
         if with_dot else None
-    with torch.cuda.device(q.device):
-        err = _mlstm_fn("mlstm_chunk_outputs_launch", (9, 11))(
-            *(t.data_ptr() for t in (q, k, v, it, ft, work, scal, h)),
-            _ptr(dot), B, H, T, D, chunk, *q.stride()[:3], *it.stride(),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "mlstm_chunk_outputs")
-    build.count(mlstm_chunk_outputs_cuda)
+    if not q.is_meta:
+        with torch.cuda.device(q.device):
+            err = _mlstm_fn("mlstm_chunk_outputs_launch", (9, 11))(
+                *(t.data_ptr() for t in (q, k, v, it, ft, work, scal, h)),
+                _ptr(dot), B, H, T, D, chunk, *q.stride()[:3],
+                *it.stride(), torch.cuda.current_stream().cuda_stream)
+        _raise_on(err, "mlstm_chunk_outputs")
+        build.count(mlstm_chunk_outputs_cuda)
+    if build.WORK is not None:
+        build.WORK.kernel("mlstm_chunk_outputs", kernel_work.mlstm(
+            B, H, T, D, chunk)["mlstm_chunk_outputs"])
     return (h, dot) if with_dot else h
 
 
@@ -844,16 +866,20 @@ def mlstm_bwd_outputs_cuda(q, dh, h, dot, it, ft, work, scal, chunk: int):
     name = "mlstm_bwd_outputs_cuda"
     B, H, T, D = _check_bwd(name, q, dh, h, dot, it, ft, work, scal, chunk)
     dwork, dscal = torch.empty_like(work), torch.empty_like(scal)
-    with torch.cuda.device(q.device):
-        err = _mlstm_fn("mlstm_bwd_outputs_launch", (10, 11),
-                        "mlstm_chunk_bwd")(
-            q.data_ptr(), dh.data_ptr(), h.data_ptr(), dot.data_ptr(),
-            it.data_ptr(), ft.data_ptr(), work.data_ptr(), scal.data_ptr(),
-            dwork.data_ptr(), dscal.data_ptr(), B, H, T, D, chunk,
-            *q.stride()[:3], *it.stride(),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "mlstm_bwd_outputs")
-    build.count(mlstm_bwd_outputs_cuda)
+    if not q.is_meta:
+        with torch.cuda.device(q.device):
+            err = _mlstm_fn("mlstm_bwd_outputs_launch", (10, 11),
+                            "mlstm_chunk_bwd")(
+                q.data_ptr(), dh.data_ptr(), h.data_ptr(), dot.data_ptr(),
+                it.data_ptr(), ft.data_ptr(), work.data_ptr(),
+                scal.data_ptr(), dwork.data_ptr(), dscal.data_ptr(), B, H,
+                T, D, chunk, *q.stride()[:3], *it.stride(),
+                torch.cuda.current_stream().cuda_stream)
+        _raise_on(err, "mlstm_bwd_outputs")
+        build.count(mlstm_bwd_outputs_cuda)
+    if build.WORK is not None:
+        build.WORK.kernel("mlstm_bwd_outputs", kernel_work.mlstm_bwd(
+            B, H, T, D, chunk)["mlstm_bwd_outputs"])
     return dwork, dscal
 
 
@@ -881,14 +907,19 @@ def mlstm_bwd_scan_cuda(dwork, dscal, work, scal, dC1, dn1, gauge):
                                  f"({B}, {H})")
     dC0 = torch.empty((B, H, D, D), dtype=torch.float32, device=work.device)
     dn0 = torch.empty((B, H, D), dtype=torch.float32, device=work.device)
-    with torch.cuda.device(work.device):
-        err = _mlstm_fn("mlstm_bwd_scan_launch", (9, 4), "mlstm_chunk_bwd")(
-            dwork.data_ptr(), dscal.data_ptr(), work.data_ptr(),
-            scal.data_ptr(), *(_ptr(t) for t in given), dC0.data_ptr(),
-            dn0.data_ptr(), B, H, nc, D,
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "mlstm_bwd_scan")
-    build.count(mlstm_bwd_scan_cuda)
+    if not work.is_meta:
+        with torch.cuda.device(work.device):
+            err = _mlstm_fn("mlstm_bwd_scan_launch", (9, 4),
+                            "mlstm_chunk_bwd")(
+                dwork.data_ptr(), dscal.data_ptr(), work.data_ptr(),
+                scal.data_ptr(), *(_ptr(t) for t in given), dC0.data_ptr(),
+                dn0.data_ptr(), B, H, nc, D,
+                torch.cuda.current_stream().cuda_stream)
+        _raise_on(err, "mlstm_bwd_scan")
+        build.count(mlstm_bwd_scan_cuda)
+    if build.WORK is not None:       # the pass's work is nc chunks' states
+        build.WORK.kernel("mlstm_bwd_scan", kernel_work.mlstm_bwd(
+            B, H, nc, D, 1)["mlstm_bwd_scan"])
     return dC0, dn0
 
 
@@ -916,16 +947,20 @@ def mlstm_bwd_inputs_cuda(q, k, v, it, ft, dh, h, dot, work, scal, dwork,
                                     dtype=torch.float32, device=q.device)
                 for _ in range(2))
     dm0 = torch.empty((B, H), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _mlstm_fn("mlstm_bwd_inputs_launch", (19, 11),
-                        "mlstm_chunk_bwd")(
-            *(t.data_ptr() for t in (q, k, v, it, ft, dh, h, dot, work, scal,
-                                     dwork, dscal)), _ptr(dm1),
-            *(t.data_ptr() for t in (dq, dk, dv, dit, dft, dm0)),
-            B, H, T, D, chunk, *q.stride()[:3], *it.stride(),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "mlstm_bwd_inputs")
-    build.count(mlstm_bwd_inputs_cuda)
+    if not q.is_meta:
+        with torch.cuda.device(q.device):
+            err = _mlstm_fn("mlstm_bwd_inputs_launch", (19, 11),
+                            "mlstm_chunk_bwd")(
+                *(t.data_ptr() for t in (q, k, v, it, ft, dh, h, dot, work,
+                                         scal, dwork, dscal)), _ptr(dm1),
+                *(t.data_ptr() for t in (dq, dk, dv, dit, dft, dm0)),
+                B, H, T, D, chunk, *q.stride()[:3], *it.stride(),
+                torch.cuda.current_stream().cuda_stream)
+        _raise_on(err, "mlstm_bwd_inputs")
+        build.count(mlstm_bwd_inputs_cuda)
+    if build.WORK is not None:
+        build.WORK.kernel("mlstm_bwd_inputs", kernel_work.mlstm_bwd(
+            B, H, T, D, chunk)["mlstm_bwd_inputs"])
     return dq, dk, dv, dit, dft, dm0
 
 
@@ -961,7 +996,7 @@ class MLSTMChunkScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, it, ft, C0, n0, m0, chunk):
         state = {"C": C0, "n": n0, "m": m0}
-        if q.is_cuda:
+        if build.kernel_side(q):
             work, scal = mlstm_chunk_states_cuda(k, v, it, ft, chunk)
             st = mlstm_state_scan_cuda(work, scal, state)
             h, dot = mlstm_chunk_outputs_cuda(q, k, v, it, ft, work, scal,
@@ -982,7 +1017,7 @@ class MLSTMChunkScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh, dC1, dn1, dm1):
         q, k, v, it, ft, h, dot, work, scal, C1, n1 = ctx.saved_tensors
-        bwd = mlstm_chunk_scan_bwd_cuda if q.is_cuda \
+        bwd = mlstm_chunk_scan_bwd_cuda if build.kernel_side(q) \
             else mlstm_chunk_scan_bwd_plain
         if dh is None:
             dh = torch.zeros_like(h)
@@ -1200,13 +1235,17 @@ def slstm_scan_cuda(wx, r, state, *, with_saved: bool = False):
     out = [torch.empty_like(t) for t in st]
     saved = torch.empty((B, T, SLSTM_SAVED, H * Dh), dtype=torch.float32,
                         device=h.device) if with_saved else None
-    with torch.cuda.device(h.device):
-        err = _slstm_fn("slstm", 6)(
-            *(t.data_ptr() for t in (*wxs, *rs, *st, h, *out)), _ptr(saved),
-            B, T, H, Dh, code, slstm_cluster(Dh),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "slstm")
-    build.count(slstm_scan_cuda)
+    if not h.is_meta:
+        with torch.cuda.device(h.device):
+            err = _slstm_fn("slstm", 6)(
+                *(t.data_ptr() for t in (*wxs, *rs, *st, h, *out)),
+                _ptr(saved), B, T, H, Dh, code, slstm_cluster(Dh),
+                torch.cuda.current_stream().cuda_stream)
+        _raise_on(err, "slstm")
+        build.count(slstm_scan_cuda)
+    if build.WORK is not None:
+        build.WORK.kernel("slstm", kernel_work.slstm(
+            B, T, H, Dh, wxs[0].element_size(), rs[0].element_size()))
     state = dict(zip(("h", "c", "n", "m"), out))
     return (h, state, saved) if with_saved else (h, state)
 
@@ -1506,15 +1545,19 @@ def slstm_bwd_cells_cuda(r, c0, n0, m0, h, saved, dh, dh1, dc1, dn1, dm1):
                          f"states ({B}, {H}, {Dh})")
     delta = torch.empty((B, T, 4, d), dtype=torch.float32, device=h.device)
     out = [torch.empty_like(init[0]) for _ in range(4)]
-    with torch.cuda.device(h.device):
-        err = _slstm_fn("slstm_bwd", 6)(
-            *(t.data_ptr() for t in (*r, *init, saved, dh)),
-            *(_ptr(t) for t in given),
-            *(t.data_ptr() for t in (delta, *out)),
-            B, T, H, Dh, KERNEL_DTYPES[r[0].dtype], slstm_cluster(Dh),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "slstm_bwd")
-    build.count(slstm_scan_bwd_cuda)
+    if not h.is_meta:
+        with torch.cuda.device(h.device):
+            err = _slstm_fn("slstm_bwd", 6)(
+                *(t.data_ptr() for t in (*r, *init, saved, dh)),
+                *(_ptr(t) for t in given),
+                *(t.data_ptr() for t in (delta, *out)),
+                B, T, H, Dh, KERNEL_DTYPES[r[0].dtype], slstm_cluster(Dh),
+                torch.cuda.current_stream().cuda_stream)
+        _raise_on(err, "slstm_bwd")
+        build.count(slstm_scan_bwd_cuda)
+    if build.WORK is not None:       # the kernel alone: dR is an aten matmul
+        build.WORK.kernel("slstm_bwd", kernel_work.slstm_bwd(
+            B, T, H, Dh, r[0].element_size(), SLSTM_SAVED, False))
     return (delta, *out)
 
 
@@ -1533,7 +1576,8 @@ class SLSTMScan(torch.autograd.Function):
         wx = dict(zip(_GATES, (wz, wi, wf, wo)))
         r = dict(zip(_GATES, (rz, ri, rf, ro)))
         state = {"h": h0, "c": c0, "n": n0, "m": m0}
-        scan = slstm_scan_cuda if wz.is_cuda else slstm_scan_plain
+        scan = slstm_scan_cuda if build.kernel_side(wz) \
+            else slstm_scan_plain
         h, st, saved = scan(wx, r, state, with_saved=True)
         ctx.save_for_backward(rz, ri, rf, ro, h0, c0, n0, m0, h, saved)
         ctx.wx_dtype = wz.dtype
@@ -1545,7 +1589,8 @@ class SLSTMScan(torch.autograd.Function):
         rz, ri, rf, ro, h0, c0, n0, m0, h, saved = ctx.saved_tensors
         if dh is None:
             dh = torch.zeros_like(h)
-        bwd = slstm_scan_bwd_cuda if rz.is_cuda else slstm_scan_bwd_plain
+        bwd = slstm_scan_bwd_cuda if build.kernel_side(rz) \
+            else slstm_scan_bwd_plain
         delta, dR, dh0, dc0, dn0, dm0 = bwd(
             (rz, ri, rf, ro), h0, c0, n0, m0, h, saved, dh, dh1, dc1, dn1,
             dm1)

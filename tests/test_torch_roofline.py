@@ -18,6 +18,7 @@ from repro.roofline.analytic import alignment_roofline as \
     jax_alignment_roofline
 from repro.roofline import analytic as jax_analytic
 from repro_torch.configs import SHAPES, list_archs
+from repro_torch.kernels import work
 from repro_torch.roofline import (ALIGN_DIVERGENCE, CELL_STATE_BYTES,
                                   DISPATCH_OVERHEAD_S, H100, H100_INT32, HW,
                                   Hardware, alignment_roofline,
@@ -157,8 +158,8 @@ def test_h100_records_are_the_data_sheet_and_chip_smokes_constants():
     """The H100 records are NVIDIA's data-sheet peaks (dense bf16 989
     TFLOP/s, HBM 3.35 TB/s, NVLink 450 GB/s a direction; int32 = a
     quarter of the 67 TFLOP/s f32 figure), the default `HW` is the H100,
-    and `chip_smoke.py` takes its kernel-table bounds' rates from them
-    instead of repeating them."""
+    and `chip_smoke.py` and the kernel table's formulas (`kernels.work`)
+    take their bounds' rates from them or equal them."""
     assert (H100.peak_flops, H100.hbm_bw, H100.link_bw) == (989e12, 3.35e12,
                                                             450e9)
     assert H100_INT32 == Hardware("h100-sxm-int32", 16.75e12, 3.35e12, 450e9)
@@ -167,5 +168,9 @@ def test_h100_records_are_the_data_sheet_and_chip_smokes_constants():
     assert _assigned(tree, "HBM_BYTES_PER_S") == "H100_INT32.hbm_bw"
     assert _assigned(tree, "INT32_OPS_PER_S") == "H100_INT32.peak_flops"
     assert _assigned(tree, "BF16_FLOP_PER_S") == "H100.peak_flops"
-    assert float(_assigned(tree, "F32_FLOP_PER_S")) / 4 \
-        == H100_INT32.peak_flops
+    # The kernel table's formulas (`kernels.work`, read by chip_smoke.py's
+    # bounds and the dry run) take the same rates.
+    assert work.PEAKS["bf16"] == H100.peak_flops
+    assert work.PEAKS["int32"] == H100_INT32.peak_flops
+    assert work.PEAKS["f32"] / 4 == H100_INT32.peak_flops
+    assert work.HBM_BYTES_PER_S == H100.hbm_bw == H100_INT32.hbm_bw
