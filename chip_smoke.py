@@ -2643,9 +2643,11 @@ def mlstm_inputs(B, H, T, D, seed, with_state=False, extreme=0,
 
 
 def mlstm_bounds(B, H, T, D, L):
-    """(ms, what binds) of B7 whole and of each pass
-    (`kernels.work.mlstm`)."""
-    return {key: w.bound()
+    """{"whole" and each pass: (ms, what binds, fma_ms)} of B7
+    (`kernels.work.mlstm`: the products at the TF32 peak, the other f32
+    operations on the FMA units); `fma_ms` with every operation on the
+    FMA units, the bound before the products went to the tensor cores."""
+    return {key: (*w.bound(), w.at("f32").bound()[0])
             for key, w in kernel_work.mlstm(B, H, T, D, L).items()}
 
 
@@ -2697,7 +2699,8 @@ def mlstm_check(name, B, H, T, D, chunk, seed, with_state=False,
         rec.update(ms=time_cuda(
             lambda: xlstm_mod.mlstm_chunk_scan_cuda(*args), reps),
                    bound_ms=bounds["whole"][0],
-                   bound_by=bounds["whole"][1])
+                   bound_by=bounds["whole"][1],
+                   fma_bound_ms=bounds["whole"][2])
         wt, stt = wp.clone(), sp.clone()
         for key, fn in (
                 ("mlstm_chunk_states",
@@ -2711,7 +2714,8 @@ def mlstm_check(name, B, H, T, D, chunk, seed, with_state=False,
             passes_rec = rec["passes"][key]
             passes_rec.update(ms=time_cuda(fn, reps),
                               bound_ms=bounds[key][0],
-                              bound_by=bounds[key][1])
+                              bound_by=bounds[key][1],
+                              fma_bound_ms=bounds[key][2])
     if not (ok and all(p[2] for p in passes.values())):
         raise AssertionError(f"B7 != plain: {rec}")
     return rec
@@ -2918,7 +2922,7 @@ def slstm_exchange_probe(quick):
             "variants": dict(zip(PROBE_VARIANTS, PROBE_DESCRIPTIONS))}
 
 
-def recurrent_checks(quick):
+def recurrent_checks(quick, built):
     """B6, B7 and B8 against their plain versions on the card, each at
     the main path's shape (recurrentgemma-9b's and xlstm-125m's prefill of
     one 32,768-token sequence; --quick 4,096), timed there, and at ragged
@@ -2934,7 +2938,10 @@ def recurrent_checks(quick):
     result: `mlstm_f64_witness`); B8 at T = 37 with a state, at Dh = 20
     (not a multiple of its cluster ranks), at T = 1 (decode) in bf16, at
     the largest head size the wrapper takes (256) and at B 64 x 4 heads
-    (more clusters than the SMs hold at once)."""
+    (more clusters than the SMs hold at once). B7's pass kernels'
+    registers and spills (`-Xptxas -v` of this run's build) and HGMMA
+    instructions by kernel (`cuobjdump -sass`): passes 1 and 3 run on
+    wgmma, so each has some where cuobjdump is found."""
     T = 4096 if quick else 32768
     reps = 3 if quick else 5
     rg = get_config("recurrentgemma-9b")
@@ -2964,6 +2971,19 @@ def recurrent_checks(quick):
     witness = [mlstm_f64_witness(f"extreme_gates_spike15_seed{seed}", 2, H,
                                  1024, D, 64, seed)
                for seed in range(32, 48)]
+    b7_ptxas = ptxas_facts(
+        built["logs"].get("mlstm_chunk", ""), "mlstm_",
+        r"(chunk_states|state_scan|chunk_outputs)_kernel"
+        r"(?:ILi(\d+)E(?:Lb([01])E)?|E)") \
+        or "not measured (library not rebuilt)"
+    hgmma, where = sass_count("mlstm_chunk", "HGMMA",
+                              by=r"mlstm_(chunk_states|state_scan|"
+                                 r"chunk_outputs)_kernel")
+    if hgmma != "not measured":
+        assert hgmma.get("chunk_states", 0) > 0 \
+            and hgmma.get("chunk_outputs", 0) > 0, hgmma
+    b7[0].update(ptxas=b7_ptxas, hgmma=hgmma if hgmma != "not measured"
+                 else f"not measured ({where})")
     Dh = xl.d_model // xl.n_heads
     b8 = [slstm_check("main", 1, T, H, Dh, torch.bfloat16, 27, reps=reps),
           slstm_check("ragged_f32_state", 2, 37, H, Dh, torch.float32, 28,
@@ -4739,7 +4759,7 @@ def main():
     probe["seconds"] = time.perf_counter() - t0
     emit("slstm_exchange", probe)
     t0 = time.perf_counter()
-    rec_checks = recurrent_checks(args.quick)
+    rec_checks = recurrent_checks(args.quick, built)
     emit("recurrent_checks", dict(
         rec_checks, seconds=time.perf_counter() - t0,
         tolerance=f"f32 outputs: max |kernel - plain| <= {REC_TOL} x max "
@@ -5321,7 +5341,8 @@ def main():
     b7 = rec_checks["mlstm_chunk"]
     main7 = b7[0]
     whole7 = {key: main7[key] for key in (
-        "ms", "plain_ms", "bound_ms", "bound_by", "scratch_bytes")}
+        "ms", "plain_ms", "bound_ms", "bound_by", "fma_bound_ms",
+        "scratch_bytes", "ptxas", "hgmma")}
     whole7.update(max_abs_err=max(r["max_abs_err"] for r in b7),
                   f64_witness_h=witness_summary(
                       rec_checks["mlstm_f64_witness"]))
@@ -5334,8 +5355,8 @@ def main():
             within_tolerance=all(r["passes"][key]["within_tolerance"]
                                  for r in b7),
             ms=pr["ms"], plain_ms=pr["plain_ms"], bound_ms=pr["bound_ms"],
-            bound_by=pr["bound_by"], **({"b7_whole": whole7} if i == 0
-                                         else {})))
+            bound_by=pr["bound_by"], fma_bound_ms=pr["fma_bound_ms"],
+            **({"b7_whole": whole7} if i == 0 else {})))
     b8 = rec_checks["slstm"]
     main8, dec8 = b8[0], b8[-1]
     kernels.append(rec_entry(

@@ -136,24 +136,6 @@ __device__ __forceinline__ bool live(int qp, int kp, int T, int W) {
   return kp <= qp && kp > qp - W && qp < T;
 }
 
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The three bf16 pieces of a and b (module note), each pair packed as the
-// wgmma operands take it: a in the low half.
-__device__ __forceinline__ void split3(float a, float b, uint32_t& p1,
-                                       uint32_t& p2, uint32_t& p3) {
-  const __nv_bfloat162 x1 = __floats2bfloat162_rn(a, b);
-  const float2 f1 = __bfloat1622float2(x1);
-  const float ra = a - f1.x, rb = b - f1.y;
-  const __nv_bfloat162 x2 = __floats2bfloat162_rn(ra, rb);
-  const float2 f2 = __bfloat1622float2(x2);
-  p1 = bf16x2_bits(x1);
-  p2 = bf16x2_bits(x2);
-  p3 = bf16x2_bits(__floats2bfloat162_rn(ra - f2.x, rb - f2.y));
-}
-
 // The pieces of four consecutive f32 values into three planes `plane`
 // elements apart.
 __device__ __forceinline__ void store_pieces(__nv_bfloat16* p, long long plane,
@@ -164,15 +146,6 @@ __device__ __forceinline__ void store_pieces(__nv_bfloat16* p, long long plane,
 #pragma unroll
   for (int i = 0; i < NP; ++i)
     *reinterpret_cast<uint2*>(p + i * plane) = make_uint2(a[i], b[i]);
-}
-
-// The six kept piece products (a_i, b_j), 0-based i + j <= 2, the small
-// terms first and the main one last.
-__device__ __forceinline__ constexpr int piece_a(int t) {
-  return t == 0 ? 2 : t == 1 ? 0 : t == 2 ? 1 : t == 3 ? 1 : 0;
-}
-__device__ __forceinline__ constexpr int piece_b(int t) {
-  return t == 0 ? 0 : t == 1 ? 2 : t == 2 ? 1 : t == 3 ? 0 : t == 4 ? 1 : 0;
 }
 
 // Per row (b*Hq + h, t) of the padded (B*Hq, Tp) vectors: delta =
@@ -272,20 +245,6 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(1), "n"(TA));
-}
-
-template <int A, int B, int C>
-__device__ __forceinline__ void fence_regs(uint32_t (&x)[A][B][C]) {
-#pragma unroll
-  for (int i = 0; i < A; ++i)
-#pragma unroll
-    for (int j = 0; j < B; ++j)
-#pragma unroll
-      for (int k = 0; k < C; ++k) asm volatile("" : "+r"(x[i][j][k])::"memory");
-}
-
-__device__ __forceinline__ void named_bar(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // The producer's one thread: the pieces of K and V of the block's key tile

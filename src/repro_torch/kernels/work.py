@@ -145,28 +145,36 @@ def rglru_bwd(B, T, D, itemsize, lam_itemsize, with_h0, tile_t,
 
 def mlstm(B, H, T, D, L) -> dict:
     """B7 whole and each of its three passes ({"whole",
-    "mlstm_chunk_states", "mlstm_state_scan", "mlstm_chunk_outputs"}),
-    f32 on the FMA units: whole, 2 L (L + 1) D + 4 L D^2 + 4 L D a chunk
-    and head, q, k, v, gates, h and the state once; each pass its own
-    inputs read once and outputs written once, a chunk's state its D^2 + D
-    + 2 values."""
+    "mlstm_chunk_states", "mlstm_state_scan", "mlstm_chunk_outputs"}):
+    the products at the TF32 peak, the other f32 operations on the FMA
+    units (`.at("f32")`: every operation on the FMA units, the bound before
+    the products went to the tensor cores). Per chunk and head: whole,
+    products 4 L D^2 + 2 L (L + 1) D (pass 1's (a k)^T v, q C_in, and q k^T
+    and P v over the causal triangle) and 4 L D other operations; pass 1,
+    2 L D^2 and 2 L D + 4 L; pass 2, none and 3 (D^2 + D) + 6; pass 3,
+    products 2 L^2 D (q k^T over the whole 64 x 64 tile) + L (L + 1) D +
+    2 L D^2 and 2 L D + 8 L others. Bytes: whole, q, k, v, gates, h and the
+    state once; each pass its own inputs read once and outputs written
+    once, a chunk's state its D^2 + D + 2 values."""
     nc = T // L
     n = B * H * nc
     state_b = 4 * n * (D * D + D + 2)
 
-    def w(ops, nbytes):
-        return Work({"f32": ops}, nbytes)
+    def w(products, other, nbytes):
+        return Work({"tf32": products, "f32": other}, nbytes)
     return {
-        "whole": w(n * (2 * L * (L + 1) * D + 4 * L * D * D + 4 * L * D),
+        "whole": w(n * (4 * L * D * D + 2 * L * (L + 1) * D), n * 4 * L * D,
                    4 * (4 * B * T * H * D + 2 * B * H * T
                         + 2 * B * H * (D * D + D + 1))),
-        "mlstm_chunk_states": w(n * (2 * L * D * D + 2 * L * D + 4 * L),
+        "mlstm_chunk_states": w(n * 2 * L * D * D, n * (2 * L * D + 4 * L),
                                 4 * (2 * B * T * H * D + 2 * B * H * T)
                                 + state_b),
-        "mlstm_state_scan": w(n * (3 * (D * D + D) + 6),
-                              2 * state_b + 8 * B * H * (D * D + D + 1)),
+        "mlstm_state_scan": Work({"f32": n * (3 * (D * D + D) + 6)},
+                                 2 * state_b
+                                 + 8 * B * H * (D * D + D + 1)),
         "mlstm_chunk_outputs": w(n * (2 * L * L * D + L * (L + 1) * D
-                                      + 2 * L * D * D + 2 * L * D + 8 * L),
+                                      + 2 * L * D * D),
+                                 n * (2 * L * D + 8 * L),
                                  4 * (4 * B * T * H * D + 2 * B * H * T)
                                  + state_b)}
 

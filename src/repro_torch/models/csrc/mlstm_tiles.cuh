@@ -1,8 +1,7 @@
-// Tile helpers shared by the chunkwise mLSTM's forward passes (B7,
+// Helpers shared by the chunkwise mLSTM's forward passes (B7,
 // mlstm_chunk.cu) and backward passes (B7-bwd, mlstm_chunk_bwd.cu), for
 // sm_90a: 256 threads over a 64-row tile, the gate scans of a chunk in one
-// warp, cp.async, and — for the forward — a 64-row by 64 NJ-column product
-// on the FMA units from shared memory.
+// warp, cp.async (B7-bwd's ring), the strides and the shape check.
 
 #pragma once
 
@@ -15,7 +14,6 @@ namespace mt {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int LMAX = 64;
-constexpr int LP = LMAX + 4;   // row stride of the transposed tiles
 constexpr unsigned FULL = 0xffffffffu;
 
 // Scan of one chunk's gates in warp 0: b = cumsum(f~), w = i~ - b and
@@ -55,40 +53,6 @@ __device__ __forceinline__ GateScan gate_scan(const float* iv,
   r.g0 = fmaxf(mexcl, r.w0);
   r.g1 = fmaxf(mexcl, mx1);
   return r;
-}
-
-// acc[i][4 j + jj] += sum_{kk in [k0, k1)} A[kk][r0 + i] B[kk][c0 + 64 j +
-// jj]: a 64-row tile (this thread's 4 rows) times 64 NJ columns (this
-// thread's 4 NJ), both operands float4 from shared memory.
-template <int NJ>
-__device__ __forceinline__ void tile_mma(float (&acc)[4][4 * NJ],
-                                         const float* A, int lda,
-                                         const float* B, int ldb, int k0,
-                                         int k1, int r0, int c0) {
-#pragma unroll 4
-  for (int kk = k0; kk < k1; ++kk) {
-    const float4 a = *reinterpret_cast<const float4*>(A + kk * lda + r0);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float4 bq =
-          *reinterpret_cast<const float4*>(B + kk * ldb + c0 + 64 * j);
-      const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          acc[i][4 * j + jj] = fmaf(av[i], bv[jj], acc[i][4 * j + jj]);
-    }
-  }
-}
-
-template <int NJ>
-__device__ __forceinline__ void zero(float (&acc)[4][4 * NJ]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4 * NJ; ++j) acc[i][j] = 0.0f;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {

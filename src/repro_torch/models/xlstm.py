@@ -736,12 +736,13 @@ def mlstm_chunk_scan_bwd_plain(q, k, v, it, ft, h, dot, work, scal, C1, n1,
     return dq, dk, dv, dit, dft, dC0, dn0, dm0
 
 
-# B7-bwd's kernels form the products of passes 1 and 3 on the tensor cores
-# at f32 accuracy: every f32 operand cut into three bf16 pieces, each
-# product the six piece products a_i b_j with i + j <= 2 of 16 rows of K at
-# a time, added to one f32 accumulator (`csrc/mlstm_chunk_bwd.cu`). The
-# plain versions below repeat that arithmetic in the kernels' order, so
-# that the CPU tests can hold it against the reference.
+# B7's and B7-bwd's kernels form the products of their passes 1 and 3 on
+# the tensor cores at f32 accuracy: every f32 operand cut into three bf16
+# pieces, each product the six piece products a_i b_j with i + j <= 2 of 16
+# rows of K at a time, added to one f32 accumulator (`csrc/mlstm_chunk.cu`
+# on wgmma, `csrc/mlstm_chunk_bwd.cu` on mma.sync). The plain versions
+# below repeat that arithmetic in the kernels' order, so that the CPU tests
+# can hold it against the reference.
 
 #: The piece products the kernels keep, (a_i, b_j) in the order they are
 #: added: the small terms first.
@@ -765,6 +766,57 @@ def pieces3_matmul_plain(a, b, acc=None):
         for i, j in PIECE_PAIRS:
             out = out + ap[i][..., ks] @ bp[j][..., ks, :]
     return out
+
+
+def mlstm_chunk_states_split_plain(k, v, it, ft, chunk: int):
+    """B7's first pass as its kernel computes it (arguments and results of
+    `mlstm_chunk_states_plain`): a_s k_s with a_s = exp(w_s - G) in f32,
+    dC = (a k)^T v by `pieces3_matmul_plain`, dn = sum_s a_s k_s on the
+    FMA units."""
+    B, H, T, D = k.shape
+    wshape, sshape = mlstm_work_shapes(B, H, T, D, chunk)
+    nc = wshape[2]
+    b, w = _gate_scan(it, ft, chunk)
+    G = w.max(dim=-1).values
+    ak = torch.exp(w - G[..., None])[..., None] \
+        * k.reshape(B, H, nc, chunk, D)
+    work = torch.zeros(wshape, dtype=k.dtype, device=k.device)
+    work[..., :D, :D] = pieces3_matmul_plain(
+        ak.transpose(-1, -2), v.reshape(B, H, nc, chunk, D))
+    work[..., D, :D] = ak.sum(-2)
+    scal = torch.zeros(sshape, dtype=k.dtype, device=k.device)
+    scal[..., 0] = b[..., -1]
+    scal[..., 1] = G
+    return work, scal
+
+
+def mlstm_chunk_outputs_split_plain(q, k, v, it, ft, work, scal, chunk: int,
+                                    *, with_dot: bool = False):
+    """B7's third pass as its kernel computes it (arguments and results of
+    `mlstm_chunk_outputs_plain`): S = q k^T and q C_in by
+    `pieces3_matmul_plain`, P = mask exp(w_s - M_r) S, P v added by it to
+    the accumulator scale_r (q C_in); dot_r = scale_r (n_in . q_r) +
+    sum_s P[r, s], the denominator's reciprocal and h = h~ times it on the
+    FMA units."""
+    B, H, T, D = q.shape
+    nc = T // chunk
+    b, w = _gate_scan(it, ft, chunk)
+    m0 = scal[..., 2]
+    M = torch.maximum(m0[..., None], torch.cummax(w, dim=-1).values)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=q.device))
+    Dw = torch.where(mask, torch.exp(w[..., None, :] - M[..., :, None]), 0.0)
+    qc, kc, vc = (x.reshape(B, H, nc, chunk, D) for x in (q, k, v))
+    P = Dw * pieces3_matmul_plain(qc, kc.transpose(-1, -2))
+    scale = torch.exp(m0[..., None] - M)
+    inter = pieces3_matmul_plain(qc, work[..., :D, :D]) * scale[..., None]
+    h_tilde = pieces3_matmul_plain(P, vc, inter)
+    dot = scale * torch.einsum("bhcrd,bhcd->bhcr", qc, work[..., D, :D]) \
+        + P.sum(-1)
+    rden = 1.0 / torch.maximum(dot.abs(), torch.exp(-(b + M)))
+    h = (h_tilde * rden[..., None]).reshape(B, H, T, D).transpose(1, 2) \
+        .reshape(B, T, H * D)
+    return (h, dot.reshape(B, H, T)) if with_dot else h
 
 
 def mlstm_bwd_outputs_split_plain(q, dh, h, dot, it, ft, work, scal,

@@ -1,21 +1,25 @@
 #!/usr/bin/env python
-"""Split the time of B7-bwd's inputs side and of B6-bwd into parts, by
-variants of their sources with a part switched off, in one run.
+"""Split the time of B7's outputs pass, of B7-bwd's inputs side and of
+B6-bwd into parts, by variants of their sources with a part switched off,
+in one run.
 
 Usage: python tools/bwd_parts.py [--checkout DIR] [--reps N]
 
-Reads ``models/csrc/mlstm_chunk_bwd.cu`` and ``rglru_scan_bwd.cu`` of DIR
-(this repository by default; an older commit unpacked with ``git archive``
-into a .gitignore'd directory for its designs), writes copies with
-preprocessor switches around each part into DIR's ``build/parts/``, builds
-every variant with ``nvcc`` at once and times each in place of the
-checkout's own kernel (`kernel_timing.time_cuda`): B7-bwd's inputs side at
-xlstm-125m's training shape (4 x 4 heads x 4,096, D 192, chunk 64, f32),
-B6-bwd at recurrentgemma-9b's training microbatch (2 x 4,096 x 4,096 bf16).
-A variant computes wrong values; only its time is read. The switches know
+Reads ``models/csrc/mlstm_chunk.cu``, ``mlstm_chunk_bwd.cu`` and
+``rglru_scan_bwd.cu`` of DIR (this repository by default; an older commit
+unpacked with ``git archive`` into a .gitignore'd directory for its
+designs), writes copies with preprocessor switches around each part into
+DIR's ``build/parts/``, builds every variant with ``nvcc`` at once and
+times each in place of the checkout's own kernel
+(`kernel_timing.time_cuda`): B7's outputs pass at xlstm-125m's prefill
+shape (1 x 4 heads x 32,768, D 192, chunk 64, f32; the serving launch),
+B7-bwd's inputs side at its training shape (4 x 4 heads x 4,096), B6-bwd
+at recurrentgemma-9b's training microbatch (2 x 4,096 x 4,096 bf16). A
+variant computes wrong values; only its time is read. The switches know
+B7's FMA design (every product a `tile_mma` call) and its wgmma design,
 B7-bwd's staged design (every product a `gemm_staged` call) and its
-tensor-core design, and both B6-bwd designs (8 warps of 12 steps, 16 of 6);
-a part a source does not have is left out. Prints one JSON line: per
+tensor-core design, and both B6-bwd designs (8 warps of 12 steps, 16 of
+6); a part a source does not have is left out. Prints one JSON line: per
 kernel, ms by variant in two rounds, "full" being the unchanged source.
 Exits 1 with no CUDA device. Imports no JAX.
 """
@@ -42,6 +46,85 @@ def guard(s, start, end, macro):
     if i < 0 or j < 0:
         return None
     return s[:i] + f"#ifndef {macro}\n" + s[i:j] + "#endif\n" + s[j:]
+
+
+def wrap(s, snippet, macro, alt=""):
+    """s with `snippet` (whole lines) under `#ifndef macro`, `alt` in its
+    place when the macro is set; s unchanged when the snippet is missing."""
+    if snippet not in s:
+        return s
+    return s.replace(snippet, f"#ifndef {macro}\n{snippet}#else\n{alt}"
+                     "#endif\n", 1)
+
+
+def b7_fwd_fma(s):
+    """B7's outputs pass on the FMA units: q k^T, q C_in with its cp.async
+    stream of C, P v (each a `tile_mma` call), the gate scans and the
+    stores (kept as a compare, so that the products stay live)."""
+    s = wrap(s, "    tile_mma<1>(acc, qT, LP, kT, LP, 0, D, r0, 4 * tc);\n",
+             "NO_QK")
+    a = s.index("  load_slice(0);\n")
+    b = s.index("  // h~ = scale_r (q C) + P v;")
+    s = s[:a] + "#ifndef NO_QC\n" + s[a:b] + "#endif\n" + s[b:]
+    s = wrap(s, "  tile_mma<NJ>(acc, PT, LP, vs, DP, 0, min(L, 8 * warp + 8),"
+             " r0, 4 * tc);\n", "NO_PV")
+    a = s.index("    const GateScan r = gate_scan(iv, fv, L, lane);\n"
+                "#pragma unroll\n    for (int u = 0; u < 2; ++u) {")
+    b = s.index("  } else {\n    for (int r = warp - 1;", a)
+    s = s[:a] + "#ifndef NO_GATES\n" + s[a:b] + "#endif\n" + s[b:]
+    s = wrap(s, "        if (col < D) out[col] = acc[i][4 * j + jj] / den;\n",
+             "NO_STORES", "        if (col < D && acc[i][4 * j + jj] == "
+             "12345.0f) out[col] = den;\n")
+    return s, {"no_qk": "NO_QK", "no_qc": "NO_QC", "no_pv": "NO_PV",
+               "no_gates": "NO_GATES", "no_stores": "NO_STORES",
+               "no_products": "NO_QK NO_QC NO_PV"}
+
+
+def b7_fwd_wgmma(s):
+    """B7's outputs pass on wgmma: the q k^T, q C_in and P v batches, the
+    producer's loads of C_in and v and the staging loads of q and k (other
+    values in their place), the gate scans and the stores (kept as a
+    compare)."""
+    s = wrap(s, "      wgmma_sst<64, 0, 0>(sacc, desc_k(s_q + piece_a(t) * "
+             "C::OP, LMAX, kk),\n                          desc_k(s_k + "
+             "piece_b(t) * C::OP, LMAX, kk));\n", "NO_QK")
+    s = wrap(s, "      wgmma_sst<DP, 0, 1>(\n          acc, desc_k(s_q + "
+             "piece_a(t) * C::OP, LMAX, sl),\n          desc_mn(s_ring + "
+             "(sg * NP + piece_b(t)) * C::SL, KS, 0));\n", "NO_QC")
+    s = wrap(s, "      wgmma_rs<DP>(acc, pa[kq][piece_a(t)],\n"
+             "                   desc_mn(s_ring + (sg * NP + piece_b(t)) * "
+             "C::SL, KS, 0));\n", "NO_PV")
+    s = wrap(s, "        if (i < NC) {\n          const int d = i * KS + "
+             "row[f];\n          if (d < D)\n            x[f] = *reinterpret"
+             "_cast<const float4*>(slot + (int64_t)d * DP\n"
+             "                                                    + col[f]);"
+             "\n        } else {\n          const int s = (i - NC) * KS + "
+             "row[f];\n          if (s < L)\n            x[f] = ld4(v + off "
+             "+ (int64_t)s * st.qs_t, col[f], D, vec);\n        }\n",
+             "NO_STREAM", "        x[f] = make_float4(i, row[f], col[f], "
+             "0.f);\n")
+    s = wrap(s, "          x[i][u] = r < L && col < DP\n"
+             "                        ? ld4(src + off + (int64_t)r * st.qs_t, "
+             "col, D, vec)\n                        : make_float4(0.f, 0.f, "
+             "0.f, 0.f);\n", "NO_STAGE",
+             "          x[i][u] = make_float4(r, col, 0.f, 0.f);\n")
+    s = wrap(s, "    const GateScan r = gate_scan(iv, fv, L, lane);\n"
+             "#pragma unroll\n    for (int u = 0; u < 2; ++u) {\n"
+             "      const int s = 2 * lane + u;\n      if (s < L) {\n"
+             "        const float M = fmaxf(m_in, u ? r.g1 : r.g0);\n",
+             "NO_GATES", "#pragma unroll\n    for (int u = 0; u < 2; ++u) "
+             "{\n      const int s = 2 * lane + u;\n      if (s < L) {\n"
+             "        const GateScan r{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};\n"
+             "        const float M = m_in;\n")
+    s = wrap(s, "      if (col + 1 < D && !(D & 1)) {\n        *reinterpret"
+             "_cast<float2*>(out + col) = make_float2(x0, x1);\n      } "
+             "else {\n        if (col < D) out[col] = x0;\n        if "
+             "(col + 1 < D) out[col + 1] = x1;\n      }\n", "NO_STORES",
+             "      if (x0 == 12345.0f && x1 == 12345.0f) out[col] = rden;\n")
+    return s, {"no_qk": "NO_QK", "no_qc": "NO_QC", "no_pv": "NO_PV",
+               "no_stream": "NO_STREAM", "no_stage": "NO_STAGE",
+               "no_gates": "NO_GATES", "no_stores": "NO_STORES",
+               "no_products": "NO_QK NO_QC NO_PV"}
 
 
 def b7_staged(s):
@@ -156,10 +239,14 @@ def main() -> int:
     parts = build.build_dir() / "parts"
     parts.mkdir(parents=True, exist_ok=True)
     jobs = {}   # (kernel, variant) -> (process, library)
-    for kern, fname in (("b7_bwd_inputs", "mlstm_chunk_bwd.cu"),
+    for kern, fname in (("b7_outputs", "mlstm_chunk.cu"),
+                        ("b7_bwd_inputs", "mlstm_chunk_bwd.cu"),
                         ("b6_bwd", "rglru_scan_bwd.cu")):
         src = (csrc / fname).read_text()
-        if kern == "b6_bwd":
+        if kern == "b7_outputs":
+            src, var = (b7_fwd_fma if "tile_mma<1>(acc, qT" in src
+                        else b7_fwd_wgmma)(src)
+        elif kern == "b6_bwd":
             src, var = b6(src)
         elif "gemm_staged" in src:
             src, var = b7_staged(src)
@@ -191,6 +278,14 @@ def main() -> int:
     it = torch.randn(B, T, H, device=dev, generator=g).transpose(1, 2)
     ft = torch.nn.functional.logsigmoid(
         torch.randn(B, T, H, device=dev, generator=g) + 1.0).transpose(1, 2)
+    g = torch.Generator(device=dev).manual_seed(24)
+    pq, pk, pv = (torch.randn(1, 32768, H, D, device=dev, generator=g)
+                  .transpose(1, 2) for _ in range(3))
+    pk = pk / D ** 0.5
+    pit = torch.randn(1, 32768, H, device=dev, generator=g).transpose(1, 2)
+    pft = torch.nn.functional.logsigmoid(
+        torch.randn(1, 32768, H, device=dev, generator=g) + 1.0) \
+        .transpose(1, 2)
     rg = torch.Generator(device=dev).manual_seed(51)
     wa, wx, x, dy = (torch.randn(2, 4096, 4096, device=dev, generator=rg)
                      .to(torch.bfloat16) for _ in range(4))
@@ -208,7 +303,14 @@ def main() -> int:
                                                     work, scal, L)
         xlstm.mlstm_bwd_scan_cuda(dwork, dscal, work, scal, None, None, None)
         _, _, saved = rglru._forward_cuda(wa, wx, x, lam, None)
+        pwork, pscal = xlstm.mlstm_chunk_states_cuda(pk, pv, pit, pft, L)
+        xlstm.mlstm_state_scan_cuda(pwork, pscal,
+                                    xlstm.mlstm_state_init(1, H, D,
+                                                           device=dev))
         calls = {
+            "b7_outputs": ("mlstm_chunk", lambda: xlstm
+                           .mlstm_chunk_outputs_cuda(
+                               pq, pk, pv, pit, pft, pwork, pscal, L)),
             "b7_bwd_inputs": ("mlstm_chunk_bwd", lambda: xlstm
                               .mlstm_bwd_inputs_cuda(
                                   q, k, v, it, ft, dh, h, dot, work, scal,
